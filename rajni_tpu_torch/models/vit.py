@@ -1,0 +1,404 @@
+"""Vision Transformer with RAJNI token pruning, in PyTorch.
+
+Port of ``rajni_tpu/models/vit.py``. The model is a function over a plain
+parameter dictionary (the counterpart of the JAX pytree); the schedule is a
+per-block tuple, so every per-block token count is known before the
+forward runs.
+
+Parameter layout: linear weights are ``weight [out, in]`` as in
+``nn.Linear`` (the JAX tree stores ``kernel [in, out]``);
+``patch_embed.weight`` is ``[C, P·P·3]`` in ``(ph, pw, c)`` order; images
+are NHWC ``[B, H, W, 3]``; packed QKV lanes are in ``(qkv, head, dim)``
+order.
+
+``impl`` selects the backend: ``"torch"`` is the plain ops path (the
+counterpart of JAX's ``"xla"``); ``"cuda"`` routes every block through the
+hand-written kernels K1-K3 (the counterpart of ``"pallas"``), whose
+wrappers fall to their plain versions only for CPU tensors; ``"auto"`` is
+``"cuda"`` on a CUDA tensor and ``"torch"`` elsewhere.
+
+Only the classic configurations are ported (one CLS prefix token, no
+qk-norm, token-pooled head); the extended timm variants raise
+``NotImplementedError`` until a later slice ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.block import fused_attn_block, fused_pruned_attn_block
+from ..kernels.mlp import _layer_norm_f32, fused_ln_mlp_residual
+from ..ops.attention import attention, pruned_attention
+from ..ops.pruning import gather_tokens, keep_count
+from ..utils.schedule import Schedule, normalize_schedule, token_count_trace
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """Static architecture config (same fields as the JAX package's)."""
+
+    img_size: int = 224
+    patch_size: int = 16
+    in_chans: int = 3
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    num_classes: int = 1000
+    layer_norm_eps: float = 1e-6
+    qkv_bias: bool = True
+    use_layer_scale: bool = False
+    layer_scale_init: float = 1e-5
+    # extended timm variants (not ported yet; kept so configs compare)
+    reg_tokens: int = 0
+    distilled: bool = False
+    no_embed_class: bool = False
+    qk_norm: bool = False
+    global_pool: str = "token"
+    use_fc_norm: bool | None = None
+
+    @property
+    def grid_size(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size * self.grid_size
+
+    @property
+    def num_prefix_tokens(self) -> int:
+        return 1 + int(self.distilled) + self.reg_tokens
+
+    @property
+    def num_tokens(self) -> int:
+        return self.num_patches + self.num_prefix_tokens
+
+    @property
+    def pos_embed_len(self) -> int:
+        return self.num_patches if self.no_embed_class else self.num_tokens
+
+    @property
+    def fc_norm_resolved(self) -> bool:
+        if self.use_fc_norm is None:
+            return self.global_pool == "avg"
+        return self.use_fc_norm
+
+    @property
+    def is_classic(self) -> bool:
+        """One CLS prefix, no qk-norm, token-pooled head: what this port runs."""
+        return (
+            self.num_prefix_tokens == 1 and not self.qk_norm
+            and not self.no_embed_class and self.global_pool == "token"
+            and not self.fc_norm_resolved
+        )
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def attn_scale(self) -> float:
+        return self.head_dim**-0.5
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+
+VARIANTS: dict[str, ViTConfig] = {
+    "vit_tiny_patch16_224": ViTConfig(embed_dim=192, depth=12, num_heads=3),
+    "vit_small_patch16_224": ViTConfig(embed_dim=384, depth=12, num_heads=6),
+    "deit_small_patch16_224": ViTConfig(embed_dim=384, depth=12, num_heads=6),
+    "vit_base_patch16_224": ViTConfig(embed_dim=768, depth=12, num_heads=12),
+    "vit_base_patch16_384": ViTConfig(
+        img_size=384, embed_dim=768, depth=12, num_heads=12
+    ),
+    "vit_large_patch16_224": ViTConfig(embed_dim=1024, depth=24, num_heads=16),
+    "vit_huge_patch14_224": ViTConfig(
+        patch_size=14, embed_dim=1280, depth=32, num_heads=16
+    ),
+    "vit_small_patch14_reg4_dinov2": ViTConfig(
+        img_size=518, patch_size=14, embed_dim=384, depth=12, num_heads=6,
+        reg_tokens=4, no_embed_class=True, use_layer_scale=True,
+    ),
+    "vit_base_patch14_reg4_dinov2": ViTConfig(
+        img_size=518, patch_size=14, embed_dim=768, depth=12, num_heads=12,
+        reg_tokens=4, no_embed_class=True, use_layer_scale=True,
+    ),
+    "vit_large_patch14_reg4_dinov2": ViTConfig(
+        img_size=518, patch_size=14, embed_dim=1024, depth=24, num_heads=16,
+        reg_tokens=4, no_embed_class=True, use_layer_scale=True,
+    ),
+}
+
+# timm size word -> (embed_dim, depth, num_heads, mlp_ratio)
+_SIZE_WORDS: dict[str, tuple[int, int, int, float]] = {
+    "tiny": (192, 12, 3, 4.0),
+    "small": (384, 12, 6, 4.0),
+    "medium": (512, 12, 8, 4.0),
+    "base": (768, 12, 12, 4.0),
+    "large": (1024, 24, 16, 4.0),
+    "huge": (1280, 32, 16, 4.0),
+    "giant": (1408, 40, 16, 48 / 11),
+    "gigantic": (1664, 48, 16, 64 / 13),
+}
+
+
+def _parse_model_name(name: str) -> ViTConfig | None:
+    """``{vit|deit|deit3}_{size}[_distilled]_patch{P}[_reg{R}]_{res}`` →
+    config, for names not in :data:`VARIANTS`."""
+    m = re.fullmatch(
+        r"(vit|deit|deit3)_([a-z]+)(_distilled)?_patch(\d+)(?:_reg(\d+))?_(\d+)",
+        name,
+    )
+    if m is None or m.group(2) not in _SIZE_WORDS:
+        return None
+    dim, depth, heads, mlp_ratio = _SIZE_WORDS[m.group(2)]
+    patch, img = int(m.group(4)), int(m.group(6))
+    if img % patch:
+        return None
+    reg = int(m.group(5)) if m.group(5) else 0
+    return ViTConfig(
+        img_size=img, patch_size=patch, embed_dim=dim, depth=depth,
+        num_heads=heads, mlp_ratio=mlp_ratio, reg_tokens=reg,
+        distilled=m.group(3) is not None, no_embed_class=reg > 0,
+        use_layer_scale=m.group(1) == "deit3",
+    )
+
+
+def get_config(name: str) -> ViTConfig:
+    """Resolve a timm model name: registry first, then the name grammar."""
+    if name in VARIANTS:
+        return VARIANTS[name]
+    parsed = _parse_model_name(name)
+    if parsed is not None:
+        return parsed
+    raise ValueError(
+        f"unknown model {name!r}; known: {sorted(VARIANTS)} or any "
+        "'{vit|deit|deit3}_{size}_patch{P}[_reg{R}]_{res}' timm name"
+    )
+
+
+def _require_classic(config: ViTConfig) -> None:
+    if not config.is_classic:
+        raise NotImplementedError(
+            "extended timm variants (registers, distillation token, qk-norm, "
+            "pooled heads) are not ported yet"
+        )
+
+
+# --------------------------------------------------------------------------
+# Parameter init
+# --------------------------------------------------------------------------
+
+
+def init_params(
+    generator: torch.Generator, config: ViTConfig, dtype=torch.float32,
+    device="cpu",
+) -> Params:
+    """Random parameters (uniform ±1/sqrt(fan_in) linears, zero biases,
+    N(0, 0.02) position embedding), drawn on the CPU from ``generator`` and
+    moved to ``device``. The numbers differ from the JAX package's."""
+    _require_classic(config)
+    C, Hd, P = config.embed_dim, config.mlp_hidden, config.patch_size
+
+    def dense(fan_in, fan_out):
+        bound = 1.0 / math.sqrt(fan_in)
+        w = torch.rand(fan_out, fan_in, generator=generator) * (2 * bound) - bound
+        return {"weight": w, "bias": torch.zeros(fan_out)}
+
+    def norm():
+        return {"scale": torch.ones(C), "bias": torch.zeros(C)}
+
+    params: Params = {
+        "patch_embed": dense(P * P * config.in_chans, C),
+        "cls_token": torch.zeros(1, 1, C),
+        "pos_embed": torch.randn(1, config.pos_embed_len, C, generator=generator) * 0.02,
+        "blocks": [],
+        "head": dense(C, config.num_classes),
+        "norm": norm(),
+    }
+    for _ in range(config.depth):
+        block = {
+            "norm1": norm(),
+            "attn": {"qkv": dense(C, 3 * C), "proj": dense(C, C)},
+            "norm2": norm(),
+            "mlp": {"fc1": dense(C, Hd), "fc2": dense(Hd, C)},
+        }
+        if config.use_layer_scale:
+            block["ls1"] = torch.full((C,), config.layer_scale_init)
+            block["ls2"] = torch.full((C,), config.layer_scale_init)
+        params["blocks"].append(block)
+    return tree_to(params, dtype=dtype, device=device)
+
+
+def tree_to(tree, **kw):
+    """Apply ``Tensor.to(**kw)`` to every tensor of a parameter tree
+    (the result is contiguous, as the kernels require)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, **kw) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, **kw) for v in tree]
+    return tree.to(**kw).contiguous()
+
+
+# --------------------------------------------------------------------------
+# Building blocks
+# --------------------------------------------------------------------------
+
+
+def layer_norm(x: torch.Tensor, params: Params, eps: float) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (biased variance, eps inside the
+    sqrt), output in the input dtype."""
+    y = _layer_norm_f32(x.float(), params["scale"], params["bias"], eps)
+    return y.to(x.dtype)
+
+
+def patch_embed(x: torch.Tensor, params: Params, config: ViTConfig) -> torch.Tensor:
+    """Non-overlapping P×P patches + one matmul: NHWC ``[B, H, W, 3]`` →
+    ``[B, N, C]`` in row-major (gh, gw) order."""
+    B = x.shape[0]
+    P, G = config.patch_size, config.grid_size
+    x = x.reshape(B, G, P, G, P, config.in_chans).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, config.num_patches, P * P * config.in_chans)
+    return x @ params["weight"].t() + params["bias"]
+
+
+def mlp(x: torch.Tensor, params: Params) -> torch.Tensor:
+    """Linear → exact (erf) GELU → Linear."""
+    h = x @ params["fc1"]["weight"].t() + params["fc1"]["bias"]
+    h = F.gelu(h, approximate="none")
+    return h @ params["fc2"]["weight"].t() + params["fc2"]["bias"]
+
+
+def _layer_scale(out: torch.Tensor, block: Params, name: str) -> torch.Tensor:
+    return out * block[name] if name in block else out
+
+
+def _mlp_branch(x: torch.Tensor, block: Params, config: ViTConfig, impl: str):
+    """``x + ls2 * mlp(norm2(x))``; K3 under ``impl="cuda"``."""
+    if impl == "cuda":
+        return fused_ln_mlp_residual(
+            x, block["norm2"], block["mlp"], block.get("ls2"), config.layer_norm_eps
+        )
+    out = mlp(layer_norm(x, block["norm2"], config.layer_norm_eps), block["mlp"])
+    return x + _layer_scale(out, block, "ls2")
+
+
+def stock_block(x: torch.Tensor, block: Params, config: ViTConfig) -> torch.Tensor:
+    """Standard pre-norm block on the ops path."""
+    out = attention(
+        layer_norm(x, block["norm1"], config.layer_norm_eps),
+        block["attn"], config.num_heads, config.attn_scale,
+    )
+    x = x + _layer_scale(out, block, "ls1")
+    return _mlp_branch(x, block, config, "torch")
+
+
+def embed_tokens(params: Params, images: torch.Tensor, config: ViTConfig) -> torch.Tensor:
+    """Patchify + CLS + position embedding → ``[B, N, C]``."""
+    B = images.shape[0]
+    dtype = params["cls_token"].dtype
+    x = patch_embed(images.to(dtype), params["patch_embed"], config)
+    cls = params["cls_token"].expand(B, 1, config.embed_dim)
+    x = torch.cat([cls, x], dim=1)
+    return x + params["pos_embed"][:, : x.shape[1]]
+
+
+# --------------------------------------------------------------------------
+# Full forward
+# --------------------------------------------------------------------------
+
+
+def resolve_impl(impl: str, images: torch.Tensor) -> str:
+    """``"auto"`` → ``"cuda"`` on a CUDA tensor, ``"torch"`` otherwise."""
+    if impl == "auto":
+        return "cuda" if images.is_cuda else "torch"
+    if impl not in ("torch", "cuda"):
+        raise ValueError(f"unknown impl {impl!r}; use 'torch', 'cuda' or 'auto'")
+    return impl
+
+
+@torch.no_grad()
+def vit_forward(
+    params: Params,
+    images: torch.Tensor,
+    config: ViTConfig,
+    schedule: Schedule | None = None,
+    impl: str = "torch",
+    _sel_tap: Callable[[int, torch.Tensor], None] | None = None,
+) -> torch.Tensor:
+    """Pruned ViT forward: ``[B, H, W, 3] -> [B, num_classes]`` logits.
+
+    Block routing follows ``rajni_tpu/models/vit.py`` for plain params:
+    a pruned block runs its attention half through K1 (rescoring iff
+    ``spec.update or scores is None``) and a stock block through K2; every
+    MLP half runs through K3. The residual stream is compacted before the
+    residual add, and a stock block resets the threaded scores. The JAX
+    package's whole-block kernels (for DeiT-S-class widths) are not ported
+    yet, so those widths take K1/K2 + K3 here.
+
+    ``_sel_tap(block_idx, keep_idx)`` receives each pruned block's kept
+    token indices (a capture hook for tests and debugging).
+    """
+    _require_classic(config)
+    schedule = normalize_schedule(schedule, config.depth)
+    impl = resolve_impl(impl, images)
+    eps = config.layer_norm_eps
+    x = embed_tokens(params, images, config)
+
+    scores: torch.Tensor | None = None
+    for blk_i, (spec, block) in enumerate(zip(schedule, params["blocks"])):
+        if spec is not None:
+            keep = keep_count(spec.keep_ratio, x.shape[1], 1)
+            if impl == "cuda":
+                with_scores = spec.update or scores is None
+                x, scores, keep_idx = fused_pruned_attn_block(
+                    x, block["norm1"], block["attn"], block.get("ls1"), scores,
+                    config.num_heads, keep, config.attn_scale, eps, with_scores,
+                )
+            else:
+                out, keep_idx, scores = pruned_attention(
+                    layer_norm(x, block["norm1"], eps), block["attn"],
+                    config.num_heads, config.attn_scale, keep, spec.update, scores,
+                )
+                # residual-stream compaction BEFORE the residual add
+                x = gather_tokens(x, keep_idx) + _layer_scale(out, block, "ls1")
+            if _sel_tap is not None:
+                _sel_tap(blk_i, keep_idx)
+            x = _mlp_branch(x, block, config, impl)
+        elif impl == "cuda":
+            x = fused_attn_block(
+                x, block["norm1"], block["attn"], block.get("ls1"),
+                config.num_heads, config.attn_scale, eps,
+            )
+            x = _mlp_branch(x, block, config, impl)
+            scores = None
+        else:
+            x = stock_block(x, block, config)
+            scores = None
+    return classifier_head(x, params, config)
+
+
+def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig) -> torch.Tensor:
+    """Final norm on the CLS row only, then the head (token pooling)."""
+    cls_out = layer_norm(x[:, 0:1], params["norm"], config.layer_norm_eps)[:, 0]
+    return cls_out @ params["head"]["weight"].t() + params["head"]["bias"]
+
+
+def model_stats(config: ViTConfig, schedule: Schedule | None = None) -> dict:
+    """Per-block entry token counts (the reference's ``get_last_stats``)."""
+    schedule = normalize_schedule(schedule, config.depth)
+    return {
+        "token_counts": token_count_trace(
+            config.num_tokens, schedule, config.num_prefix_tokens
+        )
+    }

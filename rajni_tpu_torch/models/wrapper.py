@@ -1,0 +1,58 @@
+"""``RAJNIViT``: the object facade over :func:`vit_forward` (port of
+``rajni_tpu/models/wrapper.py``)::
+
+    model = RAJNIViT("vit_base_patch16_224", schedule)   # on the card
+    logits = model(images)                               # [B, 224, 224, 3]
+    model.get_last_stats()                               # {"token_counts": [...]}
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Sequence
+
+import torch
+
+from ..utils.schedule import Schedule, normalize_schedule
+from ..utils.timing import require_device
+from .vit import ViTConfig, get_config, init_params, model_stats, tree_to, vit_forward
+
+
+class RAJNIViT:
+    """ViT with schedule-driven RAJNI token pruning.
+
+    ``kernels`` is the forward's ``impl`` (``"auto"``, ``"cuda"`` or
+    ``"torch"``). ``params`` defaults to :func:`init_params` drawn from
+    ``seed``; given params are moved to ``device`` and ``dtype``. The
+    device defaults to CUDA and raises without a card.
+    """
+
+    def __init__(
+        self,
+        model: str | ViTConfig = "vit_base_patch16_224",
+        schedule: Mapping | Sequence | Schedule | None = None,
+        params: Any = None,
+        dtype: torch.dtype = torch.bfloat16,
+        kernels: str = "auto",
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.device = require_device(device)
+        self.config = model if isinstance(model, ViTConfig) else get_config(model)
+        self.schedule = normalize_schedule(schedule, self.config.depth)
+        if params is None:
+            gen = torch.Generator().manual_seed(seed)
+            params = init_params(gen, self.config, dtype, self.device)
+        else:
+            params = tree_to(params, dtype=dtype, device=self.device)
+        self.params = params
+        self.impl = kernels
+
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        """``[B, H, W, 3] -> [B, num_classes]`` logits."""
+        return vit_forward(
+            self.params, images.to(self.device), self.config, self.schedule, self.impl
+        )
+
+    def get_last_stats(self) -> dict:
+        """Per-block entry token counts."""
+        return model_stats(self.config, self.schedule)

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Where the PyTorch/CUDA port's forward spends its time on the card.
+
+    python3 scripts/profile_torch_port.py [--batch 256] [--iters 3]
+
+Runs ViT-B/16 224 in bf16 through ``RAJNIViT(kernels="cuda")`` with
+``REFERENCE_SCHEDULE`` and with the identity schedule, under
+``torch.profiler``, and prints for each: the device time per forward by
+kernel name, the wall time per forward and the device's busy share. Needs a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main(argv=None) -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--iters", type=int, default=3)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_port: CUDA is not available", file=sys.stderr)
+        return 2
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}")
+    device = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(args.batch, 224, 224, 3, generator=gen).to(device)
+    pruned = RAJNIViT("vit_base_patch16_224", REFERENCE_SCHEDULE, kernels="cuda", device=device)
+    base = RAJNIViT("vit_base_patch16_224", None, params=pruned.params, kernels="cuda", device=device)
+
+    for label, model in (("pruned", pruned), ("identity", base)):
+        for _ in range(3):
+            model(images)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                model(images)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+        rows = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:  # device kernels only
+                continue
+            dev_us = e.self_device_time_total
+            if dev_us > 0:
+                rows[e.key] = rows.get(e.key, 0.0) + dev_us / 1e3 / args.iters
+        busy = sum(rows.values())
+        print(f"\n{label}: batch {args.batch}, wall {wall_ms:.3f} ms/forward, device busy "
+              f"{busy:.3f} ms/forward ({100 * busy / wall_ms:.1f}% of wall)")
+        for name, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
