@@ -10,10 +10,12 @@
 // Design: four launches on the caller's stream — row LayerNorm (bf16 out),
 // GEMM QKV with a +bias→round epilogue into a [B, N, 3C] bf16 scratch in
 // device memory (one image's QKV, 0.9 MB, does not fit a block's 227 KB of
-// shared memory), the attention kernel (one block per image, head and
+// shared memory), the attention kernel, and GEMM proj with a
+// +bias→·ls→+x(fp32)→round epilogue. Up to ATTN_MAX_N = 256 tokens the
+// attention is the register-resident kernel (one block per image, head and
 // 64-query tile: K and Vᵀ of the head in shared memory, each warp's whole
-// logit rows in mma.sync accumulator registers), and GEMM proj with a
-// +bias→·ls→+x(fp32)→round epilogue.
+// logit rows in mma.sync accumulator registers); past that, the two-pass
+// kernel of B6 (common.cuh:sdpa_kernel, N <= SDPA_MAX_N = 848).
 #include "common.cuh"
 
 using namespace rajni;
@@ -35,8 +37,8 @@ extern "C" int rajni_attn_block(const void* x, const void* ln_scale, const void*
                             static_cast<bf16*>(qkv_scratch), rows, 3 * C, C, ep1, st);
   if (e != cudaSuccess) return fail(e, 2);
 
-  e = launch_attention(static_cast<const bf16*>(qkv_scratch), nullptr,
-                       static_cast<bf16*>(attn_scratch), B, N, N, C, H, scale, st);
+  e = launch_attention_any(static_cast<const bf16*>(qkv_scratch), nullptr,
+                           static_cast<bf16*>(attn_scratch), B, N, N, C, H, scale, st);
   if (e != cudaSuccess) return fail(e, 3);
 
   EpilogueArgs ep2{static_cast<const bf16*>(bproj), static_cast<const bf16*>(ls),

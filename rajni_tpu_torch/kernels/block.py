@@ -1,28 +1,33 @@
-"""K1 ``fused_pruned_attn_block`` and K2 ``fused_attn_block``: the attention
-halves of a pruned and of a stock block.
+"""The attention halves of a block: K1 ``fused_pruned_attn_block``, K2
+``fused_attn_block``, and the two kernels of the long-sequence pruned route,
+B4 ``fused_ln_qkv`` and B5 ``fused_gather_sdpa_proj_residual``.
 
-Ports of ``rajni_tpu/kernels/block.py:fused_pruned_attn_block`` and
-``fused_attn_block``. On a CUDA tensor each wrapper launches its
-hand-written kernel (``csrc/pruned_attn_block.cu``, ``csrc/attn_block.cu``);
-on a CPU tensor it runs the plain PyTorch version beside it.
+Ports of the functions of the same names in ``rajni_tpu/kernels/block.py``.
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/pruned_attn_block.cu``, ``csrc/attn_block.cu``, ``csrc/ln_qkv.cu``,
+``csrc/gather_attn.cu``); on a CPU tensor it runs the plain PyTorch version
+beside it.
 
 Numeric contract (shared with the TPU kernels, ``block.py:30-31``):
   * LayerNorm statistics fp32, normed rows rounded to the activation dtype;
   * ``qkv = y @ Wqkv + b`` accumulated in fp32, rounded;
   * scores in fp32 from that rounded qkv (:func:`_importance_f32`);
-  * SDPA in the "phased" form: ``q * scale`` in fp32 then rounded, logits
-    fp32, softmax fp32 as ``exp(l - max) * (1 / sum)``, P rounded before
-    P·V, per-head outputs rounded before proj;
+  * SDPA (:func:`_mha`) with logits and softmax in fp32 as
+    ``exp(l - max) * (1 / sum)``, P rounded before P·V, per-head outputs
+    rounded before proj;
   * residual ``x32 + (acc + b) * ls`` in fp32, stored in the activation
-    dtype; in K1 the gathered pre-norm x stays fp32 until that add;
+    dtype; the gathered pre-norm x stays fp32 until that add;
   * selection (``_select_from_scores`` on the TPU): CLS ranked +inf, the top
     ``K = keep + 1`` kept in ascending index order, ties to the lower
     index, ``next_scores`` the real scores of the kept tokens.
 
-The TPU kernels switch to a per-head loop with the scale on the logits when
-``H·N²·6`` exceeds 4 MiB (N > ~240 at H=12); the CUDA attention kernel
-keeps the phased form up to its own limit of ``ATTN_MAX_N`` tokens, and the
-plain versions follow the kernel.
+The SDPA has two forms, switched as the TPU kernels switch them
+(``block.py:136``): the "phased" form (``q * scale`` in fp32, rounded, then
+the logits) while ``H·N²·6 <= 4 MiB``, else the per-head form (scale on the
+fp32 logits, :func:`..attention.fused_sdpa_plain`). On the card the
+register-resident attention kernel (``N <= ATTN_MAX_N``) is phased and the
+two-pass kernel (``N > ATTN_MAX_N``) per-head. At head_dim 64 the scale is
+1/8, so both forms give the same bits and the switch points need not agree.
 """
 
 from __future__ import annotations
@@ -32,25 +37,39 @@ import math
 import torch
 
 from ..ops.pruning import select_tokens_dense
+from .attention import SDPA_KERNEL, SDPA_MAX_N, _sdpa_perhead
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 from .mlp import _layer_norm_f32, _mm
 
 ATTN_MAX_N = 256  # csrc/common.cuh: whole softmax rows in registers
 HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
+_PHASED_MAX_BYTES = 4 * 1024 * 1024  # rajni_tpu/kernels/block.py:136
+_SMEM_MAX = 232448  # bytes of shared memory a Hopper block may use
 
 PRUNED_KERNEL = CudaKernel(
     "rajni_pruned_attn_block",
-    [P, P, P, P, P, P, P, P, P, I, P, P, P, P, P, P, I, I, I, I, I, F, F, P],
+    [P, P, P, P, P, P, P, P, P, I, P, P, P, P, P, P, P, I, I, I, I, I, F, F, P],
 )
 ATTN_KERNEL = CudaKernel(
     "rajni_attn_block",
     [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, F, P],
 )
+LN_QKV_KERNEL = CudaKernel(
+    "rajni_ln_qkv",
+    [P, P, P, P, P, I, P, P, P, I, I, I, I, I, F, P],
+)
+GATHER_KERNEL = CudaKernel(
+    "rajni_gather_sdpa_proj_residual",
+    [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+)
 
 
 def _mha(qkv: torch.Tensor, num_heads: int, scale: float, out_dtype) -> torch.Tensor:
-    """Phased SDPA on packed ``[B, N, 3C]`` (lanes ``(qkv, head, dim)``)."""
+    """SDPA on packed ``[B, N, 3C]`` (lanes ``(qkv, head, dim)``): phased
+    while ``H·N²·6 <= 4 MiB``, per-head above, as the TPU kernels' ``_mha``."""
     B, N, three_c = qkv.shape
+    if num_heads * N * N * 6 > _PHASED_MAX_BYTES:
+        return _sdpa_perhead(qkv, num_heads, scale, out_dtype)
     C = three_c // 3
     D = C // num_heads
     q5 = qkv.reshape(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)  # [3,B,H,N,D]
@@ -88,19 +107,49 @@ def _importance_f32(qkv32: torch.Tensor, num_heads: int, eps: float = 1e-6):
     return a_cls * torch.sigmoid((vn - mu) / std)
 
 
+def ln_qkv_plain(
+    x: torch.Tensor, ln_params, qkv_params, num_heads: int, eps: float = 1e-6,
+    with_scores: bool = True,
+):
+    """Plain PyTorch version of B4: ``(qkv [B, N, out_w], scores [B, N]
+    fp32)``, ``scores`` zeros when ``with_scores=False``."""
+    _check_ln_qkv(x, qkv_params, with_scores)
+    y = _layer_norm_f32(x.float(), ln_params["scale"], ln_params["bias"], eps).to(x.dtype)
+    qkv = (_mm(y, qkv_params["weight"]) + qkv_params["bias"].float()).to(x.dtype)
+    if with_scores:
+        scores = _importance_f32(qkv.float(), num_heads)
+    else:
+        scores = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+    return qkv, scores
+
+
 def attn_block_plain(
     x: torch.Tensor, ln_params, attn_params, ls, num_heads: int, scale: float,
     eps: float = 1e-6,
 ) -> torch.Tensor:
     """Plain PyTorch version of K2."""
-    x32 = x.float()
-    y = _layer_norm_f32(x32, ln_params["scale"], ln_params["bias"], eps).to(x.dtype)
-    qkv = (_mm(y, attn_params["qkv"]["weight"]) + attn_params["qkv"]["bias"].float()).to(x.dtype)
+    qkv, _ = ln_qkv_plain(x, ln_params, attn_params["qkv"], num_heads, eps, False)
     a = _mha(qkv, num_heads, scale, x.dtype)
     out = _mm(a, attn_params["proj"]["weight"]) + attn_params["proj"]["bias"].float()
     if ls is not None:
         out = out * ls.float()
-    return (x32 + out).to(x.dtype)
+    return (x.float() + out).to(x.dtype)
+
+
+def gather_sdpa_proj_residual_plain(
+    qkv: torch.Tensor, keep_idx: torch.Tensor, x: torch.Tensor, proj_params, ls,
+    num_heads: int, scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch version of B5: ``gather(x) + ls1 *
+    proj(mhsa(gather(qkv)))`` → ``[B, K, C]``."""
+    idx = keep_idx.long()[..., None]
+    qkv_g = torch.take_along_dim(qkv, idx, dim=1)
+    x_g32 = torch.take_along_dim(x, idx, dim=1).float()
+    a = _mha(qkv_g, num_heads, scale, x.dtype)
+    out = _mm(a, proj_params["weight"]) + proj_params["bias"].float()
+    if ls is not None:
+        out = out * ls.float()
+    return (x_g32 + out).to(x.dtype)
 
 
 def pruned_attn_block_plain(
@@ -109,31 +158,42 @@ def pruned_attn_block_plain(
 ):
     """Plain PyTorch version of K1: ``(x [B, K, C], next_scores [B, K],
     keep_idx [B, K])`` with ``K = keep + 1``."""
-    x32 = x.float()
-    y = _layer_norm_f32(x32, ln_params["scale"], ln_params["bias"], eps).to(x.dtype)
-    qkv = (_mm(y, attn_params["qkv"]["weight"]) + attn_params["qkv"]["bias"].float()).to(x.dtype)
-    s = _importance_f32(qkv.float(), num_heads) if with_scores else prev_scores.float()
+    qkv, s = ln_qkv_plain(x, ln_params, attn_params["qkv"], num_heads, eps, with_scores)
+    if not with_scores:
+        s = prev_scores.float()
     # the kernel ranks CLS as +inf among all N; ranking the patches alone
     # and prepending CLS keeps the same set in the same order
-    keep_idx, _ = select_tokens_dense(s, keep)
+    keep_idx, _ = select_tokens_dense(s, keep, torch.bool)
     next_scores = torch.take_along_dim(s, keep_idx, dim=1)
-    qkv_g = torch.take_along_dim(qkv, keep_idx[..., None], dim=1)
-    x_g32 = torch.take_along_dim(x32, keep_idx[..., None], dim=1)
-    a = _mha(qkv_g, num_heads, scale, x.dtype)
-    out = _mm(a, attn_params["proj"]["weight"]) + attn_params["proj"]["bias"].float()
-    if ls is not None:
-        out = out * ls.float()
-    return (x_g32 + out).to(x.dtype), next_scores, keep_idx
+    out = gather_sdpa_proj_residual_plain(
+        qkv, keep_idx, x, attn_params["proj"], ls, num_heads, scale
+    )
+    return out, next_scores, keep_idx
 
 
-def _check_attn_shapes(name: str, N: int, C: int, num_heads: int) -> None:
+def _check_attn_shapes(name: str, N: int, C: int, num_heads: int, max_n: int) -> None:
     if C % 128 or C > 1024 or C // num_heads != HEAD_DIM or C % num_heads:
         raise ValueError(
             f"{name} needs C % 128 == 0, C <= 1024 and head_dim {HEAD_DIM}; "
             f"got C={C}, heads={num_heads}"
         )
-    if not 2 <= N <= ATTN_MAX_N:
-        raise ValueError(f"{name} supports 2 <= N <= {ATTN_MAX_N}, got N={N}")
+    if not 2 <= N <= max_n:
+        raise ValueError(f"{name} supports 2 <= N <= {max_n}, got N={N}")
+
+
+def _check_ln_qkv(x: torch.Tensor, qkv_params, with_scores: bool) -> None:
+    C = x.shape[-1]
+    out_w = qkv_params["weight"].shape[0]
+    if with_scores and out_w != 3 * C:
+        raise ValueError(
+            "with_scores=True needs the full [3C, C] projection; a head-sharded "
+            f"[{out_w}, {C}] shard cannot score locally"
+        )
+
+
+def _score_smem(N: int, C: int, H: int) -> int:
+    """csrc/common.cuh:score_smem."""
+    return (C + H * N + N * (C // H) + 2 * N + C // H + 2) * 4
 
 
 def fused_attn_block(
@@ -150,7 +210,7 @@ def fused_attn_block(
         wqkv=qkv_p["weight"], bqkv=qkv_p["bias"], wproj=proj_p["weight"],
         bproj=proj_p["bias"], ls=ls,
     )
-    _check_attn_shapes("fused_attn_block", N, C, num_heads)
+    _check_attn_shapes("fused_attn_block", N, C, num_heads, SDPA_MAX_N)
     rows = B * N
     y = torch.empty(rows, C, dtype=x.dtype, device=x.device)
     qkv = torch.empty(rows, 3 * C, dtype=x.dtype, device=x.device)
@@ -162,6 +222,8 @@ def fused_attn_block(
         ptr(y), ptr(qkv), ptr(attn), ptr(out), B, N, C, num_heads, float(scale),
         float(eps), stream(),
     )
+    if N > ATTN_MAX_N:  # csrc/attn_block.cu launched the two-pass kernel
+        SDPA_KERNEL.launches += 1
     return out
 
 
@@ -193,12 +255,13 @@ def fused_pruned_attn_block(
         check_cuda(torch.float32, prev_scores=prev)
         if prev.shape != (B, N):
             raise ValueError(f"prev_scores must be [{B}, {N}], got {tuple(prev.shape)}")
-    _check_attn_shapes("fused_pruned_attn_block", N, C, num_heads)
+    _check_attn_shapes("fused_pruned_attn_block", N, C, num_heads, ATTN_MAX_N)
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
     dev = x.device
     y = torch.empty(B * N, C, dtype=x.dtype, device=dev)
     qkv = torch.empty(B * N, 3 * C, dtype=x.dtype, device=dev)
+    scores = torch.empty(B, N, dtype=torch.float32, device=dev) if with_scores else None
     attn = torch.empty(B * K, C, dtype=x.dtype, device=dev)
     idx = torch.empty(B, K, dtype=torch.int32, device=dev)
     next_scores = torch.empty(B, K, dtype=torch.float32, device=dev)
@@ -206,8 +269,99 @@ def fused_pruned_attn_block(
     PRUNED_KERNEL(
         ptr(x), ptr(ln_params["scale"]), ptr(ln_params["bias"]), ptr(qkv_p["weight"]),
         ptr(qkv_p["bias"]), ptr(proj_p["weight"]), ptr(proj_p["bias"]), ptr(ls),
-        ptr(prev), int(with_scores), ptr(y), ptr(qkv), ptr(attn), ptr(idx),
+        ptr(prev), int(with_scores), ptr(y), ptr(qkv), ptr(scores), ptr(attn), ptr(idx),
         ptr(next_scores), ptr(out), B, N, K, C, num_heads, float(scale), float(eps),
         stream(),
     )
     return out, next_scores, idx.long()
+
+
+def fused_ln_qkv(
+    x: torch.Tensor, ln_params, qkv_params, num_heads: int, eps: float = 1e-6,
+    with_scores: bool = True,
+):
+    """LN1 + QKV projection with RAJNI scores in the same call: ``(qkv
+    [B, N, out_w], scores [B, N] fp32)``; ``scores`` is zeros when
+    ``with_scores=False``.
+
+    ``out_w`` follows ``qkv_params["weight"] [out_w, C]``: a tensor-parallel
+    shard may pass a head-aligned ``[3C_local, C]`` and gets ``[B, N,
+    3C_local]``, but only with ``with_scores=False`` (scoring needs every
+    head); ``with_scores=True`` on a shard raises ``ValueError``.
+    """
+    if x.device.type == "cpu":
+        return ln_qkv_plain(x, ln_params, qkv_params, num_heads, eps, with_scores)
+    B, N, C = x.shape
+    w, b = qkv_params["weight"], qkv_params["bias"]
+    out_w = w.shape[0]
+    check_cuda(
+        torch.bfloat16, x=x, ln_scale=ln_params["scale"], ln_bias=ln_params["bias"],
+        wqkv=w, bqkv=b,
+    )
+    _check_ln_qkv(x, qkv_params, with_scores)
+    if C % 64 or C > 1024 or out_w % 8 or w.shape[1] != C or N < 2:
+        raise ValueError(
+            f"fused_ln_qkv needs C % 64 == 0, C <= 1024, out_w % 8 == 0 and N >= 2; "
+            f"got C={C}, wqkv {tuple(w.shape)}, N={N}"
+        )
+    if with_scores and (C % num_heads or _score_smem(N, C, num_heads) > _SMEM_MAX):
+        raise ValueError(f"fused_ln_qkv cannot score N={N}, C={C}, heads={num_heads}")
+    dev = x.device
+    y = torch.empty(B * N, C, dtype=x.dtype, device=dev)
+    qkv = torch.empty(B, N, out_w, dtype=x.dtype, device=dev)
+    scores = torch.empty(B, N, dtype=torch.float32, device=dev)
+    LN_QKV_KERNEL(
+        ptr(x), ptr(ln_params["scale"]), ptr(ln_params["bias"]), ptr(w), ptr(b),
+        int(with_scores), ptr(y), ptr(qkv), ptr(scores), B, N, C, out_w, num_heads,
+        float(eps), stream(),
+    )
+    return qkv, scores
+
+
+def fused_gather_sdpa_proj_residual(
+    qkv: torch.Tensor, keep_idx: torch.Tensor, x: torch.Tensor, proj_params, ls,
+    num_heads: int, scale: float,
+) -> torch.Tensor:
+    """Pruned attention tail: ``gather(x) + ls1 * proj(mhsa(gather(qkv)))``
+    → ``[B, K, C]``.
+
+    Args:
+      qkv: ``[B, N, 3C]`` full-sequence packed QKV (from :func:`fused_ln_qkv`);
+        a tensor-parallel shard passes ``[B, N, 3C_local]`` with its local
+        ``num_heads`` and a ``proj`` weight ``[C, C_local]``, and gets this
+        shard's partial proj sum plus the gathered residual (the CUDA route
+        takes the full width only and raises ``ValueError`` on a shard).
+      keep_idx: ``[B, K]`` kept token indices, ascending after CLS
+        (:func:`..ops.pruning.select_tokens_dense`). The TPU kernel takes the
+        one-hot ``sel [B, K, N]`` built from the same selection; ``sel`` has
+        exactly one 1 per row, so its product with a row block IS the gather
+        by these indices, and both carry the same information.
+      x: ``[B, N, C]`` pre-norm residual stream.
+    """
+    if x.device.type == "cpu":
+        return gather_sdpa_proj_residual_plain(
+            qkv, keep_idx, x, proj_params, ls, num_heads, scale
+        )
+    B, N, C = x.shape
+    K = keep_idx.shape[1]
+    w, b = proj_params["weight"], proj_params["bias"]
+    check_cuda(torch.bfloat16, qkv=qkv, x=x, wproj=w, bproj=b, ls=ls)
+    if qkv.shape != (B, N, 3 * C) or w.shape != (C, C):
+        raise ValueError(
+            "fused_gather_sdpa_proj_residual on the card takes the full width "
+            f"only: qkv {tuple(qkv.shape)}, proj {tuple(w.shape)}, x {tuple(x.shape)}"
+        )
+    _check_attn_shapes("fused_gather_sdpa_proj_residual", K, C, num_heads, SDPA_MAX_N)
+    if keep_idx.shape != (B, K) or K > N:
+        raise ValueError(f"keep_idx must be [{B}, K <= {N}], got {tuple(keep_idx.shape)}")
+    idx = keep_idx.to(torch.int32).contiguous()
+    check_cuda(torch.int32, keep_idx=idx)
+    attn = torch.empty(B * K, C, dtype=x.dtype, device=x.device)
+    out = torch.empty(B, K, C, dtype=x.dtype, device=x.device)
+    GATHER_KERNEL(
+        ptr(qkv), ptr(idx), ptr(x), ptr(w), ptr(b), ptr(ls), ptr(attn), ptr(out),
+        B, N, K, C, num_heads, float(scale), stream(),
+    )
+    if K > ATTN_MAX_N:  # csrc/gather_attn.cu launched the two-pass kernel
+        SDPA_KERNEL.launches += 1
+    return out

@@ -23,7 +23,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("mlp.cu", "attn_block.cu", "pruned_attn_block.cu")
+SOURCES = (
+    "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "ln_qkv.cu", "gather_attn.cu",
+    "sdpa.cu",
+)
 LIBRARY = "librajni.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,9 +13,10 @@ order.
 
 ``impl`` selects the backend: ``"torch"`` is the plain ops path (the
 counterpart of JAX's ``"xla"``); ``"cuda"`` routes every block through the
-hand-written kernels K1-K3 (the counterpart of ``"pallas"``), whose
-wrappers fall to their plain versions only for CPU tensors; ``"auto"`` is
-``"cuda"`` on a CUDA tensor and ``"torch"`` elsewhere.
+hand-written kernels (K1-K3, and B4-B6 past 256 tokens; the counterpart of
+``"pallas"``), whose wrappers fall to their plain versions only for CPU
+tensors; ``"auto"`` is ``"cuda"`` on a CUDA tensor and ``"torch"``
+elsewhere.
 
 Only the classic configurations are ported (one CLS prefix token, no
 qk-norm, token-pooled head); the extended timm variants raise
@@ -32,10 +33,16 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
-from ..kernels.block import fused_attn_block, fused_pruned_attn_block
+from ..kernels.block import (
+    ATTN_MAX_N,
+    fused_attn_block,
+    fused_gather_sdpa_proj_residual,
+    fused_ln_qkv,
+    fused_pruned_attn_block,
+)
 from ..kernels.mlp import _layer_norm_f32, fused_ln_mlp_residual
 from ..ops.attention import attention, pruned_attention
-from ..ops.pruning import gather_tokens, keep_count
+from ..ops.pruning import gather_tokens, keep_count, select_tokens_dense
 from ..utils.schedule import Schedule, normalize_schedule, token_count_trace
 
 Params = dict[str, Any]
@@ -338,13 +345,19 @@ def vit_forward(
 ) -> torch.Tensor:
     """Pruned ViT forward: ``[B, H, W, 3] -> [B, num_classes]`` logits.
 
-    Block routing follows ``rajni_tpu/models/vit.py`` for plain params:
-    a pruned block runs its attention half through K1 (rescoring iff
-    ``spec.update or scores is None``) and a stock block through K2; every
-    MLP half runs through K3. The residual stream is compacted before the
-    residual add, and a stock block resets the threaded scores. The JAX
-    package's whole-block kernels (for DeiT-S-class widths) are not ported
-    yet, so those widths take K1/K2 + K3 here.
+    Block routing follows ``rajni_tpu/models/vit.py`` for plain params,
+    with Hopper fit rules of its own. A pruned block rescores iff
+    ``spec.update or scores is None``. Up to ``ATTN_MAX_N`` tokens its
+    attention half runs through K1 (one entry point: the softmax rows of
+    the kept tokens fit in registers); past that it takes the two-kernel
+    route of ``vit.py:867-928``: B4 ``fused_ln_qkv``, the torch
+    ``select_tokens_dense``, then B5 ``fused_gather_sdpa_proj_residual``.
+    That agrees with the JAX routing on ViT-B/224 (K1) and ViT-B/384 (two
+    kernels). A stock block runs through K2 and every MLP half through K3.
+    The residual stream is compacted before the residual add, and a stock
+    block resets the threaded scores. The JAX package's whole-block kernels
+    (for DeiT-S-class widths) are not ported yet, so those widths take the
+    split kernels here.
 
     ``_sel_tap(block_idx, keep_idx)`` receives each pruned block's kept
     token indices (a capture hook for tests and debugging).
@@ -359,11 +372,24 @@ def vit_forward(
     for blk_i, (spec, block) in enumerate(zip(schedule, params["blocks"])):
         if spec is not None:
             keep = keep_count(spec.keep_ratio, x.shape[1], 1)
-            if impl == "cuda":
-                with_scores = spec.update or scores is None
+            with_scores = spec.update or scores is None
+            if impl == "cuda" and x.shape[1] <= ATTN_MAX_N:
                 x, scores, keep_idx = fused_pruned_attn_block(
                     x, block["norm1"], block["attn"], block.get("ls1"), scores,
                     config.num_heads, keep, config.attn_scale, eps, with_scores,
+                )
+            elif impl == "cuda":
+                qkv, new_scores = fused_ln_qkv(
+                    x, block["norm1"], block["attn"]["qkv"], config.num_heads, eps,
+                    with_scores,
+                )
+                if with_scores:
+                    scores = new_scores
+                keep_idx, _ = select_tokens_dense(scores, keep, torch.bool)
+                scores = torch.take_along_dim(scores, keep_idx, dim=1)
+                x = fused_gather_sdpa_proj_residual(
+                    qkv, keep_idx, x, block["attn"]["proj"], block.get("ls1"),
+                    config.num_heads, config.attn_scale,
                 )
             else:
                 out, keep_idx, scores = pruned_attention(

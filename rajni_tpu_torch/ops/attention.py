@@ -1,8 +1,11 @@
 """Multi-head self-attention ops, stock and token-pruning (PyTorch
-counterpart of ``rajni_tpu/ops/attention.py``; the ``impl="torch"`` path).
+counterpart of ``rajni_tpu/ops/attention.py``).
 
 Weights are stored as ``nn.Linear`` does, ``weight [out, in]``; the packed
-QKV output keeps the ``(qkv, head, dim)`` lane order.
+QKV output keeps the ``(qkv, head, dim)`` lane order. ``impl="torch"`` runs
+the SDPA as plain ops (JAX's ``"xla"``); ``impl="cuda"`` runs it through B6
+:func:`..kernels.attention.fused_sdpa` and selects with
+:func:`.pruning.select_tokens_dense` (JAX's ``"pallas"``).
 """
 
 from __future__ import annotations
@@ -11,8 +14,9 @@ from typing import Any, Mapping
 
 import torch
 
+from ..kernels.attention import fused_sdpa
 from .importance import compute_importance
-from .pruning import gather_tokens, select_tokens
+from .pruning import gather_tokens, select_tokens, select_tokens_dense
 
 AttnParams = Mapping[str, Any]
 
@@ -40,11 +44,21 @@ def _sdpa(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     return out.reshape(B, N, C)
 
 
+def _dispatch_sdpa(qkv: torch.Tensor, num_heads: int, scale: float, impl: str) -> torch.Tensor:
+    """``"torch"`` (:func:`_sdpa`) or ``"cuda"`` (B6 ``fused_sdpa``)."""
+    if impl == "torch":
+        return _sdpa(qkv, num_heads, scale)
+    if impl == "cuda":
+        return fused_sdpa(qkv, num_heads, scale)
+    raise ValueError(f"unknown attention impl {impl!r}; use 'torch' or 'cuda'")
+
+
 def attention(
-    x: torch.Tensor, params: AttnParams, num_heads: int, scale: float
+    x: torch.Tensor, params: AttnParams, num_heads: int, scale: float,
+    impl: str = "torch",
 ) -> torch.Tensor:
     """Stock multi-head self-attention on ``[B, N, C]``."""
-    out = _sdpa(_qkv_projection(x, params), num_heads, scale)
+    out = _dispatch_sdpa(_qkv_projection(x, params), num_heads, scale, impl)
     return _linear(out, params["proj"])
 
 
@@ -56,6 +70,7 @@ def pruned_attention(
     keep: int,
     update: bool,
     prev_scores: torch.Tensor | None,
+    impl: str = "torch",
     num_prefix: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Score → select → prune → attend.
@@ -71,8 +86,11 @@ def pruned_attention(
         scores = compute_importance(qkv, num_heads)
     else:
         scores = prev_scores
-    keep_idx = select_tokens(scores, keep, num_prefix)
-    out = _sdpa(gather_tokens(qkv, keep_idx), num_heads, scale)
+    if impl == "cuda":
+        keep_idx, _ = select_tokens_dense(scores, keep, torch.bool, num_prefix)
+    else:
+        keep_idx = select_tokens(scores, keep, num_prefix)
+    out = _dispatch_sdpa(gather_tokens(qkv, keep_idx), num_heads, scale, impl)
     out = _linear(out, params["proj"])
     next_scores = torch.take_along_dim(scores, keep_idx, dim=1)
     return out, keep_idx, next_scores

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where the PyTorch/CUDA port's forward spends its time on the card.
 
-    python3 scripts/profile_torch_port.py [--batch 256] [--iters 3]
+    python3 scripts/profile_torch_port.py [--model vit_base_patch16_224] [--batch 256] [--iters 3]
+    python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128
 
-Runs ViT-B/16 224 in bf16 through ``RAJNIViT(kernels="cuda")`` with
+Runs the model in bf16 through ``RAJNIViT(kernels="cuda")`` with
 ``REFERENCE_SCHEDULE`` and with the identity schedule, under
 ``torch.profiler``, and prints for each: the device time per forward by
-kernel name, the wall time per forward and the device's busy share. Needs a
-CUDA card.
+kernel name, the wall time per forward and the device's busy share. Where a
+pruned block takes the two-kernel route (past 256 tokens), it also times that
+block's token selection in torch (``select_tokens_dense`` and the gather of
+the threaded scores), which is no kernel of the port, with CUDA events.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="vit_base_patch16_224")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--iters", type=int, default=3)
     args = p.parse_args(argv)
@@ -35,6 +40,8 @@ def main(argv=None) -> int:
         return 2
 
     from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+    from rajni_tpu_torch.kernels.block import ATTN_MAX_N
+    from rajni_tpu_torch.ops.pruning import keep_count, select_tokens_dense
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -43,9 +50,12 @@ def main(argv=None) -> int:
     print(f"card: {smi}")
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(1)
-    images = torch.randn(args.batch, 224, 224, 3, generator=gen).to(device)
-    pruned = RAJNIViT("vit_base_patch16_224", REFERENCE_SCHEDULE, kernels="cuda", device=device)
-    base = RAJNIViT("vit_base_patch16_224", None, params=pruned.params, kernels="cuda", device=device)
+    pruned = RAJNIViT(args.model, REFERENCE_SCHEDULE, kernels="cuda", device=device)
+    base = RAJNIViT(args.model, None, params=pruned.params, kernels="cuda", device=device)
+    side = pruned.config.img_size
+    images = torch.randn(args.batch, side, side, 3, generator=gen).to(device)
+    print(f"model {args.model}, batch {args.batch}, token counts "
+          f"{pruned.get_last_stats()['token_counts']}")
 
     for label, model in (("pruned", pruned), ("identity", base)):
         for _ in range(3):
@@ -69,6 +79,33 @@ def main(argv=None) -> int:
               f"{busy:.3f} ms/forward ({100 * busy / wall_ms:.1f}% of wall)")
         for name, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
             print(f"  {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+
+    # the torch selection of each two-kernel pruned block, alone
+    counts = pruned.get_last_stats()["token_counts"]
+    total = 0.0
+    for spec, n in zip(pruned.schedule, counts):
+        if spec is None or n <= ATTN_MAX_N:
+            continue
+        scores = torch.rand(args.batch, n, generator=gen).to(device)
+        keep = keep_count(spec.keep_ratio, n, 1)
+
+        def select():
+            keep_idx, _ = select_tokens_dense(scores, keep, torch.bool)
+            return torch.take_along_dim(scores, keep_idx, dim=1)
+
+        for _ in range(3):
+            select()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            select()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 20
+        total += ms
+        print(f"torch selection N={n} -> K={keep + 1}: {ms:.3f} ms")
+    if total:
+        print(f"torch selection per pruned forward: {total:.3f} ms")
     return 0
 
 
