@@ -19,6 +19,7 @@ from .ops.attention import attention, pruned_attention
 from .ops.importance import compute_importance
 from .ops.pruning import gather_tokens, keep_count, select_tokens
 from .params.from_jax import params_from_numpy
+from .quant import ActScales, calibrate_act_scales, quantize_params
 from .utils.flops import flops_per_image, mfu
 from .utils.schedule import (
     REFERENCE_SCHEDULE,
@@ -30,12 +31,14 @@ from .utils.schedule import (
 )
 
 __all__ = [
+    "ActScales",
     "REFERENCE_SCHEDULE",
     "RAJNIViT",
     "VARIANTS",
     "ViTConfig",
     "PruneSpec",
     "attention",
+    "calibrate_act_scales",
     "compute_importance",
     "evaluate_model",
     "flops_per_image",
@@ -49,6 +52,7 @@ __all__ = [
     "normalize_schedule",
     "params_from_numpy",
     "pruned_attention",
+    "quantize_params",
     "schedule_to_dict",
     "select_tokens",
     "token_count_trace",

@@ -1,6 +1,7 @@
 // Building blocks shared by the kernels' entry points (K1
 // fused_pruned_attn_block, K2 fused_attn_block, K3 fused_ln_mlp_residual, B4
-// fused_ln_qkv, B5 fused_gather_sdpa_proj_residual, B6 fused_sdpa). Each .cu
+// fused_ln_qkv, B5 fused_gather_sdpa_proj_residual, B6 fused_sdpa, and the
+// whole-block B7, B8, B14 and B15; the int8 parts are in int8.cuh). Each .cu
 // file includes this header and exports a plain C entry point that launches
 // several of these kernels on the caller's stream; the Python wrapper loads
 // it with ctypes.
@@ -97,6 +98,15 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two adjacent outputs: bf16 (packed, rounded) or fp32 (the int8 blocks'
+// attention output, which stays fp32 until it is quantized).
+__device__ __forceinline__ void store_pair(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
@@ -347,7 +357,8 @@ inline cudaError_t launch_gemm(const bf16* A, const bf16* W, bf16* out, int M, i
 //   Reads q/k/v rows of the packed qkv [B, n_src, 3C] (lanes (qkv, head, dim)),
 //   token t of the attended sequence being row idx[b, t] when idx is given
 //   (the one-hot gather of the TPU kernel: sel is 0/1, so it IS a gather),
-//   else row t. Writes out [B, n, C].
+//   else row t. Writes out [B, n, C] in OutT: bf16 (rounded), or fp32 for
+//   the int8 blocks (_mha_mixed's fp32 output, block.py:1663, 2329).
 //   Form: the "phased" SDPA of the TPU kernels — q scaled in fp32 and rounded
 //   to bf16, logits = q·kᵀ in fp32, full-row fp32 softmax exp(l - max) *
 //   (1 / sum), P rounded to bf16, P·V in fp32, output rounded. No online
@@ -373,9 +384,9 @@ __device__ __forceinline__ uint32_t q_pair(const bf16* row, int d, float scale) 
 }
 
 // MAXT: the most 16-token tiles this instantiation keeps in registers.
-template <int MAXT>
+template <int MAXT, typename OutT>
 __global__ void __launch_bounds__(128) attention_kernel(
-    const bf16* __restrict__ qkv, const int* __restrict__ idx, bf16* __restrict__ out,
+    const bf16* __restrict__ qkv, const int* __restrict__ idx, OutT* __restrict__ out,
     int n_src, int n, int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int npad = attn_npad(n), nt = npad / 16, ldv = npad + 8;
@@ -494,29 +505,30 @@ __global__ void __launch_bounds__(128) attention_kernel(
     }
   }
 
-  bf16* oa = out + ((size_t)b * n + ra) * C + h * ATTN_D + 2 * t4;
-  bf16* ob = oa + (size_t)8 * C;
+  OutT* oa = out + ((size_t)b * n + ra) * C + h * ATTN_D + 2 * t4;
+  OutT* ob = oa + (size_t)8 * C;
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
-    if (ra < n) *reinterpret_cast<uint32_t*>(oa + dt * 8) = pack_bf16x2(o[dt][0], o[dt][1]);
-    if (rb < n) *reinterpret_cast<uint32_t*>(ob + dt * 8) = pack_bf16x2(o[dt][2], o[dt][3]);
+    if (ra < n) store_pair(oa + dt * 8, o[dt][0], o[dt][1]);
+    if (rb < n) store_pair(ob + dt * 8, o[dt][2], o[dt][3]);
   }
 }
 
-template <int MAXT>
-inline cudaError_t launch_attention_t(const bf16* qkv, const int* idx, bf16* out, int B,
+template <int MAXT, typename OutT>
+inline cudaError_t launch_attention_t(const bf16* qkv, const int* idx, OutT* out, int B,
                                       int n_src, int n, int C, int H, float scale,
                                       cudaStream_t st) {
   const int smem = attn_smem(n);
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel<MAXT>,
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel<MAXT, OutT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((n + ATTN_QT - 1) / ATTN_QT, H, B);
-  attention_kernel<MAXT><<<grid, 128, smem, st>>>(qkv, idx, out, n_src, n, C, scale);
+  attention_kernel<MAXT, OutT><<<grid, 128, smem, st>>>(qkv, idx, out, n_src, n, C, scale);
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_attention(const bf16* qkv, const int* idx, bf16* out, int B, int n_src,
+template <typename OutT>
+inline cudaError_t launch_attention(const bf16* qkv, const int* idx, OutT* out, int B, int n_src,
                                     int n, int C, int H, float scale, cudaStream_t st) {
   const int tiles = attn_npad(n) / 16;
   if (tiles <= 8) return launch_attention_t<8>(qkv, idx, out, B, n_src, n, C, H, scale, st);
@@ -587,9 +599,9 @@ __device__ __forceinline__ void merge_row(float& m, float& l, float m2, float l2
   m = mx;
 }
 
-template <int WARPS>
+template <int WARPS, typename OutT>
 __global__ void __launch_bounds__(WARPS * 32, 16 / WARPS) sdpa_kernel(
-    const bf16* __restrict__ qkv, const int* __restrict__ idx, bf16* __restrict__ out,
+    const bf16* __restrict__ qkv, const int* __restrict__ idx, OutT* __restrict__ out,
     int n_src, int n, int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int npad = attn_npad(n), nt = npad / 16, ldv = npad + 8;
@@ -689,28 +701,30 @@ __global__ void __launch_bounds__(WARPS * 32, 16 / WARPS) sdpa_kernel(
       }
     }
 
-    bf16* oa = out + ((size_t)b * n + ra) * C + h * ATTN_D + 2 * t4;
-    bf16* ob = oa + (size_t)8 * C;
+    OutT* oa = out + ((size_t)b * n + ra) * C + h * ATTN_D + 2 * t4;
+    OutT* ob = oa + (size_t)8 * C;
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
-      if (ra < n) *reinterpret_cast<uint32_t*>(oa + dt * 8) = pack_bf16x2(o[dt][0], o[dt][1]);
-      if (rb < n) *reinterpret_cast<uint32_t*>(ob + dt * 8) = pack_bf16x2(o[dt][2], o[dt][3]);
+      if (ra < n) store_pair(oa + dt * 8, o[dt][0], o[dt][1]);
+      if (rb < n) store_pair(ob + dt * 8, o[dt][2], o[dt][3]);
     }
   }
 }
 
-template <int WARPS>
-inline cudaError_t launch_sdpa_t(const bf16* qkv, const int* idx, bf16* out, int B, int n_src,
+template <int WARPS, typename OutT>
+inline cudaError_t launch_sdpa_t(const bf16* qkv, const int* idx, OutT* out, int B, int n_src,
                                  int n, int C, int H, float scale, cudaStream_t st) {
   const int smem = attn_smem(n);
-  cudaError_t e = cudaFuncSetAttribute(sdpa_kernel<WARPS>,
+  cudaError_t e = cudaFuncSetAttribute(sdpa_kernel<WARPS, OutT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  sdpa_kernel<WARPS><<<dim3(H, B), WARPS * 32, smem, st>>>(qkv, idx, out, n_src, n, C, scale);
+  sdpa_kernel<WARPS, OutT><<<dim3(H, B), WARPS * 32, smem, st>>>(qkv, idx, out, n_src, n, C,
+                                                                 scale);
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, bf16* out, int B, int n_src,
+template <typename OutT>
+inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, OutT* out, int B, int n_src,
                                int n, int C, int H, float scale, cudaStream_t st) {
   if (n < 1 || n > SDPA_MAX_N) return cudaErrorInvalidValue;  // the wrapper refuses it first
   if (n <= SDPA_PAIR_N) return launch_sdpa_t<8>(qkv, idx, out, B, n_src, n, C, H, scale, st);
@@ -720,7 +734,8 @@ inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, bf16* out, int B
 // The attention of K2 and B5: the register-resident kernel up to ATTN_MAX_N
 // tokens, the two-pass kernel above it. At head_dim 64 the scale is 1/8 and
 // both forms give the same bits.
-inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, bf16* out, int B,
+template <typename OutT>
+inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* out, int B,
                                         int n_src, int n, int C, int H, float scale,
                                         cudaStream_t st) {
   if (n <= ATTN_MAX_N) return launch_attention(qkv, idx, out, B, n_src, n, C, H, scale, st);
@@ -834,6 +849,51 @@ inline cudaError_t launch_score(const bf16* qkv, float* scores, int B, int N, in
       cudaFuncSetAttribute(score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   score_kernel<<<B, 256, smem, st>>>(qkv, scores, N, C, H, eps);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Selection (K1 and B14): one block per image, following _select_from_scores
+// (block.py:722): CLS ranked +inf, rank[n] = #{m : s_m > s_n or (s_m == s_n
+// and m < n)}, the K lowest ranks kept in ascending index order,
+// next_scores the real scores of the kept tokens (CLS's own included).
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(256) select_kernel(const float* __restrict__ scores,
+                                                     int* __restrict__ idx_out,
+                                                     float* __restrict__ ns_out, int N, int K) {
+  extern __shared__ __align__(16) float sm[];
+  float* s_score = sm;                              // [N]
+  int* s_kept = reinterpret_cast<int*>(sm + N);     // [N]
+  const int b = blockIdx.x, tid = threadIdx.x;
+  for (int n = tid; n < N; n += 256) s_score[n] = scores[(size_t)b * N + n];
+  __syncthreads();
+
+  for (int n = tid; n < N; n += 256) {
+    const float kn = (n == 0) ? INFINITY : s_score[n];
+    int rank = 0;
+    for (int m = 0; m < N; ++m) {
+      const float km = (m == 0) ? INFINITY : s_score[m];
+      rank += (km > kn) || (km == kn && m < n);
+    }
+    s_kept[n] = rank < K;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int pos = 0;
+    for (int n = 0; n < N; ++n) {
+      if (s_kept[n]) {
+        idx_out[(size_t)b * K + pos] = n;
+        ns_out[(size_t)b * K + pos] = s_score[n];
+        ++pos;
+      }
+    }
+  }
+}
+
+inline cudaError_t launch_select(const float* scores, int* idx_out, float* ns_out, int B, int N,
+                                 int K, cudaStream_t st) {
+  select_kernel<<<B, 256, 2 * N * 4, st>>>(scores, idx_out, ns_out, N, K);
   return cudaGetLastError();
 }
 

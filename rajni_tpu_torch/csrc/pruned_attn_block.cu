@@ -7,7 +7,7 @@
 // Replaces the TPU kernel rajni_tpu/kernels/block.py:fused_pruned_attn_block
 // (pallas_call at block.py:1553), with its helpers _importance_f32
 // (block.py:340, common.cuh:score_kernel) and _select_from_scores
-// (block.py:722, select_kernel below).
+// (block.py:722, common.cuh:select_kernel).
 //
 // Bound on the H100: compute. At batch 256, N=197→K=187 the QKV (at N),
 // proj (at K) and attention (at K) products are ~2.6e11 FLOP; scoring and
@@ -16,7 +16,7 @@
 // Design: six launches on the caller's stream — row LayerNorm, GEMM QKV
 // (+bias→round) into a [B, N, 3C] device scratch, the score kernel shared
 // with B4 (common.cuh:score_kernel, one block per image; skipped when the
-// threaded scores are used), the selection kernel below (one block per
+// threaded scores are used), the selection kernel (one block per
 // image), the shared attention kernel reading q/k/v rows through the kept
 // indices (a gather is exactly what the TPU kernel's one-hot product
 // computes, since sel is 0/1), and GEMM proj whose residual epilogue reads
@@ -24,48 +24,6 @@
 #include "common.cuh"
 
 using namespace rajni;
-
-namespace rajni {
-namespace {
-
-// One block per image. Selection follows _select_from_scores: CLS ranked
-// +inf, rank[n] = #{m : s_m > s_n or (s_m == s_n and m < n)}, the K lowest
-// ranks kept in ascending index order, next_scores the real scores of the
-// kept tokens (CLS's own included).
-__global__ void __launch_bounds__(256) select_kernel(const float* __restrict__ scores,
-                                                     int* __restrict__ idx_out,
-                                                     float* __restrict__ ns_out, int N, int K) {
-  extern __shared__ __align__(16) float sm[];
-  float* s_score = sm;                              // [N]
-  int* s_kept = reinterpret_cast<int*>(sm + N);     // [N]
-  const int b = blockIdx.x, tid = threadIdx.x;
-  for (int n = tid; n < N; n += 256) s_score[n] = scores[(size_t)b * N + n];
-  __syncthreads();
-
-  for (int n = tid; n < N; n += 256) {
-    const float kn = (n == 0) ? INFINITY : s_score[n];
-    int rank = 0;
-    for (int m = 0; m < N; ++m) {
-      const float km = (m == 0) ? INFINITY : s_score[m];
-      rank += (km > kn) || (km == kn && m < n);
-    }
-    s_kept[n] = rank < K;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int pos = 0;
-    for (int n = 0; n < N; ++n) {
-      if (s_kept[n]) {
-        idx_out[(size_t)b * K + pos] = n;
-        ns_out[(size_t)b * K + pos] = s_score[n];
-        ++pos;
-      }
-    }
-  }
-}
-
-}  // namespace
-}  // namespace rajni
 
 extern "C" int rajni_pruned_attn_block(
     const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
@@ -92,10 +50,7 @@ extern "C" int rajni_pruned_attn_block(
     scores = static_cast<const float*>(scores_scratch);
   }
 
-  const int smem = 2 * N * 4;
-  select_kernel<<<B, 256, smem, st>>>(scores, static_cast<int*>(idx_out),
-                                      static_cast<float*>(ns_out), N, K);
-  e = cudaGetLastError();
+  e = launch_select(scores, static_cast<int*>(idx_out), static_cast<float*>(ns_out), B, N, K, st);
   if (e != cudaSuccess) return fail(e, 4);
 
   e = launch_attention(static_cast<const bf16*>(qkv_scratch), static_cast<const int*>(idx_out),

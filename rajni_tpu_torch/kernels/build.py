@@ -25,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = (
     "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "ln_qkv.cu", "gather_attn.cu",
-    "sdpa.cu",
+    "sdpa.cu", "pruned_block_full.cu", "attn_mlp_block.cu", "pruned_block_full_int8.cu",
+    "block_full_int8.cu",
 )
 LIBRARY = "librajni.so"
 NVCC_FLAGS = (

@@ -13,10 +13,14 @@ order.
 
 ``impl`` selects the backend: ``"torch"`` is the plain ops path (the
 counterpart of JAX's ``"xla"``); ``"cuda"`` routes every block through the
-hand-written kernels (K1-K3, and B4-B6 past 256 tokens; the counterpart of
-``"pallas"``), whose wrappers fall to their plain versions only for CPU
-tensors; ``"auto"`` is ``"cuda"`` on a CUDA tensor and ``"torch"``
-elsewhere.
+hand-written kernels (the counterpart of ``"pallas"``), whose wrappers fall
+to their plain versions only for CPU tensors; ``"auto"`` is ``"cuda"`` on a
+CUDA tensor and ``"torch"`` elsewhere.
+
+Int8 params (:func:`..quant.quantize_params`) run the whole-block int8
+kernels B14/B15 on ``impl="cuda"``, with calibrated static scales when
+``act_scales`` is given, and an int8 head; ``impl="torch"`` dequantizes the
+weights, as JAX's ``"xla"`` route does.
 
 Only the classic configurations are ported (one CLS prefix token, no
 qk-norm, token-pooled head); the extended timm variants raise
@@ -40,7 +44,21 @@ from ..kernels.block import (
     fused_ln_qkv,
     fused_pruned_attn_block,
 )
+from ..kernels.math import quantize_rows, quantize_static
 from ..kernels.mlp import _layer_norm_f32, fused_ln_mlp_residual
+from ..kernels.wholeblock import (
+    _attn_mlp_block_fits,
+    _bf16_full_plan,
+    _block_full_int8_plan,
+    _int8_mm,
+    _pruned_full_int8_plan,
+    fused_attn_mlp_block,
+    fused_block_full_int8,
+    fused_pruned_block_full,
+    fused_pruned_block_full_int8,
+    hopper_block_shape_ok,
+)
+from ..quant import ActScales, dequantize_weight, is_quantized
 from ..ops.attention import attention, pruned_attention
 from ..ops.pruning import gather_tokens, keep_count, select_tokens_dense
 from ..utils.schedule import Schedule, normalize_schedule, token_count_trace
@@ -249,7 +267,11 @@ def init_params(
 
 def tree_to(tree, **kw):
     """Apply ``Tensor.to(**kw)`` to every tensor of a parameter tree
-    (the result is contiguous, as the kernels require)."""
+    (the result is contiguous, as the kernels require). An int8 record
+    (:mod:`..quant`) only changes device: it stays int8 with fp32 scales."""
+    if is_quantized(tree):
+        kw = {k: v for k, v in kw.items() if k != "dtype"}
+        return {k: v.to(**kw).contiguous() for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: tree_to(v, **kw) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -325,6 +347,24 @@ def embed_tokens(params: Params, images: torch.Tensor, config: ViTConfig) -> tor
 # --------------------------------------------------------------------------
 
 
+def _dequantized(block: Params, dtype) -> Params:
+    """The block with its int8 records dequantized to ``dtype`` (the ops
+    path's weights, as JAX's ``_dequant_attn`` and ``_mlp_branch``)."""
+    def lin(layer):
+        w = layer["weight"]
+        return {**layer, "weight": dequantize_weight(w, dtype)} if is_quantized(w) else layer
+
+    return {**block, "attn": {k: lin(v) for k, v in block["attn"].items()},
+            "mlp": {k: lin(v) for k, v in block["mlp"].items()}}
+
+
+def _unported(blk_i: int, what: str):
+    return NotImplementedError(
+        f"block {blk_i}: the JAX route here is {what}, which is not ported to CUDA yet "
+        "(ROADMAP B9-B13); the cuda route does not fall back to other kernels"
+    )
+
+
 def resolve_impl(impl: str, images: torch.Tensor) -> str:
     """``"auto"`` → ``"cuda"`` on a CUDA tensor, ``"torch"`` otherwise."""
     if impl == "auto":
@@ -341,23 +381,38 @@ def vit_forward(
     config: ViTConfig,
     schedule: Schedule | None = None,
     impl: str = "torch",
+    act_scales: ActScales | None = None,
     _sel_tap: Callable[[int, torch.Tensor], None] | None = None,
 ) -> torch.Tensor:
     """Pruned ViT forward: ``[B, H, W, 3] -> [B, num_classes]`` logits.
 
-    Block routing follows ``rajni_tpu/models/vit.py`` for plain params,
-    with Hopper fit rules of its own. A pruned block rescores iff
-    ``spec.update or scores is None``. Up to ``ATTN_MAX_N`` tokens its
-    attention half runs through K1 (one entry point: the softmax rows of
-    the kept tokens fit in registers); past that it takes the two-kernel
-    route of ``vit.py:867-928``: B4 ``fused_ln_qkv``, the torch
-    ``select_tokens_dense``, then B5 ``fused_gather_sdpa_proj_residual``.
-    That agrees with the JAX routing on ViT-B/224 (K1) and ViT-B/384 (two
-    kernels). A stock block runs through K2 and every MLP half through K3.
+    On ``impl="cuda"`` the blocks are routed where ``rajni_tpu/models/
+    vit.py:749-1046`` routes them, by the JAX fit rules (copied in
+    ``kernels/wholeblock.py``). A pruned block rescores iff ``spec.update or
+    scores is None``.
+
+    * Int8 params: a pruned block runs B14 ``fused_pruned_block_full_int8``
+      where ``_pruned_full_int8_plan`` has a plan, a stock block B15
+      ``fused_block_full_int8`` where ``_block_full_int8_plan`` has one
+      (ViT-B/224 and DeiT-S: every block). Where JAX takes the split int8
+      kernels instead (ViT-B/384, ViT-L, ViT-H, MLP-only quantization),
+      this raises ``NotImplementedError`` naming them.
+    * bf16 params: B7 ``fused_pruned_block_full`` / B8
+      ``fused_attn_mlp_block`` where ``_bf16_full_plan`` fits (DeiT-S
+      class) and the CUDA kernels take the shape (C % 128 == 0, head_dim
+      64: narrower test widths keep the split kernels, which compute the
+      same function). Otherwise a pruned block's attention half runs
+      through K1 up to ``ATTN_MAX_N`` tokens, and past that through the
+      two-kernel route of ``vit.py:867-928`` (B4 ``fused_ln_qkv``, the
+      torch ``select_tokens_dense``, B5 ``fused_gather_sdpa_proj_residual``);
+      a stock block through K2; every MLP half through K3. That is the JAX
+      routing on ViT-B/224 (K1) and ViT-B/384 (two kernels).
+
     The residual stream is compacted before the residual add, and a stock
-    block resets the threaded scores. The JAX package's whole-block kernels
-    (for DeiT-S-class widths) are not ported yet, so those widths take the
-    split kernels here.
+    block resets the threaded scores. ``act_scales`` (calibrated static
+    int8 scales, :func:`..quant.calibrate_act_scales`) applies to int8
+    params on ``impl="cuda"`` only; ``impl="torch"`` dequantizes the
+    weights and quantizes the head dynamically, as JAX's ``"xla"`` route.
 
     ``_sel_tap(block_idx, keep_idx)`` receives each pruned block's kept
     token indices (a capture hook for tests and debugging).
@@ -366,13 +421,50 @@ def vit_forward(
     schedule = normalize_schedule(schedule, config.depth)
     impl = resolve_impl(impl, images)
     eps = config.layer_norm_eps
+    C, H, scale = config.embed_dim, config.num_heads, config.attn_scale
     x = embed_tokens(params, images, config)
 
     scores: torch.Tensor | None = None
     for blk_i, (spec, block) in enumerate(zip(schedule, params["blocks"])):
+        attn_q = is_quantized(block["attn"]["qkv"]["weight"])
+        mlp_q = is_quantized(block["mlp"]["fc1"]["weight"])
+        if impl == "torch" and (attn_q or mlp_q):
+            block = _dequantized(block, x.dtype)
+        n, itemsize = x.shape[1], x.element_size()
+        blk_as = None if act_scales is None else act_scales.block(blk_i)
+        if impl == "cuda" and (attn_q or mlp_q):
+            hidden = _hidden(block)
+            if spec is not None:
+                keep = keep_count(spec.keep_ratio, n, 1)
+                if not (attn_q and mlp_q):
+                    raise _unported(blk_i, "K1 or B11/B12/B13 with B9 fused_ln_mlp_residual_int8")
+                if _pruned_full_int8_plan(n, keep + 1, C, hidden, itemsize) is None:
+                    raise _unported(blk_i, "B11 fused_pruned_attn_block_int8 (or B12 "
+                                    "fused_ln_qkv_int8 + B13) with B9 fused_ln_mlp_residual_int8")
+                x, scores, keep_idx = fused_pruned_block_full_int8(
+                    x, block, scores, H, keep, scale, eps, spec.update or scores is None,
+                    blk_as,
+                )
+                if _sel_tap is not None:
+                    _sel_tap(blk_i, keep_idx)
+                continue
+            if not (attn_q and mlp_q) or _block_full_int8_plan(n, C, hidden, itemsize) is None:
+                raise _unported(blk_i, "B10 fused_attn_block_int8 with B9 "
+                                "fused_ln_mlp_residual_int8")
+            x = fused_block_full_int8(x, block, H, scale, eps, blk_as)
+            scores = None
+            continue
         if spec is not None:
             keep = keep_count(spec.keep_ratio, x.shape[1], 1)
             with_scores = spec.update or scores is None
+            if (impl == "cuda" and _bf16_full_plan(n, keep + 1, C, _hidden(block), itemsize)
+                    and hopper_block_shape_ok(n, C, H, _hidden(block), pruned=True)):
+                x, scores, keep_idx = fused_pruned_block_full(
+                    x, block, scores, H, keep, scale, eps, with_scores,
+                )
+                if _sel_tap is not None:
+                    _sel_tap(blk_i, keep_idx)
+                continue
             if impl == "cuda" and x.shape[1] <= ATTN_MAX_N:
                 x, scores, keep_idx = fused_pruned_attn_block(
                     x, block["norm1"], block["attn"], block.get("ls1"), scores,
@@ -401,6 +493,10 @@ def vit_forward(
             if _sel_tap is not None:
                 _sel_tap(blk_i, keep_idx)
             x = _mlp_branch(x, block, config, impl)
+        elif (impl == "cuda" and _attn_mlp_block_fits(n, C, _hidden(block), itemsize)
+              and hopper_block_shape_ok(n, C, H, _hidden(block), pruned=False)):
+            x = fused_attn_mlp_block(x, block, H, scale, eps)
+            scores = None
         elif impl == "cuda":
             x = fused_attn_block(
                 x, block["norm1"], block["attn"], block.get("ls1"),
@@ -411,13 +507,35 @@ def vit_forward(
         else:
             x = stock_block(x, block, config)
             scores = None
-    return classifier_head(x, params, config)
+    return classifier_head(x, params, config, act_scales, impl)
 
 
-def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig) -> torch.Tensor:
-    """Final norm on the CLS row only, then the head (token pooling)."""
+def _hidden(block: Params) -> int:
+    w = block["mlp"]["fc1"]["weight"]
+    return (w["int8"] if is_quantized(w) else w).shape[0]
+
+
+def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig,
+                    act_scales: ActScales | None = None, impl: str = "torch") -> torch.Tensor:
+    """Final norm on the CLS row only, then the head (token pooling).
+
+    An int8 head (``rajni_tpu/models/vit.py:1141-1177``) is plain torch, as
+    JAX's is plain XLA: the CLS row quantized per row (or, with
+    ``act_scales`` on ``impl="cuda"`` only, with the static head scale), an
+    exact int8 product (float64), dequantized as ``acc · a · w_scale +
+    bias``."""
     cls_out = layer_norm(x[:, 0:1], params["norm"], config.layer_norm_eps)[:, 0]
-    return cls_out @ params["head"]["weight"].t() + params["head"]["bias"]
+    head = params["head"]
+    if not is_quantized(head["weight"]):
+        return cls_out @ head["weight"].t() + head["bias"]
+    cls32 = cls_out.float()
+    if act_scales is not None and impl == "cuda":
+        a = act_scales.head
+        y_q = quantize_static(cls32, 1.0 / a)
+    else:
+        y_q, a = quantize_rows(cls32)
+    logits = _int8_mm(y_q, head["weight"]["int8"]) * a * head["weight"]["scale"]
+    return (logits + head["bias"].float()).to(cls_out.dtype)
 
 
 def model_stats(config: ViTConfig, schedule: Schedule | None = None) -> dict:

@@ -4,6 +4,10 @@
     model = RAJNIViT("vit_base_patch16_224", schedule)   # on the card
     logits = model(images)                               # [B, 224, 224, 3]
     model.get_last_stats()                               # {"token_counts": [...]}
+
+    # int8: quantized params, dynamic scales, or static ones with act_scales
+    model = RAJNIViT("deit_small_patch16_224", schedule, params=quantize_params(p),
+                     act_scales=calibrate_act_scales(p, images, cfg, schedule))
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from ..utils.schedule import Schedule, normalize_schedule
 from ..utils.timing import require_device
+from ..quant import ActScales
 from .vit import ViTConfig, get_config, init_params, model_stats, tree_to, vit_forward
 
 
@@ -22,8 +27,11 @@ class RAJNIViT:
 
     ``kernels`` is the forward's ``impl`` (``"auto"``, ``"cuda"`` or
     ``"torch"``). ``params`` defaults to :func:`init_params` drawn from
-    ``seed``; given params are moved to ``device`` and ``dtype``. The
-    device defaults to CUDA and raises without a card.
+    ``seed``; given params are moved to ``device`` and ``dtype`` (int8
+    records of :func:`..quant.quantize_params` keep their int8 weights and
+    fp32 scales). ``act_scales`` (:func:`..quant.calibrate_act_scales`)
+    selects static int8 scales for quantized params on the kernel route.
+    The device defaults to CUDA and raises without a card.
     """
 
     def __init__(
@@ -35,6 +43,7 @@ class RAJNIViT:
         kernels: str = "auto",
         seed: int = 0,
         device="cuda",
+        act_scales: ActScales | None = None,
     ):
         self.device = require_device(device)
         self.config = model if isinstance(model, ViTConfig) else get_config(model)
@@ -46,11 +55,13 @@ class RAJNIViT:
             params = tree_to(params, dtype=dtype, device=self.device)
         self.params = params
         self.impl = kernels
+        self.act_scales = act_scales
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         """``[B, H, W, 3] -> [B, num_classes]`` logits."""
         return vit_forward(
-            self.params, images.to(self.device), self.config, self.schedule, self.impl
+            self.params, images.to(self.device), self.config, self.schedule, self.impl,
+            self.act_scales,
         )
 
     def get_last_stats(self) -> dict:

@@ -7,6 +7,10 @@ The JAX tree stores linear kernels ``[in, out]``; the port stores
 in the same order. ``ls1``/``ls2`` are copied when present (absent means
 ones, as in the kernels). The caller converts the JAX arrays with
 ``jax.tree.map(np.asarray, params)``; this module never sees JAX.
+
+An int8 record of ``rajni_tpu.quant`` (``{"int8": [in, out], "scale": [1,
+out]}`` as a kernel) becomes the port's ``{"int8": [out, in], "scale":
+[out]}`` (:mod:`..quant`); ``tree_to`` keeps its int8 and fp32 dtypes.
 """
 
 from __future__ import annotations
@@ -17,11 +21,18 @@ import torch
 from ..models.vit import Params, tree_to
 
 
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).T))
+
+
 def _dense(d: dict) -> dict:
-    return {
-        "weight": torch.from_numpy(np.ascontiguousarray(np.asarray(d["kernel"]).T)),
-        "bias": torch.from_numpy(np.array(d["bias"])),
-    }
+    k = d["kernel"]
+    if isinstance(k, dict):  # int8 record
+        weight = {"int8": _t(k["int8"]),
+                  "scale": torch.from_numpy(np.array(k["scale"], np.float32).reshape(-1))}
+    else:
+        weight = _t(k)
+    return {"weight": weight, "bias": torch.from_numpy(np.array(d["bias"]))}
 
 
 def _norm(d: dict) -> dict:

@@ -2,10 +2,14 @@
 data)::
 
     python -m rajni_tpu_torch.run --synthetic 3 --batch_size 64 \\
-        --schedule schedule.json [--compare_base] [--kernels cuda] [--device cuda]
+        --schedule schedule.json [--compare_base] [--kernels cuda] [--device cuda] \\
+        [--quantize [--calibrate N [--save_scales f.json] | --load_scales f.json]]
 
 Parameters are random (drawn from ``--seed``): throughput is meaningful,
-accuracy is not. The dataset path, checkpoints, quantization, parallelism,
+accuracy is not. ``--quantize`` runs int8 weights (dynamic per-row
+activation scales); ``--calibrate N`` calibrates static scales on the first
+N batches before quantizing, ``--load_scales`` reads scales that
+``--save_scales`` wrote. The dataset path, checkpoints, parallelism,
 preprocessing modes, artifacts and profiling are not ported yet.
 """
 
@@ -18,6 +22,7 @@ import torch
 from .data.pipeline import SyntheticLoader
 from .eval import evaluate_model
 from .models.wrapper import RAJNIViT
+from .quant import ActScales, calibrate_act_scales, quantize_params
 from .utils.schedule import load_schedule, schedule_to_dict
 from .utils.timing import require_device
 
@@ -43,11 +48,38 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compare_base", action="store_true",
                    help="Also evaluate the unpruned model and print the speedup")
+    p.add_argument("--quantize", action="store_true",
+                   help="Int8 qkv, proj, fc1, fc2 and head weights (dynamic "
+                        "per-row activation scales)")
+    p.add_argument("--calibrate", type=int, default=0, metavar="N",
+                   help="With --quantize: calibrate static int8 activation "
+                        "scales on the first N batches")
+    p.add_argument("--save_scales", default=None, metavar="FILE",
+                   help="With --calibrate: also write the calibrated scales "
+                        "(pruned forward) to a JSON file")
+    p.add_argument("--load_scales", default=None, metavar="FILE",
+                   help="With --quantize: static scales written by "
+                        "--save_scales, instead of calibrating")
     return p.parse_args(argv)
+
+
+def _check_quant_args(args) -> None:
+    """The JAX CLI's rules, checked before any work."""
+    if args.calibrate and not args.quantize:
+        raise ValueError("--calibrate requires --quantize")
+    if args.save_scales and not (args.quantize and args.calibrate):
+        raise ValueError("--save_scales requires --quantize --calibrate N")
+    if args.load_scales:
+        if not args.quantize:
+            raise ValueError("--load_scales requires --quantize")
+        if args.calibrate:
+            raise ValueError("--load_scales and --calibrate are mutually exclusive "
+                             "(loading replaces calibration)")
 
 
 def main(argv=None):
     args = get_args(argv)
+    _check_quant_args(args)
     print("\nArgs:")
     for k, v in vars(args).items():
         print(f"  {k}: {v}")
@@ -55,6 +87,8 @@ def main(argv=None):
     if device.type == "cuda":
         print(f"Device: {torch.cuda.get_device_name(device)}")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if args.schedule is None:
+        raise ValueError("You must provide --schedule for RAJNI evaluation")
 
     base = RAJNIViT(args.model, None, dtype=dtype, kernels=args.kernels,
                     seed=args.seed, device=device)
@@ -65,6 +99,37 @@ def main(argv=None):
     )
     print(f"\nUsing {args.synthetic} synthetic batches of {args.batch_size} "
           "(random params: accuracy not meaningful)")
+    schedule = load_schedule(args.schedule, config.depth)
+
+    raw_params, params = base.params, base.params
+    calib = []
+    if args.calibrate:  # captured before quantization: calibration runs the raw weights
+        for i, (images, _) in enumerate(loader):
+            if i >= args.calibrate:
+                break
+            calib.append(torch.from_numpy(images).to(device))
+        print(f"Captured {len(calib)} calibration batches")
+    if args.quantize:
+        params = quantize_params(raw_params)
+        print("Quantized qkv, proj, fc1, fc2 and head weights to int8")
+    loaded = None
+    if args.load_scales:
+        loaded = ActScales.load(args.load_scales)
+        if len(loaded.blocks) != config.depth:
+            raise ValueError(f"{args.load_scales} holds scales for {len(loaded.blocks)} "
+                             f"blocks but {args.model} has {config.depth}")
+        print(f"Loaded static int8 activation scales from {args.load_scales}")
+
+    def scales_for(sched):
+        """Static scales for one forward: the loaded (pruned-forward) ones,
+        or calibrated with that forward's schedule; None: dynamic."""
+        if loaded is not None:
+            return loaded if sched is not None else None
+        if not calib:
+            return None
+        scales = calibrate_act_scales(raw_params, calib, config, sched)
+        print(f"Calibrated static int8 activation scales ({'pruned' if sched else 'base'} forward)")
+        return scales
 
     def run_eval(model):
         return evaluate_model(model, loader, device=device,
@@ -73,15 +138,18 @@ def main(argv=None):
     result = {}
     if args.compare_base:
         print("\nEvaluating BASE model")
-        result["base"] = run_eval(base)
+        result["base"] = run_eval(RAJNIViT(config, None, params=params, dtype=dtype,
+                                           kernels=args.kernels, device=device,
+                                           act_scales=scales_for(None)))
         print(f"Base  - Accuracy: {result['base'][0]:.2f}%, "
               f"Throughput: {result['base'][1]:.1f} img/s")
 
-    if args.schedule is None:
-        raise ValueError("You must provide --schedule for RAJNI evaluation")
-    schedule = load_schedule(args.schedule, config.depth)
-    model = RAJNIViT(config, schedule, params=base.params, dtype=dtype,
-                     kernels=args.kernels, device=device)
+    act_scales = scales_for(schedule)
+    if args.save_scales:
+        act_scales.save(args.save_scales)
+        print(f"Saved static int8 activation scales to {args.save_scales}")
+    model = RAJNIViT(config, schedule, params=params, dtype=dtype,
+                     kernels=args.kernels, device=device, act_scales=act_scales)
     print("\nLoaded RAJNI schedule:")
     for k, v in schedule_to_dict(schedule).items():
         print(f"  Layer {k}: {v}")

@@ -3,11 +3,14 @@
 
     python3 scripts/profile_torch_port.py [--model vit_base_patch16_224] [--batch 256] [--iters 3]
     python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128
+    python3 scripts/profile_torch_port.py --quantize [--calibrate]
 
 Runs the model in bf16 through ``RAJNIViT(kernels="cuda")`` with
 ``REFERENCE_SCHEDULE`` and with the identity schedule, under
 ``torch.profiler``, and prints for each: the device time per forward by
-kernel name, the wall time per forward and the device's busy share. Where a
+kernel name, the wall time per forward and the device's busy share.
+``--quantize`` runs int8 weights (dynamic scales); with ``--calibrate``,
+static scales calibrated on the profiled batch before quantization. Where a
 pruned block takes the two-kernel route (past 256 tokens), it also times that
 block's token selection in torch (``select_tokens_dense`` and the gather of
 the threaded scores), which is no kernel of the port, with CUDA events.
@@ -34,12 +37,17 @@ def main(argv=None) -> int:
     p.add_argument("--model", default="vit_base_patch16_224")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--quantize", action="store_true", help="int8 weights, dynamic scales")
+    p.add_argument("--calibrate", action="store_true",
+                   help="with --quantize: static scales calibrated on the batch")
     args = p.parse_args(argv)
+    if args.calibrate and not args.quantize:
+        p.error("--calibrate requires --quantize")
     if not torch.cuda.is_available():
         print("profile_torch_port: CUDA is not available", file=sys.stderr)
         return 2
 
-    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT, calibrate_act_scales, quantize_params
     from rajni_tpu_torch.kernels.block import ATTN_MAX_N
     from rajni_tpu_torch.ops.pruning import keep_count, select_tokens_dense
 
@@ -51,10 +59,20 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(1)
     pruned = RAJNIViT(args.model, REFERENCE_SCHEDULE, kernels="cuda", device=device)
-    base = RAJNIViT(args.model, None, params=pruned.params, kernels="cuda", device=device)
     side = pruned.config.img_size
     images = torch.randn(args.batch, side, side, 3, generator=gen).to(device)
-    print(f"model {args.model}, batch {args.batch}, token counts "
+    base = RAJNIViT(args.model, None, params=pruned.params, kernels="cuda", device=device)
+    if args.quantize:
+        raw, cfg = pruned.params, pruned.config
+        scales = {k: calibrate_act_scales(raw, images, cfg, s) if args.calibrate else None
+                  for k, s in (("pruned", REFERENCE_SCHEDULE), ("identity", None))}
+        q = quantize_params(raw)
+        pruned = RAJNIViT(args.model, REFERENCE_SCHEDULE, params=q, kernels="cuda",
+                          device=device, act_scales=scales["pruned"])
+        base = RAJNIViT(args.model, None, params=q, kernels="cuda", device=device,
+                        act_scales=scales["identity"])
+    mode = ("int8 static" if args.calibrate else "int8 dynamic") if args.quantize else "bf16"
+    print(f"model {args.model} ({mode}), batch {args.batch}, token counts "
           f"{pruned.get_last_stats()['token_counts']}")
 
     for label, model in (("pruned", pruned), ("identity", base)):
