@@ -7,8 +7,11 @@ Main paths: ViT-B/16 224 at batch 256 (K1-K3), ViT-B/16 384 at batch 128
 (577 tokens: K2, K3 and the long-sequence kernels B4-B6), and the whole-block
 paths at batch 256: DeiT-S/16 in bf16 (P3a: B7, B8), ViT-B/16 224 with int8
 weights and dynamic scales (P3b: B14, B15) or calibrated static scales (P3c),
-and DeiT-S/16 int8 dynamic (P3d: B14, B15 at hc 768). Steps, each of which
-fails the run (non-zero exit) when it goes wrong:
+and DeiT-S/16 int8 dynamic (P3d: B14, B15 at hc 768); and the split int8
+paths: ViT-B/16 384 int8 at batch 128 with dynamic (P4a) or calibrated static
+scales (P4b: B9, B10, B12, B13 with B5 and B15), and ViT-B/16 224 with
+MLP-only int8 at batch 256 (P4c: K1, K2, B9). Steps, each of which fails the
+run (non-zero exit) when it goes wrong:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rajni_tpu_torch/csrc`` into one library
@@ -20,9 +23,12 @@ fails the run (non-zero exit) when it goes wrong:
    ``fused_sdpa``, K2 and K3 at B=128 and the 384 path's; B7
    ``fused_pruned_block_full`` and B8 ``fused_attn_mlp_block`` at P3a's
    shapes; B14 ``fused_pruned_block_full_int8`` and B15
-   ``fused_block_full_int8`` at P3b's (dynamic and static) and B14 at P3d's.
-   Show that the comparison rejects faults planted in the plain versions
-   (the attention for K1-B8, the quantization for B14/B15), and time both
+   ``fused_block_full_int8`` at P3b's (dynamic and static) and B14 at P3d's;
+   B9 ``fused_ln_mlp_residual_int8``, B10 ``fused_attn_block_int8``, B12
+   ``fused_ln_qkv_int8``, B13 ``fused_gather_sdpa_proj_residual_int8`` and
+   B15 at P4a/P4b's (dynamic and static). Show that the comparison rejects
+   faults planted in the plain versions (the attention for K1-B8, the
+   quantization for the int8 kernels), and time both
    with CUDA events (B6 also beside ``F.scaled_dot_product_attention``,
    which the port never calls);
 4. run each path end to end through ``RAJNIViT``, pruned and with the
@@ -31,8 +37,8 @@ fails the run (non-zero exit) when it goes wrong:
    logits, distance to a reference forward (the ``kernels="torch"`` one;
    for int8, the same forward with the kernels' plain versions on the card,
    and the dequantized ``kernels="torch"`` one loosely), img/s and MFU;
-5. run the eval CLI in a subprocess: at 224 and at 384, and at 224 with
-   ``--quantize --calibrate 1``;
+5. run the eval CLI in a subprocess: at 224 and at 384, and at 224 and 384
+   with ``--quantize --calibrate 1``;
 6. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
@@ -60,6 +66,7 @@ DEIT_S = "deit_small_patch16_224"
 C_S, HEADS_S, HIDDEN_S = 384, 6, 1536  # DeiT-S/16 widths
 # the whole-block paths, named by model and int8 mode
 P3A, P3B, P3C, P3D = DEIT_S, f"{PATH224} int8", f"{PATH224} int8 static", f"{DEIT_S} int8"
+P4A, P4B, P4C = f"{PATH384} int8", f"{PATH384} int8 static", f"{PATH224} int8 MLP-only"
 # scripts/bench_suite.py:34 DEIT_S_DYNAMIC: blocks 3-10 keep 0.9, rescoring
 DEIT_S_SCHEDULE = {i: {"keep_ratio": 0.9, "update": True} for i in range(3, 11)}
 # Kernel vs its plain version. Both round the same intermediates to bf16 and
@@ -107,6 +114,14 @@ DEIT_GATE = (ATOL, RTOL, 5.7e-3)
 # for bf16.
 INT8_BRANCH_REL_L2 = 1.2e-2
 INT8_GATE = (0.25, RTOL, INT8_BRANCH_REL_L2)
+# The split int8 kernels (B9, B10, B12, B13) each hold one half of a block,
+# so fewer quantizers carry a last-bit difference into whole steps: on an
+# H100 SXM their branch read 5.4e-5 (B12) to 1.19e-3 (B10). Limit: 2.5x the
+# worst. That is tight enough to reject the subtle faults: B10's attention
+# output kept fp32 instead of rounded to bf16 (6.1e-3 to 1.1e-2) and B9's h
+# quantized over whole rows where hc < hidden (1.16e-2).
+SPLIT_INT8_BRANCH_REL_L2 = 3e-3
+SPLIT_INT8_GATE = (0.25, RTOL, SPLIT_INT8_BRANCH_REL_L2)
 # Int8 logits through the kernels vs the same forward through the plain
 # versions on the card (same quantization). Each block requantizes what the
 # last-bit differences of the blocks before it leave, so over twelve blocks
@@ -244,15 +259,32 @@ def reject_planted(name, got, plain, x, faults=FAULTS, plant=planted, limit=BRAN
 
 
 @contextlib.contextmanager
+def swapped(name: str, fn):
+    """Replace ``name`` in every kernel module of the port that holds it (the
+    plain versions look their helpers up there) while the block runs."""
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.kernels import wholeblock as wb
+
+    mods = [m for m in (kb, km, wb) if hasattr(m, name)]
+    sound = [getattr(m, name) for m in mods]
+    for m in mods:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, sound):
+            setattr(m, name, f)
+
+
+@contextlib.contextmanager
 def planted_int8(fault: str):
     """Swap a quantization helper of the int8 plain versions for a faulty
     one while the plain version runs."""
     import torch
 
-    from rajni_tpu_torch.kernels import wholeblock as wb
-
-    sound = {name: getattr(wb, name)
-             for name in ("quantize_rows", "fold_static_attn", "fold_static_mlp")}
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import math as kmath
 
     def per_tensor(y32):  # one scale for the whole tensor instead of one a row
         a = torch.clamp_min(y32.abs().amax(), 1e-8)
@@ -260,26 +292,41 @@ def planted_int8(fault: str):
         return q, (a * (1.0 / 127.0)).expand(*y32.shape[:-1], 1)
 
     def shifted(y32):  # each row dequantized with its neighbour's scale
-        q, a = sound["quantize_rows"](y32)
+        q, a = kmath.quantize_rows(y32)
         return q, torch.roll(a, 1, dims=-2)
 
     def no_bias_fold(lns, lnb, sqkv, sproj, bqkv, aq, ap):  # V-fold left out of bqkv
-        out = sound["fold_static_attn"](lns, lnb, sqkv, sproj, bqkv, aq, ap)
+        out = kmath.fold_static_attn(lns, lnb, sqkv, sproj, bqkv, aq, ap)
         return (*out[:4], bqkv.float())
 
+    def no_v_fold(lns, lnb, sqkv, sproj, bqkv, aq, ap):  # 1/a_proj folded nowhere
+        return kmath.fold_static_attn(lns, lnb, sqkv, sproj, bqkv, aq, 1.0)
+
     def no_sinv(lns, lnb, s1, s2, hidden, a1, a2):  # h quantized without 1/a_fc2
-        out = sound["fold_static_mlp"](lns, lnb, s1, s2, hidden, a1, a2)
+        out = kmath.fold_static_mlp(lns, lnb, s1, s2, hidden, a1, a2)
         return (*out[:4], torch.ones_like(out[4]))
+
+    sound_proj = kb._int8_proj_operands
+
+    def no_a_proj(proj_params, act_scale):  # B13's sproj without the a_proj fold
+        return sound_proj(proj_params, None)
+
+    sound_mha = kb._mha
+
+    def mha_fp32(qkv, num_heads, scale, out_dtype):  # B10's attention output not rounded
+        return sound_mha(qkv, num_heads, scale, torch.float32)
 
     name, fn = {"per-tensor scale": ("quantize_rows", per_tensor),
                 "row scales shifted": ("quantize_rows", shifted),
                 "bqkv without V-fold": ("fold_static_attn", no_bias_fold),
-                "h without 1/a_fc2": ("fold_static_mlp", no_sinv)}[fault]
-    setattr(wb, name, fn)
-    try:
+                "no V-fold": ("fold_static_attn", no_v_fold),
+                "h without 1/a_fc2": ("fold_static_mlp", no_sinv),
+                "sproj without a_proj": ("_int8_proj_operands", no_a_proj),
+                "attention output fp32": ("_mha", mha_fp32),
+                "h over whole rows": ("_hidden_chunk", lambda C_, hidden, itemsize: hidden),
+                }[fault]
+    with swapped(name, fn):
         yield
-    finally:
-        setattr(wb, name, sound[name])
 
 
 INT8_FAULTS = {False: ("per-tensor scale", "row scales shifted"),
@@ -327,6 +374,11 @@ KERNELS = {
     "fused_pruned_block_full_int8": ("csrc/pruned_block_full_int8.cu",
                                      "rajni_tpu/kernels/block.py:1770"),
     "fused_block_full_int8": ("csrc/block_full_int8.cu", "rajni_tpu/kernels/block.py:2403"),
+    "fused_ln_mlp_residual_int8": ("csrc/ln_mlp_int8.cu", "rajni_tpu/kernels/mlp.py:340"),
+    "fused_attn_block_int8": ("csrc/attn_block_int8.cu", "rajni_tpu/kernels/block.py:1268"),
+    "fused_ln_qkv_int8": ("csrc/ln_qkv_int8.cu", "rajni_tpu/kernels/block.py:1370"),
+    "fused_gather_sdpa_proj_residual_int8": ("csrc/gather_attn_int8.cu",
+                                             "rajni_tpu/kernels/block.py:1132"),
 }
 
 
@@ -610,33 +662,23 @@ def ln_float64():
     """The int8 plain versions with their LayerNorm statistics taken in
     float64: a last-bit change of the LN output, to read how far the
     quantizers carry such a change."""
-    from rajni_tpu_torch.kernels import wholeblock as wb
-
-    sound = wb._layer_norm_f32
-
     def ln64(x32, scale, bias, eps):
         x64 = x32.double()
         mean = x64.mean(dim=-1, keepdim=True)
         var = (x64 - mean).square().mean(dim=-1, keepdim=True)
         return ((x64 - mean) / (var + eps).sqrt()).float() * scale.float() + bias.float()
 
-    wb._layer_norm_f32 = ln64
-    try:
+    with swapped("_layer_norm_f32", ln64):
         yield
-    finally:
-        wb._layer_norm_f32 = sound
 
 
 def int8_scores(x, qblk, heads, act_scales):
     """B14's plain RAJNI scores of x: from the int8 qkv rounded to bf16."""
     from rajni_tpu_torch.kernels import block as kb
-    from rajni_tpu_torch.kernels import wholeblock as wb
 
-    ops = wb.int8_operands(qblk, act_scales)
-    y = kb._layer_norm_f32(x.float(), ops["ln1s"], ops["ln1b"], 1e-6)
-    qkv = wb._int8_matmul(y, qblk["attn"]["qkv"]["weight"]["int8"], ops["sqkv"],
-                          act_scales is not None)
-    return kb._importance_f32((qkv + ops["bqkv"]).to(x.dtype).float(), heads)
+    scales = None if act_scales is None else act_scales[:2]
+    return kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], heads, 1e-6, True,
+                                scales)[1]
 
 
 def int8_phases(device, peaks, int8_peak, results):
@@ -714,6 +756,185 @@ def int8_phases(device, peaks, int8_peak, results):
                        err, rel)
 
 
+@contextlib.contextmanager
+def forced_hc(hc):
+    """B9's hidden chunk forced to ``hc`` in the wrapper and the plain
+    version alike (``None``: the JAX rule's own)."""
+    from rajni_tpu_torch.kernels import mlp as km
+
+    if hc is None:
+        yield
+        return
+    sound = km._hidden_chunk
+    km._hidden_chunk = lambda C, hidden, itemsize: hc
+    try:
+        yield
+    finally:
+        km._hidden_chunk = sound
+
+
+def mlp_act_scales(blk, x):
+    """Static ``(a_fc1, a_fc2)`` of one bf16 MLP on its input x, calibrated
+    as ``quant.calibrate_act_scales`` does (absmax / 127)."""
+    import torch
+
+    from rajni_tpu_torch.kernels import mlp as km
+
+    y = km._layer_norm_f32(x.float(), blk["norm2"]["scale"], blk["norm2"]["bias"], 1e-6)
+    h = torch.nn.functional.gelu(km._mm(y, blk["mlp"]["fc1"]["weight"])
+                                 + blk["mlp"]["fc1"]["bias"].float())
+    return tuple(float(t.abs().amax()) / 127.0 for t in (y, h))
+
+
+def split_int8_phases(device, peaks, int8_peak, results):
+    """B9, B10, B12, B13 and B15 at the shapes of the int8 ViT-B/16 384 path
+    (B=128; P4a dynamic, P4b static): B10 at 577 (two-pass attention) and
+    197 (register), B12 at 577 and 442 with and without scores, B13 at
+    442→375 and 375→356, B9 at 577 and 356 rows with hc = hidden and
+    hidden/2, B15 at 356 (hc 1536)."""
+    import torch
+
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.kernels import wholeblock as wb
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+
+    Bl = B384
+    gen = torch.Generator().manual_seed(5)
+    blk = make_block(gen, device)
+    qblk = quantized_block(blk)
+    scale = (C // HEADS) ** -0.5
+    a_bytes = 4 * C * C + (9 * C) * 4  # int8 qkv + proj weights, fp32 vectors
+
+    def x_of(n):
+        return (X_STD * torch.randn(Bl, n, C, generator=gen)).to(device, torch.bfloat16)
+
+    def gate(tag, got, plain, x, faults, g=SPLIT_INT8_GATE):
+        """Hold got against plain(); each planted fault must be rejected."""
+        err, rel = compare(tag, got, plain(), x, g)
+        reject_planted(tag, got, plain, x, faults=faults, plant=planted_int8, limit=g[2])
+        return err, rel
+
+    def timed(name, path, shape, kernel, plain, bnd, err, rel):
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        record(results, name, path, shape, ms, plain_ms, bnd, err, rel)
+
+    for static in (False, True):
+        path, mode = (P4B, "static") if static else (P4A, "dynamic")
+
+        for n in (577, 197):  # B10
+            x = x_of(n)
+            sc = block_act_scales(blk, x, HEADS)[:2] if static else None
+            args = (x, qblk["norm1"], qblk["attn"], None, HEADS, scale, 1e-6, sc)
+            tag = f"B10 N={n} {mode}"
+            got = kb.fused_attn_block_int8(*args)
+            err, rel = gate(tag, got, lambda: kb.attn_block_int8_plain(*args), x,
+                            ("bqkv without V-fold" if static else "row scales shifted",
+                             "attention output fp32"))
+            M = Bl * n
+            bnd = bound(4.0 * Bl * n * n * C, 2 * M * C * 2 + a_bytes, peaks, 8.0 * M * C * C,
+                        int8_peak)
+            timed("fused_attn_block_int8", path, f"B={Bl} N={n} C={C}",
+                  lambda: kb.fused_attn_block_int8(*args), lambda: kb.attn_block_int8_plain(*args),
+                  bnd, err, rel)
+
+        for n in (577, 442):  # B12
+            x = x_of(n)
+            sc = block_act_scales(blk, x, HEADS)[:2] if static else None
+            for with_scores in (True, False):
+                args = (x, qblk["norm1"], qblk["attn"]["qkv"], HEADS, 1e-6, with_scores, sc)
+                tag = f"B12 N={n} {mode} with_scores={with_scores}"
+                gq, gs = kb.fused_ln_qkv_int8(*args)
+                wq, ws = kb.ln_qkv_int8_plain(*args)
+                # compared with V in its own units: static V carries 1/a_proj
+                col = torch.ones(3 * C, device=device)
+                if static:
+                    col[2 * C:] = sc[1]
+                err, rel = gate(tag, gq.float() * col,
+                                lambda: kb.ln_qkv_int8_plain(*args)[0].float() * col,
+                                torch.zeros_like(wq), ("no V-fold" if static
+                                                       else "row scales shifted",))
+                if with_scores:
+                    # the score kernel against the plain scoring of the kernel's
+                    # own qkv (held above); against the plain version's scores
+                    # a reading only: a quantizer flip in a k or v row moves a
+                    # score by more than a bf16 ulp does (1.1e-2 static, H100)
+                    own = kb._importance_f32(gq.float(), HEADS)
+                    srel = ((gs - own).abs() / own.abs()).max().item()
+                    prel = ((gs - ws).abs() / ws.abs()).max().item()
+                    print(f"{tag}: scores rel err max {srel:.3e} against its own qkv's, "
+                          f"{prel:.3e} against the plain version's")
+                    check(srel <= SCORE_RTOL, f"{tag}: scores rel err {srel} > {SCORE_RTOL}")
+                else:
+                    check(not bool(gs.any()), f"{tag}: scores are not all zero")
+                M = Bl * n
+                bnd = bound(0.0, M * C * 2 + 3 * C * C + 6 * C * 4 + M * 3 * C * 2 + M * 4, peaks,
+                            6.0 * M * C * C, int8_peak)
+                timed("fused_ln_qkv_int8", path, f"B={Bl} N={n} C={C} scores={with_scores}",
+                      lambda: kb.fused_ln_qkv_int8(*args), lambda: kb.ln_qkv_int8_plain(*args),
+                      bnd, err, rel)
+
+        for n, K in ((442, 375), (375, 356)):  # B13, on B12's (folded) qkv
+            x = x_of(n)
+            sc = block_act_scales(blk, x, HEADS)[:2] if static else None
+            qkv = kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], HEADS, 1e-6, False,
+                                       sc)[0]
+            keep_idx, _ = select_tokens_dense(torch.rand(Bl, n, generator=gen).to(device), K - 1,
+                                              torch.bool)
+            args = (qkv, keep_idx, x, qblk["attn"]["proj"], None, HEADS, scale,
+                    None if sc is None else sc[1])
+            tag = f"B13 N={n} K={K} {mode}"
+            x_kept = torch.take_along_dim(x, keep_idx[..., None], dim=1)
+            got = kb.fused_gather_sdpa_proj_residual_int8(*args)
+            err, rel = gate(tag, got, lambda: kb.gather_sdpa_proj_residual_int8_plain(*args),
+                            x_kept, ("sproj without a_proj" if static else "row scales shifted",))
+            bnd = bound(4.0 * Bl * K * K * C,
+                        Bl * K * (3 * C * 2 + C * 2 + 8 + C * 2) + C * C + 2 * C * 4, peaks,
+                        2.0 * Bl * K * C * C, int8_peak)
+            timed("fused_gather_sdpa_proj_residual_int8", path, f"B={Bl} N={n} K={K} C={C}",
+                  lambda: kb.fused_gather_sdpa_proj_residual_int8(*args),
+                  lambda: kb.gather_sdpa_proj_residual_int8_plain(*args), bnd, err, rel)
+
+        for n in (577, 356):  # B9
+            x = x_of(n)
+            sc = mlp_act_scales(blk, x) if static else None
+            args = (x, qblk["norm2"], qblk["mlp"], None, 1e-6, True, sc)
+            for hc in (None, HIDDEN // 2):
+                with forced_hc(hc):
+                    hc_now = km._hidden_chunk(C, HIDDEN, 1)
+                    tag = f"B9 rows={Bl}x{n} hc={hc_now} {mode}"
+                    got = km.fused_ln_mlp_residual_int8(*args)
+                    faults = ("h without 1/a_fc2" if static else "row scales shifted",)
+                    if hc is not None and not static:  # dynamic chunks: hc is numerics
+                        faults += ("h over whole rows",)
+                    err, rel = gate(tag, got, lambda: km.ln_mlp_residual_int8_plain(*args), x,
+                                    faults)
+                    M = Bl * n
+                    bnd = bound(0.0, 2 * M * C * 2 + 2 * C * HIDDEN + (5 * C + 2 * HIDDEN) * 4,
+                                peaks, 4.0 * M * C * HIDDEN, int8_peak)
+                    timed("fused_ln_mlp_residual_int8", path, f"B={Bl} N={n} C={C} hc={hc_now}",
+                          lambda: km.fused_ln_mlp_residual_int8(*args),
+                          lambda: km.ln_mlp_residual_int8_plain(*args), bnd, err, rel)
+
+        n = 356  # B15 past ATTN_MAX_N tokens (blocks 8-11)
+        x = x_of(n)
+        sc = block_act_scales(blk, x, HEADS) if static else None
+        args = (x, qblk, HEADS, scale, 1e-6, sc)
+        hc = wb._block_full_int8_plan(n, C, HIDDEN, 2)[1]
+        tag = f"B15 N={n} hc={hc} {mode}"
+        got = wb.fused_block_full_int8(*args)
+        err, rel = gate(tag, got, lambda: wb.block_full_int8_plain(*args), x,
+                        INT8_FAULTS[static], INT8_GATE)
+        M = Bl * n
+        bnd = bound(4.0 * Bl * n * n * C,
+                    2 * M * C * 2 + 4 * C * C + 2 * C * HIDDEN + (8 * C + 2 * HIDDEN) * 4, peaks,
+                    2.0 * M * (4 * C * C + 2 * C * HIDDEN), int8_peak)
+        timed("fused_block_full_int8", path, f"B={Bl} N={n} C={C} hc={hc}",
+              lambda: wb.fused_block_full_int8(*args), lambda: wb.block_full_int8_plain(*args),
+              bnd, err, rel)
+
+
 # Per path: model, weights, batch, image side, schedule, token counts, and
 # the launches of each kernel in one pruned and one identity forward.
 def launches(**counts):
@@ -723,11 +944,19 @@ def launches(**counts):
 
 COUNTED = ("fused_pruned_attn_block", "fused_attn_block", "fused_ln_mlp_residual", "fused_ln_qkv",
            "fused_gather_sdpa_proj_residual", "fused_sdpa", "fused_pruned_block_full",
-           "fused_attn_mlp_block", "fused_pruned_block_full_int8", "fused_block_full_int8")
+           "fused_attn_mlp_block", "fused_pruned_block_full_int8", "fused_block_full_int8",
+           "fused_ln_mlp_residual_int8", "fused_attn_block_int8", "fused_ln_qkv_int8",
+           "fused_gather_sdpa_proj_residual_int8")
+VIT_B384_COUNTS = [577, 577, 577, 577, 548, 520, 442, 375, 356, 356, 356, 356]
 VIT_B_COUNTS = [197, 197, 197, 197, 187, 177, 150, 127, 120, 120, 120, 120]
 DEIT_S_COUNTS = [197, 197, 197, 197, 177, 159, 143, 128, 115, 103, 92, 82]
 INT8_LAUNCHES = {"pruned": launches(fused_pruned_block_full_int8=5, fused_block_full_int8=7),
                  "identity": launches(fused_block_full_int8=12)}
+INT8_384_LAUNCHES = {
+    "pruned": launches(fused_attn_block_int8=3, fused_ln_mlp_residual_int8=8, fused_ln_qkv_int8=5,
+                       fused_gather_sdpa_proj_residual=3, fused_gather_sdpa_proj_residual_int8=2,
+                       fused_block_full_int8=4, fused_sdpa=12),
+    "identity": launches(fused_attn_block_int8=12, fused_ln_mlp_residual_int8=12, fused_sdpa=12)}
 PATHS = {
     PATH224: dict(
         model=PATH224, quant=None, batch=B, img=224, schedule="reference", counts=VIT_B_COUNTS,
@@ -739,7 +968,7 @@ PATHS = {
     # attention inside each K2 (7) and each B5 (5)
     PATH384: dict(
         model=PATH384, quant=None, batch=B384, img=384, schedule="reference",
-        counts=[577, 577, 577, 577, 548, 520, 442, 375, 356, 356, 356, 356],
+        counts=VIT_B384_COUNTS,
         launches={
             "pruned": launches(fused_attn_block=7, fused_ln_mlp_residual=12, fused_ln_qkv=5,
                                fused_gather_sdpa_proj_residual=5, fused_sdpa=12),
@@ -757,23 +986,44 @@ PATHS = {
         model=DEIT_S, quant="dynamic", batch=B, img=224, schedule="deit", counts=DEIT_S_COUNTS,
         launches={"pruned": launches(fused_pruned_block_full_int8=8, fused_block_full_int8=4),
                   "identity": launches(fused_block_full_int8=12)}),
+    # the split int8 kernels: blocks 0-2 B10 + B9, 3-5 B12 + bf16 B5 + B9, 6-7
+    # B12 + B13 + B9, 8-11 B15 at 356 tokens; the two-pass attention inside
+    # B10 (577), B5 (548, 520, 442), B13 (375, 356) and B15 (356)
+    P4A: dict(model=PATH384, quant="dynamic", batch=B384, img=384, schedule="reference",
+              counts=VIT_B384_COUNTS, launches=INT8_384_LAUNCHES),
+    P4B: dict(model=PATH384, quant="static", batch=B384, img=384, schedule="reference",
+              counts=VIT_B384_COUNTS, launches=INT8_384_LAUNCHES),
+    P4C: dict(
+        model=PATH224, quant="mlp", batch=B, img=224, schedule="reference", counts=VIT_B_COUNTS,
+        launches={"pruned": launches(fused_pruned_attn_block=5, fused_attn_block=7,
+                                     fused_ln_mlp_residual_int8=12),
+                  "identity": launches(fused_attn_block=12, fused_ln_mlp_residual_int8=12)}),
 }
 
 
 @contextlib.contextmanager
 def plain_int8_blocks():
-    """Route the forward's B14/B15 calls to their plain versions (the
-    reference forward of the int8 paths, on the card)."""
+    """Route the forward's int8 kernels (B9, B10, B12, B13, B14, B15) to their
+    plain versions (the reference forward of the int8 paths, on the card)."""
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import mlp as km
     from rajni_tpu_torch.kernels import wholeblock as wb
     from rajni_tpu_torch.models import vit as tvit
 
-    sound = (tvit.fused_pruned_block_full_int8, tvit.fused_block_full_int8)
-    tvit.fused_pruned_block_full_int8 = wb.pruned_block_full_int8_plain
-    tvit.fused_block_full_int8 = wb.block_full_int8_plain
+    plain = {"fused_pruned_block_full_int8": wb.pruned_block_full_int8_plain,
+             "fused_block_full_int8": wb.block_full_int8_plain,
+             "fused_ln_mlp_residual_int8": km.ln_mlp_residual_int8_plain,
+             "fused_attn_block_int8": kb.attn_block_int8_plain,
+             "fused_ln_qkv_int8": kb.ln_qkv_int8_plain,
+             "fused_gather_sdpa_proj_residual_int8": kb.gather_sdpa_proj_residual_int8_plain}
+    sound = {name: getattr(tvit, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(tvit, name, fn)
     try:
         yield
     finally:
-        tvit.fused_pruned_block_full_int8, tvit.fused_block_full_int8 = sound
+        for name, fn in sound.items():
+            setattr(tvit, name, fn)
 
 
 def end_to_end(device, device_name, results, path):
@@ -797,7 +1047,11 @@ def end_to_end(device, device_name, results, path):
                 "fused_pruned_block_full": wb.PRUNED_FULL_KERNEL,
                 "fused_attn_mlp_block": wb.ATTN_MLP_KERNEL,
                 "fused_pruned_block_full_int8": wb.PRUNED_FULL_INT8_KERNEL,
-                "fused_block_full_int8": wb.BLOCK_FULL_INT8_KERNEL}
+                "fused_block_full_int8": wb.BLOCK_FULL_INT8_KERNEL,
+                "fused_ln_mlp_residual_int8": km.INT8_KERNEL,
+                "fused_attn_block_int8": kb.ATTN_INT8_KERNEL,
+                "fused_ln_qkv_int8": kb.LN_QKV_INT8_KERNEL,
+                "fused_gather_sdpa_proj_residual_int8": kb.GATHER_INT8_KERNEL}
     spec = PATHS[path]
     batch, model_name = spec["batch"], spec["model"]
     schedule = REFERENCE_SCHEDULE if spec["schedule"] == "reference" else DEIT_S_SCHEDULE
@@ -807,7 +1061,7 @@ def end_to_end(device, device_name, results, path):
     images = torch.randn(batch, spec["img"], spec["img"], 3, generator=gen).to(device)
     params, scales = raw.params, {"pruned": None, "identity": None}
     if spec["quant"]:
-        params = quantize_params(raw.params)
+        params = quantize_params(raw.params, attn=spec["quant"] != "mlp")
         if spec["quant"] == "static":  # calibrated on this batch, before quantization
             scales = {k: calibrate_act_scales(raw.params, images, raw.config, v)
                       for k, v in scheds.items()}
@@ -868,7 +1122,8 @@ def eval_cli():
         sched = Path(tmp) / "schedule.json"
         sched.write_text(json.dumps({str(k): v for k, v in REFERENCE_SCHEDULE.items()}))
         for model, batch, extra in ((PATH224, 64, []), (PATH384, 32, []),
-                                    (PATH224, 64, ["--quantize", "--calibrate", "1"])):
+                                    (PATH224, 64, ["--quantize", "--calibrate", "1"]),
+                                    (PATH384, 32, ["--quantize", "--calibrate", "1"])):
             cmd = [sys.executable, "-m", "rajni_tpu_torch.run", "--synthetic", "3",
                    "--batch_size", str(batch), "--model", model, "--schedule", str(sched), *extra]
             p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -924,7 +1179,9 @@ def main() -> int:
     phases = [("kernel phases 224", lambda: kernel_phases(device, peaks, results)),
               ("kernel phases 384", lambda: long_phases(device, peaks, results)),
               ("kernel phases B7/B8", lambda: wholeblock_phases(device, peaks, results)),
-              ("kernel phases B14/B15", lambda: int8_phases(device, peaks, int8_peak, results))]
+              ("kernel phases B14/B15", lambda: int8_phases(device, peaks, int8_peak, results)),
+              ("kernel phases B9/B10/B12/B13",
+               lambda: split_int8_phases(device, peaks, int8_peak, results))]
     phases += [(f"end to end {path}", lambda path=path: end_to_end(device, device_name, results, path))
                for path in PATHS]
     for label, phase in phases + [("eval CLI", eval_cli)]:

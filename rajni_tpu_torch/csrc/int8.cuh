@@ -1,8 +1,10 @@
-// Int8 building blocks of the whole-block int8 kernels (B14
-// fused_pruned_block_full_int8, B15 fused_block_full_int8): LayerNorm
-// quantized straight to int8, a quantizer for fp32 rows, and an int8 GEMM
-// whose epilogue dequantizes. int8_block_head and int8_block_tail at the end
-// are the body of both entry points.
+// Int8 building blocks of the int8 kernels: the whole blocks (B14
+// fused_pruned_block_full_int8, B15 fused_block_full_int8) and the split
+// kernels (B9 fused_ln_mlp_residual_int8, B10 fused_attn_block_int8, B12
+// fused_ln_qkv_int8, B13 fused_gather_sdpa_proj_residual_int8): LayerNorm
+// quantized straight to int8, a quantizer for fp32 or bf16 rows, and an int8
+// GEMM whose epilogue dequantizes. The block body at the end is cut into
+// steps that each entry point runs its share of.
 //
 // Numeric contract (block.py:1609-1710 and 2279-2371, and the plain versions
 // in rajni_tpu_torch/kernels/wholeblock.py):
@@ -11,8 +13,12 @@
 //    stream between the two halves (:1673-1675, 2337-2339).
 //  * NOT rounded, fp32 until quantized: the LayerNorm outputs (:1640, 1680,
 //    2324, 2341), the GELU output h (:1692, 2353) and the attention output
-//    (_mha_mixed(..., float32), :1663, 2329). Every other launch of the port
-//    writes bf16; these write int8 (LayerNorm) or fp32 (attention, fc1).
+//    (_mha_mixed(..., float32), :1663, 2329; B13 the same, :1122). Every
+//    other launch of the port writes bf16; these write int8 (LayerNorm) or
+//    fp32 (attention, fc1). The one exception is B10, whose TPU kernel
+//    rounds its attention output to the activation dtype before quantizing
+//    it (_mha_mixed(..., x_ref.dtype, ...), :1255): its attention writes
+//    bf16 and its quantizer reads bf16.
 //  * Dynamic quantization is per row: absmax floored at 1e-8, then
 //    rint(y * (127 / absmax)), clipped to ±127, with the row scale
 //    absmax * (1/127). The reciprocal multiply, not y / scale (the two
@@ -143,15 +149,28 @@ inline cudaError_t launch_ln_quant(const bf16* x, const float* scale, const floa
 }
 
 // ---------------------------------------------------------------------------
-// Quantize fp32 rows [M, W] in groups of G columns: one warp per (row,
-// group), two passes over the group (absmax, then quantize). Dynamic: scale
-// to a_out[row * (W / G) + group]. Static: multiply by sinv (when given; the
-// attention output arrives pre-scaled by the V-column fold and has none),
-// round and clip.
+// Quantize rows [M, W] of fp32 (the int8 blocks' attention and GELU outputs)
+// or bf16 (B10's attention output, which the TPU kernel rounds to the
+// activation dtype first, block.py:1255) in groups of G columns: one warp
+// per (row, group), two passes over the group (absmax, then quantize).
+// Dynamic: scale to a_out[row * (W / G) + group]. Static: multiply by sinv
+// (when given; the attention output arrives pre-scaled by the V-column fold
+// and has none), round and clip. Requires W % 4 == 0 and G % 4 == 0.
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(256) quant_rows_kernel(
-    const float* __restrict__ y, const float* __restrict__ sinv, int8_t* __restrict__ q,
+    const T* __restrict__ y, const float* __restrict__ sinv, int8_t* __restrict__ q,
     float* __restrict__ a_out, int M, int W, int G, int static_act) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int groups = W / G;
@@ -159,14 +178,14 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
   if (item >= (long long)M * groups) return;
   const int row = (int)(item / groups), grp = (int)(item % groups);
   const size_t off = (size_t)row * W + (size_t)grp * G;
-  const float4* yr = reinterpret_cast<const float4*>(y + off);
+  const T* yr = y + off;
   const float4* si = sinv ? reinterpret_cast<const float4*>(sinv + (size_t)grp * G) : nullptr;
   const int nv = G / 4;
   float mul = 1.f;
   if (!static_act) {
     float amax = 0.f;
     for (int c = lane; c < nv; c += 32) {
-      const float4 t = yr[c];
+      const float4 t = load4(yr + 4 * c);
       amax = fmaxf(amax, fmaxf(fmaxf(fabsf(t.x), fabsf(t.y)), fmaxf(fabsf(t.z), fabsf(t.w))));
     }
     amax = fmaxf(warp_max(amax), 1e-8f);
@@ -175,18 +194,20 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
   }
   uint32_t* qr = reinterpret_cast<uint32_t*>(q + off);
   for (int c = lane; c < nv; c += 32) {
-    const float4 t = yr[c];
+    const float4 t = load4(yr + 4 * c);
     const float4 m = si ? si[c] : make_float4(mul, mul, mul, mul);
     qr[c] = pack4_s8(quant1(__fmul_rn(t.x, m.x)), quant1(__fmul_rn(t.y, m.y)),
                      quant1(__fmul_rn(t.z, m.z)), quant1(__fmul_rn(t.w, m.w)));
   }
 }
 
-inline cudaError_t launch_quant_rows(const float* y, const float* sinv, int8_t* q, float* a_out,
+template <typename T>
+inline cudaError_t launch_quant_rows(const T* y, const float* sinv, int8_t* q, float* a_out,
                                      int M, int W, int G, int static_act, cudaStream_t st) {
+  if (W % 4 || G % 4 || W % G) return cudaErrorInvalidValue;
   const long long items = (long long)M * (W / G);
-  quant_rows_kernel<<<(unsigned)((items + 7) / 8), 256, 0, st>>>(y, sinv, q, a_out, M, W, G,
-                                                                 static_act);
+  quant_rows_kernel<T><<<(unsigned)((items + 7) / 8), 256, 0, st>>>(y, sinv, q, a_out, M, W, G,
+                                                                    static_act);
   return cudaGetLastError();
 }
 
@@ -424,19 +445,24 @@ inline cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W, OutT* out, i
 }
 
 // ---------------------------------------------------------------------------
-// The body of B14 (pruned: idx/ns/scores given) and B15 (stock). Launch
-// steps (the return code's step, common.cuh:fail):
+// The int8 block bodies. B14 (pruned: idx/ns/scores given) and B15 (stock)
+// run every step; the split kernels run parts of them: B12
+// fused_ln_qkv_int8 steps 1-3, B10 fused_attn_block_int8 steps 1-2 and 5-7
+// (its attention output in bf16), B13 fused_gather_sdpa_proj_residual_int8
+// steps 5-7, B9 fused_ln_mlp_residual_int8 steps 8-11 on its input x.
+// Launch steps (the return code's step, common.cuh:fail):
 //   1 LN1 → int8 q8 [B·N, C] (+ row scales qs)
 //   2 qkv = dequant(q8 · Wqkvᵀ) + bqkv → bf16 [B·N, 3C]
-//   3 scores (B14 rescoring; common.cuh:score_kernel)   4 selection (B14)
-//   5 attention through the kept indices (B14) → fp32 attn [B·n, C]
+//   3 scores (B14 rescoring, B12; common.cuh:score_kernel)   4 selection (B14)
+//   5 attention through the kept indices (B14, B13) → fp32 attn [B·n, C]
+//     (B10: bf16)
 //   6 quantize attn per row → q8, qs
 //   7 proj: dequant + bproj, · ls1, + x (gathered) → bf16 x_mid [B·n, C]
 //   8 LN2 → int8 q8, qs
 //   9 fc1: gelu_fast(dequant + b1) → fp32 h [B·n, hidden]
 //  10 quantize h per row and hc chunk (static: · sinv) → hq, hs
 //  11 fc2, grouped over hc: dequant · s2 + b2, · ls2, + x_mid → bf16 out
-// with n = K (B14) or N (B15). Static mode passes no row scales.
+// with n = K (B14, B13) or N (B15, B10). Static mode passes no row scales.
 // ---------------------------------------------------------------------------
 
 struct Int8Block {
@@ -483,35 +509,55 @@ inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
   return e == cudaSuccess ? 0 : fail(e, 2);
 }
 
-// Steps 5-11, on the kept tokens sel [B, n] (B14) or on all of them (B15:
-// sel null, n = N).
-inline int int8_block_tail(const Int8Block& p, const int* sel, int n, cudaStream_t st) {
+// Steps 5-7, on the kept tokens sel [B, n] (B14, B13) or on all of them
+// (sel null, n = N): the attention of p.qkv into attn (fp32, or bf16 for
+// B10), its row quantizer, and proj with the (gathered) residual p.x into
+// out [B·n, C].
+template <typename AttnT>
+inline int int8_attn_tail(const Int8Block& p, const int* sel, int n, AttnT* attn, bf16* out,
+                          cudaStream_t st) {
   const int rows_n = p.B * n;
   const float* dyn = p.static_act ? nullptr : p.qs;
-  cudaError_t e = launch_attention_any(p.qkv, sel, p.attn, p.B, p.N, n, p.C, p.H, p.scale, st);
+  cudaError_t e = launch_attention_any(p.qkv, sel, attn, p.B, p.N, n, p.C, p.H, p.scale, st);
   if (e != cudaSuccess) return fail(e, 5);
-  e = launch_quant_rows(p.attn, nullptr, p.q8, p.qs, rows_n, p.C, p.C, p.static_act, st);
+  e = launch_quant_rows(attn, (const float*)nullptr, p.q8, p.qs, rows_n, p.C, p.C, p.static_act,
+                        st);
   if (e != cudaSuccess) return fail(e, 6);
-  e = launch_gemm_s8<I8_RESIDUAL>(p.q8, p.wproj, p.mid, rows_n, p.C, p.C,
+  e = launch_gemm_s8<I8_RESIDUAL>(p.q8, p.wproj, out, rows_n, p.C, p.C,
                                   I8EpilogueArgs{dyn, p.sproj, p.bproj, p.ls1, p.x, sel, n, p.N,
                                                  p.C},
                                   st);
-  if (e != cudaSuccess) return fail(e, 7);
-  e = launch_ln_quant(p.mid, p.ln2s, p.ln2b, p.q8, p.qs, rows_n, p.C, p.eps, p.static_act, st);
+  return e == cudaSuccess ? 0 : fail(e, 7);
+}
+
+// Steps 8-11 on rows xin [rows, C] → p.out, adding the residual res (xin,
+// or null for the branch alone).
+inline int int8_mlp(const Int8Block& p, const bf16* xin, const bf16* res, int rows,
+                    cudaStream_t st) {
+  const float* dyn = p.static_act ? nullptr : p.qs;
+  cudaError_t e = launch_ln_quant(xin, p.ln2s, p.ln2b, p.q8, p.qs, rows, p.C, p.eps,
+                                  p.static_act, st);
   if (e != cudaSuccess) return fail(e, 8);
-  e = launch_gemm_s8<I8_GELU>(p.q8, p.w1, p.h, rows_n, p.hidden, p.C,
+  e = launch_gemm_s8<I8_GELU>(p.q8, p.w1, p.h, rows, p.hidden, p.C,
                               I8EpilogueArgs{dyn, p.s1, p.b1, nullptr, nullptr, nullptr, 1, 1,
                                              p.C},
                               st);
   if (e != cudaSuccess) return fail(e, 9);
-  e = launch_quant_rows(p.h, p.static_act ? p.sinv : nullptr, p.hq, p.hs, rows_n, p.hidden,
-                        p.hc, p.static_act, st);
+  e = launch_quant_rows(p.h, p.static_act ? p.sinv : nullptr, p.hq, p.hs, rows, p.hidden, p.hc,
+                        p.static_act, st);
   if (e != cudaSuccess) return fail(e, 10);
-  e = launch_gemm_s8<I8_RESIDUAL>(p.hq, p.w2, p.out, rows_n, p.C, p.hidden,
+  e = launch_gemm_s8<I8_RESIDUAL>(p.hq, p.w2, p.out, rows, p.C, p.hidden,
                                   I8EpilogueArgs{p.static_act ? nullptr : p.hs, p.s2, p.b2, p.ls2,
-                                                 p.mid, nullptr, 1, 1, p.hc},
+                                                 res, nullptr, 1, 1, p.hc},
                                   st);
   return e == cudaSuccess ? 0 : fail(e, 11);
+}
+
+// Steps 5-11 of B14 and B15.
+inline int int8_block_tail(const Int8Block& p, const int* sel, int n, cudaStream_t st) {
+  const int rc = int8_attn_tail(p, sel, n, p.attn, p.mid, st);
+  if (rc != 0) return rc;
+  return int8_mlp(p, p.mid, p.mid, p.B * n, st);
 }
 
 }  // namespace

@@ -26,7 +26,8 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = (
     "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "ln_qkv.cu", "gather_attn.cu",
     "sdpa.cu", "pruned_block_full.cu", "attn_mlp_block.cu", "pruned_block_full_int8.cu",
-    "block_full_int8.cu",
+    "block_full_int8.cu", "ln_mlp_int8.cu", "attn_block_int8.cu", "ln_qkv_int8.cu",
+    "gather_attn_int8.cu",
 )
 LIBRARY = "librajni.so"
 NVCC_FLAGS = (

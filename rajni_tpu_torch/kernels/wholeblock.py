@@ -38,12 +38,15 @@ from .block import (
     HEAD_DIM,
     _check_attn_shapes,
     _importance_f32,
+    _int8_proj_residual,
+    _int8_qkv,
     attn_block_plain,
+    int8_attn_operands,
     pruned_attn_block_plain,
 )
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
-from .math import fold_static_attn, fold_static_mlp, gelu_fast, quantize_rows, quantize_static
-from .mlp import _layer_norm_f32, ln_mlp_residual_plain
+from .math import fold_static_attn, fold_static_mlp
+from .mlp import _ln_mlp_int8, int8_mlp_operands, ln_mlp_residual_plain
 from . import block as _block
 
 PRUNED_FULL_KERNEL = CudaKernel(
@@ -60,11 +63,32 @@ BLOCK_FULL_INT8_KERNEL = CudaKernel(
 )
 
 # ---------------------------------------------------------------------------
-# The JAX package's fit rules (rajni_tpu/kernels/block.py:87-102, 971,
-# 1728-1763, 2030-2053, 2193, 2374-2392), without its RAJNI_*_G knobs.
+# The JAX package's fit rules (rajni_tpu/kernels/block.py:87-102, 971-982,
+# 1497-1510, 1728-1763, 2030-2053, 2193, 2374-2392), without its RAJNI_*_G
+# knobs. _gather_fits_fast and _pruned_block_fits choose the split int8
+# route as JAX's forward does (rajni_tpu/models/vit.py:810, 867-870).
 # ---------------------------------------------------------------------------
 
 _VMEM_BUDGET = 14 * 1024 * 1024
+
+
+def _gather_fits_fast(N: int, K: int, C: int, itemsize: int) -> bool:
+    """Whether the fast gather tail fits (the int8 tail B13 runs only then;
+    otherwise the bf16 B5 on the dequantized proj weight)."""
+    io = 2 * (N * 3 * C + K * N + N * C + K * C) * itemsize
+    weights = C * C * itemsize
+    live = K * 3 * C * itemsize + K * N * 4 + 2 * K * C * 4
+    return io + weights + live <= _VMEM_BUDGET
+
+
+def _pruned_block_fits(N: int, K: int, C: int, itemsize: int) -> bool:
+    """Whether JAX's one-kernel pruned attention half (K1, or B11 with int8
+    weights) fits."""
+    io = 2 * (N * C + K * C + 2 * N) * itemsize
+    weights = 4 * C * C * itemsize
+    live = (N * 3 * C * itemsize + K * 3 * C * itemsize + 4 * N * N * 4 + K * N * 4
+            + 2 * K * C * 4)
+    return io + weights + live <= _VMEM_BUDGET
 
 
 def _bf16_g_candidates(C: int, pruned: bool) -> tuple[int, ...]:
@@ -162,40 +186,16 @@ def attn_mlp_block_plain(x, block, num_heads: int, scale: float, eps: float = 1e
     return ln_mlp_residual_plain(x_mid, block["norm2"], block["mlp"], block.get("ls2"), eps)
 
 
-def _int8_mm(q: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """``q @ wq.T`` of int8 operands, exact (float64), then rounded to fp32
-    as the int32 accumulator's conversion rounds."""
-    return (q.double() @ wq.double().t()).float()
-
-
-def _int8_matmul(y32, wq, ws, static: bool):
-    """``f32 [.., C] @ int8 weight -> f32``: quantize the rows (dynamic) or
-    only round them (static: ``y32`` arrives pre-scaled), then ``acc · a ·
-    w_scale`` (``block.py:_int8_matmul``)."""
-    if static:
-        return _int8_mm(quantize_static(y32), wq) * ws
-    q, a = quantize_rows(y32)
-    return _int8_mm(q, wq) * a * ws
-
-
 def int8_operands(block, act_scales=None) -> dict:
     """The fp32 vector operands of B14/B15: LN affines, weight scales and
     biases, with the static folds (:func:`..math.fold_static_attn`,
     :func:`..math.fold_static_mlp`) applied when ``act_scales = (a_qkv,
     a_proj, a_fc1, a_fc2)`` is given. ``sinv`` is None in dynamic mode."""
-    attn, mlp = block["attn"], block["mlp"]
-    hidden = mlp["fc1"]["weight"]["int8"].shape[0]
-    ops = {
-        "ln1s": block["norm1"]["scale"].float(), "ln1b": block["norm1"]["bias"].float(),
-        "sqkv": attn["qkv"]["weight"]["scale"].float(), "bqkv": attn["qkv"]["bias"].float(),
-        "sproj": attn["proj"]["weight"]["scale"].float(), "bproj": attn["proj"]["bias"].float(),
-        "ln2s": block["norm2"]["scale"].float(), "ln2b": block["norm2"]["bias"].float(),
-        "s1": mlp["fc1"]["weight"]["scale"].float(), "b1": mlp["fc1"]["bias"].float(),
-        "s2": mlp["fc2"]["weight"]["scale"].float(), "b2": mlp["fc2"]["bias"].float(),
-        "sinv": None,
-    }
+    ops = {**int8_attn_operands(block["norm1"], block["attn"]),
+           **int8_mlp_operands(block["norm2"], block["mlp"])}
     if act_scales is not None:
         aq, ap, a1, a2 = act_scales
+        hidden = block["mlp"]["fc1"]["weight"]["int8"].shape[0]
         ops["ln1s"], ops["ln1b"], ops["sqkv"], ops["sproj"], ops["bqkv"] = fold_static_attn(
             ops["ln1s"], ops["ln1b"], ops["sqkv"], ops["sproj"], ops["bqkv"], aq, ap)
         ops["ln2s"], ops["ln2b"], ops["s1"], ops["s2"], ops["sinv"] = fold_static_mlp(
@@ -203,51 +203,10 @@ def int8_operands(block, act_scales=None) -> dict:
     return {k: (v if v is None else v.contiguous()) for k, v in ops.items()}
 
 
-def _int8_mlp_plain(x_mid, block, ops, hc: int, static: bool, eps: float):
-    """The int8 MLP half: LN2 quantized (fp32 LN, never rounded), fc1 with
-    GELU in fp32, each hc chunk of h quantized with its own row scale, fc2
-    partial sums dequantized per chunk and added in fp32, then ``x_mid +
-    (acc · s2 + b2) · ls2`` (``block.py:1677-1710``)."""
-    w1q, w2q = block["mlp"]["fc1"]["weight"]["int8"], block["mlp"]["fc2"]["weight"]["int8"]
-    xm32 = x_mid.float()
-    y2 = _layer_norm_f32(xm32, ops["ln2s"], ops["ln2b"], eps)
-    if static:
-        y2q, a1 = quantize_static(y2), None
-    else:
-        y2q, a1 = quantize_rows(y2)
-    acc = None
-    for j in range(0, w1q.shape[0], hc):
-        h = _int8_mm(y2q, w1q[j:j + hc])
-        if not static:
-            h = h * a1
-        h = gelu_fast(h * ops["s1"][j:j + hc] + ops["b1"][j:j + hc])
-        if static:
-            hq, a2 = quantize_static(h * ops["sinv"][j:j + hc]), None
-        else:
-            hq, a2 = quantize_rows(h)
-        part = _int8_mm(hq, w2q[:, j:j + hc])
-        if not static:
-            part = part * a2
-        acc = part if acc is None else acc + part
-    out2 = acc * ops["s2"] + ops["b2"]
-    if block.get("ls2") is not None:
-        out2 = out2 * block["ls2"].float()
-    return (xm32 + out2).to(x_mid.dtype)
-
-
-def _int8_proj_residual(attn32, x_res32, block, ops, static: bool, dtype):
-    """``x + (proj(attn) + b) · ls1`` rounded: the half-boundary ``x_mid``."""
-    out = _int8_matmul(attn32, block["attn"]["proj"]["weight"]["int8"], ops["sproj"], static)
-    out = out + ops["bproj"]
-    if block.get("ls1") is not None:
-        out = out * block["ls1"].float()
-    return (x_res32 + out).to(dtype)
-
-
 def _plan_hc(plan, name: str, shape: str) -> int:
     if plan is None:
         raise ValueError(f"{name} has no plan at {shape}: the JAX route there is the split "
-                         "int8 kernels (B9-B13), which are not ported")
+                         "int8 kernels (B9-B13)")
     return plan[1]
 
 
@@ -263,18 +222,18 @@ def pruned_block_full_int8_plain(x, block, prev_scores, num_heads: int, keep: in
                   "fused_pruned_block_full_int8", f"N={N}, K={K}, C={C}, hidden={hidden}")
     static = act_scales is not None
     ops = int8_operands(block, act_scales)
-    x32 = x.float()
-    y = _layer_norm_f32(x32, ops["ln1s"], ops["ln1b"], eps)
-    qkv = _int8_matmul(y, block["attn"]["qkv"]["weight"]["int8"], ops["sqkv"], static)
-    qkv = (qkv + ops["bqkv"]).to(x.dtype)  # rounded before scoring (block.py:1644)
+    # rounded before scoring (block.py:1644)
+    qkv = _int8_qkv(x, block["attn"]["qkv"]["weight"]["int8"], ops, static, eps)
     s = _importance_f32(qkv.float(), num_heads) if with_scores else prev_scores.float()
     keep_idx, _ = select_tokens_dense(s, keep, torch.bool)
     next_scores = torch.take_along_dim(s, keep_idx, dim=1)
     idx = keep_idx[..., None]
     attn = _block._mha(torch.take_along_dim(qkv, idx, dim=1), num_heads, scale, torch.float32)
-    x_mid = _int8_proj_residual(attn, torch.take_along_dim(x32, idx, dim=1), block, ops,
+    x_mid = _int8_proj_residual(attn, torch.take_along_dim(x.float(), idx, dim=1),
+                                block["attn"]["proj"]["weight"]["int8"], block.get("ls1"), ops,
                                 static, x.dtype)
-    return _int8_mlp_plain(x_mid, block, ops, hc, static, eps), next_scores, keep_idx
+    return (_ln_mlp_int8(x_mid, block["mlp"], ops, block.get("ls2"), hc, eps), next_scores,
+            keep_idx)
 
 
 def block_full_int8_plain(x, block, num_heads: int, scale: float, eps: float = 1e-6,
@@ -286,14 +245,12 @@ def block_full_int8_plain(x, block, num_heads: int, scale: float, eps: float = 1
                   "fused_block_full_int8", f"N={N}, C={C}, hidden={hidden}")
     static = act_scales is not None
     ops = int8_operands(block, act_scales)
-    x32 = x.float()
-    y = _layer_norm_f32(x32, ops["ln1s"], ops["ln1b"], eps)
-    qkv = _int8_matmul(y, block["attn"]["qkv"]["weight"]["int8"], ops["sqkv"], static)
     # not rounded here, but the attention casts it (block.py:284)
-    qkv = (qkv + ops["bqkv"]).to(x.dtype)
+    qkv = _int8_qkv(x, block["attn"]["qkv"]["weight"]["int8"], ops, static, eps)
     attn = _block._mha(qkv, num_heads, scale, torch.float32)
-    x_mid = _int8_proj_residual(attn, x32, block, ops, static, x.dtype)
-    return _int8_mlp_plain(x_mid, block, ops, hc, static, eps)
+    x_mid = _int8_proj_residual(attn, x.float(), block["attn"]["proj"]["weight"]["int8"],
+                                block.get("ls1"), ops, static, x.dtype)
+    return _ln_mlp_int8(x_mid, block["mlp"], ops, block.get("ls2"), hc, eps)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,9 @@ hand-written kernels (the counterpart of ``"pallas"``), whose wrappers fall
 to their plain versions only for CPU tensors; ``"auto"`` is ``"cuda"`` on a
 CUDA tensor and ``"torch"`` elsewhere.
 
-Int8 params (:func:`..quant.quantize_params`) run the whole-block int8
-kernels B14/B15 on ``impl="cuda"``, with calibrated static scales when
+Int8 params (:func:`..quant.quantize_params`) run the int8 kernels on
+``impl="cuda"`` (the whole-block B14/B15 where the JAX plans fit, else the
+split kernels B9/B10/B12/B13), with calibrated static scales when
 ``act_scales`` is given, and an int8 head; ``impl="torch"`` dequantizes the
 weights, as JAX's ``"xla"`` route does.
 
@@ -40,17 +41,26 @@ import torch.nn.functional as F
 from ..kernels.block import (
     ATTN_MAX_N,
     fused_attn_block,
+    fused_attn_block_int8,
     fused_gather_sdpa_proj_residual,
+    fused_gather_sdpa_proj_residual_int8,
     fused_ln_qkv,
+    fused_ln_qkv_int8,
     fused_pruned_attn_block,
 )
 from ..kernels.math import quantize_rows, quantize_static
-from ..kernels.mlp import _layer_norm_f32, fused_ln_mlp_residual
+from ..kernels.mlp import (
+    _int8_mm,
+    _layer_norm_f32,
+    fused_ln_mlp_residual,
+    fused_ln_mlp_residual_int8,
+)
 from ..kernels.wholeblock import (
     _attn_mlp_block_fits,
     _bf16_full_plan,
     _block_full_int8_plan,
-    _int8_mm,
+    _gather_fits_fast,
+    _pruned_block_fits,
     _pruned_full_int8_plan,
     fused_attn_mlp_block,
     fused_block_full_int8,
@@ -312,13 +322,17 @@ def _layer_scale(out: torch.Tensor, block: Params, name: str) -> torch.Tensor:
     return out * block[name] if name in block else out
 
 
-def _mlp_branch(x: torch.Tensor, block: Params, config: ViTConfig, impl: str):
-    """``x + ls2 * mlp(norm2(x))``; K3 under ``impl="cuda"``."""
+def _mlp_branch(x: torch.Tensor, block: Params, config: ViTConfig, impl: str,
+                act_scales: tuple[float, float] | None = None):
+    """``x + ls2 * mlp(norm2(x))``; under ``impl="cuda"`` K3, or B9 with int8
+    fc1/fc2 (``act_scales``: the static ``(a_fc1, a_fc2)``)."""
+    eps = config.layer_norm_eps
+    if impl == "cuda" and is_quantized(block["mlp"]["fc1"]["weight"]):
+        return fused_ln_mlp_residual_int8(x, block["norm2"], block["mlp"], block.get("ls2"), eps,
+                                          act_scales=act_scales)
     if impl == "cuda":
-        return fused_ln_mlp_residual(
-            x, block["norm2"], block["mlp"], block.get("ls2"), config.layer_norm_eps
-        )
-    out = mlp(layer_norm(x, block["norm2"], config.layer_norm_eps), block["mlp"])
+        return fused_ln_mlp_residual(x, block["norm2"], block["mlp"], block.get("ls2"), eps)
+    out = mlp(layer_norm(x, block["norm2"], eps), block["mlp"])
     return x + _layer_scale(out, block, "ls2")
 
 
@@ -361,7 +375,7 @@ def _dequantized(block: Params, dtype) -> Params:
 def _unported(blk_i: int, what: str):
     return NotImplementedError(
         f"block {blk_i}: the JAX route here is {what}, which is not ported to CUDA yet "
-        "(ROADMAP B9-B13); the cuda route does not fall back to other kernels"
+        "(ROADMAP B11); the cuda route does not fall back to other kernels"
     )
 
 
@@ -388,25 +402,37 @@ def vit_forward(
 
     On ``impl="cuda"`` the blocks are routed where ``rajni_tpu/models/
     vit.py:749-1046`` routes them, by the JAX fit rules (copied in
-    ``kernels/wholeblock.py``). A pruned block rescores iff ``spec.update or
-    scores is None``.
+    ``kernels/wholeblock.py`` and ``kernels/mlp.py``). A pruned block
+    rescores iff ``spec.update or scores is None``.
 
-    * Int8 params: a pruned block runs B14 ``fused_pruned_block_full_int8``
-      where ``_pruned_full_int8_plan`` has a plan, a stock block B15
-      ``fused_block_full_int8`` where ``_block_full_int8_plan`` has one
-      (ViT-B/224 and DeiT-S: every block). Where JAX takes the split int8
-      kernels instead (ViT-B/384, ViT-L, ViT-H, MLP-only quantization),
-      this raises ``NotImplementedError`` naming them.
-    * bf16 params: B7 ``fused_pruned_block_full`` / B8
+    * Int8 attention and MLP: a pruned block runs B14
+      ``fused_pruned_block_full_int8`` where ``_pruned_full_int8_plan`` has a
+      plan, a stock block B15 ``fused_block_full_int8`` where
+      ``_block_full_int8_plan`` has one (ViT-B/224 and DeiT-S: every block;
+      ViT-B/384: blocks 8-11, at 356 tokens).
+    * Otherwise, int8 attention: a stock block runs B10
+      ``fused_attn_block_int8``. A pruned block where ``_pruned_block_fits``
+      holds takes JAX's one-kernel route, B11, which is not ported (raises
+      ``NotImplementedError``; ViT-L/16 224, DeiT-S/16 384). Elsewhere it
+      runs B12 ``fused_ln_qkv_int8``, the torch ``select_tokens_dense`` and a
+      tail chosen before B12 runs (``vit.py:863-870``): B13
+      ``fused_gather_sdpa_proj_residual_int8`` where ``_gather_fits_fast``
+      holds, with B12 given the static ``(a_qkv, a_proj)`` (the V-column
+      fold); else the bf16 B5 on the proj weight dequantized to bf16, with
+      B12 given no scales, since B5 does not undo the fold (ViT-B/384
+      blocks 3-5 take B5, 6-7 B13).
+    * bf16 attention and MLP: B7 ``fused_pruned_block_full`` / B8
       ``fused_attn_mlp_block`` where ``_bf16_full_plan`` fits (DeiT-S
       class) and the CUDA kernels take the shape (C % 128 == 0, head_dim
       64: narrower test widths keep the split kernels, which compute the
-      same function). Otherwise a pruned block's attention half runs
-      through K1 up to ``ATTN_MAX_N`` tokens, and past that through the
-      two-kernel route of ``vit.py:867-928`` (B4 ``fused_ln_qkv``, the
-      torch ``select_tokens_dense``, B5 ``fused_gather_sdpa_proj_residual``);
-      a stock block through K2; every MLP half through K3. That is the JAX
-      routing on ViT-B/224 (K1) and ViT-B/384 (two kernels).
+      same function).
+    * Otherwise bf16 attention (MLP-only int8 too): a pruned block through
+      K1 up to ``ATTN_MAX_N`` tokens, and past that through the two-kernel
+      route of ``vit.py:867-928`` (B4 ``fused_ln_qkv``, the torch
+      ``select_tokens_dense``, B5 ``fused_gather_sdpa_proj_residual``); a
+      stock block through K2.
+    * Every split MLP half: K3, or B9 ``fused_ln_mlp_residual_int8`` with
+      int8 fc1/fc2 (the static ``(a_fc1, a_fc2)``).
 
     The residual stream is compacted before the residual add, and a stock
     block resets the threaded scores. ``act_scales`` (calibrated static
@@ -430,84 +456,99 @@ def vit_forward(
         mlp_q = is_quantized(block["mlp"]["fc1"]["weight"])
         if impl == "torch" and (attn_q or mlp_q):
             block = _dequantized(block, x.dtype)
-        n, itemsize = x.shape[1], x.element_size()
+        n, itemsize, hidden = x.shape[1], x.element_size(), _hidden(block)
         blk_as = None if act_scales is None else act_scales.block(blk_i)
-        if impl == "cuda" and (attn_q or mlp_q):
-            hidden = _hidden(block)
-            if spec is not None:
-                keep = keep_count(spec.keep_ratio, n, 1)
-                if not (attn_q and mlp_q):
-                    raise _unported(blk_i, "K1 or B11/B12/B13 with B9 fused_ln_mlp_residual_int8")
-                if _pruned_full_int8_plan(n, keep + 1, C, hidden, itemsize) is None:
-                    raise _unported(blk_i, "B11 fused_pruned_attn_block_int8 (or B12 "
-                                    "fused_ln_qkv_int8 + B13) with B9 fused_ln_mlp_residual_int8")
-                x, scores, keep_idx = fused_pruned_block_full_int8(
-                    x, block, scores, H, keep, scale, eps, spec.update or scores is None,
-                    blk_as,
-                )
-                if _sel_tap is not None:
-                    _sel_tap(blk_i, keep_idx)
-                continue
-            if not (attn_q and mlp_q) or _block_full_int8_plan(n, C, hidden, itemsize) is None:
-                raise _unported(blk_i, "B10 fused_attn_block_int8 with B9 "
-                                "fused_ln_mlp_residual_int8")
-            x = fused_block_full_int8(x, block, H, scale, eps, blk_as)
-            scores = None
-            continue
+        mlp_as = None if blk_as is None else blk_as[2:4]
+        cuda = impl == "cuda"
         if spec is not None:
-            keep = keep_count(spec.keep_ratio, x.shape[1], 1)
+            keep = keep_count(spec.keep_ratio, n, 1)
+            K = keep + 1
             with_scores = spec.update or scores is None
-            if (impl == "cuda" and _bf16_full_plan(n, keep + 1, C, _hidden(block), itemsize)
-                    and hopper_block_shape_ok(n, C, H, _hidden(block), pruned=True)):
+            if cuda and attn_q and mlp_q and _pruned_full_int8_plan(n, K, C, hidden, itemsize):
+                x, scores, keep_idx = fused_pruned_block_full_int8(
+                    x, block, scores, H, keep, scale, eps, with_scores, blk_as)
+            elif (cuda and not (attn_q or mlp_q) and _bf16_full_plan(n, K, C, hidden, itemsize)
+                  and hopper_block_shape_ok(n, C, H, hidden, pruned=True)):
                 x, scores, keep_idx = fused_pruned_block_full(
-                    x, block, scores, H, keep, scale, eps, with_scores,
-                )
-                if _sel_tap is not None:
-                    _sel_tap(blk_i, keep_idx)
-                continue
-            if impl == "cuda" and x.shape[1] <= ATTN_MAX_N:
-                x, scores, keep_idx = fused_pruned_attn_block(
-                    x, block["norm1"], block["attn"], block.get("ls1"), scores,
-                    config.num_heads, keep, config.attn_scale, eps, with_scores,
-                )
-            elif impl == "cuda":
-                qkv, new_scores = fused_ln_qkv(
-                    x, block["norm1"], block["attn"]["qkv"], config.num_heads, eps,
-                    with_scores,
-                )
-                if with_scores:
-                    scores = new_scores
-                keep_idx, _ = select_tokens_dense(scores, keep, torch.bool)
-                scores = torch.take_along_dim(scores, keep_idx, dim=1)
-                x = fused_gather_sdpa_proj_residual(
-                    qkv, keep_idx, x, block["attn"]["proj"], block.get("ls1"),
-                    config.num_heads, config.attn_scale,
-                )
+                    x, block, scores, H, keep, scale, eps, with_scores)
             else:
-                out, keep_idx, scores = pruned_attention(
-                    layer_norm(x, block["norm1"], eps), block["attn"],
-                    config.num_heads, config.attn_scale, keep, spec.update, scores,
-                )
-                # residual-stream compaction BEFORE the residual add
-                x = gather_tokens(x, keep_idx) + _layer_scale(out, block, "ls1")
+                x, scores, keep_idx = _pruned_halves(
+                    blk_i, x, block, config, impl, spec, keep, scores, with_scores, blk_as)
             if _sel_tap is not None:
                 _sel_tap(blk_i, keep_idx)
-            x = _mlp_branch(x, block, config, impl)
-        elif (impl == "cuda" and _attn_mlp_block_fits(n, C, _hidden(block), itemsize)
-              and hopper_block_shape_ok(n, C, H, _hidden(block), pruned=False)):
+            continue
+        scores = None
+        if cuda and attn_q and mlp_q and _block_full_int8_plan(n, C, hidden, itemsize):
+            x = fused_block_full_int8(x, block, H, scale, eps, blk_as)
+        elif (cuda and not (attn_q or mlp_q) and _attn_mlp_block_fits(n, C, hidden, itemsize)
+              and hopper_block_shape_ok(n, C, H, hidden, pruned=False)):
             x = fused_attn_mlp_block(x, block, H, scale, eps)
-            scores = None
-        elif impl == "cuda":
-            x = fused_attn_block(
-                x, block["norm1"], block["attn"], block.get("ls1"),
-                config.num_heads, config.attn_scale, eps,
-            )
-            x = _mlp_branch(x, block, config, impl)
-            scores = None
+        elif cuda:
+            if attn_q:
+                x = fused_attn_block_int8(x, block["norm1"], block["attn"], block.get("ls1"), H,
+                                          scale, eps, None if blk_as is None else blk_as[:2])
+            else:
+                x = fused_attn_block(x, block["norm1"], block["attn"], block.get("ls1"), H,
+                                     scale, eps)
+            x = _mlp_branch(x, block, config, impl, mlp_as)
         else:
             x = stock_block(x, block, config)
-            scores = None
     return classifier_head(x, params, config, act_scales, impl)
+
+
+def _pruned_halves(blk_i: int, x, block: Params, config: ViTConfig, impl: str, spec, keep: int,
+                   scores, with_scores: bool, blk_as):
+    """A pruned block as its attention half, then its MLP half (the routes
+    of :func:`vit_forward` without a whole-block kernel). Returns ``(x,
+    next_scores, keep_idx)``."""
+    eps, H, scale = config.layer_norm_eps, config.num_heads, config.attn_scale
+    C, n, K, itemsize = config.embed_dim, x.shape[1], keep + 1, x.element_size()
+    if impl == "cuda" and is_quantized(block["attn"]["qkv"]["weight"]):
+        if _pruned_block_fits(n, K, C, itemsize):
+            raise _unported(blk_i, "B11 fused_pruned_attn_block_int8")
+        # the V-column fold is undone only by the int8 tail: decide the tail
+        # before B12 runs (rajni_tpu/models/vit.py:863-870)
+        int8_tail = _gather_fits_fast(n, K, C, itemsize)
+        qkv, new_scores = fused_ln_qkv_int8(
+            x, block["norm1"], block["attn"]["qkv"], H, eps, with_scores,
+            None if blk_as is None or not int8_tail else blk_as[:2],
+        )
+    elif impl == "cuda" and n > ATTN_MAX_N:
+        qkv, new_scores = fused_ln_qkv(x, block["norm1"], block["attn"]["qkv"], H, eps,
+                                       with_scores)
+        int8_tail = None
+    elif impl == "cuda":
+        x, scores, keep_idx = fused_pruned_attn_block(
+            x, block["norm1"], block["attn"], block.get("ls1"), scores, H, keep, scale, eps,
+            with_scores,
+        )
+        qkv = None
+    else:
+        out, keep_idx, scores = pruned_attention(
+            layer_norm(x, block["norm1"], eps), block["attn"], H, scale, keep, spec.update,
+            scores,
+        )
+        # residual-stream compaction BEFORE the residual add
+        x = gather_tokens(x, keep_idx) + _layer_scale(out, block, "ls1")
+        qkv = None
+    if qkv is not None:  # the two-kernel route: B4 or B12, selection, tail
+        if with_scores:
+            scores = new_scores
+        keep_idx, _ = select_tokens_dense(scores, keep, torch.bool)
+        scores = torch.take_along_dim(scores, keep_idx, dim=1)
+        if int8_tail:
+            x = fused_gather_sdpa_proj_residual_int8(
+                qkv, keep_idx, x, block["attn"]["proj"], block.get("ls1"), H, scale,
+                None if blk_as is None else blk_as[1],
+            )
+        else:
+            proj = block["attn"]["proj"]
+            if int8_tail is not None:  # int8 weights, bf16 tail
+                proj = {**proj, "weight": dequantize_weight(proj["weight"], x.dtype)}
+            x = fused_gather_sdpa_proj_residual(qkv, keep_idx, x, proj, block.get("ls1"), H,
+                                                scale)
+    mlp_as = None if blk_as is None else blk_as[2:4]
+    return _mlp_branch(x, block, config, impl, mlp_as), scores, keep_idx
 
 
 def _hidden(block: Params) -> int:

@@ -4,13 +4,15 @@
     python3 scripts/profile_torch_port.py [--model vit_base_patch16_224] [--batch 256] [--iters 3]
     python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128
     python3 scripts/profile_torch_port.py --quantize [--calibrate]
+    python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128 --quantize [--calibrate]
 
 Runs the model in bf16 through ``RAJNIViT(kernels="cuda")`` with
 ``REFERENCE_SCHEDULE`` and with the identity schedule, under
 ``torch.profiler``, and prints for each: the device time per forward by
 kernel name, the wall time per forward and the device's busy share.
 ``--quantize`` runs int8 weights (dynamic scales); with ``--calibrate``,
-static scales calibrated on the profiled batch before quantization. Where a
+static scales calibrated on the profiled batch before quantization (at 384
+tokens that is the split int8 route: B9, B10, B12, B13, B5 and B15). Where a
 pruned block takes the two-kernel route (past 256 tokens), it also times that
 block's token selection in torch (``select_tokens_dense`` and the gather of
 the threaded scores), which is no kernel of the port, with CUDA events.

@@ -466,25 +466,26 @@ def test_narrow_forward_matches_jax(rng, monkeypatch, mode):
 
 
 def test_quantized_routes_without_a_plan_raise(rng, monkeypatch):
-    """Where the JAX int8 route is the split kernels (B9-B13), the cuda route
-    raises and names them; it never falls back."""
+    """Where the JAX int8 route is the one unported split kernel, B11 (a
+    pruned block with no whole-block plan whose one-kernel attention half
+    fits), the cuda route raises and names it; it never falls back. The
+    other routes without a plan run the split kernels."""
     _, tcfg, jp, images = _setup(rng)
     tp = params_from_numpy(jp)
     x = torch.from_numpy(images)
     mlp_only = tquant.quantize_params(tp, attn=False)
-    with pytest.raises(NotImplementedError, match="B9"):
-        tvit.vit_forward(mlp_only, x, tcfg, None, "cuda")
-    with pytest.raises(NotImplementedError, match="B9"):
-        tvit.vit_forward(mlp_only, x, tcfg, SCHED, "cuda")
     q = tquant.quantize_params(tp)
+    sched = {0: {"keep_ratio": 0.5}}
     monkeypatch.setattr(tvit, "_block_full_int8_plan", lambda *a: None)
-    with pytest.raises(NotImplementedError, match="B10"):
-        tvit.vit_forward(q, x, tcfg, None, "cuda")
+    for params in (mlp_only, q):  # K1/K2 or B10, with B9
+        assert torch.isfinite(tvit.vit_forward(params, x, tcfg, None, "cuda")).all()
     monkeypatch.setattr(tvit, "_pruned_full_int8_plan", lambda *a: None)
-    with pytest.raises(NotImplementedError, match="B11"):
-        tvit.vit_forward(q, x, tcfg, {0: {"keep_ratio": 0.5}}, "cuda")
+    with pytest.raises(NotImplementedError, match="B11") as raised:
+        tvit.vit_forward(q, x, tcfg, sched, "cuda")
+    assert "B9" not in str(raised.value) and "B12" not in str(raised.value)
     # the ops path runs them (dequantized), as JAX's "xla" route does
     assert torch.isfinite(tvit.vit_forward(mlp_only, x, tcfg, SCHED, "torch")).all()
+    assert torch.isfinite(tvit.vit_forward(q, x, tcfg, sched, "torch")).all()
 
 
 def test_whole_block_wrappers_refuse_other_devices(rng):
