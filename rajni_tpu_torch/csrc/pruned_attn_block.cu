@@ -7,7 +7,12 @@
 // Replaces the TPU kernel rajni_tpu/kernels/block.py:fused_pruned_attn_block
 // (pallas_call at block.py:1553), with its helpers _importance_f32
 // (block.py:340, common.cuh:score_kernel) and _select_from_scores
-// (block.py:722, common.cuh:select_kernel).
+// (block.py:722, common.cuh:select_kernel). The same entry point also
+// replaces B20, rajni_tpu/kernels/longseq.py:fused_pruned_attn_block_long
+// (pallas_call at longseq.py:306): the same function at any N up to
+// SDPA_MAX_N. That kernel's 128-row token chunking is a VMEM device and is
+// not carried over; its wrapper (kernels/longseq.py) admits the longer N and
+// counts its own launches.
 //
 // Bound on the H100: compute. At batch 256, N=197→K=187 the QKV (at N),
 // proj (at K) and attention (at K) products are ~2.6e11 FLOP; scoring and
@@ -19,8 +24,9 @@
 // threaded scores are used), the selection kernel (one block per
 // image), the shared attention kernel reading q/k/v rows through the kept
 // indices (a gather is exactly what the TPU kernel's one-hot product
-// computes, since sel is 0/1), and GEMM proj whose residual epilogue reads
-// the pre-norm x rows through the same indices.
+// computes, since sel is 0/1; register-resident up to ATTN_MAX_N kept
+// tokens, the two-pass kernel of B6 past that), and GEMM proj whose residual
+// epilogue reads the pre-norm x rows through the same indices.
 #include "common.cuh"
 
 using namespace rajni;
@@ -53,8 +59,8 @@ extern "C" int rajni_pruned_attn_block(
   e = launch_select(scores, static_cast<int*>(idx_out), static_cast<float*>(ns_out), B, N, K, st);
   if (e != cudaSuccess) return fail(e, 4);
 
-  e = launch_attention(static_cast<const bf16*>(qkv_scratch), static_cast<const int*>(idx_out),
-                       static_cast<bf16*>(attn_scratch), B, N, K, C, H, scale, st);
+  e = launch_attention_any(static_cast<const bf16*>(qkv_scratch), static_cast<const int*>(idx_out),
+                           static_cast<bf16*>(attn_scratch), B, N, K, C, H, scale, st);
   if (e != cudaSuccess) return fail(e, 5);
 
   EpilogueArgs ep2{static_cast<const bf16*>(bproj), static_cast<const bf16*>(ls),

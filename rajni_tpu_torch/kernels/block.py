@@ -1,15 +1,18 @@
 """The attention halves of a block: K1 ``fused_pruned_attn_block``, K2
 ``fused_attn_block``, the two kernels of the long-sequence pruned route, B4
-``fused_ln_qkv`` and B5 ``fused_gather_sdpa_proj_residual``, and their int8
-counterparts B10 ``fused_attn_block_int8``, B12 ``fused_ln_qkv_int8`` and
-B13 ``fused_gather_sdpa_proj_residual_int8``.
+``fused_ln_qkv`` and B5 ``fused_gather_sdpa_proj_residual``, their int8
+counterparts B11 ``fused_pruned_attn_block_int8``, B10
+``fused_attn_block_int8``, B12 ``fused_ln_qkv_int8`` and B13
+``fused_gather_sdpa_proj_residual_int8``, and B19 ``fused_ln_qkv_select``
+(B4 with the selection in the same call, which no route takes).
 
 Ports of the functions of the same names in ``rajni_tpu/kernels/block.py``.
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/pruned_attn_block.cu``, ``csrc/attn_block.cu``, ``csrc/ln_qkv.cu``,
-``csrc/gather_attn.cu``, ``csrc/attn_block_int8.cu``, ``csrc/ln_qkv_int8.cu``,
-``csrc/gather_attn_int8.cu``); on a CPU tensor it runs the plain PyTorch
-version beside it.
+``csrc/gather_attn.cu``, ``csrc/pruned_attn_block_int8.cu``,
+``csrc/attn_block_int8.cu``, ``csrc/ln_qkv_int8.cu``,
+``csrc/gather_attn_int8.cu``, ``csrc/ln_qkv_select.cu``); on a CPU tensor
+it runs the plain PyTorch version beside it.
 
 Numeric contract (shared with the TPU kernels, ``block.py:30-31``):
   * LayerNorm statistics fp32, normed rows rounded to the activation dtype;
@@ -35,12 +38,15 @@ two-pass kernel (``N > ATTN_MAX_N``) per-head. At head_dim 64 the scale is
 The int8 kernels (``block.py:1098-1440``) quantize the LN output straight
 from fp32 and the attention output before proj, per row or with calibrated
 static scales folded into the operands (:func:`..math.fold_static_attn`);
-qkv is rounded to the activation dtype (B12 stores it, B10's attention casts
-it). B10 rounds its attention output to the activation dtype before
-quantizing it (``_mha_mixed(..., x_ref.dtype, ...)``, ``block.py:1255``);
-B13, like B14 and B15, keeps it fp32 (``block.py:1122``). Under static
-scales B12 folds ``1/a_proj`` into the V columns, which only B13 undoes:
-a caller that sends B12's qkv to B5 passes no scales to B12.
+qkv is rounded to the activation dtype (B11 and B12 score it, B12 stores it,
+B10's attention casts it). B10 and B11 round their attention output to the
+activation dtype before quantizing it (``_mha_mixed(..., x_ref.dtype,
+...)``, ``block.py:1255``, and ``_mha_mixed(..., dtype, dtype, ...)``,
+``block.py:2566``); B13, like B14 and B15, keeps it fp32 (``block.py:1122``).
+Under static scales B12 folds ``1/a_proj`` into the V columns, which only
+B13 undoes: a caller that sends B12's qkv to B5 passes no scales to B12.
+B11 always folds (``block.py:2611-2614``), since its own proj undoes it; its
+scores then come from the pre-scaled V.
 """
 
 from __future__ import annotations
@@ -85,6 +91,10 @@ LN_QKV_INT8_KERNEL = CudaKernel(
 GATHER_INT8_KERNEL = CudaKernel(
     "rajni_gather_sdpa_proj_residual_int8", [P] * 7 + [I] + [P] * 4 + [I] * 5 + [F, P],
 )
+PRUNED_INT8_KERNEL = CudaKernel(
+    "rajni_pruned_attn_block_int8", [P] * 11 + [I, I] + [P] * 8 + [I] * 5 + [F, F, P],
+)
+LN_QKV_SELECT_KERNEL = CudaKernel("rajni_ln_qkv_select", [P] * 11 + [I] * 5 + [F, P])
 
 
 def _mha(qkv: torch.Tensor, num_heads: int, scale: float, out_dtype) -> torch.Tensor:
@@ -214,6 +224,16 @@ def _check_ln_qkv(x: torch.Tensor, qkv_params, with_scores: bool) -> None:
         )
 
 
+def _check_prev_scores(prev_scores, with_scores: bool, B: int, N: int):
+    """The threaded scores for the card (None when rescoring)."""
+    if with_scores:
+        return None
+    check_cuda(torch.float32, prev_scores=prev_scores)
+    if prev_scores.shape != (B, N):
+        raise ValueError(f"prev_scores must be [{B}, {N}], got {tuple(prev_scores.shape)}")
+    return prev_scores
+
+
 def _score_smem(N: int, C: int, H: int) -> int:
     """csrc/common.cuh:score_smem."""
     return (C + H * N + N * (C // H) + 2 * N + C // H + 2) * 4
@@ -272,12 +292,7 @@ def fused_pruned_attn_block(
         wqkv=qkv_p["weight"], bqkv=qkv_p["bias"], wproj=proj_p["weight"],
         bproj=proj_p["bias"], ls=ls,
     )
-    prev = None
-    if not with_scores:
-        prev = prev_scores
-        check_cuda(torch.float32, prev_scores=prev)
-        if prev.shape != (B, N):
-            raise ValueError(f"prev_scores must be [{B}, {N}], got {tuple(prev.shape)}")
+    prev = _check_prev_scores(prev_scores, with_scores, B, N)
     _check_attn_shapes("fused_pruned_attn_block", N, C, num_heads, ATTN_MAX_N)
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
@@ -590,3 +605,126 @@ def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_
     if K > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
         SDPA_KERNEL.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# B11: the pruned attention half with int8 qkv and proj weights
+# ---------------------------------------------------------------------------
+
+
+def pruned_attn_block_int8_plain(x, ln_params, attn_params, ls, prev_scores, num_heads: int,
+                                 keep: int, scale: float, eps: float = 1e-6,
+                                 with_scores: bool = True, act_scales=None):
+    """Plain PyTorch version of B11 (``block.py:2527-2577``): ``(x [B, K,
+    C], next_scores [B, K], keep_idx [B, K])``. qkv rounded to the
+    activation dtype and scored; the attention output rounded to it before
+    it is quantized (B10's rounding, not B13's)."""
+    static = act_scales is not None
+    ops = int8_attn_operands(ln_params, attn_params, act_scales)
+    qkv = _int8_qkv(x, attn_params["qkv"]["weight"]["int8"], ops, static, eps)
+    s = _importance_f32(qkv.float(), num_heads) if with_scores else prev_scores.float()
+    keep_idx, _ = select_tokens_dense(s, keep, torch.bool)
+    next_scores = torch.take_along_dim(s, keep_idx, dim=1)
+    idx = keep_idx[..., None]
+    attn = _mha(torch.take_along_dim(qkv, idx, dim=1), num_heads, scale, x.dtype).float()
+    out = _int8_proj_residual(attn, torch.take_along_dim(x.float(), idx, dim=1),
+                              attn_params["proj"]["weight"]["int8"], ls, ops, static, x.dtype)
+    return out, next_scores, keep_idx
+
+
+def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num_heads: int,
+                                 keep: int, scale: float, eps: float = 1e-6,
+                                 with_scores: bool = True, act_scales=None):
+    """Pruned attention half with int8 qkv and proj weights: ``(x [B, K, C],
+    next_scores [B, K] fp32, keep_idx [B, K])`` with ``K = keep + 1``.
+    ``with_scores=False`` selects from ``prev_scores [B, N]``;
+    ``act_scales = (a_qkv, a_proj)`` selects calibrated static quantization,
+    with the V-column fold always applied."""
+    if not with_scores and prev_scores is None:
+        raise ValueError("with_scores=False needs prev_scores")
+    if x.device.type == "cpu":
+        return pruned_attn_block_int8_plain(x, ln_params, attn_params, ls, prev_scores,
+                                            num_heads, keep, scale, eps, with_scores, act_scales)
+    B, N, C = x.shape
+    K = keep + 1
+    wqkv, wproj = attn_params["qkv"]["weight"]["int8"], attn_params["proj"]["weight"]["int8"]
+    ops = int8_attn_operands(ln_params, attn_params, act_scales)
+    _check_int8(x, ls, ops, wqkv=wqkv, wproj=wproj)
+    prev = _check_prev_scores(prev_scores, with_scores, B, N)
+    _check_attn_shapes("fused_pruned_attn_block_int8", N, C, num_heads, SDPA_MAX_N)
+    if wqkv.shape != (3 * C, C) or wproj.shape != (C, C):
+        raise ValueError(f"fused_pruned_attn_block_int8: bad int8 weight shapes "
+                         f"{tuple(wqkv.shape)}, {tuple(wproj.shape)}")
+    if not 1 <= keep < N:
+        raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
+    if with_scores and _score_smem(N, C, num_heads) > _SMEM_MAX:
+        raise ValueError(f"fused_pruned_attn_block_int8 cannot score N={N}, C={C}, "
+                         f"heads={num_heads}")
+    dev = x.device
+    q8 = torch.empty(B * N * C, dtype=torch.int8, device=dev)
+    qs = torch.empty(B * N, dtype=torch.float32, device=dev)
+    qkv = torch.empty(B * N * 3 * C, dtype=x.dtype, device=dev)
+    scores = torch.empty(B, N, dtype=torch.float32, device=dev) if with_scores else None
+    attn = torch.empty(B * K * C, dtype=x.dtype, device=dev)
+    idx = torch.empty(B, K, dtype=torch.int32, device=dev)
+    next_scores = torch.empty(B, K, dtype=torch.float32, device=dev)
+    out = torch.empty(B, K, C, dtype=x.dtype, device=dev)
+    PRUNED_INT8_KERNEL(
+        ptr(x), ptr(ops["ln1s"]), ptr(ops["ln1b"]), ptr(wqkv), ptr(ops["sqkv"]),
+        ptr(ops["bqkv"]), ptr(wproj), ptr(ops["sproj"]), ptr(ops["bproj"]), ptr(ls), ptr(prev),
+        int(with_scores), int(act_scales is not None), ptr(q8), ptr(qs), ptr(qkv), ptr(scores),
+        ptr(attn), ptr(idx), ptr(next_scores), ptr(out), B, N, K, C, num_heads, float(scale),
+        float(eps), stream(),
+    )
+    if K > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
+        SDPA_KERNEL.launches += 1
+    return out, next_scores, idx.long()
+
+
+# ---------------------------------------------------------------------------
+# B19: LN1 + QKV + scores + selection in one call (routed nowhere)
+# ---------------------------------------------------------------------------
+
+
+def ln_qkv_select_plain(x, ln_params, qkv_params, num_heads: int, keep: int, eps: float = 1e-6):
+    """Plain PyTorch version of B19 (``block.py:784-802``): B4's plain
+    version, then the selection. Returns ``(qkv [B, N, 3C], sel [B, K, N]
+    x.dtype, keep_idx [B, K] int32, next_scores [B, K] fp32)``."""
+    qkv, s = ln_qkv_plain(x, ln_params, qkv_params, num_heads, eps, True)
+    keep_idx, sel = select_tokens_dense(s, keep, x.dtype)
+    return qkv, sel, keep_idx.to(torch.int32), torch.take_along_dim(s, keep_idx, dim=1)
+
+
+def fused_ln_qkv_select(x, ln_params, qkv_params, num_heads: int, keep: int, eps: float = 1e-6):
+    """LN1 → QKV → RAJNI scores → top-K selection in one call: ``(qkv [B, N,
+    3C], sel [B, K, N] one-hot in x.dtype, keep_idx [B, K] int32,
+    next_scores [B, K] fp32)`` with ``K = keep + 1``. Always scores; the
+    full ``[3C, C]`` projection only."""
+    if x.device.type == "cpu":
+        return ln_qkv_select_plain(x, ln_params, qkv_params, num_heads, keep, eps)
+    B, N, C = x.shape
+    K = keep + 1
+    w, b = qkv_params["weight"], qkv_params["bias"]
+    check_cuda(
+        torch.bfloat16, x=x, ln_scale=ln_params["scale"], ln_bias=ln_params["bias"],
+        wqkv=w, bqkv=b,
+    )
+    _check_ln_qkv(x, qkv_params, True)
+    if C % 64 or C > 1024 or N < 2 or C % num_heads or _score_smem(N, C, num_heads) > _SMEM_MAX:
+        raise ValueError(f"fused_ln_qkv_select needs C % 64 == 0, C <= 1024 and the scores of "
+                         f"N={N}, C={C}, heads={num_heads} in shared memory")
+    if not 1 <= keep < N:
+        raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
+    dev = x.device
+    y = torch.empty(B * N, C, dtype=x.dtype, device=dev)
+    qkv = torch.empty(B, N, 3 * C, dtype=x.dtype, device=dev)
+    scores = torch.empty(B, N, dtype=torch.float32, device=dev)
+    sel = torch.empty(B, K, N, dtype=x.dtype, device=dev)
+    idx = torch.empty(B, K, dtype=torch.int32, device=dev)
+    next_scores = torch.empty(B, K, dtype=torch.float32, device=dev)
+    LN_QKV_SELECT_KERNEL(
+        ptr(x), ptr(ln_params["scale"]), ptr(ln_params["bias"]), ptr(w), ptr(b), ptr(y), ptr(qkv),
+        ptr(scores), ptr(sel), ptr(idx), ptr(next_scores), B, N, K, C, num_heads, float(eps),
+        stream(),
+    )
+    return qkv, sel, idx, next_scores

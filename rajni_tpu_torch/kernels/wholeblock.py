@@ -294,12 +294,7 @@ def fused_pruned_block_full(x, block, prev_scores, num_heads: int, keep: int, sc
     K = keep + 1
     hidden = block["mlp"]["fc1"]["weight"].shape[0]
     ptrs = _bf16_block_tensors(x, block)
-    prev = None
-    if not with_scores:
-        prev = prev_scores
-        check_cuda(torch.float32, prev_scores=prev)
-        if prev.shape != (B, N):
-            raise ValueError(f"prev_scores must be [{B}, {N}], got {tuple(prev.shape)}")
+    prev = _block._check_prev_scores(prev_scores, with_scores, B, N)
     _check_shapes("fused_pruned_block_full", x, num_heads, hidden, ATTN_MAX_N)
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
@@ -400,16 +395,16 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
     hc = _plan_hc(_pruned_full_int8_plan(N, K, C, hidden, x.element_size()),
                   "fused_pruned_block_full_int8", f"N={N}, K={K}, C={C}, hidden={hidden}")
     ops = int8_operands(block, act_scales)
-    args = _int8_launch_operands(x, block, ops, num_heads, hc, ATTN_MAX_N,
+    # the attention on the kept tokens takes the two-pass kernel past
+    # ATTN_MAX_N (DeiT-S/16 384 runs B14 from 519 tokens)
+    args = _int8_launch_operands(x, block, ops, num_heads, hc, SDPA_MAX_N,
                                  "fused_pruned_block_full_int8")
-    prev = None
-    if not with_scores:
-        prev = prev_scores
-        check_cuda(torch.float32, prev_scores=prev)
-        if prev.shape != (B, N):
-            raise ValueError(f"prev_scores must be [{B}, {N}], got {tuple(prev.shape)}")
+    prev = _block._check_prev_scores(prev_scores, with_scores, B, N)
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
+    if with_scores and _block._score_smem(N, C, num_heads) > _block._SMEM_MAX:
+        raise ValueError(f"fused_pruned_block_full_int8 cannot score N={N}, C={C}, "
+                         f"heads={num_heads}")
     dev = x.device
     q8, qs, qkv, attn, mid, h, hq, hs = _int8_scratch(B, N, K, C, hidden, hc, dev)
     scores = torch.empty(B, N, dtype=torch.float32, device=dev) if with_scores else None
@@ -422,6 +417,8 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
         ptr(next_scores), ptr(out), B, N, K, C, hidden, hc, num_heads, float(scale),
         float(eps), stream(),
     )
+    if K > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
+        SDPA_KERNEL.launches += 1
     return out, next_scores, idx.long()
 
 

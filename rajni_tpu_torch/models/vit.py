@@ -19,7 +19,7 @@ CUDA tensor and ``"torch"`` elsewhere.
 
 Int8 params (:func:`..quant.quantize_params`) run the int8 kernels on
 ``impl="cuda"`` (the whole-block B14/B15 where the JAX plans fit, else the
-split kernels B9/B10/B12/B13), with calibrated static scales when
+split kernels B9-B13), with calibrated static scales when
 ``act_scales`` is given, and an int8 head; ``impl="torch"`` dequantizes the
 weights, as JAX's ``"xla"`` route does.
 
@@ -47,6 +47,7 @@ from ..kernels.block import (
     fused_ln_qkv,
     fused_ln_qkv_int8,
     fused_pruned_attn_block,
+    fused_pruned_attn_block_int8,
 )
 from ..kernels.math import quantize_rows, quantize_static
 from ..kernels.mlp import (
@@ -372,13 +373,6 @@ def _dequantized(block: Params, dtype) -> Params:
             "mlp": {k: lin(v) for k, v in block["mlp"].items()}}
 
 
-def _unported(blk_i: int, what: str):
-    return NotImplementedError(
-        f"block {blk_i}: the JAX route here is {what}, which is not ported to CUDA yet "
-        "(ROADMAP B11); the cuda route does not fall back to other kernels"
-    )
-
-
 def resolve_impl(impl: str, images: torch.Tensor) -> str:
     """``"auto"`` → ``"cuda"`` on a CUDA tensor, ``"torch"`` otherwise."""
     if impl == "auto":
@@ -412,8 +406,11 @@ def vit_forward(
       ViT-B/384: blocks 8-11, at 356 tokens).
     * Otherwise, int8 attention: a stock block runs B10
       ``fused_attn_block_int8``. A pruned block where ``_pruned_block_fits``
-      holds takes JAX's one-kernel route, B11, which is not ported (raises
-      ``NotImplementedError``; ViT-L/16 224, DeiT-S/16 384). Elsewhere it
+      holds takes JAX's one-kernel route, B11
+      ``fused_pruned_attn_block_int8`` (ViT-L/16 224 blocks 4, 8, 12 and 16
+      under ``VIT_L_AGGRESSIVE``; DeiT-S/16 384 block 3), given the static
+      ``(a_qkv, a_proj)`` unconditionally since its own proj undoes the
+      V-column fold (``vit.py:810-831``). Elsewhere it
       runs B12 ``fused_ln_qkv_int8``, the torch ``select_tokens_dense`` and a
       tail chosen before B12 runs (``vit.py:863-870``): B13
       ``fused_gather_sdpa_proj_residual_int8`` where ``_gather_fits_fast``
@@ -473,7 +470,7 @@ def vit_forward(
                     x, block, scores, H, keep, scale, eps, with_scores)
             else:
                 x, scores, keep_idx = _pruned_halves(
-                    blk_i, x, block, config, impl, spec, keep, scores, with_scores, blk_as)
+                    x, block, config, impl, spec, keep, scores, with_scores, blk_as)
             if _sel_tap is not None:
                 _sel_tap(blk_i, keep_idx)
             continue
@@ -496,22 +493,27 @@ def vit_forward(
     return classifier_head(x, params, config, act_scales, impl)
 
 
-def _pruned_halves(blk_i: int, x, block: Params, config: ViTConfig, impl: str, spec, keep: int,
+def _pruned_halves(x, block: Params, config: ViTConfig, impl: str, spec, keep: int,
                    scores, with_scores: bool, blk_as):
     """A pruned block as its attention half, then its MLP half (the routes
     of :func:`vit_forward` without a whole-block kernel). Returns ``(x,
     next_scores, keep_idx)``."""
     eps, H, scale = config.layer_norm_eps, config.num_heads, config.attn_scale
     C, n, K, itemsize = config.embed_dim, x.shape[1], keep + 1, x.element_size()
+    attn_as, mlp_as = (None, None) if blk_as is None else (blk_as[:2], blk_as[2:4])
     if impl == "cuda" and is_quantized(block["attn"]["qkv"]["weight"]):
         if _pruned_block_fits(n, K, C, itemsize):
-            raise _unported(blk_i, "B11 fused_pruned_attn_block_int8")
+            x, scores, keep_idx = fused_pruned_attn_block_int8(
+                x, block["norm1"], block["attn"], block.get("ls1"), scores, H, keep, scale, eps,
+                with_scores, attn_as,
+            )
+            return _mlp_branch(x, block, config, impl, mlp_as), scores, keep_idx
         # the V-column fold is undone only by the int8 tail: decide the tail
         # before B12 runs (rajni_tpu/models/vit.py:863-870)
         int8_tail = _gather_fits_fast(n, K, C, itemsize)
         qkv, new_scores = fused_ln_qkv_int8(
             x, block["norm1"], block["attn"]["qkv"], H, eps, with_scores,
-            None if blk_as is None or not int8_tail else blk_as[:2],
+            attn_as if int8_tail else None,
         )
     elif impl == "cuda" and n > ATTN_MAX_N:
         qkv, new_scores = fused_ln_qkv(x, block["norm1"], block["attn"]["qkv"], H, eps,
@@ -547,7 +549,6 @@ def _pruned_halves(blk_i: int, x, block: Params, config: ViTConfig, impl: str, s
                 proj = {**proj, "weight": dequantize_weight(proj["weight"], x.dtype)}
             x = fused_gather_sdpa_proj_residual(qkv, keep_idx, x, proj, block.get("ls1"), H,
                                                 scale)
-    mlp_as = None if blk_as is None else blk_as[2:4]
     return _mlp_branch(x, block, config, impl, mlp_as), scores, keep_idx
 
 

@@ -5,9 +5,11 @@
     python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128
     python3 scripts/profile_torch_port.py --quantize [--calibrate]
     python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128 --quantize [--calibrate]
+    python3 scripts/profile_torch_port.py --model vit_large_patch16_224 --schedule s.json --quantize
 
 Runs the model in bf16 through ``RAJNIViT(kernels="cuda")`` with
-``REFERENCE_SCHEDULE`` and with the identity schedule, under
+``REFERENCE_SCHEDULE`` (or the schedule JSON file ``--schedule``, in the eval
+CLI's format) and with the identity schedule, under
 ``torch.profiler``, and prints for each: the device time per forward by
 kernel name, the wall time per forward and the device's busy share.
 ``--quantize`` runs int8 weights (dynamic scales); with ``--calibrate``,
@@ -39,6 +41,8 @@ def main(argv=None) -> int:
     p.add_argument("--model", default="vit_base_patch16_224")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--schedule", default=None,
+                   help="schedule JSON file (default: REFERENCE_SCHEDULE)")
     p.add_argument("--quantize", action="store_true", help="int8 weights, dynamic scales")
     p.add_argument("--calibrate", action="store_true",
                    help="with --quantize: static scales calibrated on the batch")
@@ -51,6 +55,8 @@ def main(argv=None) -> int:
 
     from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT, calibrate_act_scales, quantize_params
     from rajni_tpu_torch.kernels.block import ATTN_MAX_N
+    from rajni_tpu_torch.models.vit import get_config
+    from rajni_tpu_torch.utils.schedule import load_schedule
     from rajni_tpu_torch.ops.pruning import keep_count, select_tokens_dense
 
     smi = subprocess.run(
@@ -60,16 +66,18 @@ def main(argv=None) -> int:
     print(f"card: {smi}")
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(1)
-    pruned = RAJNIViT(args.model, REFERENCE_SCHEDULE, kernels="cuda", device=device)
+    schedule = (REFERENCE_SCHEDULE if args.schedule is None
+                else load_schedule(args.schedule, get_config(args.model).depth))
+    pruned = RAJNIViT(args.model, schedule, kernels="cuda", device=device)
     side = pruned.config.img_size
     images = torch.randn(args.batch, side, side, 3, generator=gen).to(device)
     base = RAJNIViT(args.model, None, params=pruned.params, kernels="cuda", device=device)
     if args.quantize:
         raw, cfg = pruned.params, pruned.config
         scales = {k: calibrate_act_scales(raw, images, cfg, s) if args.calibrate else None
-                  for k, s in (("pruned", REFERENCE_SCHEDULE), ("identity", None))}
+                  for k, s in (("pruned", schedule), ("identity", None))}
         q = quantize_params(raw)
-        pruned = RAJNIViT(args.model, REFERENCE_SCHEDULE, params=q, kernels="cuda",
+        pruned = RAJNIViT(args.model, schedule, params=q, kernels="cuda",
                           device=device, act_scales=scales["pruned"])
         base = RAJNIViT(args.model, None, params=q, kernels="cuda", device=device,
                         act_scales=scales["identity"])

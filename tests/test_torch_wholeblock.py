@@ -466,10 +466,10 @@ def test_narrow_forward_matches_jax(rng, monkeypatch, mode):
 
 
 def test_quantized_routes_without_a_plan_raise(rng, monkeypatch):
-    """Where the JAX int8 route is the one unported split kernel, B11 (a
-    pruned block with no whole-block plan whose one-kernel attention half
-    fits), the cuda route raises and names it; it never falls back. The
-    other routes without a plan run the split kernels."""
+    """The int8 routes without a whole-block plan run the split kernels and
+    raise nowhere: where the JAX route is B11 (a pruned block whose
+    one-kernel attention half fits), the cuda route takes B11 and then B9,
+    never B12 and a tail."""
     _, tcfg, jp, images = _setup(rng)
     tp = params_from_numpy(jp)
     x = torch.from_numpy(images)
@@ -480,9 +480,13 @@ def test_quantized_routes_without_a_plan_raise(rng, monkeypatch):
     for params in (mlp_only, q):  # K1/K2 or B10, with B9
         assert torch.isfinite(tvit.vit_forward(params, x, tcfg, None, "cuda")).all()
     monkeypatch.setattr(tvit, "_pruned_full_int8_plan", lambda *a: None)
-    with pytest.raises(NotImplementedError, match="B11") as raised:
-        tvit.vit_forward(q, x, tcfg, sched, "cuda")
-    assert "B9" not in str(raised.value) and "B12" not in str(raised.value)
+    calls = []
+    _spy(monkeypatch, tvit, ("fused_pruned_attn_block_int8", "fused_ln_qkv_int8",
+                             "fused_attn_block_int8", "fused_ln_mlp_residual_int8"), calls)
+    assert torch.isfinite(tvit.vit_forward(q, x, tcfg, sched, "cuda")).all()
+    mlp = "fused_ln_mlp_residual_int8"
+    assert [c[0] for c in calls] == ["fused_pruned_attn_block_int8", mlp,
+                                     "fused_attn_block_int8", mlp, "fused_attn_block_int8", mlp]
     # the ops path runs them (dequantized), as JAX's "xla" route does
     assert torch.isfinite(tvit.vit_forward(mlp_only, x, tcfg, SCHED, "torch")).all()
     assert torch.isfinite(tvit.vit_forward(q, x, tcfg, sched, "torch")).all()
