@@ -14,8 +14,9 @@ MLP-only int8 at batch 256 (P4c: K1, K2, B9); and the paths of B11:
 ViT-L/16 224 at batch 256 with int8 weights and dynamic (P5a: B11, B10, B9,
 B15) or calibrated static scales (P5b), the same model in bf16 (P5c: K1-K3
 at C=1024), and DeiT-S/16 384 int8 dynamic at batch 128 (P5d: B11, B14, B15
-past 256 tokens). Steps, each of which fails the run (non-zero exit) when it
-goes wrong:
+past 256 tokens); and training: ViT-B/16 224 at batch 128 in bf16 through
+B16, B4, B5, B17 and B18 (T6). Steps, each of which fails the run (non-zero
+exit) when it goes wrong:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rajni_tpu_torch/csrc`` into one library
@@ -35,21 +36,40 @@ goes wrong:
    (dynamic and static) and P5d's shapes; B19 ``fused_ln_qkv_select`` and
    B20 ``fused_pruned_attn_block_long``, which no path runs, at the 384
    path's first pruned block, beside the two-kernel route they stand in
-   for. Show that the comparison rejects
-   faults planted in the plain versions (the attention for K1-B8 and B20,
-   the quantization, the attention's rounding and the scores' source for
-   the int8 kernels), and time both
-   with CUDA events (B6 also beside ``F.scaled_dot_product_attention``,
-   which the port never calls);
+   for; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
+   ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens). Show that the
+   comparison rejects
+   faults planted in the plain versions (the attention for K1-B8, B16 and
+   B20, the quantization, the attention's rounding and the scores' source
+   for the int8 kernels, B17's GELU of the unrounded h, B18's row term from
+   the rounded P and its dV from the unrounded P), and time both with CUDA
+   events (B6 beside ``F.scaled_dot_product_attention``, B18 beside its
+   forward and backward, which the port never calls, by their device time
+   from ``torch.profiler``: the host side of that call takes longer than its
+   kernels); then T6's two block ops, forward and backward, with one kernel
+   at a time swapped for its plain version and for its planted fault;
 4. run each path end to end through ``RAJNIViT``, pruned and with the
    identity schedule: exact token counts, launch counts per forward (every
    count set to 0 just before the forward and read just after), finite
    logits, distance to a reference forward (the ``kernels="torch"`` one;
    for int8, the same forward with the kernels' plain versions on the card,
    and the dequantized ``kernels="torch"`` one loosely), img/s and MFU;
-5. run the eval CLI in a subprocess: at 224 and at 384, and at 224 and 384
-   with ``--quantize --calibrate 1``;
-6. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
+5. train T6 through ``rajni_tpu_torch.train``: the first step's loss and
+   every gradient through the kernels against the same path on the kernels'
+   plain versions and against the torch-autograd route on the card (through
+   the same selections; each kept set that either would choose otherwise
+   must lie within what its score discrepancy explains, and the share of
+   images that the torch route would select otherwise is bounded), the
+   launches of one step (every
+   count set to 0 first), a falling loss over 20 steps on one batch, and
+   train img/s with ``train_mfu`` on both routes, pruned and identity;
+6. run the eval CLI in a subprocess: at 224 and at 384, and at 224 and 384
+   with ``--quantize --calibrate 1``; then the training CLI (ViT-B/16 bf16
+   on the kernels, 4 steps) and the eval CLI on its checkpoint, the
+   training CLI on ``vit_tiny_patch16_224`` in fp32, and ``RAJNIViT`` on
+   ``vit_tiny_patch16_224`` in fp32 and bf16: the last three demoted to the
+   plain route before any launch, each printing its ``route:`` line;
+7. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
 It exits non-zero without printing a result when CUDA is unavailable or when
@@ -130,6 +150,61 @@ SCORE_RTOL = 1e-2
 # other.
 SCORE_MEDIAN_RTOL = 1e-4
 LOGITS_REL_L2 = 5e-2
+# Training kernels vs their plain versions, each output by relative L2:
+# B16's qkv and B17's h (rounded GEMM outputs: a one-ulp flip where an fp32
+# sum lies at a rounding edge), B18's attn_out, dQ, dK and dV (bf16 P and
+# dS rounded on both sides, flips where the fp32 recompute differs).
+# On an H100 SXM the sound readings were 7.9e-5 at most (qkv, h) and 9.8e-5
+# (B18, K=577); the limits are about 2.5x those. The planted faults read
+# 1.4e-3 (dQ, dK: the row term from pb) and 2.6e-3 (dV from p32).
+TRAIN_GATES = {"qkv": 2e-4, "h": 2e-4, "attn_out": 2.5e-4, "dQ": 2.5e-4, "dK": 2.5e-4,
+               "dV": 2.5e-4}
+# B17's y against its plain version, the branch by relative L2 (its sound
+# reading, 3.4e-4 on an H100, is K3's; 2.5x).
+B17_GATE = (ATOL, RTOL, 8.5e-4)
+# The training path's first step, kernels against the torch-autograd route
+# on the card, both in bf16 and through the same selections.
+# On an H100 SXM the losses differed by 1.9e-4 and the worst leaf's
+# gradient by 1.58e-2 relative L2 (median 1.06e-2); the limits are about
+# 2.5x those.
+TRAIN_LOSS_ATOL = 5e-4
+TRAIN_GRAD_REL_L2 = 4e-2
+# Kept sets, kernel route against the torch route's own selection. The two
+# routes score from their own bf16 activations, which the blocks before
+# round differently; with random weights the CLS attention is peaked, most
+# patch scores lie near 0 and their order follows the rounding (on the CPU
+# in bf16 the kernels' plain versions select otherwise than the torch route
+# too, and in fp32 they agree exactly, as the CPU tests hold them to JAX). On
+# an H100 SXM up to 26 of the 128 images differed in a block; the limit is
+# 2.5x that share. The gradients are compared through the same selections.
+TRAIN_SEL_DIFF = 0.5
+# The same first step against the kernels' plain versions on the card (the
+# same rounding points, the same kept sets). On an H100 SXM the losses
+# differed by 1.18e-4 and the worst leaf's gradient by 1.46e-2 relative L2
+# (median 1.04e-2), about as much as against the torch route: over twelve
+# bf16 blocks each kernel's last-bit flips grow into the gradients, and the
+# planted faults read the same (1.44e-2 to 1.47e-2), so this gate cannot
+# see a kernel-sized fault; the block ops below can. Limits 2.5x. The score
+# discrepancy of a block's selection, over the largest score, read 7.65e-3
+# at most; limit 2.5x. Each kept set that differs must lie within what that
+# discrepancy explains (selection_gaps).
+TRAIN_PLAIN_LOSS_ATOL = 3e-4
+TRAIN_PLAIN_GRAD_REL_L2 = 3.7e-2
+TRAIN_SCORE_REL = 1.9e-2
+# One block op at T6's shapes with one kernel swapped for its plain
+# version, against the op through the kernels: relative L2 of the op's
+# output y, of the input's gradient d_x and of the worst leaf gradient.
+# Limits 2.5x the worst sound reading of the stock and the pruned op on an
+# H100 SXM: B16 and B4 (3.06e-3, 5.44e-3, 5.50e-3), B5 (8.35e-4, 3.14e-3,
+# 3.41e-3), B17 (3.24e-4, 2.59e-3, 3.05e-3), B18 (y exact: it runs in the
+# backward only; 3.60e-4, 1.10e-3). The planted faults read: B18's row term
+# from pb d_x 2.49e-3, its dV from p32 d_x 2.67e-3, B17's GELU of the
+# unrounded h y 3.64e-3.
+TRAIN_BLOCK_GATES = {"train_attn_block": (7.7e-3, 1.4e-2, 1.4e-2),
+                     "fused_ln_qkv": (7.7e-3, 1.4e-2, 1.4e-2),
+                     "fused_gather_sdpa_proj_residual": (2.1e-3, 7.9e-3, 8.5e-3),
+                     "train_ln_mlp": (8.1e-4, 6.5e-3, 7.6e-3),
+                     "train_sdpa_bwd": (0.0, 9e-4, 2.75e-3)}
 BF16_GATE = (ATOL, RTOL, BRANCH_REL_L2)
 # B7/B8 at DeiT-S width: the same two gates, the branch limit 2.5x their
 # worst sound reading on an H100 SXM (2.27e-3, B8 N=197).
@@ -191,6 +266,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
+    """Device time per call of ``fn``: its kernels' time from
+    ``torch.profiler``, without the host's gaps between them (for a library
+    call whose host side takes longer than its kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def bound(flops: float, nbytes: float, peaks, int8_ops: float = 0.0,
@@ -420,6 +515,9 @@ KERNELS = {
     "fused_ln_qkv_select": ("csrc/ln_qkv_select.cu", "rajni_tpu/kernels/block.py:805"),
     "fused_pruned_attn_block_long": ("csrc/pruned_attn_block.cu",
                                      "rajni_tpu/kernels/longseq.py:270"),
+    "train_attn_block": ("csrc/attn_block.cu", "rajni_tpu/kernels/train.py:89"),
+    "train_ln_mlp": ("csrc/train_mlp.cu", "rajni_tpu/kernels/train.py:347"),
+    "train_sdpa_bwd": ("csrc/sdpa_bwd.cu", "rajni_tpu/kernels/train.py:295"),
 }
 
 
@@ -1226,6 +1324,544 @@ def alternative_phases(device, peaks, results):
     print(f"{tag}: {ms:.3f} ms against B4 + torch selection + B5 {two_ms:.3f} ms")
 
 
+TRAIN = f"train {PATH224}"  # the training path: ViT-B/16 224, batch 128
+B_TRAIN = 128
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 distance of two tensors, in fp32."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def b18_faulty(fault: str):
+    """B18's plain version with one planted fault: the row term taken from
+    the rounded pb instead of p32, or dV from p32 instead of pb."""
+    import torch
+
+    from rajni_tpu_torch.kernels import train as kt
+
+    def fn(qkv, dout, num_heads, scale):
+        C = qkv.shape[-1] // 3
+        q, k, v = (kt._heads(qkv[..., i * C:(i + 1) * C], num_heads).float() for i in range(3))
+        do = kt._heads(dout, num_heads).float()
+        logits = (q @ k.transpose(-1, -2)) * scale
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p32 = e * (1.0 / e.sum(dim=-1, keepdim=True))
+        pb = p32.to(qkv.dtype).float()
+        dv = (p32 if fault == "dV from p32" else pb).transpose(-1, -2) @ do
+        dp = do @ v.transpose(-1, -2)
+        row = pb if fault == "row term from pb" else p32
+        ds = p32 * (dp - (dp * row).sum(dim=-1, keepdim=True))
+        dsb = (ds * scale).to(qkv.dtype).float()
+        d_qkv = torch.cat([kt._merge(dsb @ k), kt._merge(dsb.transpose(-1, -2) @ q),
+                           kt._merge(dv)], dim=-1)
+        return kt._merge(pb @ v).to(qkv.dtype), d_qkv.to(qkv.dtype)
+
+    return fn
+
+
+B18_FAULTS = ("row term from pb", "dV from p32")
+
+
+def train_kernel_phases(device, peaks, results):
+    """B16, B17 and B18 at the ViT-B/16 224 training path's shapes (B=128):
+    B16 at 197 tokens, B17 at 197 and 120, B18 at K = 197, 187 and 120, and
+    B18 at K=577 (B=32), past the JAX package's fit rule. Each output is held
+    to the plain version separately, and the planted faults must be
+    rejected: B17's GELU on the unrounded h (K3's plain version, which
+    computes exactly that), and B18's two above."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.kernels import train as kt
+    from rajni_tpu_torch.kernels.block import attn_block_qkv_plain
+
+    gen = torch.Generator().manual_seed(11)
+    blk = make_block(gen, device)
+    scale = (C // HEADS) ** -0.5
+
+    def x_of(b, n):
+        return (X_STD * torch.randn(b, n, C, generator=gen)).to(device, torch.bfloat16)
+
+    x = x_of(B_TRAIN, 197)  # B16
+    args = (x, blk["norm1"], blk["attn"], None, HEADS, scale, 1e-6)
+    x1, qkv = kt.train_attn_block(*args)
+    px1, pqkv = attn_block_qkv_plain(*args)
+    err, rel = compare("B16 x1 N=197", x1, px1, x)
+    qrel = rel_l2(qkv, pqkv)
+    print(f"B16 qkv N=197: rel L2 {qrel:.3e}")
+    check(qrel <= TRAIN_GATES["qkv"], f"B16 qkv rel L2 {qrel} > {TRAIN_GATES['qkv']}")
+    reject_planted("B16 x1 N=197", x1, lambda: attn_block_qkv_plain(*args)[0], x)
+    M = B_TRAIN * 197
+    bnd = bound(2.0 * M * C * 4 * C + 4.0 * B_TRAIN * 197 * 197 * C,
+                M * C * 2 * 2 + M * 3 * C * 2 + 4 * C * C * 2, peaks)
+    record(results, "train_attn_block", TRAIN, f"B={B_TRAIN} N=197 C={C}",
+           cuda_ms(lambda: kt.train_attn_block(*args)),
+           cuda_ms(lambda: attn_block_qkv_plain(*args), iters=5), bnd, err, max(rel, qrel))
+
+    for n in (197, 120):  # B17
+        x = x_of(B_TRAIN, n)
+        args = (x, blk["norm2"], blk["mlp"], None, 1e-6)
+        y, h = kt.train_ln_mlp(*args)
+        py, ph = kt.train_ln_mlp_plain(*args)
+        err, rel = compare(f"B17 y N={n}", y, py, x, B17_GATE)
+        hrel = rel_l2(h, ph)
+        print(f"B17 h N={n}: rel L2 {hrel:.3e}")
+        check(hrel <= TRAIN_GATES["h"], f"B17 h rel L2 {hrel} > {TRAIN_GATES['h']}")
+        bad = branch_rel(y, km.ln_mlp_residual_plain(*args), x)
+        print(f"B17 y N={n}: planted fault 'GELU on the unrounded h': branch rel L2 {bad:.3e}")
+        check(bad > B17_GATE[2], f"B17 N={n}: the gate missed the GELU on the unrounded h")
+        M = B_TRAIN * n
+        bnd = bound(4.0 * M * C * HIDDEN, 2 * M * C * 2 + M * HIDDEN * 2 + 2 * C * HIDDEN * 2,
+                    peaks)
+        record(results, "train_ln_mlp", TRAIN, f"B={B_TRAIN} N={n} C={C}",
+               cuda_ms(lambda: kt.train_ln_mlp(*args)),
+               cuda_ms(lambda: kt.train_ln_mlp_plain(*args), iters=5), bnd, err, max(rel, hrel))
+
+    for b, n in ((B_TRAIN, 197), (B_TRAIN, 187), (B_TRAIN, 120), (32, 577)):  # B18
+        qkv = torch.randn(b, n, 3 * C, generator=gen).to(device, torch.bfloat16)
+        dout = torch.randn(b, n, C, generator=gen).to(device, torch.bfloat16)
+        got = kt.train_sdpa_bwd(qkv, dout, HEADS, scale)
+        want = kt.train_sdpa_bwd_plain(qkv, dout, HEADS, scale)
+
+        def parts(r):
+            return {"attn_out": r[0], "dQ": r[1][..., :C], "dK": r[1][..., C:2 * C],
+                    "dV": r[1][..., 2 * C:]}
+
+        g, w = parts(got), parts(want)
+        rels = {k: rel_l2(g[k], w[k]) for k in g}
+        err = max((g[k].float() - w[k].float()).abs().max().item() for k in g)
+        print(f"B18 B={b} K={n}: max_abs_err {err:.3e}, rel L2 "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
+        for k, v in rels.items():
+            check(v <= TRAIN_GATES[k], f"B18 K={n} {k} rel L2 {v} > {TRAIN_GATES[k]}")
+        for fault in B18_FAULTS:
+            bad = parts(b18_faulty(fault)(qkv, dout, HEADS, scale))
+            brels = {k: rel_l2(g[k], bad[k]) for k in g}
+            print(f"B18 K={n}: planted fault '{fault}': rel L2 "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in brels.items()))
+            check(any(v > TRAIN_GATES[k] for k, v in brels.items()),
+                  f"B18 K={n}: the gates missed the planted fault '{fault}'")
+        ms = cuda_ms(lambda: kt.train_sdpa_bwd(qkv, dout, HEADS, scale))
+        plain_ms = cuda_ms(lambda: kt.train_sdpa_bwd_plain(qkv, dout, HEADS, scale), iters=5)
+        q, k, v = (kt._heads(qkv[..., i * C:(i + 1) * C], HEADS).contiguous().requires_grad_()
+                   for i in range(3))
+        do = kt._heads(dout, HEADS).contiguous()
+
+        def library():
+            out = Fn.scaled_dot_product_attention(q, k, v)
+            return torch.autograd.grad(out, (q, k, v), do)
+
+        lib_ms = device_ms(library)  # under CUDA events its host side is timed
+        bnd = bound(12.0 * b * n * n * C, 8 * b * n * C * 2, peaks)
+        record(results, "train_sdpa_bwd", TRAIN, f"B={b} K={n} C={C}", ms, plain_ms, bnd, err,
+               max(rels.values()), library_ms=lib_ms)
+
+
+def selection_gaps(own, forced, scores, ref_scores) -> dict:
+    """How a route's own selection (``own``, top-k of its ``scores``) departs
+    from the kept sets it was given (``forced``, the kernel route's, chosen
+    from ``ref_scores`` over the same tokens): the images and patch tokens
+    that differ, the largest absolute distance of such a token's score from
+    the own selection's boundary (its lowest kept score), the per-image score
+    discrepancy delta = max |scores - ref_scores| (its largest value, also
+    over the largest |ref_scores|), and the largest ratio of a differing
+    token's distance to 2 delta of its image. The k-th largest score moves by
+    at most delta, so top-k of either vector keeps a token only within 2 delta
+    of the other's boundary: a ratio above 1 is a selection that the scores
+    do not explain."""
+    import torch
+
+    B, N = scores.shape
+    s, r = scores.float()[:, 1:], ref_scores.float().to(scores.device)[:, 1:]
+
+    def mask(idx):
+        m = torch.zeros(B, N, dtype=torch.bool, device=scores.device)
+        return m.scatter_(1, idx.to(scores.device).long(), True)[:, 1:]
+
+    mo, mf = mask(own), mask(forced)
+    diff = mo ^ mf
+    edge = s.masked_fill(~mo, float("inf")).amin(dim=1, keepdim=True)
+    gap = (s - edge).abs().masked_fill(~diff, 0.0)
+    delta = (s - r).abs().amax(dim=1, keepdim=True)
+    ratio = torch.where(gap > 0, gap / (2 * delta), torch.zeros_like(gap))
+    return {"images": int(diff.any(dim=1).sum()), "tokens": int(diff.sum()),
+            "gap": gap.max().item(), "delta": delta.max().item(),
+            "delta_rel": (delta.max() / r.abs().max()).item(), "ratio": ratio.max().item()}
+
+
+@contextlib.contextmanager
+def train_path_swapped(subs: dict):
+    """Names of ``rajni_tpu_torch.models.train_path`` replaced for the
+    duration (kernel wrappers by their plain versions or a planted fault, the
+    selection by a tap)."""
+    from rajni_tpu_torch.models import train_path as tp
+
+    sound = {n: getattr(tp, n) for n in subs}
+    for n, fn in subs.items():
+        setattr(tp, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in sound.items():
+            setattr(tp, n, fn)
+
+
+def plain_train_kernels() -> dict:
+    """The training path's kernels (B4, B5, B16, B17, B18) by their plain
+    versions, which keep the kernels' rounding points: the reference route on
+    the card."""
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import train as kt
+
+    return {"fused_ln_qkv": kb.ln_qkv_plain,
+            "fused_gather_sdpa_proj_residual": kb.gather_sdpa_proj_residual_plain,
+            "train_attn_block": kb.attn_block_qkv_plain, "train_ln_mlp": kt.train_ln_mlp_plain,
+            "train_sdpa_bwd": kt.train_sdpa_bwd_plain}
+
+
+def b17_unrounded_gelu(x, ln_params, mlp_params, ls=None, eps=1e-6, add_residual=True):
+    """B17's plain version with the planted fault: the GELU of the unrounded
+    h (K3's chain), h itself as B17 stores it."""
+    from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.kernels import train as kt
+
+    y = km.ln_mlp_residual_plain(x, ln_params, mlp_params, ls, eps, add_residual)
+    return y, kt.train_ln_mlp_plain(x, ln_params, mlp_params, ls, eps, add_residual)[1]
+
+
+# The planted faults of the training path, each on the plain route: one
+# kernel's plain version swapped for its faulty one.
+TRAIN_FAULTS = {"B18 row term from pb": lambda: {"train_sdpa_bwd": b18_faulty("row term from pb")},
+                "B18 dV from p32": lambda: {"train_sdpa_bwd": b18_faulty("dV from p32")},
+                "B17 GELU on the unrounded h": lambda: {"train_ln_mlp": b17_unrounded_gelu}}
+
+
+class Selections:
+    """Taps on the training path's selection. :meth:`record` keeps the
+    scores and kept indices of each call (the kernel route's); :meth:`forced`
+    makes a later route select those same indices, call by call, and reports
+    its own selection's gaps to them (:func:`selection_gaps`), so that two
+    routes' gradients are compared through the same tokens."""
+
+    def __init__(self):
+        self.scores: list = []
+        self.kept: list = []
+
+    def record(self) -> dict:
+        from rajni_tpu_torch.models import train_path as tp
+
+        dense = tp.select_tokens_dense
+
+        def select(scores, keep, dtype=None, num_prefix=1):
+            idx, sel = dense(scores, keep, dtype, num_prefix)
+            self.scores.append(scores.detach().clone())
+            self.kept.append(idx)
+            return idx, sel
+
+        return {"select_tokens_dense": select}
+
+    def forced(self, report: dict):
+        """``select(scores, keep, num_prefix)`` returning the recorded kept
+        indices; ``report`` gets the gaps by call."""
+        from rajni_tpu_torch.ops.pruning import select_tokens
+
+        calls = iter(range(len(self.kept)))
+
+        def select(scores, keep, num_prefix=1):
+            i = next(calls)
+            own = select_tokens(scores, keep, num_prefix)
+            report[i] = selection_gaps(own, self.kept[i], scores, self.scores[i])
+            return self.kept[i].to(scores.device)
+
+        return select
+
+    def forced_dense(self, report: dict) -> dict:
+        select = self.forced(report)
+        return {"select_tokens_dense": lambda s, k, d=None, n=1: (select(s, k, n), None)}
+
+
+def gap_line(report: dict, names) -> str:
+    """One line of :func:`selection_gaps` readings, by block."""
+    return "; ".join(f"{names[i]}: {g['images']}, {g['tokens']}; {g['gap']:.3e}; "
+                     f"{g['delta']:.3e}, {g['delta_rel']:.3e}; {g['ratio']:.3f}"
+                     for i, g in report.items())
+
+
+GAP_HEAD = ("its own selection against the kernel route's kept sets (images, tokens that "
+            "differ; largest gap to the boundary; score delta, relative; gap/2 delta)")
+
+
+def check_gaps(tag: str, report: dict, n_calls: int) -> None:
+    check(sorted(report) == list(range(n_calls)), f"{tag}: selections {sorted(report)}")
+    for i, g in report.items():
+        check(g["ratio"] <= 1.0, f"{tag}, selection {i}: a kept set differs beyond what the "
+              f"scores explain: {g}")
+
+
+def train_block_ops(device):
+    """The training path's two block ops at T6's shapes (B=128, 197 tokens,
+    C=768; the pruned op keeps 187 as the first pruned block does), forward
+    and backward: the stock op (B16, B17, B18) and the pruned op (B4, the
+    selection, B5, B17, B18). Against the op through the kernels, the same op
+    with one kernel at a time swapped for its plain version, on the same
+    inputs and cotangent and with the same kept sets: the op's output, the
+    input's gradient and every leaf gradient by relative L2, each against the
+    gate of the kernel swapped. Each planted fault of ``TRAIN_FAULTS``, swapped
+    in the same way, must be rejected. One kernel in one block is where its
+    fault is not drowned by the rounding of the others, as it is end to end
+    (:func:`first_step`)."""
+    import torch
+
+    from rajni_tpu_torch.models import train_path as tp
+
+    gen = torch.Generator().manual_seed(12)
+    blk = make_block(gen, device)
+    scale = (C // HEADS) ** -0.5
+    paths = tp._paths(blk)
+    leaves = [t.requires_grad_(True) for t in tp._flatten(blk, paths)]
+    x = (X_STD * torch.randn(B_TRAIN, 197, C, generator=gen)).to(device, torch.bfloat16)
+    x.requires_grad_(True)
+    keep = 186
+    g = {"stock": torch.randn(B_TRAIN, 197, C, generator=gen).to(device, torch.bfloat16),
+         "pruned": torch.randn(B_TRAIN, keep + 1, C, generator=gen).to(device, torch.bfloat16)}
+    ops = {"stock": (lambda: tp._StockBlock.apply((HEADS, scale, 1e-6, paths), x, *leaves),
+                     ("train_attn_block", "train_ln_mlp", "train_sdpa_bwd")),
+           "pruned": (lambda: tp._PrunedBlock.apply((HEADS, scale, 1e-6, keep, True, paths), x,
+                                                    None, *leaves)[0],
+                      ("fused_ln_qkv", "fused_gather_sdpa_proj_residual", "train_ln_mlp",
+                       "train_sdpa_bwd"))}
+    plain = plain_train_kernels()
+    for name, (op, kernels) in ops.items():
+        def run(subs):
+            with train_path_swapped(subs):
+                y = op()
+                return [y, *torch.autograd.grad(y, [x, *leaves], g[name])]
+
+        def readings(subs) -> tuple:
+            """(y, d_x, worst leaf) relative L2 against the kernels."""
+            rels = [rel_l2(a, b) for a, b in zip(got, run(subs))]
+            return rels[0], rels[1], max(rels[2:])
+
+        sel = Selections()
+        got = run(sel.record())
+        for kernel in kernels:
+            report: dict = {}
+            r = readings({kernel: plain[kernel], **sel.forced_dense(report)})
+            print(f"{TRAIN} {name} block op, {kernel} swapped for its plain version: rel L2 of "
+                  f"y {r[0]:.3e}, d_x {r[1]:.3e}, worst leaf gradient {r[2]:.3e}"
+                  + (f"; {GAP_HEAD}: {gap_line(report, ['selection'])}" if report else ""))
+            check_gaps(f"{name} block op, {kernel} plain", report, len(sel.kept))
+            check(all(v <= lim for v, lim in zip(r, TRAIN_BLOCK_GATES[kernel])),
+                  f"{name} block op, {kernel} plain: rel L2 {r} > {TRAIN_BLOCK_GATES[kernel]}")
+        for fault, subs in TRAIN_FAULTS.items():
+            (kernel,) = subs()
+            r = readings({**subs(), **sel.forced_dense({})})
+            print(f"{TRAIN} {name} block op: planted fault '{fault}': rel L2 of y {r[0]:.3e}, "
+                  f"d_x {r[1]:.3e}, worst leaf gradient {r[2]:.3e}")
+            check(any(v > lim for v, lim in zip(r, TRAIN_BLOCK_GATES[kernel])),
+                  f"{name} block op: the gates missed the planted fault '{fault}'")
+    for t in leaves:
+        t.requires_grad_(False)
+
+
+def first_step(device) -> dict:
+    """The training path's first step at ViT-B/16 224, batch 128, bf16
+    params, ``REFERENCE_SCHEDULE``: loss and gradients through the kernels
+    against (1) the same path with the kernels' plain versions on the card,
+    (2) the torch-autograd route (``vit_forward(..., "torch")``, its own
+    rounding points), and (3) the plain route with each planted fault of
+    ``TRAIN_FAULTS``, which is printed only: over twelve bf16 blocks the
+    sound reading is as large as a fault's (:func:`train_block_ops` holds
+    them). (1)-(3) take the kernel route's kept sets; each reports how its own
+    selection departs from them. Returns the readings; prints them."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+    from rajni_tpu_torch import train as tt
+    from rajni_tpu_torch.models import train_path as tp
+    from rajni_tpu_torch.models import vit as tvit
+    from rajni_tpu_torch.ops import attention as oa
+
+    config = tvit.get_config(PATH224)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(B_TRAIN, config.img_size, config.img_size, 3, generator=gen).to(device)
+    labels = torch.randint(0, config.num_classes, (B_TRAIN,), generator=gen).to(device)
+    params = tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
+    leaves = tt.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    sel = Selections()
+    blocks: dict = {}  # the pruned blocks, in order
+
+    def run(forward, subs: dict) -> tuple:
+        with train_path_swapped(subs):
+            loss = tt.cross_entropy(forward(), labels)
+            return loss.item(), torch.autograd.grad(loss, leaves)
+
+    def train_forward():
+        return tp.vit_forward_train(params, images, config, REFERENCE_SCHEDULE,
+                                    _sel_tap=lambda i, k: blocks.setdefault(i))
+
+    loss_k, grads_k = run(train_forward, sel.record())
+
+    def versus(tag, forward, subs, report):
+        loss, grads = run(forward, subs)
+        rels = [rel_l2(a, b) for a, b in zip(grads_k, grads)]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        print(f"{TRAIN}: first step, kernels against {tag}: loss {loss_k:.6f} vs {loss:.6f}; "
+              f"gradient rel L2 median {statistics.median(rels):.3e}, worst {rels[worst]:.3e} "
+              f"(leaf {worst} of {len(rels)})")
+        print(f"{TRAIN}: {tag}, {GAP_HEAD}, by block: {gap_line(report, list(blocks))}")
+        return {"loss": abs(loss - loss_k), "worst": rels[worst], "sel": report}
+
+    def torch_forward():
+        sound = oa.select_tokens
+        oa.select_tokens = sel.forced(torch_report)
+        try:
+            return tvit.vit_forward(params, images, config, REFERENCE_SCHEDULE, "torch")
+        finally:
+            oa.select_tokens = sound
+
+    readings = {"calls": len(sel.kept)}
+    report: dict = {}
+    readings["plain"] = versus("their plain versions", train_forward,
+                               {**plain_train_kernels(), **sel.forced_dense(report)}, report)
+    torch_report: dict = {}
+    readings["torch"] = versus("the torch-autograd route", torch_forward, {}, torch_report)
+    for fault, subs in TRAIN_FAULTS.items():
+        report = {}
+        versus(f"the plain versions with '{fault}' (printed only)", train_forward,
+               {**plain_train_kernels(), **subs(), **sel.forced_dense(report)}, report)
+    for p in leaves:
+        p.requires_grad_(False)
+    return readings
+
+
+def train_end_to_end(device, device_name, results, counters):
+    """The training path at ViT-B/16 224, batch 128, bf16 params, pruned
+    (``REFERENCE_SCHEDULE``) and identity: the first step's loss and
+    gradients through the kernels against their plain versions and against
+    the torch-autograd route on the card (:func:`first_step`), the planted
+    faults rejected, the launches of one step, the loss over 20 steps on one fixed
+    batch, and train img/s with ``train_mfu`` for both routes."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+    from rajni_tpu_torch import train as tt
+    from rajni_tpu_torch.models import vit as tvit
+    from rajni_tpu_torch.utils.flops import train_mfu
+    from rajni_tpu_torch.utils.timing import measure_throughput
+
+    config = tvit.get_config(PATH224)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(B_TRAIN, config.img_size, config.img_size, 3, generator=gen).to(device)
+    labels = torch.randint(0, config.num_classes, (B_TRAIN,), generator=gen).to(device)
+    scheds = {"pruned": REFERENCE_SCHEDULE, "identity": None}
+
+    def fresh_params():
+        return tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
+
+    r = first_step(device)
+    for tag in ("plain", "torch"):
+        check_gaps(f"first step, {tag}", r[tag]["sel"], r["calls"])
+    for i, g in r["plain"]["sel"].items():
+        check(g["delta_rel"] <= TRAIN_SCORE_REL,
+              f"selection {i}: scores vs their plain versions' {g['delta_rel']} > "
+              f"{TRAIN_SCORE_REL}")
+    worst_sel = max(g["images"] for g in r["torch"]["sel"].values()) / B_TRAIN
+    check(worst_sel <= TRAIN_SEL_DIFF,
+          f"{worst_sel:.3f} of the images select otherwise than the torch route (> "
+          f"{TRAIN_SEL_DIFF})")
+    for tag, (loss_atol, grad_gate) in (("plain", (TRAIN_PLAIN_LOSS_ATOL, TRAIN_PLAIN_GRAD_REL_L2)),
+                                        ("torch", (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2))):
+        check(r[tag]["loss"] <= loss_atol, f"first-step loss vs {tag}: {r[tag]['loss']} > "
+              f"{loss_atol}")
+        check(r[tag]["worst"] <= grad_gate, f"gradient rel L2 vs {tag}: {r[tag]['worst']} > "
+              f"{grad_gate}")
+
+    for sched, expected in TRAIN_LAUNCHES.items():  # launches of one train step
+        tx = tt.build_optimizer(1e-4, 20, 0.05)
+        state = tt.create_train_state(fresh_params(), tx)
+        step = tt.make_train_step(config, scheds[sched], tx, impl="cuda")
+        for k in counters.values():
+            k.launches = 0
+        losses = [step(state, images, labels)["loss"]]
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in counters.items()}
+        print(f"{TRAIN}: launches per {sched} train step: { {n: v for n, v in got.items() if v} }")
+        check(got == expected, f"{TRAIN} {sched} launches {got} != {expected}")
+        if sched == "pruned":
+            for n, v in got.items():
+                if (n, TRAIN) in results:
+                    results[(n, TRAIN)]["launches"] = v
+        losses += [step(state, images, labels)["loss"] for _ in range(19)]
+        losses = [float(l) for l in losses]
+        print(f"{TRAIN} {sched}: loss over 20 steps on one batch {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+        check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0],
+              f"{TRAIN} {sched}: the loss did not fall: {losses}")
+        del state, step
+
+    for sched, schedule in scheds.items():  # scripts/bench_train.py's protocol
+        trace = tvit.model_stats(config, schedule)["token_counts"]
+        for impl in ("cuda", "torch"):
+            tx = tt.build_optimizer(1e-4, 100, 0.05)
+            state = tt.create_train_state(fresh_params(), tx)
+            step = tt.make_train_step(config, schedule, tx, impl=impl)
+            ips = measure_throughput(step, state, images, labels, batch=B_TRAIN, device=device,
+                                     iters=10, warmup=2, repeats=3)
+            print(f"{TRAIN} train img/s {sched} kernels={impl}: {ips:.1f} | "
+                  f"train MFU {train_mfu(config, trace, ips, device_name):.4f}")
+            del state, step
+
+
+def train_cli(device):
+    """The training and eval CLIs round-trip a checkpoint (ViT-B/16 224 bf16
+    on the kernels); vit_tiny trains in fp32 (the CLI's default dtype) and
+    runs through ``RAJNIViT``, each on its demoted route, printed."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sched = Path(tmp) / "schedule.json"
+        sched.write_text(json.dumps({str(k): v for k, v in REFERENCE_SCHEDULE.items()}))
+        out = str(Path(tmp) / "trained.msgpack")
+        runs = [
+            (["rajni_tpu_torch.train", "--synthetic", "--model", PATH224, "--schedule", str(sched),
+              "--steps", "4", "--batch_size", "32", "--dtype", "bfloat16", "--kernels", "cuda",
+              "--output", out, "--log_every", "1"], "route: cuda"),
+            (["rajni_tpu_torch.run", "--synthetic", "2", "--batch_size", "32", "--model", PATH224,
+              "--schedule", str(sched), "--checkpoint", out], "route: cuda"),
+            (["rajni_tpu_torch.train", "--synthetic", "--model", "vit_tiny_patch16_224",
+              "--schedule", str(sched), "--steps", "2", "--batch_size", "16", "--output",
+              str(Path(tmp) / "tiny.msgpack")],
+             "route: torch (float32 activations (the kernels take bfloat16))"),
+        ]
+        for argv, route in runs:
+            p = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, capture_output=True,
+                               text=True, timeout=600)
+            tail = [l for l in p.stdout.splitlines()
+                    if l.startswith(("route:", "step", "RAJNI -", "saved"))]
+            print(f"CLI {argv[0]} {argv[argv.index('--model') + 1]}: " + " | ".join(tail))
+            check(p.returncode == 0,
+                  f"{argv[0]} exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+            check(route in p.stdout.splitlines(), f"{argv[0]}: no '{route}' line")
+    gen = torch.Generator().manual_seed(2)
+    images = torch.randn(8, 224, 224, 3, generator=gen)
+    for dtype, route in ((torch.float32, "route: torch (float32 activations (the kernels take "
+                                         "bfloat16))"),
+                         (torch.bfloat16, "route: torch (C=192 is not a multiple of 128)")):
+        model = RAJNIViT("vit_tiny_patch16_224", REFERENCE_SCHEDULE, dtype=dtype, device=device)
+        out = model(images)
+        print(f"RAJNIViT vit_tiny_patch16_224 {dtype}: {model.route}, logits {tuple(out.shape)}")
+        check(model.route == route, f"vit_tiny {dtype}: {model.route} != {route}")
+        check(out.is_cuda and bool(torch.isfinite(out).all()), "vit_tiny logits not finite")
+
+
 # Per path: model, weights, batch, image side, schedule, token counts, and
 # the launches of each kernel in one pruned and one identity forward.
 def launches(**counts):
@@ -1238,7 +1874,14 @@ COUNTED = ("fused_pruned_attn_block", "fused_attn_block", "fused_ln_mlp_residual
            "fused_attn_mlp_block", "fused_pruned_block_full_int8", "fused_block_full_int8",
            "fused_ln_mlp_residual_int8", "fused_attn_block_int8", "fused_ln_qkv_int8",
            "fused_gather_sdpa_proj_residual_int8", "fused_pruned_attn_block_int8",
-           "fused_ln_qkv_select", "fused_pruned_attn_block_long")
+           "fused_ln_qkv_select", "fused_pruned_attn_block_long", "train_attn_block",
+           "train_ln_mlp", "train_sdpa_bwd")
+# the training path: B16 in every stock block, B4 + B5 in every pruned
+# block, B17 and B18 in every block; no inference kernel
+TRAIN_LAUNCHES = {
+    "pruned": launches(train_attn_block=7, fused_ln_qkv=5, fused_gather_sdpa_proj_residual=5,
+                       train_ln_mlp=12, train_sdpa_bwd=12),
+    "identity": launches(train_attn_block=12, train_ln_mlp=12, train_sdpa_bwd=12)}
 VIT_B384_COUNTS = [577, 577, 577, 577, 548, 520, 442, 375, 356, 356, 356, 356]
 VIT_B_COUNTS = [197, 197, 197, 197, 187, 177, 150, 127, 120, 120, 120, 120]
 DEIT_S_COUNTS = [197, 197, 197, 197, 177, 159, 143, 128, 115, 103, 92, 82]
@@ -1348,36 +1991,46 @@ def plain_int8_blocks():
             setattr(tvit, name, fn)
 
 
-def end_to_end(device, device_name, results, path):
-    import torch
-
-    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+def kernel_counters() -> dict:
+    """Every counted kernel's wrapper counter, by name."""
     from rajni_tpu_torch.kernels import attention as ka
     from rajni_tpu_torch.kernels import block as kb
     from rajni_tpu_torch.kernels import longseq as kl
     from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.kernels import train as kt
     from rajni_tpu_torch.kernels import wholeblock as wb
+
+    return {"fused_pruned_attn_block": kb.PRUNED_KERNEL,
+            "fused_attn_block": kb.ATTN_KERNEL,
+            "fused_ln_mlp_residual": km.KERNEL,
+            "fused_ln_qkv": kb.LN_QKV_KERNEL,
+            "fused_gather_sdpa_proj_residual": kb.GATHER_KERNEL,
+            "fused_sdpa": ka.SDPA_KERNEL,
+            "fused_pruned_block_full": wb.PRUNED_FULL_KERNEL,
+            "fused_attn_mlp_block": wb.ATTN_MLP_KERNEL,
+            "fused_pruned_block_full_int8": wb.PRUNED_FULL_INT8_KERNEL,
+            "fused_block_full_int8": wb.BLOCK_FULL_INT8_KERNEL,
+            "fused_ln_mlp_residual_int8": km.INT8_KERNEL,
+            "fused_attn_block_int8": kb.ATTN_INT8_KERNEL,
+            "fused_ln_qkv_int8": kb.LN_QKV_INT8_KERNEL,
+            "fused_gather_sdpa_proj_residual_int8": kb.GATHER_INT8_KERNEL,
+            "fused_pruned_attn_block_int8": kb.PRUNED_INT8_KERNEL,
+            "fused_ln_qkv_select": kb.LN_QKV_SELECT_KERNEL,
+            "fused_pruned_attn_block_long": kl.LONG_KERNEL,
+            "train_attn_block": kt.TRAIN_ATTN_KERNEL,
+            "train_ln_mlp": kt.TRAIN_MLP_KERNEL,
+            "train_sdpa_bwd": kt.SDPA_BWD_KERNEL}
+
+
+def end_to_end(device, device_name, results, path):
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
     from rajni_tpu_torch.quant import calibrate_act_scales, quantize_params
     from rajni_tpu_torch.utils.flops import mfu
     from rajni_tpu_torch.utils.timing import measure_throughput
 
-    counters = {"fused_pruned_attn_block": kb.PRUNED_KERNEL,
-                "fused_attn_block": kb.ATTN_KERNEL,
-                "fused_ln_mlp_residual": km.KERNEL,
-                "fused_ln_qkv": kb.LN_QKV_KERNEL,
-                "fused_gather_sdpa_proj_residual": kb.GATHER_KERNEL,
-                "fused_sdpa": ka.SDPA_KERNEL,
-                "fused_pruned_block_full": wb.PRUNED_FULL_KERNEL,
-                "fused_attn_mlp_block": wb.ATTN_MLP_KERNEL,
-                "fused_pruned_block_full_int8": wb.PRUNED_FULL_INT8_KERNEL,
-                "fused_block_full_int8": wb.BLOCK_FULL_INT8_KERNEL,
-                "fused_ln_mlp_residual_int8": km.INT8_KERNEL,
-                "fused_attn_block_int8": kb.ATTN_INT8_KERNEL,
-                "fused_ln_qkv_int8": kb.LN_QKV_INT8_KERNEL,
-                "fused_gather_sdpa_proj_residual_int8": kb.GATHER_INT8_KERNEL,
-                "fused_pruned_attn_block_int8": kb.PRUNED_INT8_KERNEL,
-                "fused_ln_qkv_select": kb.LN_QKV_SELECT_KERNEL,
-                "fused_pruned_attn_block_long": kl.LONG_KERNEL}
+    counters = kernel_counters()
     spec = PATHS[path]
     batch, model_name = spec["batch"], spec["model"]
     schedule = {"reference": REFERENCE_SCHEDULE, "deit": DEIT_S_SCHEDULE,
@@ -1518,10 +2171,16 @@ def main() -> int:
                lambda: b11_phases(device, peaks, int8_peak, results)),
               ("kernel phases B14/B15 at 577 tokens",
                lambda: int8_phases(device, peaks, int8_peak, results, INT8_WHOLE_S384, seed=9)),
-              ("kernel phases B19/B20", lambda: alternative_phases(device, peaks, results))]
+              ("kernel phases B19/B20", lambda: alternative_phases(device, peaks, results)),
+              ("kernel phases B16/B17/B18 (training)",
+               lambda: train_kernel_phases(device, peaks, results)),
+              ("training block ops", lambda: train_block_ops(device))]
     phases += [(f"end to end {path}", lambda path=path: end_to_end(device, device_name, results, path))
                for path in PATHS]
-    for label, phase in phases + [("eval CLI", eval_cli)]:
+    phases += [("training end to end",
+                lambda: train_end_to_end(device, device_name, results, kernel_counters())),
+               ("eval CLI", eval_cli), ("training and eval CLIs", lambda: train_cli(device))]
+    for label, phase in phases:
         t0 = time.perf_counter()
         phase()
         print(f"{label}: {time.perf_counter() - t0:.1f} s")

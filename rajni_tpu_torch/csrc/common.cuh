@@ -197,7 +197,10 @@ inline cudaError_t launch_layer_norm(const bf16* x, const bf16* scale, const bf1
 //   Requires K % 64 == 0 and N % 8 == 0; M and N are masked.
 // ---------------------------------------------------------------------------
 
-enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+// EPI_GELU_SAVE (B17 train_ln_mlp): h = round(acc + bias) goes to ep.aux,
+// and out gets round(gelu_fast(h)) computed from that rounded h — the GELU
+// of the stored value, where EPI_GELU (K3) takes it of the fp32 sum.
+enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_GELU_SAVE = 3 };
 
 constexpr int GEMM_BM = 128, GEMM_BN = 128, GEMM_BK = 64, GEMM_STAGES = 3, GEMM_THREADS = 128;
 constexpr int GEMM_SMEM = GEMM_STAGES * (GEMM_BM + GEMM_BN) * GEMM_BK * 2;
@@ -209,6 +212,7 @@ struct EpilogueArgs {
   const int* res_idx;    // [M] token index into res per output row, or null
   int rows_out;          // output rows per image (res_idx addressing)
   int rows_in;           // residual rows per image (res_idx addressing)
+  bf16* aux;             // EPI_GELU_SAVE: the pre-GELU h [M, N]
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -320,6 +324,12 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(
         if (EPI == EPI_GELU) {
           v0 = gelu_fast(v0);
           v1 = gelu_fast(v1);
+        } else if (EPI == EPI_GELU_SAVE) {
+          const uint32_t hb = pack_bf16x2(v0, v1);
+          *reinterpret_cast<uint32_t*>(ep.aux + (size_t)r * N + c) = hb;
+          const float2 hr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hb));
+          v0 = gelu_fast(hr.x);
+          v1 = gelu_fast(hr.y);
         } else if (EPI == EPI_RESIDUAL) {
           if (ep.ls != nullptr) {
             v0 *= l.x;

@@ -156,17 +156,26 @@ def ln_qkv_plain(
     return qkv, scores
 
 
-def attn_block_plain(
+def attn_block_qkv_plain(
     x: torch.Tensor, ln_params, attn_params, ls, num_heads: int, scale: float,
     eps: float = 1e-6,
-) -> torch.Tensor:
-    """Plain PyTorch version of K2."""
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 that also returns the post-bias, rounded
+    packed qkv ``[B, N, 3C]`` (B16 ``train_attn_block``'s function)."""
     qkv, _ = ln_qkv_plain(x, ln_params, attn_params["qkv"], num_heads, eps, False)
     a = _mha(qkv, num_heads, scale, x.dtype)
     out = _mm(a, attn_params["proj"]["weight"]) + attn_params["proj"]["bias"].float()
     if ls is not None:
         out = out * ls.float()
-    return (x.float() + out).to(x.dtype)
+    return (x.float() + out).to(x.dtype), qkv
+
+
+def attn_block_plain(
+    x: torch.Tensor, ln_params, attn_params, ls, num_heads: int, scale: float,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2."""
+    return attn_block_qkv_plain(x, ln_params, attn_params, ls, num_heads, scale, eps)[0]
 
 
 def gather_sdpa_proj_residual_plain(
@@ -246,6 +255,15 @@ def fused_attn_block(
     """``x + ls1 * proj(mhsa(qkv(norm1(x))))`` on ``[B, N, C]``."""
     if x.device.type == "cpu":
         return attn_block_plain(x, ln_params, attn_params, ls, num_heads, scale, eps)
+    return launch_attn_block(ATTN_KERNEL, "fused_attn_block", x, ln_params, attn_params, ls,
+                             num_heads, scale, eps)[0]
+
+
+def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params, attn_params,
+                      ls, num_heads: int, scale: float, eps: float):
+    """K2's entry point (``csrc/attn_block.cu``) through ``kernel``'s
+    counter: ``(out [B, N, C], qkv [B, N, 3C])``, the qkv being the
+    post-bias, rounded buffer the launches leave in device memory."""
     B, N, C = x.shape
     qkv_p, proj_p = attn_params["qkv"], attn_params["proj"]
     check_cuda(
@@ -253,13 +271,13 @@ def fused_attn_block(
         wqkv=qkv_p["weight"], bqkv=qkv_p["bias"], wproj=proj_p["weight"],
         bproj=proj_p["bias"], ls=ls,
     )
-    _check_attn_shapes("fused_attn_block", N, C, num_heads, SDPA_MAX_N)
+    _check_attn_shapes(name, N, C, num_heads, SDPA_MAX_N)
     rows = B * N
     y = torch.empty(rows, C, dtype=x.dtype, device=x.device)
-    qkv = torch.empty(rows, 3 * C, dtype=x.dtype, device=x.device)
+    qkv = torch.empty(B, N, 3 * C, dtype=x.dtype, device=x.device)
     attn = torch.empty(rows, C, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    ATTN_KERNEL(
+    kernel(
         ptr(x), ptr(ln_params["scale"]), ptr(ln_params["bias"]), ptr(qkv_p["weight"]),
         ptr(qkv_p["bias"]), ptr(proj_p["weight"]), ptr(proj_p["bias"]), ptr(ls),
         ptr(y), ptr(qkv), ptr(attn), ptr(out), B, N, C, num_heads, float(scale),
@@ -267,7 +285,7 @@ def fused_attn_block(
     )
     if N > ATTN_MAX_N:  # csrc/attn_block.cu launched the two-pass kernel
         SDPA_KERNEL.launches += 1
-    return out
+    return out, qkv
 
 
 def fused_pruned_attn_block(

@@ -27,7 +27,8 @@ SOURCES = (
     "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "ln_qkv.cu", "gather_attn.cu",
     "sdpa.cu", "pruned_block_full.cu", "attn_mlp_block.cu", "pruned_block_full_int8.cu",
     "block_full_int8.cu", "ln_mlp_int8.cu", "attn_block_int8.cu", "ln_qkv_int8.cu",
-    "gather_attn_int8.cu", "pruned_attn_block_int8.cu", "ln_qkv_select.cu",
+    "gather_attn_int8.cu", "pruned_attn_block_int8.cu", "ln_qkv_select.cu", "train_mlp.cu",
+    "sdpa_bwd.cu",
 )
 LIBRARY = "librajni.so"
 NVCC_FLAGS = (

@@ -15,7 +15,9 @@ order.
 counterpart of JAX's ``"xla"``); ``"cuda"`` routes every block through the
 hand-written kernels (the counterpart of ``"pallas"``), whose wrappers fall
 to their plain versions only for CPU tensors; ``"auto"`` is ``"cuda"`` on a
-CUDA tensor and ``"torch"`` elsewhere.
+CUDA tensor and ``"torch"`` elsewhere. On the card, ``"cuda"`` demotes to
+``"torch"`` where the kernels do not take the config or dtype
+(:func:`cuda_kernels_take`), as JAX demotes ``"pallas"`` to ``"xla"``.
 
 Int8 params (:func:`..quant.quantize_params`) run the int8 kernels on
 ``impl="cuda"`` (the whole-block B14/B15 where the JAX plans fit, else the
@@ -49,6 +51,7 @@ from ..kernels.block import (
     fused_pruned_attn_block,
     fused_pruned_attn_block_int8,
 )
+from ..kernels.attention import HEAD_DIM, SDPA_MAX_N
 from ..kernels.math import quantize_rows, quantize_static
 from ..kernels.mlp import (
     _int8_mm,
@@ -373,16 +376,60 @@ def _dequantized(block: Params, dtype) -> Params:
             "mlp": {k: lin(v) for k, v in block["mlp"].items()}}
 
 
-def resolve_impl(impl: str, images: torch.Tensor) -> str:
-    """``"auto"`` → ``"cuda"`` on a CUDA tensor, ``"torch"`` otherwise."""
-    if impl == "auto":
-        return "cuda" if images.is_cuda else "torch"
-    if impl not in ("torch", "cuda"):
+def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype) -> tuple[bool, str]:
+    """Whether the CUDA kernels take this (config, activation dtype):
+    ``(ok, reason)``, the reason naming the first constraint that fails.
+
+    The port's counterpart of ``rajni_tpu/models/vit.py:pallas_compilable``
+    (with ``kernel_path_supported``): the kernels are written for bf16
+    activations, head_dim 64, C a multiple of 128 up to 1024 (hidden a
+    multiple of 128) and at most ``SDPA_MAX_N`` tokens, and for the classic
+    configurations. As JAX's rule holds only on the TPU, this one holds only
+    on the card: the plain versions that the wrappers run on CPU tensors take
+    any shape and dtype.
+    """
+    C, H = config.embed_dim, config.num_heads
+    if not config.is_classic:
+        return False, "an extended timm variant"
+    if dtype != torch.bfloat16:
+        return False, f"{str(dtype).removeprefix('torch.')} activations (the kernels take bfloat16)"
+    if C % 128:
+        return False, f"C={C} is not a multiple of 128"
+    if C > 1024:
+        return False, f"C={C} > 1024"
+    if C % H or C // H != HEAD_DIM:
+        return False, f"head_dim {C / H:g} is not {HEAD_DIM}"
+    if config.mlp_hidden % 128:
+        return False, f"MLP hidden {config.mlp_hidden} is not a multiple of 128"
+    if config.num_tokens > SDPA_MAX_N:
+        return False, f"{config.num_tokens} tokens > {SDPA_MAX_N}"
+    return True, ""
+
+
+def resolve_route(impl: str, config: ViTConfig, dtype: torch.dtype, device) -> tuple[str, str]:
+    """``(impl, reason)``: ``"auto"`` → ``"cuda"`` on a CUDA device,
+    ``"torch"`` otherwise; then ``"cuda"`` on a CUDA device demotes to
+    ``"torch"`` where :func:`cuda_kernels_take` fails, before any launch (the
+    run stays on the same device, as JAX demotes to XLA, ``vit.py:684-692``).
+    ``reason`` says why a demoted route was taken ("" otherwise)."""
+    if impl not in ("torch", "cuda", "auto"):
         raise ValueError(f"unknown impl {impl!r}; use 'torch', 'cuda' or 'auto'")
-    return impl
+    on_card = torch.device(device).type == "cuda"
+    if impl == "auto":
+        impl = "cuda" if on_card else "torch"
+    if impl == "cuda" and on_card:
+        ok, why = cuda_kernels_take(config, dtype)
+        if not ok:
+            return "torch", why
+    return impl, ""
 
 
-@torch.no_grad()
+def route_line(impl: str, reason: str) -> str:
+    """The route as the entry points print it: ``route: torch (C=192 is not
+    a multiple of 128)``."""
+    return f"route: {impl}" + (f" ({reason})" if reason else "")
+
+
 def vit_forward(
     params: Params,
     images: torch.Tensor,
@@ -393,6 +440,11 @@ def vit_forward(
     _sel_tap: Callable[[int, torch.Tensor], None] | None = None,
 ) -> torch.Tensor:
     """Pruned ViT forward: ``[B, H, W, 3] -> [B, num_classes]`` logits.
+
+    Not under ``torch.no_grad()``: on ``impl="torch"`` with params that
+    require grad it is the differentiable reference of the training path
+    (the inference entry points, ``RAJNIViT`` and the CLIs, disable
+    autograd themselves). ``impl`` goes through :func:`resolve_route`.
 
     On ``impl="cuda"`` the blocks are routed where ``rajni_tpu/models/
     vit.py:749-1046`` routes them, by the JAX fit rules (copied in
@@ -442,7 +494,7 @@ def vit_forward(
     """
     _require_classic(config)
     schedule = normalize_schedule(schedule, config.depth)
-    impl = resolve_impl(impl, images)
+    impl, _ = resolve_route(impl, config, params["cls_token"].dtype, images.device)
     eps = config.layer_norm_eps
     C, H, scale = config.embed_dim, config.num_heads, config.attn_scale
     x = embed_tokens(params, images, config)

@@ -19,7 +19,16 @@ import torch
 from ..utils.schedule import Schedule, normalize_schedule
 from ..utils.timing import require_device
 from ..quant import ActScales
-from .vit import ViTConfig, get_config, init_params, model_stats, tree_to, vit_forward
+from .vit import (
+    ViTConfig,
+    get_config,
+    init_params,
+    model_stats,
+    resolve_route,
+    route_line,
+    tree_to,
+    vit_forward,
+)
 
 
 class RAJNIViT:
@@ -31,7 +40,10 @@ class RAJNIViT:
     records of :func:`..quant.quantize_params` keep their int8 weights and
     fp32 scales). ``act_scales`` (:func:`..quant.calibrate_act_scales`)
     selects static int8 scales for quantized params on the kernel route.
-    The device defaults to CUDA and raises without a card.
+    The device defaults to CUDA and raises without a card. ``route`` is
+    the route the forward takes, decided before any launch
+    (:func:`.vit.resolve_route`: ``"route: torch (C=192 is not a multiple of
+    128)"`` where the kernels do not take the config or dtype).
     """
 
     def __init__(
@@ -56,7 +68,10 @@ class RAJNIViT:
         self.params = params
         self.impl = kernels
         self.act_scales = act_scales
+        self.route = route_line(*resolve_route(kernels, self.config, params["cls_token"].dtype,
+                                               self.device))
 
+    @torch.no_grad()
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         """``[B, H, W, 3] -> [B, num_classes]`` logits."""
         return vit_forward(

@@ -3,13 +3,16 @@ data)::
 
     python -m rajni_tpu_torch.run --synthetic 3 --batch_size 64 \\
         --schedule schedule.json [--compare_base] [--kernels cuda] [--device cuda] \\
-        [--quantize [--calibrate N [--save_scales f.json] | --load_scales f.json]]
+        [--quantize [--calibrate N [--save_scales f.json] | --load_scales f.json]] \\
+        [--checkpoint params.msgpack]
 
-Parameters are random (drawn from ``--seed``): throughput is meaningful,
-accuracy is not. ``--quantize`` runs int8 weights (dynamic per-row
+Parameters are random (drawn from ``--seed``) unless ``--checkpoint`` names a
+msgpack checkpoint of either package (:mod:`.params.io`): throughput is
+meaningful, accuracy on synthetic data is not. ``--quantize`` runs int8 weights (dynamic per-row
 activation scales); ``--calibrate N`` calibrates static scales on the first
 N batches before quantizing, ``--load_scales`` reads scales that
-``--save_scales`` wrote. The dataset path, checkpoints, parallelism,
+``--save_scales`` wrote. The ``route:`` line says whether the kernels run or
+the config or dtype was demoted to the plain path. The dataset path, parallelism,
 preprocessing modes, artifacts and profiling are not ported yet.
 """
 
@@ -22,6 +25,7 @@ import torch
 from .data.pipeline import SyntheticLoader
 from .eval import evaluate_model
 from .models.wrapper import RAJNIViT
+from .params.io import load_params
 from .quant import ActScales, calibrate_act_scales, quantize_params
 from .utils.schedule import load_schedule, schedule_to_dict
 from .utils.timing import require_device
@@ -46,6 +50,8 @@ def get_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="Params (msgpack of either package); random if absent")
     p.add_argument("--compare_base", action="store_true",
                    help="Also evaluate the unpruned model and print the speedup")
     p.add_argument("--quantize", action="store_true",
@@ -90,9 +96,11 @@ def main(argv=None):
     if args.schedule is None:
         raise ValueError("You must provide --schedule for RAJNI evaluation")
 
-    base = RAJNIViT(args.model, None, dtype=dtype, kernels=args.kernels,
+    params = load_params(args.checkpoint) if args.checkpoint else None
+    base = RAJNIViT(args.model, None, params=params, dtype=dtype, kernels=args.kernels,
                     seed=args.seed, device=device)
     config = base.config
+    print(base.route)
     loader = SyntheticLoader(
         num_batches=args.synthetic, batch_size=args.batch_size,
         img_size=config.img_size, num_classes=config.num_classes, seed=args.seed,

@@ -84,3 +84,14 @@ def mfu(
     rate it can exceed 1."""
     peak_tflops, _ = device_peaks(device_name)
     return flops_per_image(config, token_counts) * img_per_s / (peak_tflops * 1e12)
+
+
+def train_mfu(
+    config: ViTConfig, token_counts: list[int] | None, img_per_s: float,
+    device_name: str,
+) -> float:
+    """Training-step MFU (``rajni_tpu/utils/flops.py:train_mfu``): three times
+    the forward's matmul FLOPs (the forward, and the backward's two products
+    per forward product) times img/s, over the named H100's dense bf16 peak.
+    The optimizer update is elementwise and not counted."""
+    return 3.0 * mfu(config, token_counts, img_per_s, device_name)
