@@ -37,12 +37,13 @@ exit) when it goes wrong:
    B20 ``fused_pruned_attn_block_long``, which no path runs, at the 384
    path's first pruned block, beside the two-kernel route they stand in
    for; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
-   ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens). Show that the
-   comparison rejects
+   ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens); B6 and B18
+   at ragged lengths (batch 16). Show that the comparison rejects
    faults planted in the plain versions (the attention for K1-B8, B16 and
    B20, the quantization, the attention's rounding and the scores' source
    for the int8 kernels, B17's GELU of the unrounded h, B18's row term from
-   the rounded P and its dV from the unrounded P), and time both with CUDA
+   the rounded P and its dV from the unrounded P; for B6 and B18, P rounded
+   before it is normalized, where it separates), and time both with CUDA
    events (B6 beside ``F.scaled_dot_product_attention``, B18 beside its
    forward and backward, which the port never calls, by their device time
    from ``torch.profiler``: the host side of that call takes longer than its
@@ -268,10 +269,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 5) -> tuple[float, str]:
     """Device time per call of ``fn``: its kernels' time from
     ``torch.profiler``, without the host's gaps between them (for a library
-    call whose host side takes longer than its kernels)."""
+    call whose host side takes longer than its kernels). Each kernel counts
+    its mean recorded duration times its launches a call (its records over
+    ``iters``, rounded up), so a record that the profiler drops does not
+    lower the reading; returns the time and the records kept of those
+    expected."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -283,9 +288,14 @@ def device_ms(fn, iters: int = 20, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    kernels: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    per_call = {name: -(-len(t) // iters) for name, t in kernels.items()}
+    us = sum(statistics.fmean(t) * per_call[name] for name, t in kernels.items())
+    kept = sum(len(t) for t in kernels.values())
+    return us / 1e3, f"{kept} of {iters * sum(per_call.values())} records"
 
 
 def bound(flops: float, nbytes: float, peaks, int8_ops: float = 0.0,
@@ -521,16 +531,22 @@ KERNELS = {
 }
 
 
-def record(results, name, path, shape, ms, plain_ms, bnd, err, rel, library_ms=None):
+def record(results, name, path, shape, ms, plain_ms, bnd, err, rel, library=None,
+           device=None):
     """Keep a kernel's numbers on one path: the times and bound of its first
-    shape there, the worst error over all its shapes."""
+    shape there, the worst error over all its shapes. ``library``: its
+    library yardstick's ``device_ms`` reading; ``device``: the kernel's own,
+    so that the two are read the same way."""
+    library_ms = None if library is None else library[0]
     r = results.setdefault((name, path), dict(
         name=name, path=path, shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-        bound_by=bnd[1], library_ms=library_ms, max_abs_err=0.0, branch_rel_l2=0.0))
+        bound_by=bnd[1], library_ms=library_ms, max_abs_err=0.0, branch_rel_l2=0.0,
+        **({} if device is None else {"device_ms": device[0]})))
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["branch_rel_l2"] = max(r["branch_rel_l2"], rel)
-    lib = "" if library_ms is None else f" | library {library_ms:.3f} ms"
-    print(f"{name} {shape}: kernel {ms:.3f} ms | plain {plain_ms:.3f} ms{lib} | "
+    dev = "" if device is None else f" (device {device[0]:.3f} ms, {device[1]})"
+    lib = "" if library is None else f" | library {library_ms:.3f} ms (device, {library[1]})"
+    print(f"{name} {shape}: kernel {ms:.3f} ms{dev} | plain {plain_ms:.3f} ms{lib} | "
           f"bound {bnd[0]:.3f} ms ({bnd[1]})")
 
 
@@ -661,13 +677,17 @@ def long_phases(device, peaks, results):
         zero = torch.zeros_like(got)
         err, rel = compare(f"B6 N={n}", got, ka.fused_sdpa_plain(qkv, HEADS, scale), zero)
         reject_planted(f"B6 N={n}", got, lambda: ka.fused_sdpa_plain(qkv, HEADS, scale), zero)
+        rounding_point(f"B6 N={n}", {"out": got}, {"out": ka.fused_sdpa_plain(qkv, HEADS, scale)},
+                       {"out": b6_unnormalized(qkv, HEADS, scale)}, {"out": B6_REL_L2})
         ms = cuda_ms(lambda: ka.fused_sdpa(qkv, HEADS, scale))
+        dev = device_ms(lambda: ka.fused_sdpa(qkv, HEADS, scale))
         plain_ms = cuda_ms(lambda: ka.fused_sdpa_plain(qkv, HEADS, scale), iters=5)
         q, k, v = qkv.view(Bl, n, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4).contiguous()
-        lib_ms = cuda_ms(lambda: Fnn.scaled_dot_product_attention(q, k, v, scale=scale))
+        # device time, as B18's: under CUDA events the library call's host side is timed
+        lib = device_ms(lambda: Fnn.scaled_dot_product_attention(q, k, v, scale=scale))
         bnd = bound(4.0 * Bl * n * n * C, Bl * n * 3 * C * 2 + Bl * n * C * 2, peaks)
         record(results, "fused_sdpa", PATH384, f"B={Bl} N={n} C={C}", ms, plain_ms, bnd, err,
-               rel, lib_ms)
+               rel, lib, dev)
 
     for n in (577, 356):  # K2 past ATTN_MAX_N
         x = x_of(n)
@@ -1336,7 +1356,9 @@ def rel_l2(got, want) -> float:
 
 def b18_faulty(fault: str):
     """B18's plain version with one planted fault: the row term taken from
-    the rounded pb instead of p32, or dV from p32 instead of pb."""
+    the rounded pb instead of p32, dV from p32 instead of pb, or P rounded
+    before normalization (attn_out and dV from bf16(e), scaled by 1/Σe
+    after the product)."""
     import torch
 
     from rajni_tpu_torch.kernels import train as kt
@@ -1347,21 +1369,70 @@ def b18_faulty(fault: str):
         do = kt._heads(dout, num_heads).float()
         logits = (q @ k.transpose(-1, -2)) * scale
         e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        p32 = e * (1.0 / e.sum(dim=-1, keepdim=True))
+        inv = 1.0 / e.sum(dim=-1, keepdim=True)
+        p32 = e * inv
         pb = p32.to(qkv.dtype).float()
         dv = (p32 if fault == "dV from p32" else pb).transpose(-1, -2) @ do
+        if fault == ROUNDED_FIRST:  # the online-softmax rounding point
+            dv = e.to(qkv.dtype).float().transpose(-1, -2) @ (do * inv)
         dp = do @ v.transpose(-1, -2)
         row = pb if fault == "row term from pb" else p32
         ds = p32 * (dp - (dp * row).sum(dim=-1, keepdim=True))
         dsb = (ds * scale).to(qkv.dtype).float()
         d_qkv = torch.cat([kt._merge(dsb @ k), kt._merge(dsb.transpose(-1, -2) @ q),
                            kt._merge(dv)], dim=-1)
-        return kt._merge(pb @ v).to(qkv.dtype), d_qkv.to(qkv.dtype)
+        out = (e.to(qkv.dtype).float() @ v) * inv if fault == ROUNDED_FIRST else pb @ v
+        return kt._merge(out).to(qkv.dtype), d_qkv.to(qkv.dtype)
 
     return fn
 
 
 B18_FAULTS = ("row term from pb", "dV from p32")
+ROUNDED_FIRST = "P rounded before normalization"
+# The online-softmax rounding point (P rounded, then scaled by 1/Σ after
+# P·V) reads about 2e-3 from the sound plain version: under the branch gate
+# that B6's output shares with every bf16 kernel (BRANCH_REL_L2), so B6's
+# output is also held to its plain version by relative L2 at B6_REL_L2,
+# 2.5x its worst sound reading on an H100 SXM (1.15e-4 at N=848, batch 4;
+# 5.9e-5 to 6.7e-5 at the path's shapes). B18's outputs keep TRAIN_GATES.
+# The fault is gated where the two plain versions alone lie apart by at
+# least the output's limit (2.5x its sound reading); the kernel's own
+# reading never decides that.
+B6_REL_L2 = 2.9e-4
+
+
+def b6_unnormalized(qkv, num_heads: int, scale: float):
+    """B6's plain version with P rounded before it is normalized: O =
+    (bf16(e)·V)·(1/Σe)."""
+    B, N, three_c = qkv.shape
+    C = three_c // 3
+    q, k, v = qkv.reshape(B, N, 3, num_heads, C // num_heads).permute(2, 0, 3, 1, 4).float()
+    logits = (q @ k.transpose(-1, -2)) * scale
+    e = (logits - logits.amax(dim=-1, keepdim=True)).exp()
+    out = (e.to(qkv.dtype).float() @ v) * (1.0 / e.sum(dim=-1, keepdim=True))
+    return out.permute(0, 2, 1, 3).reshape(B, N, C).to(qkv.dtype)
+
+
+def rel_or_zero(got, want) -> float:
+    """Relative L2 distance, 0 where both are exactly zero (dQ and dK at K=1)."""
+    if not bool(want.float().norm()) and not bool(got.float().norm()):
+        return 0.0
+    return rel_l2(got, want)
+
+
+def rounding_point(tag, got: dict, sound: dict, fault: dict, limits: dict) -> None:
+    """Hold each output of a kernel to its plain version by relative L2
+    within ``limits``, and print the rounding-point fault's reading: where
+    the faulty plain version lies at least the limit from the sound one, the
+    limit rejects a kernel with that fault."""
+    for key in got:
+        s = rel_or_zero(got[key], sound[key])
+        f = rel_or_zero(got[key], fault[key])
+        sep = rel_or_zero(fault[key], sound[key])
+        print(f"{tag} {key}: planted fault '{ROUNDED_FIRST}': rel L2 {f:.3e} (sound {s:.3e}, "
+              f"plain versions apart {sep:.3e}, limit {limits[key]:.1e}): "
+              + ("separates, gated" if sep >= limits[key] else "does not separate"))
+        check(s <= limits[key], f"{tag} {key}: rel L2 {s} > {limits[key]}")
 
 
 def train_kernel_phases(device, peaks, results):
@@ -1370,7 +1441,9 @@ def train_kernel_phases(device, peaks, results):
     B18 at K=577 (B=32), past the JAX package's fit rule. Each output is held
     to the plain version separately, and the planted faults must be
     rejected: B17's GELU on the unrounded h (K3's plain version, which
-    computes exactly that), and B18's two above."""
+    computes exactly that), and B18's two above; B18's rounding-point fault
+    is gated where it separates (``rounding_point``), and two calls of B18
+    on the same input must be bitwise equal."""
     import torch
     import torch.nn.functional as Fn
 
@@ -1444,7 +1517,13 @@ def train_kernel_phases(device, peaks, results):
                   + ", ".join(f"{k} {v:.3e}" for k, v in brels.items()))
             check(any(v > TRAIN_GATES[k] for k, v in brels.items()),
                   f"B18 K={n}: the gates missed the planted fault '{fault}'")
+        rounding_point(f"B18 K={n}", g, w,
+                       parts(b18_faulty(ROUNDED_FIRST)(qkv, dout, HEADS, scale)), TRAIN_GATES)
+        again = kt.train_sdpa_bwd(qkv, dout, HEADS, scale)
+        check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+              f"B18 K={n}: two calls on the same input differ")
         ms = cuda_ms(lambda: kt.train_sdpa_bwd(qkv, dout, HEADS, scale))
+        dev = device_ms(lambda: kt.train_sdpa_bwd(qkv, dout, HEADS, scale))
         plain_ms = cuda_ms(lambda: kt.train_sdpa_bwd_plain(qkv, dout, HEADS, scale), iters=5)
         q, k, v = (kt._heads(qkv[..., i * C:(i + 1) * C], HEADS).contiguous().requires_grad_()
                    for i in range(3))
@@ -1454,10 +1533,53 @@ def train_kernel_phases(device, peaks, results):
             out = Fn.scaled_dot_product_attention(q, k, v)
             return torch.autograd.grad(out, (q, k, v), do)
 
-        lib_ms = device_ms(library)  # under CUDA events its host side is timed
+        lib = device_ms(library)  # under CUDA events its host side is timed
         bnd = bound(12.0 * b * n * n * C, 8 * b * n * C * 2, peaks)
         record(results, "train_sdpa_bwd", TRAIN, f"B={b} K={n} C={C}", ms, plain_ms, bnd, err,
-               max(rels.values()), library_ms=lib_ms)
+               max(rels.values()), library=lib, device=dev)
+
+
+def ragged_phases(device):
+    """B6 and B18 at ragged lengths, batch 16 (192 (head, image) units, more
+    than the 132 SMs, so a persistent B6 block takes a second unit on the
+    slots and parities the first left): B6 at N = 1, 17, 64, 65, 257, 448,
+    577 and 848 (one tile, partial tiles, odd and even tile counts in the
+    one-pass kernel, and past 640 tokens the two-pass form), B18 at K = 1,
+    63, 65, 197, 577 and 848 (the one-launch kernel to 256, two launches
+    past it), each held to its plain version with the gates of the path
+    shapes, the rounding-point fault's among them, B18 also bitwise equal
+    over two calls. Not timed."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+    from rajni_tpu_torch.kernels import train as kt
+
+    gen = torch.Generator().manual_seed(13)
+    Br, scale = 16, (C // HEADS) ** -0.5
+    for n in (1, 17, 64, 65, 257, 448, 577, 848):
+        qkv = torch.randn(Br, n, 3 * C, generator=gen).to(device, torch.bfloat16)
+        got = ka.fused_sdpa(qkv, HEADS, scale)
+        want = ka.fused_sdpa_plain(qkv, HEADS, scale)
+        compare(f"B6 ragged N={n}", got, want, torch.zeros_like(got))
+        rounding_point(f"B6 ragged N={n}", {"out": got}, {"out": want},
+                       {"out": b6_unnormalized(qkv, HEADS, scale)}, {"out": B6_REL_L2})
+    for n in (1, 63, 65, 197, 577, 848):
+        qkv = torch.randn(Br, n, 3 * C, generator=gen).to(device, torch.bfloat16)
+        dout = torch.randn(Br, n, C, generator=gen).to(device, torch.bfloat16)
+        got = kt.train_sdpa_bwd(qkv, dout, HEADS, scale)
+        want = kt.train_sdpa_bwd_plain(qkv, dout, HEADS, scale)
+        g = {"attn_out": got[0], "dQ": got[1][..., :C], "dK": got[1][..., C:2 * C],
+             "dV": got[1][..., 2 * C:]}
+        w = {"attn_out": want[0], "dQ": want[1][..., :C], "dK": want[1][..., C:2 * C],
+             "dV": want[1][..., 2 * C:]}
+        rels = {k: rel_or_zero(g[k], w[k]) for k in g}
+        again = kt.train_sdpa_bwd(qkv, dout, HEADS, scale)
+        same = torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+        print(f"B18 ragged K={n}: rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f", two calls bitwise equal {same}")
+        for k, v in rels.items():
+            check(v <= TRAIN_GATES[k], f"B18 ragged K={n} {k} rel L2 {v} > {TRAIN_GATES[k]}")
+        check(same, f"B18 ragged K={n}: two calls on the same input differ")
 
 
 def selection_gaps(own, forced, scores, ref_scores) -> dict:
@@ -2174,6 +2296,7 @@ def main() -> int:
               ("kernel phases B19/B20", lambda: alternative_phases(device, peaks, results)),
               ("kernel phases B16/B17/B18 (training)",
                lambda: train_kernel_phases(device, peaks, results)),
+              ("kernel phases B6/B18 at ragged lengths", lambda: ragged_phases(device)),
               ("training block ops", lambda: train_block_ops(device))]
     phases += [(f"end to end {path}", lambda path=path: end_to_end(device, device_name, results, path))
                for path in PATHS]
@@ -2195,7 +2318,8 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "path": r["path"], "shape": r["shape"],
                         "branch_rel_l2": r["branch_rel_l2"],
-                        **({"two_kernel_ms": r["two_kernel_ms"]} if "two_kernel_ms" in r else {})})
+                        **({"two_kernel_ms": r["two_kernel_ms"]} if "two_kernel_ms" in r else {}),
+                        **({"device_ms": r["device_ms"]} if "device_ms" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))

@@ -15,14 +15,21 @@
 //
 // What bounds these kernels on the H100: at batch 256 the QKV, proj, fc1 and
 // fc2 products are compute-bound (hundreds of FLOP per byte), so the GEMM is
-// the part that matters. This version reaches the tensor cores through
-// ldmatrix + mma.sync m16n8k16 (Ampere-style); Hopper's wgmma/TMA are later
-// work.
+// the part that matters. This header reaches the tensor cores through
+// ldmatrix + mma.sync m16n8k16 (Ampere-style); the long-sequence attention
+// (sdpa.cu) and B18 (sdpa_bwd.cu) use Hopper's wgmma, TMA and mbarriers
+// (hopper.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+// B6's attention body (sdpa.cu): qkv [B, n_src, 3C] bf16, token t of image b
+// being row idx[b, t] when idx is given, into out [B, n, C] (fp32 when
+// out_fp32, else bf16). Returns a cudaError_t.
+extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, int out_fp32, int B,
+                               int n_src, int n, int C, int H, float scale, void* stream);
 
 // Everything here has internal linkage: the .cu files are separate
 // translation units of one library, and each includes its own copy.
@@ -548,201 +555,23 @@ inline cudaError_t launch_attention(const bf16* qkv, const int* idx, OutT* out, 
 }
 
 // ---------------------------------------------------------------------------
-// Long-sequence attention: B6 fused_sdpa's formula, also the attention of K2
-// and B5 past ATTN_MAX_N tokens. One block of WARPS warps per (head, image),
-// head_dim 64.
-//   K (row-major) and V (transposed) of the head are loaded once into shared
-//   memory, 272 bytes a token, so N <= SDPA_MAX_N fits the 227 KB a block may
-//   use. The kernel is latency-bound (dependent mma.sync chains, expf), so
-//   the SM needs 16 warps: up to SDPA_PAIR_N tokens two blocks of 8 warps
-//   share an SM, past that one block has 16. Each warp walks its 16-query
-//   slices (rows 16 * warp, + 16 * WARPS, ...) and makes two passes over the
-//   16-token key tiles (two tiles an iteration) with mma.sync m16n8k16:
-//   * pass 1 computes S = (q·kᵀ) * scale in fp32 (the "per-head" form: q is
-//     not pre-scaled) and reduces each row's max and sum of exp(s - max), the
-//     running sum rescaled when the running max rises;
-//   * pass 2 recomputes each S tile, forms P = exp(s - max) * (1 / sum),
-//     rounds it to bf16 and accumulates P·V in fp32.
-//   So P is normalized before it is rounded, as in the plain version. An
-//   online-softmax (flash) form would round the unnormalized P and rescale
-//   after P·V, which moves the rounding point; the price of keeping it is
-//   the logits computed twice (4·N²·D more tensor-core work per head).
-//   Token t of the attended sequence is row idx[b, t] of qkv when idx is
-//   given (B5's gather), as in attention_kernel.
-// Bound on the H100: operations (tensor cores, and the two expf per logit on
-// the special-function units); the K/V loads are ~B·N·2C·2 bytes.
+// Long-sequence attention: B6 fused_sdpa's formula, also the attention of K2,
+// B5, K1/B20 and the int8 tails past ATTN_MAX_N tokens. The body is the
+// wgmma kernel of sdpa.cu (its header has the design), compiled once there
+// and reached from the other translation units through rajni_sdpa_body.
 // ---------------------------------------------------------------------------
 
 constexpr int SDPA_MAX_N = 848;
-constexpr int SDPA_PAIR_N = 416;  // attn_smem(416) = 114,176 bytes: two blocks an SM
-
-// S tile j of a warp's 16 query rows, in the layout of attention_kernel's
-// s[j][0..7]; tokens past n are -inf.
-__device__ __forceinline__ void sdpa_logits(float* s, uint32_t (&qf)[4][4],
-                                            const bf16* Ks, int j, int g, int t4, int n,
-                                            float scale) {
-#pragma unroll
-  for (int e = 0; e < 8; ++e) s[e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const bf16* k0 = Ks + (16 * j + g) * ATTN_LDH + ks * 16 + 2 * t4;
-    const bf16* k1 = k0 + 8 * ATTN_LDH;
-    mma_16816(s, qf[ks], ld_u32(k0), ld_u32(k0 + 8));
-    mma_16816(s + 4, qf[ks], ld_u32(k1), ld_u32(k1 + 8));
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int tok = 16 * j + (e & 4 ? 8 : 0) + 2 * t4 + (e & 1);
-    s[e] = tok < n ? s[e] * scale : -INFINITY;
-  }
-}
-
-// exp(s - m), and 0 for a masked logit (s = -inf, m possibly -inf too).
-__device__ __forceinline__ float exp_shifted(float s, float m) {
-  return s == -INFINITY ? 0.f : expf(s - m);
-}
-
-// (m, l) of two partial softmax rows merged: l = l1 e^(m1-m) + l2 e^(m2-m).
-__device__ __forceinline__ void merge_row(float& m, float& l, float m2, float l2) {
-  const float mx = fmaxf(m, m2);
-  l = (l > 0.f ? l * expf(m - mx) : 0.f) + (l2 > 0.f ? l2 * expf(m2 - mx) : 0.f);
-  m = mx;
-}
-
-template <int WARPS, typename OutT>
-__global__ void __launch_bounds__(WARPS * 32, 16 / WARPS) sdpa_kernel(
-    const bf16* __restrict__ qkv, const int* __restrict__ idx, OutT* __restrict__ out,
-    int n_src, int n, int C, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int npad = attn_npad(n), nt = npad / 16, ldv = npad + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [npad][ATTN_LDH]
-  bf16* Vt = Ks + npad * ATTN_LDH;               // [ATTN_D][ldv], V transposed
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
-  const size_t row3 = (size_t)3 * C;
-  const bf16* base = qkv + (size_t)b * n_src * row3 + h * ATTN_D;
-  const int* ib = idx ? idx + (size_t)b * n : nullptr;
-
-  for (int c = tid; c < npad * 8; c += WARPS * 32) {
-    const int t = c >> 3, col = (c & 7) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (t < n) {
-      const bf16* r = base + (size_t)(ib ? ib[t] : t) * row3;
-      kv = *reinterpret_cast<const uint4*>(r + C + col);
-      vv = *reinterpret_cast<const uint4*>(r + 2 * C + col);
-    }
-    *reinterpret_cast<uint4*>(Ks + t * ATTN_LDH + col) = kv;
-    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Vt[(col + j) * ldv + t] = v8[j];
-  }
-  __syncthreads();
-
-  for (int q0 = warp * 16; q0 < n; q0 += WARPS * 16) {
-    // This slice's two fragment rows: query q0 + g and q0 + g + 8.
-    const int ra = q0 + g, rb = ra + 8;
-    const bf16* qa = ra < n ? base + (size_t)(ib ? ib[ra] : ra) * row3 : nullptr;
-    const bf16* qb = rb < n ? base + (size_t)(ib ? ib[rb] : rb) * row3 : nullptr;
-    uint32_t qf[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const int d = ks * 16 + 2 * t4;
-      qf[ks][0] = qa ? ld_u32(qa + d) : 0u;
-      qf[ks][1] = qb ? ld_u32(qb + d) : 0u;
-      qf[ks][2] = qa ? ld_u32(qa + d + 8) : 0u;
-      qf[ks][3] = qb ? ld_u32(qb + d + 8) : 0u;
-    }
-
-    // Pass 1: row max and sum, per thread over its columns, then over the
-    // four lanes (t4) that share a row.
-    float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < nt; ++j) {
-      float s[8];
-      sdpa_logits(s, qf, Ks, j, g, t4, n, scale);
-      const float ta = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5]));
-      const float tb = fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7]));
-      if (ta > ma) {
-        la *= expf(ma - ta);
-        ma = ta;
-      }
-      if (tb > mb) {
-        lb *= expf(mb - tb);
-        mb = tb;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        if (e & 2) lb += exp_shifted(s[e], mb);
-        else la += exp_shifted(s[e], ma);
-      }
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      merge_row(ma, la, __shfl_xor_sync(0xffffffffu, ma, o), __shfl_xor_sync(0xffffffffu, la, o));
-      merge_row(mb, lb, __shfl_xor_sync(0xffffffffu, mb, o), __shfl_xor_sync(0xffffffffu, lb, o));
-    }
-    const float ia = 1.0f / la, ibn = 1.0f / lb;
-
-    // Pass 2: O = P V, P normalized then rounded; the accumulator layout of
-    // S is the A-fragment layout of P.
-    float o[8][4];
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < nt; ++j) {
-      float s[8];
-      sdpa_logits(s, qf, Ks, j, g, t4, n, scale);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        s[e] = (e & 2) ? exp_shifted(s[e], mb) * ibn : exp_shifted(s[e], ma) * ia;
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[0], s[1]);
-      pa[1] = pack_bf16x2(s[2], s[3]);
-      pa[2] = pack_bf16x2(s[4], s[5]);
-      pa[3] = pack_bf16x2(s[6], s[7]);
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        const bf16* v = Vt + (dt * 8 + g) * ldv + 16 * j + 2 * t4;
-        mma_16816(o[dt], pa, ld_u32(v), ld_u32(v + 8));
-      }
-    }
-
-    OutT* oa = out + ((size_t)b * n + ra) * C + h * ATTN_D + 2 * t4;
-    OutT* ob = oa + (size_t)8 * C;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      if (ra < n) store_pair(oa + dt * 8, o[dt][0], o[dt][1]);
-      if (rb < n) store_pair(ob + dt * 8, o[dt][2], o[dt][3]);
-    }
-  }
-}
-
-template <int WARPS, typename OutT>
-inline cudaError_t launch_sdpa_t(const bf16* qkv, const int* idx, OutT* out, int B, int n_src,
-                                 int n, int C, int H, float scale, cudaStream_t st) {
-  const int smem = attn_smem(n);
-  cudaError_t e = cudaFuncSetAttribute(sdpa_kernel<WARPS, OutT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  sdpa_kernel<WARPS, OutT><<<dim3(H, B), WARPS * 32, smem, st>>>(qkv, idx, out, n_src, n, C,
-                                                                 scale);
-  return cudaGetLastError();
-}
 
 template <typename OutT>
 inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, OutT* out, int B, int n_src,
                                int n, int C, int H, float scale, cudaStream_t st) {
-  if (n < 1 || n > SDPA_MAX_N) return cudaErrorInvalidValue;  // the wrapper refuses it first
-  if (n <= SDPA_PAIR_N) return launch_sdpa_t<8>(qkv, idx, out, B, n_src, n, C, H, scale, st);
-  return launch_sdpa_t<16>(qkv, idx, out, B, n_src, n, C, H, scale, st);
+  return static_cast<cudaError_t>(rajni_sdpa_body(qkv, idx, out, sizeof(OutT) == 4, B, n_src, n,
+                                                  C, H, scale, st));
 }
 
 // The attention of K2 and B5: the register-resident kernel up to ATTN_MAX_N
-// tokens, the two-pass kernel above it. At head_dim 64 the scale is 1/8 and
+// tokens, B6's body above it. At head_dim 64 the scale is 1/8 and
 // both forms give the same bits.
 template <typename OutT>
 inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* out, int B,

@@ -1,8 +1,9 @@
 """B6 ``fused_sdpa``: multi-head self-attention on packed QKV.
 
 Port of ``rajni_tpu/kernels/attention.py:fused_sdpa``. On a CUDA tensor the
-wrapper launches the hand-written two-pass kernel (``csrc/sdpa.cu``, body in
-``csrc/common.cuh:sdpa_kernel``); on a CPU tensor it runs
+wrapper launches the hand-written Hopper kernel (``csrc/sdpa.cu``: wgmma,
+TMA or cp.async tiles on mbarriers, one pass with the softmax row in
+registers up to 640 tokens, two passes past that); on a CPU tensor it runs
 :func:`fused_sdpa_plain`, the same function in plain PyTorch.
 
 Numeric contract (the "per-head" form of the TPU kernel, ``attention.py:
@@ -10,9 +11,10 @@ Numeric contract (the "per-head" form of the TPU kernel, ``attention.py:
 softmax in fp32 as ``exp(l - max) * (1 / sum)``, P rounded to the activation
 dtype before P·V, P·V accumulated in fp32, output rounded.
 
-The same kernel is the attention inside K2 ``fused_attn_block`` and B5
-``fused_gather_sdpa_proj_residual`` past ``ATTN_MAX_N`` tokens, where the
-register-resident kernel of K1/K2 cannot hold a softmax row.
+The same kernel body (``rajni_sdpa_body``) is the attention inside K2
+``fused_attn_block``, B5 ``fused_gather_sdpa_proj_residual``, K1/B20 and the
+int8 tails past ``ATTN_MAX_N`` tokens, where the register-resident kernel of
+K1/K2 cannot hold a softmax row.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ import torch
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 
 HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
-# csrc/common.cuh: SDPA_MAX_N. One head's K and Vᵀ sit in shared memory:
-# 272 bytes a token, under the 227 KB a block may use.
+# csrc/common.cuh: SDPA_MAX_N, the longest sequence a path sends to the
+# kernels (the config demotes past it, models/vit.py:cuda_kernels_take).
 SDPA_MAX_N = 848
 
 SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, I, I, I, I, F, P])

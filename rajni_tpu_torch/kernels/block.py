@@ -32,7 +32,7 @@ The SDPA has two forms, switched as the TPU kernels switch them
 the logits) while ``H·N²·6 <= 4 MiB``, else the per-head form (scale on the
 fp32 logits, :func:`..attention.fused_sdpa_plain`). On the card the
 register-resident attention kernel (``N <= ATTN_MAX_N``) is phased and the
-two-pass kernel (``N > ATTN_MAX_N``) per-head. At head_dim 64 the scale is
+B6's kernel (``N > ATTN_MAX_N``) per-head. At head_dim 64 the scale is
 1/8, so both forms give the same bits and the switch points need not agree.
 
 The int8 kernels (``block.py:1098-1440``) quantize the LN output straight
@@ -283,7 +283,7 @@ def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params,
         ptr(y), ptr(qkv), ptr(attn), ptr(out), B, N, C, num_heads, float(scale),
         float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # csrc/attn_block.cu launched the two-pass kernel
+    if N > ATTN_MAX_N:  # csrc/attn_block.cu launched B6's kernel
         SDPA_KERNEL.launches += 1
     return out, qkv
 
@@ -418,7 +418,7 @@ def fused_gather_sdpa_proj_residual(
         ptr(qkv), ptr(idx), ptr(x), ptr(w), ptr(b), ptr(ls), ptr(attn), ptr(out),
         B, N, K, C, num_heads, float(scale), stream(),
     )
-    if K > ATTN_MAX_N:  # csrc/gather_attn.cu launched the two-pass kernel
+    if K > ATTN_MAX_N:  # csrc/gather_attn.cu launched B6's kernel
         SDPA_KERNEL.launches += 1
     return out
 
@@ -545,7 +545,7 @@ def fused_attn_block_int8(x, ln_params, attn_params, ls, num_heads: int, scale: 
         int(act_scales is not None), ptr(q8), ptr(qs), ptr(qkv), ptr(attn), ptr(out), B, N, C,
         num_heads, float(scale), float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
+    if N > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
         SDPA_KERNEL.launches += 1
     return out
 
@@ -620,7 +620,7 @@ def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_
         int(act_scale is not None), ptr(attn), ptr(q8), ptr(qs), ptr(out), B, N, K, C,
         num_heads, float(scale), stream(),
     )
-    if K > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
+    if K > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
         SDPA_KERNEL.launches += 1
     return out
 
@@ -694,7 +694,7 @@ def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num
         ptr(attn), ptr(idx), ptr(next_scores), ptr(out), B, N, K, C, num_heads, float(scale),
         float(eps), stream(),
     )
-    if K > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
+    if K > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
         SDPA_KERNEL.launches += 1
     return out, next_scores, idx.long()
 

@@ -5,7 +5,7 @@ residual.
 
 Port of ``rajni_tpu/kernels/longseq.py``. On a CUDA tensor the wrapper
 launches K1's hand-written entry point (``csrc/pruned_attn_block.cu``),
-which takes the two-pass attention past ``ATTN_MAX_N`` kept tokens, at N up
+which takes B6's attention past ``ATTN_MAX_N`` kept tokens, at N up
 to ``SDPA_MAX_N``; this wrapper admits those lengths and counts its own
 launches. On a CPU tensor it runs :func:`pruned_attn_block_long_plain`.
 
@@ -103,6 +103,6 @@ def fused_pruned_attn_block_long(x, ln_params, attn_params, ls, prev_scores, num
         ptr(next_scores), ptr(out), B, N, K, C, num_heads, float(scale), float(eps),
         stream(),
     )
-    if K > ATTN_MAX_N:  # the attention took the two-pass kernel
+    if K > ATTN_MAX_N:  # the attention took B6's kernel
         SDPA_KERNEL.launches += 1
     return out, next_scores, idx.long()

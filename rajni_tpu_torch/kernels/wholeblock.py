@@ -335,7 +335,7 @@ def fused_attn_mlp_block(x, block, num_heads: int, scale: float, eps: float = 1e
         ptr(x), *ptrs, ptr(y), ptr(qkv), ptr(attn), ptr(mid), ptr(h), ptr(out), B, N, C,
         hidden, num_heads, float(scale), float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # csrc/attn_block.cu launched the two-pass kernel
+    if N > ATTN_MAX_N:  # csrc/attn_block.cu launched B6's kernel
         SDPA_KERNEL.launches += 1
     return out
 
@@ -395,7 +395,7 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
     hc = _plan_hc(_pruned_full_int8_plan(N, K, C, hidden, x.element_size()),
                   "fused_pruned_block_full_int8", f"N={N}, K={K}, C={C}, hidden={hidden}")
     ops = int8_operands(block, act_scales)
-    # the attention on the kept tokens takes the two-pass kernel past
+    # the attention on the kept tokens takes B6's kernel past
     # ATTN_MAX_N (DeiT-S/16 384 runs B14 from 519 tokens)
     args = _int8_launch_operands(x, block, ops, num_heads, hc, SDPA_MAX_N,
                                  "fused_pruned_block_full_int8")
@@ -417,7 +417,7 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
         ptr(next_scores), ptr(out), B, N, K, C, hidden, hc, num_heads, float(scale),
         float(eps), stream(),
     )
-    if K > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
+    if K > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
         SDPA_KERNEL.launches += 1
     return out, next_scores, idx.long()
 
@@ -443,6 +443,6 @@ def fused_block_full_int8(x, block, num_heads: int, scale: float, eps: float = 1
         ptr(h), ptr(hq), ptr(hs), ptr(out), B, N, C, hidden, hc, num_heads, float(scale),
         float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # int8.cuh's attention took the two-pass kernel
+    if N > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
         SDPA_KERNEL.launches += 1
     return out

@@ -8,12 +8,13 @@ unpacked with ``git archive`` into an ignored directory). For each root in
 the order given, a fresh process imports that root's ``rajni_tpu_torch``
 (which builds its kernels into its own ``_build``) and measures the
 throughput of ViT-B/16 224 bf16 (batch 256), ViT-B/16 384 bf16 (batch 128),
-ViT-B/16 224 int8 (batch 256) and ViT-B/16 384 int8 (batch 128), pruned
-(``REFERENCE_SCHEDULE``) and with the identity schedule, as chip_smoke.py
-measures them. Prints the card's name and power limit, then one JSON line per
-run; a path that a checkout does not route yet (``NotImplementedError``)
-reads null. Compare two versions only within one call, in turns. Needs a
-CUDA card.
+ViT-B/16 224 int8 (batch 256), ViT-B/16 384 int8 (P4a, batch 128) and
+DeiT-S/16 384 int8 (P5d, batch 128, ``DEIT_S_DYNAMIC``), pruned and with the
+identity schedule, and the train img/s of ViT-B/16 224 bf16 through the
+kernels (T6, batch 128), as chip_smoke.py measures them. Prints the card's
+name and power limit, then one JSON line per run; a path that a checkout
+does not route yet (``NotImplementedError``) reads null. Compare two versions
+only within one call, in turns. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -23,9 +24,15 @@ import subprocess
 import sys
 from pathlib import Path
 
-# (model, image side, batch, int8)
-PATHS = (("vit_base_patch16_224", 224, 256, False), ("vit_base_patch16_384", 384, 128, False),
-         ("vit_base_patch16_224", 224, 256, True), ("vit_base_patch16_384", 384, 128, True))
+# scripts/bench_suite.py:34 DEIT_S_DYNAMIC: blocks 3-10 keep 0.9, rescoring
+DEIT_S_DYNAMIC = {i: {"keep_ratio": 0.9, "update": True} for i in range(3, 11)}
+# (model, image side, batch, int8, pruned schedule; None: REFERENCE_SCHEDULE)
+PATHS = (("vit_base_patch16_224", 224, 256, False, None),
+         ("vit_base_patch16_384", 384, 128, False, None),
+         ("vit_base_patch16_224", 224, 256, True, None),
+         ("vit_base_patch16_384", 384, 128, True, None),
+         ("deit_small_patch16_384", 384, 128, True, DEIT_S_DYNAMIC))
+TRAIN_MODEL, TRAIN_BATCH = "vit_base_patch16_224", 128
 
 
 def measure(root: str) -> dict:
@@ -44,12 +51,13 @@ def measure(root: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     out = {"root": root}
-    for model, side, batch, int8 in PATHS:
-        raw = RAJNIViT(model, REFERENCE_SCHEDULE, kernels="cuda", seed=0, device=dev)
+    for model, side, batch, int8, schedule in PATHS:
+        schedule = schedule or REFERENCE_SCHEDULE
+        raw = RAJNIViT(model, schedule, kernels="cuda", seed=0, device=dev)
         params = quantize_params(raw.params) if int8 else raw.params
         gen = torch.Generator().manual_seed(1)
         images = torch.randn(batch, side, side, 3, generator=gen).to(dev)
-        for name, sched in (("pruned", REFERENCE_SCHEDULE), ("identity", None)):
+        for name, sched in (("pruned", schedule), ("identity", None)):
             key = f"{model}{' int8' if int8 else ''} {name}"
             m = RAJNIViT(model, sched, params=params, kernels="cuda", device=dev)
             try:
@@ -59,6 +67,24 @@ def measure(root: str) -> dict:
                 out[key] = None
                 continue
             out[key] = round(ips, 1)
+        del raw, params, images
+
+    from rajni_tpu_torch import train as tt
+    from rajni_tpu_torch.models import vit as tvit
+
+    config = tvit.get_config(TRAIN_MODEL)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(TRAIN_BATCH, config.img_size, config.img_size, 3, generator=gen).to(dev)
+    labels = torch.randint(0, config.num_classes, (TRAIN_BATCH,), generator=gen).to(dev)
+    for name, sched in (("pruned", REFERENCE_SCHEDULE), ("identity", None)):
+        tx = tt.build_optimizer(1e-4, 100, 0.05)
+        params = tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, dev)
+        state = tt.create_train_state(params, tx)
+        step = tt.make_train_step(config, sched, tx, impl="cuda")
+        ips = measure_throughput(step, state, images, labels, batch=TRAIN_BATCH, device=dev,
+                                 iters=10, warmup=2, repeats=3)
+        out[f"{TRAIN_MODEL} train {name}"] = round(ips, 1)
+        del state, step
     return out
 
 
