@@ -20,7 +20,9 @@ exit) when it goes wrong:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rajni_tpu_torch/csrc`` into one library
-   (one ``nvcc`` per source, in parallel, then one link);
+   (one ``nvcc`` per source, in parallel, then one link), and require of
+   the sources of the wgmma GEMM (``gemm.cu``, ``mlp.cu``, ``attn_block.cu``)
+   that ptxas reports no spill and no serialized wgmma;
 3. hold each kernel against its plain PyTorch version on the card at each
    path's shapes: K1 ``fused_pruned_attn_block``, K2 ``fused_attn_block`` and
    K3 ``fused_ln_mlp_residual`` at B=256 and the 224 path's token counts; B4
@@ -38,12 +40,16 @@ exit) when it goes wrong:
    path's first pruned block, beside the two-kernel route they stand in
    for; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
    ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens); B6 and B18
-   at ragged lengths (batch 16). Show that the comparison rejects
+   at ragged lengths (batch 16); the GEMM of K2 and K3 on its own
+   (``kernels/gemm.py``) at each bf16 path's QKV, proj, fc1 and fc2 (C =
+   384, 768, 1024; M = 256·197, 256·120) and at ragged M and N, timed beside
+   ``F.linear`` (cuBLAS), which the port never calls. Show that the comparison rejects
    faults planted in the plain versions (the attention for K1-B8, B16 and
    B20, the quantization, the attention's rounding and the scores' source
    for the int8 kernels, B17's GELU of the unrounded h, B18's row term from
    the rounded P and its dV from the unrounded P; for B6 and B18, P rounded
-   before it is normalized, where it separates), and time both with CUDA
+   before it is normalized, where it separates; for the GEMM, the GELU of
+   the rounded sum and a K-tile skipped), and time both with CUDA
    events (B6 beside ``F.scaled_dot_product_attention``, B18 beside its
    forward and backward, which the port never calls, by their device time
    from ``torch.profiler``: the host side of that call takes longer than its
@@ -82,6 +88,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -284,18 +291,39 @@ def device_ms(fn, iters: int = 20, warmup: int = 5) -> tuple[float, str]:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     kernels: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for _ in range(3):  # again if the profiler kept no record at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                kernels.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if kernels:
+            break
     per_call = {name: -(-len(t) // iters) for name, t in kernels.items()}
     us = sum(statistics.fmean(t) * per_call[name] for name, t in kernels.items())
     kept = sum(len(t) for t in kernels.values())
     return us / 1e3, f"{kept} of {iters * sum(per_call.values())} records"
+
+
+def stream_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Time per call of ``fn`` on the card, CUDA events around ``iters``
+    back-to-back calls (the host enqueues ahead; a call whose host side takes
+    longer than its kernels reads its host time)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(flops: float, nbytes: float, peaks, int8_ops: float = 0.0,
@@ -1539,6 +1567,129 @@ def train_kernel_phases(device, peaks, results):
                max(rels.values()), library=lib, device=dev)
 
 
+# The GEMM of K2 and K3 (csrc/gemm_sm90.cuh, through its own entry point
+# kernels/gemm.py:gemm) against gemm_plain, by relative L2 of the output, or
+# of the branch ``out - res`` where the epilogue adds a residual. Both round
+# once from fp32 sums taken in another order, so they differ by one-ulp flips
+# where a sum lies within that order's error of a rounding edge. On an H100
+# SXM the sound readings were at most GEMM_SOUND (fc2 at K=4096, the longest
+# sums; 1.9e-5 to 1.5e-4 over the path and ragged shapes); the limit is 2.5x
+# that. It must reject two planted faults of the plain version: the GELU of
+# the bf16-rounded sum (B17's rounding point, not K3's; it read 3.0e-3 to
+# 3.1e-3) at every fc1 shape, and the last K-tile skipped (0.2 and up) at
+# every ragged one.
+GEMM_SOUND = 1.533e-4
+GEMM_SOURCES = ("gemm.cu", "mlp.cu", "attn_block.cu")  # the sources that build it
+GEMM_REL_L2 = 2.5 * GEMM_SOUND
+# (label, width, hidden) of the bf16 paths whose products the GEMM runs:
+# DeiT-S (P3a: B7's MLP half, B8), ViT-B (K2, K3, B16), ViT-L (P5c)
+GEMM_WIDTHS = ((DEIT_S, C_S, HIDDEN_S), (PATH224, C, HIDDEN), (PATH_L, C_L, HIDDEN_L))
+
+
+def gemm_faulty(fault: str):
+    """gemm_plain with a planted fault."""
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.kernels.math import gelu_fast
+
+    def fn(a, w, bias, epi, ls=None, res=None):
+        if fault == "K-tile skipped":  # the last 64 of K left out of the sum
+            return kg.gemm_plain(a[..., :-kg.BLOCK_K], w[:, :-kg.BLOCK_K], bias, epi, ls, res)
+        # "GELU of the rounded sum"
+        h = (a.float() @ w.float().t() + bias.float()).to(a.dtype)
+        return gelu_fast(h.float()).to(a.dtype)
+    return fn
+
+
+def gemm_rel(got, want, res) -> float:
+    """Relative L2 of the outputs, or of the branches when ``res`` is added."""
+    if res is None:
+        return rel_l2(got, want)
+    return branch_rel(got, want, res)
+
+
+def gemm_phases(device, peaks):
+    """The GEMM of K2 and K3 on its own at each product of the bf16 paths
+    (QKV, proj, fc1 and fc2 at C = 384, 768 and 1024, M = 256·197 and
+    256·120), each timed beside ``F.linear`` (cuBLAS, which the port never
+    calls) by device time; and at ragged shapes, M in {1, 77, 128·394 + 1}
+    and N not a multiple of the tile, which no path runs. Every epilogue,
+    with and without the layer scale and the residual."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.kernels.math import gelu_fast
+
+    gen = torch.Generator().manual_seed(14)
+
+    def operands(M, N, K, epi, name, with_ls, with_res):
+        a = torch.randn(M, K, generator=gen)
+        if name == "fc2":  # fc2 reads the GELU of fc1's output
+            a = gelu_fast(a)
+        a = a.to(device, torch.bfloat16)
+        w = (torch.randn(N, K, generator=gen) / math.sqrt(K)).to(device, torch.bfloat16)
+        bias = (0.1 * torch.randn(N, generator=gen)).to(device, torch.bfloat16)
+        ls = (1 + 0.1 * torch.randn(N, generator=gen)).to(device, torch.bfloat16) \
+            if with_ls else None
+        res = (X_STD * torch.randn(M, N, generator=gen)).to(device, torch.bfloat16) \
+            if with_res else None
+        return a, w, bias, epi, ls, res
+
+    def held(tag, args, faults=()):
+        got = kg.gemm(*args)
+        rel = gemm_rel(got, kg.gemm_plain(*args), args[5])
+        print(f"GEMM {tag}: rel L2 {rel:.3e}")
+        check(bool(torch.isfinite(got.float()).all()), f"GEMM {tag}: output not finite")
+        check(rel <= GEMM_REL_L2, f"GEMM {tag}: rel L2 {rel} > {GEMM_REL_L2}")
+        for fault in faults:
+            bad = gemm_rel(got, gemm_faulty(fault)(*args), args[5])
+            print(f"GEMM {tag}: planted fault '{fault}': rel L2 {bad:.3e}")
+            check(bad > GEMM_REL_L2, f"GEMM {tag}: the gate missed the planted fault '{fault}'")
+        return got
+
+    for label, width, hidden in GEMM_WIDTHS:
+        products = (("qkv", 3 * width, width, kg.EPI_BIAS, False, False),
+                    ("proj", width, width, kg.EPI_RESIDUAL, True, True),
+                    ("fc1", hidden, width, kg.EPI_GELU, False, False),
+                    ("fc2", width, hidden, kg.EPI_RESIDUAL, False, True))
+        for n in (197, 120):
+            M = B * n
+            for name, N, K, epi, with_ls, with_res in products:
+                args = operands(M, N, K, epi, name, with_ls, with_res)
+                tag = f"{label} {name} M={M} N={N} K={K}"
+                held(tag, args, ("GELU of the rounded sum",) if epi == kg.EPI_GELU else ())
+                # device time, as B6's and B18's yardsticks; and CUDA events
+                # over back-to-back calls, which the profiler's dropped
+                # records cannot move
+                ms = device_ms(lambda: kg.gemm(*args), iters=10)
+                lib = device_ms(lambda: Fnn.linear(args[0], args[1], args[2]), iters=10)
+                ev = stream_ms(lambda: kg.gemm(*args))
+                ev_lib = stream_ms(lambda: Fnn.linear(args[0], args[1], args[2]))
+                nbytes = (M * K + N * K + M * N * (2 if with_res else 1)) * 2
+                bnd = bound(2.0 * M * N * K, nbytes, peaks)
+                print(f"GEMM {tag}: {ms[0]:.3f} ms ({ms[1]}; events {ev:.3f}) | cuBLAS "
+                      f"{lib[0]:.3f} ms ({lib[1]}; events {ev_lib:.3f}) | bound {bnd[0]:.3f} ms "
+                      f"({bnd[1]})")
+
+    # ragged: M past the 128-row tile (1, 77, 128·394 + 1), N past the
+    # 128-column tile (200, 776), K of one or three 64-deep steps
+    ragged = [(M, N, K, epi, with_ls, with_res)
+              for M in (1, 77, 128 * 394 + 1)
+              for N, K, epi, with_ls, with_res in (
+                  (3 * C_S, C_S, kg.EPI_BIAS, False, False),
+                  (C_S, HIDDEN_S, kg.EPI_RESIDUAL, True, True),
+                  (C, C, kg.EPI_RESIDUAL, False, True),
+                  (HIDDEN_S, C_S, kg.EPI_GELU, False, False))]
+    ragged += [(300, 200, 64, kg.EPI_GELU, False, False),
+               (129, 776, 192, kg.EPI_RESIDUAL, True, True),
+               (77, 776, 192, kg.EPI_RESIDUAL, False, False),
+               (1, 8, 64, kg.EPI_BIAS, False, False)]
+    for M, N, K, epi, with_ls, with_res in ragged:
+        args = operands(M, N, K, epi, "", with_ls, with_res)
+        faults = ("K-tile skipped",) + (("GELU of the rounded sum",) if epi == kg.EPI_GELU else ())
+        held(f"ragged M={M} N={N} K={K} epi={epi} ls={with_ls} res={with_res}", args, faults)
+
+
 def ragged_phases(device):
     """B6 and B18 at ragged lengths, batch 16 (192 (head, image) units, more
     than the 132 SMs, so a persistent B6 block takes a second unit on the
@@ -2277,6 +2428,9 @@ def main() -> int:
         print(f"  {src}: ptxas {regs}")
         for l in spills:
             print(f"  {src}: {l}")
+        if src in GEMM_SOURCES:
+            check(not re.search(r"[1-9][0-9]* bytes spill", rep), f"{src}: ptxas reports spills")
+            check("C7520" not in rep and "C7515" not in rep, f"{src}: ptxas serialized wgmma")
 
     peaks, int8_peak = device_peaks(device_name), device_int8_peak(device_name)
     results: dict = {}
@@ -2297,6 +2451,8 @@ def main() -> int:
               ("kernel phases B16/B17/B18 (training)",
                lambda: train_kernel_phases(device, peaks, results)),
               ("kernel phases B6/B18 at ragged lengths", lambda: ragged_phases(device)),
+              ("GEMM of K2/K3 (csrc/gemm_sm90.cuh) beside cuBLAS",
+               lambda: gemm_phases(device, peaks)),
               ("training block ops", lambda: train_block_ops(device))]
     phases += [(f"end to end {path}", lambda path=path: end_to_end(device, device_name, results, path))
                for path in PATHS]

@@ -15,9 +15,11 @@
 //
 // What bounds these kernels on the H100: at batch 256 the QKV, proj, fc1 and
 // fc2 products are compute-bound (hundreds of FLOP per byte), so the GEMM is
-// the part that matters. This header reaches the tensor cores through
-// ldmatrix + mma.sync m16n8k16 (Ampere-style); the long-sequence attention
-// (sdpa.cu) and B18 (sdpa_bwd.cu) use Hopper's wgmma, TMA and mbarriers
+// the part that matters. This header's GEMM (gemm_bf16_kernel) reaches the
+// tensor cores through ldmatrix + mma.sync m16n8k16 (Ampere-style); K1, B4,
+// B5 and B17 still take it. K2 and K3 (and B7's MLP half, B8 and B16 through
+// them) take the wgmma/TMA GEMM of gemm_sm90.cuh; the long-sequence attention
+// (sdpa.cu) and B18 (sdpa_bwd.cu) also use Hopper's wgmma, TMA and mbarriers
 // (hopper.cuh).
 #pragma once
 

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the attention kernels B6 (sdpa.cu, the
 // long-sequence attention of every path past ATTN_MAX_N tokens) and B18
-// (sdpa_bwd.cu): mbarriers; loads of 64x64 bf16 tiles (64 tokens of one
-// head's 64 columns) into shared memory in the 128-byte swizzle, by TMA where
-// the tokens are contiguous rows and by cp.async where they come through an
-// index; wgmma descriptors; and the two m64n64k16 products the kernels use:
+// (sdpa_bwd.cu), and of the GEMM of K2 and K3 (gemm_sm90.cuh, whose TMA
+// boxes are 64 x 128 and 64 x 256): mbarriers; loads of 64x64 bf16 tiles
+// (64 tokens of one head's 64 columns) into shared memory in the 128-byte
+// swizzle, by TMA where the tokens are contiguous rows and by cp.async where
+// they come through an index; wgmma descriptors; and the two m64n64k16
+// products the attention kernels use:
 //   * wgmma_ss: D (+)= A·Bᵀ with A and B both tiles [token][dim] in shared
 //     memory, the reduction over the 64 head dims (q·kᵀ, dO·vᵀ, k·qᵀ, v·dOᵀ);
 //   * wgmma_rs_t: D += P·Z with P bf16 in registers (the A-fragment layout,
@@ -136,10 +138,35 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Host: a tensor map over bf16 [batch][rows][inner] (row-major), box 64 x 64
-// x 1, 128-byte swizzle, zero fill past every edge.
+// TMA store: the box of a 3-D tensor map at (c0, c1, c2) from shared memory
+// (written by this block's threads, each of which has run fence_proxy_async
+// before a barrier the issuing thread passed), in this thread's bulk group.
+// Elements past the tensor's edges are not written.
+__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map, const void* src, int c0,
+                                               int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Until this thread's bulk groups are complete (their writes done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Host: a tensor map over bf16 [batch][rows][inner] (row-major), box 64 x
+// box_rows x 1 (box_rows <= 256), 128-byte swizzle, zero fill past every edge.
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, int rows,
-                                 int batch) {
+                                 int batch, int box_rows = TILE) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -160,7 +187,7 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, 
   }
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)inner * 2, (cuuint64_t)rows * inner * 2};
-  const cuuint32_t box[3] = {TILE, TILE, 1}, estr[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {TILE, (cuuint32_t)box_rows, 1}, estr[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

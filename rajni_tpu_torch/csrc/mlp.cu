@@ -8,11 +8,13 @@
 // far above the ~295 FLOP/byte ridge.
 //
 // Design: three launches on the caller's stream — row LayerNorm (bf16 out),
-// GEMM fc1 with a +bias→gelu_fast→round epilogue, GEMM fc2 with a
-// +bias→·ls→+x(fp32)→round epilogue. The hidden [rows, 4C] bf16 goes through
-// device memory (2·rows·4C·2 bytes extra traffic, ~620 MB at batch 256,
-// N=197); keeping it on chip is a later change.
-#include "common.cuh"
+// fc1 with a +bias→gelu_fast→round epilogue, fc2 with a
+// +bias→·ls→+x(fp32)→round epilogue, both products on the wgmma/TMA GEMM of
+// gemm_sm90.cuh (persistent, warp-specialized, 128x256 tiles; its header has
+// the design). The hidden [rows, 4C] bf16 goes through device memory
+// (2·rows·4C·2 bytes extra traffic, ~620 MB at batch 256, N=197, ~0.19 ms at
+// 3.35 TB/s); keeping it on chip is a later change.
+#include "gemm_sm90.cuh"
 
 using namespace rajni;
 
@@ -27,14 +29,16 @@ extern "C" int rajni_ln_mlp_residual(
   if (e != cudaSuccess) return fail(e, 1);
 
   EpilogueArgs ep1{static_cast<const bf16*>(b1), nullptr, nullptr, nullptr, 1, 1};
-  e = launch_gemm<EPI_GELU>(static_cast<const bf16*>(y_scratch), static_cast<const bf16*>(w1),
-                            static_cast<bf16*>(h_scratch), rows, hidden, C, ep1, st);
+  e = launch_gemm_sm90<EPI_GELU>(static_cast<const bf16*>(y_scratch),
+                                 static_cast<const bf16*>(w1), static_cast<bf16*>(h_scratch),
+                                 rows, hidden, C, ep1, st);
   if (e != cudaSuccess) return fail(e, 2);
 
   EpilogueArgs ep2{static_cast<const bf16*>(b2), static_cast<const bf16*>(ls),
                    add_residual ? static_cast<const bf16*>(x) : nullptr, nullptr, 1, 1};
-  e = launch_gemm<EPI_RESIDUAL>(static_cast<const bf16*>(h_scratch), static_cast<const bf16*>(w2),
-                                static_cast<bf16*>(out), rows, C, hidden, ep2, st);
+  e = launch_gemm_sm90<EPI_RESIDUAL>(static_cast<const bf16*>(h_scratch),
+                                     static_cast<const bf16*>(w2), static_cast<bf16*>(out), rows,
+                                     C, hidden, ep2, st);
   return e == cudaSuccess ? 0 : fail(e, 3);
 }
 

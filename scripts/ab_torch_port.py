@@ -8,10 +8,12 @@ unpacked with ``git archive`` into an ignored directory). For each root in
 the order given, a fresh process imports that root's ``rajni_tpu_torch``
 (which builds its kernels into its own ``_build``) and measures the
 throughput of ViT-B/16 224 bf16 (batch 256), ViT-B/16 384 bf16 (batch 128),
-ViT-B/16 224 int8 (batch 256), ViT-B/16 384 int8 (P4a, batch 128) and
-DeiT-S/16 384 int8 (P5d, batch 128, ``DEIT_S_DYNAMIC``), pruned and with the
-identity schedule, and the train img/s of ViT-B/16 224 bf16 through the
-kernels (T6, batch 128), as chip_smoke.py measures them. Prints the card's
+ViT-B/16 224 int8 (P3b, batch 256), ViT-B/16 384 int8 (P4a, batch 128),
+DeiT-S/16 384 int8 (P5d, batch 128, ``DEIT_S_DYNAMIC``), ViT-L/16 224 bf16
+(P5c, batch 256, ``VIT_L_AGGRESSIVE``), DeiT-S/16 224 bf16 (P3a, batch 256,
+``DEIT_S_DYNAMIC``) and ViT-B/16 224 with MLP-only int8 (P4c, batch 256),
+pruned and with the identity schedule, and the train img/s of ViT-B/16 224
+bf16 through the kernels (T6, batch 128), as chip_smoke.py measures them. Prints the card's
 name and power limit, then one JSON line per run; a path that a checkout
 does not route yet (``NotImplementedError``) reads null. Compare two versions
 only within one call, in turns. Needs a CUDA card.
@@ -26,12 +28,18 @@ from pathlib import Path
 
 # scripts/bench_suite.py:34 DEIT_S_DYNAMIC: blocks 3-10 keep 0.9, rescoring
 DEIT_S_DYNAMIC = {i: {"keep_ratio": 0.9, "update": True} for i in range(3, 11)}
-# (model, image side, batch, int8, pruned schedule; None: REFERENCE_SCHEDULE)
-PATHS = (("vit_base_patch16_224", 224, 256, False, None),
-         ("vit_base_patch16_384", 384, 128, False, None),
-         ("vit_base_patch16_224", 224, 256, True, None),
-         ("vit_base_patch16_384", 384, 128, True, None),
-         ("deit_small_patch16_384", 384, 128, True, DEIT_S_DYNAMIC))
+# scripts/bench_suite.py:37 VIT_L_AGGRESSIVE: keep 0.7 at blocks 4, 8, 12, 16
+VIT_L_AGGRESSIVE = {i: {"keep_ratio": 0.7} for i in (4, 8, 12, 16)}
+# (model, image side, batch, int8 mode, pruned schedule; None: REFERENCE_SCHEDULE).
+# int8 mode: None (bf16), "dynamic" (every product) or "mlp" (the MLP only)
+PATHS = (("vit_base_patch16_224", 224, 256, None, None),
+         ("vit_base_patch16_384", 384, 128, None, None),
+         ("vit_base_patch16_224", 224, 256, "dynamic", None),
+         ("vit_base_patch16_384", 384, 128, "dynamic", None),
+         ("deit_small_patch16_384", 384, 128, "dynamic", DEIT_S_DYNAMIC),
+         ("vit_large_patch16_224", 224, 256, None, VIT_L_AGGRESSIVE),
+         ("deit_small_patch16_224", 224, 256, None, DEIT_S_DYNAMIC),
+         ("vit_base_patch16_224", 224, 256, "mlp", None))
 TRAIN_MODEL, TRAIN_BATCH = "vit_base_patch16_224", 128
 
 
@@ -54,11 +62,11 @@ def measure(root: str) -> dict:
     for model, side, batch, int8, schedule in PATHS:
         schedule = schedule or REFERENCE_SCHEDULE
         raw = RAJNIViT(model, schedule, kernels="cuda", seed=0, device=dev)
-        params = quantize_params(raw.params) if int8 else raw.params
+        params = quantize_params(raw.params, attn=int8 != "mlp") if int8 else raw.params
         gen = torch.Generator().manual_seed(1)
         images = torch.randn(batch, side, side, 3, generator=gen).to(dev)
         for name, sched in (("pruned", schedule), ("identity", None)):
-            key = f"{model}{' int8' if int8 else ''} {name}"
+            key = f"{model}{f' int8 {int8}' if int8 else ''} {name}"
             m = RAJNIViT(model, sched, params=params, kernels="cuda", device=dev)
             try:
                 ips = measure_throughput(m, images, batch=batch, device=dev, iters=10, warmup=2,

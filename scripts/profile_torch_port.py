@@ -38,12 +38,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
 def kind_of(name: str) -> str:
-    """A device kernel's kind, by its name: the port's own kernels (GEMM,
-    B18, other), library GEMMs, and PyTorch's elementwise, copy and
-    reduction kernels."""
+    """A device kernel's kind, by its name: the port's own kernels (the
+    wgmma GEMM of K2 and K3, ``gemm_sm90_kernel``; the mma.sync GEMM of K1,
+    B4, B5 and B17, ``gemm_bf16_kernel``; the int8 GEMM; B18; other),
+    library GEMMs, and PyTorch's elementwise, copy and reduction kernels."""
     if "rajni" in name:
+        if "gemm_sm90" in name:
+            return "port GEMM wgmma"
+        if "gemm_bf16" in name:
+            return "port GEMM mma.sync"
         if "gemm" in name:
-            return "port GEMM"
+            return "port GEMM int8"
         return "port B18" if "sdpa_bwd" in name else "port other"
     if any(k in name for k in ("nvjet", "cutlass", "gemm", "splitKreduce")):
         return "library GEMM"
