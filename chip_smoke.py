@@ -21,8 +21,9 @@ exit) when it goes wrong:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rajni_tpu_torch/csrc`` into one library
    (one ``nvcc`` per source, in parallel, then one link), and require of
-   the sources of the wgmma GEMM (``gemm.cu``, ``mlp.cu``, ``attn_block.cu``)
-   that ptxas reports no spill and no serialized wgmma;
+   the sources of the wgmma GEMM (``gemm.cu``, ``mlp.cu``, ``attn_block.cu``,
+   ``pruned_attn_block.cu``, ``gather_attn.cu``, ``ln_qkv.cu``) that ptxas
+   reports no spill and no serialized wgmma;
 3. hold each kernel against its plain PyTorch version on the card at each
    path's shapes: K1 ``fused_pruned_attn_block``, K2 ``fused_attn_block`` and
    K3 ``fused_ln_mlp_residual`` at B=256 and the 224 path's token counts; B4
@@ -40,16 +41,25 @@ exit) when it goes wrong:
    path's first pruned block, beside the two-kernel route they stand in
    for; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
    ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens); B6 and B18
-   at ragged lengths (batch 16); the GEMM of K2 and K3 on its own
-   (``kernels/gemm.py``) at each bf16 path's QKV, proj, fc1 and fc2 (C =
-   384, 768, 1024; M = 256·197, 256·120) and at ragged M and N, timed beside
-   ``F.linear`` (cuBLAS), which the port never calls. Show that the comparison rejects
+   at ragged lengths (batch 16); the GEMM of K1, K2, K3, B4 and B5 on its
+   own (``kernels/gemm.py``) at each bf16 path's QKV, proj, fc1 and fc2 (C =
+   384, 768, 1024; M = 256·197, 256·120), at K1's and B5's proj with the
+   residual gathered through the kept indices, and at ragged M and N, timed
+   beside ``F.linear`` (cuBLAS), which the port never calls; the score
+   kernel (B4's scores at 197 and 577 tokens) against ``_importance_f32`` of
+   the same qkv, and its device time at ViT-B/16 224's five pruned blocks
+   against its byte bound; K1's six launches, each by device time; B6's
+   wgmma body beside the register attention at 197, 187 and 120 tokens, and
+   B20 beside B4 + torch selection + B5 at the 384 path's five pruned
+   blocks, measured for their routing. Show that the comparison rejects
    faults planted in the plain versions (the attention for K1-B8, B16 and
    B20, the quantization, the attention's rounding and the scores' source
    for the int8 kernels, B17's GELU of the unrounded h, B18's row term from
    the rounded P and its dV from the unrounded P; for B6 and B18, P rounded
    before it is normalized, where it separates; for the GEMM, the GELU of
-   the rounded sum and a K-tile skipped), and time both with CUDA
+   the rounded sum, a K-tile skipped, the residual added ungathered and its
+   index shifted by one row; for the scores, the biased variance of the
+   value norms), and time both with CUDA
    events (B6 beside ``F.scaled_dot_product_attention``, B18 beside its
    forward and backward, which the port never calls, by their device time
    from ``torch.profiler``: the host side of that call takes longer than its
@@ -276,14 +286,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 5) -> tuple[float, str]:
-    """Device time per call of ``fn``: its kernels' time from
-    ``torch.profiler``, without the host's gaps between them (for a library
-    call whose host side takes longer than its kernels). Each kernel counts
-    its mean recorded duration times its launches a call (its records over
-    ``iters``, rounded up), so a record that the profiler drops does not
-    lower the reading; returns the time and the records kept of those
-    expected."""
+def kernel_records(fn, iters: int, warmup: int) -> dict[str, list[float]]:
+    """Each device kernel's recorded durations (us) over ``iters`` calls of
+    ``fn`` under ``torch.profiler``, after ``warmup`` calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -302,10 +307,33 @@ def device_ms(fn, iters: int = 20, warmup: int = 5) -> tuple[float, str]:
                 kernels.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if kernels:
             break
+    return kernels
+
+
+def launch_ms(fn, iters: int = 10, warmup: int = 3) -> dict:
+    """Device time per call of each kernel that ``fn`` launches, by name:
+    its mean recorded duration times its launches a call (its records over
+    ``iters``, rounded up), so a record that the profiler drops does not
+    lower the reading."""
+    kernels = kernel_records(fn, iters, warmup)
+    return {name: statistics.fmean(t) * -(-len(t) // iters) / 1e3 for name, t in kernels.items()}
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 5) -> tuple[float, str]:
+    """Device time per call of ``fn``: its kernels' time (:func:`launch_ms`,
+    summed), without the host's gaps between them (for a library call whose
+    host side takes longer than its kernels); returns the time and the
+    records kept of those expected."""
+    kernels = kernel_records(fn, iters, warmup)
     per_call = {name: -(-len(t) // iters) for name, t in kernels.items()}
     us = sum(statistics.fmean(t) * per_call[name] for name, t in kernels.items())
     kept = sum(len(t) for t in kernels.values())
     return us / 1e3, f"{kept} of {iters * sum(per_call.values())} records"
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's name without its namespace and argument list."""
+    return re.sub(r"^void |\(.*$|rajni::\(anonymous namespace\)::", "", name)
 
 
 def stream_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -644,6 +672,9 @@ def kernel_phases(device, peaks, results, path=PATH224, C=C, HEADS=HEADS, HIDDEN
 
         ms = cuda_ms(lambda: kb.fused_pruned_attn_block(*rescored))
         plain_ms = cuda_ms(lambda: kb.pruned_attn_block_plain(*rescored), iters=5)
+        parts = launch_ms(lambda: kb.fused_pruned_attn_block(*rescored))
+        print(f"{tag} K={K}: its launches, device ms a call (sum {sum(parts.values()):.3f}): "
+              + "; ".join(f"{kernel_name(k)} {v:.3f}" for k, v in parts.items()))
         flops = 2.0 * B * n * C * 3 * C + 2.0 * B * K * C * C + 4.0 * B * K * K * C
         nbytes = B * n * C * 2 + 4 * C * C * 2 + B * K * C * 2 + B * K * 4
         record(results, "fused_pruned_attn_block", path, f"B={B} N={n} K={K} C={C}", ms,
@@ -1297,7 +1328,9 @@ def alternative_phases(device, peaks, results):
     """B19 and B20, which no path runs (nor does the JAX package), at the
     ViT-B/16 384 path's first pruned block (B=128, N=577, keep 547), each
     beside the two-kernel route it stands in for: B4, the torch selection,
-    B5."""
+    B5; and B20 beside that route, timed, at the path's four later pruned
+    blocks (548→520, 520→442, 442→375, 375→356), where it must give the same
+    kept tokens and bits."""
     import torch
 
     from rajni_tpu_torch.kernels import block as kb
@@ -1312,7 +1345,7 @@ def alternative_phases(device, peaks, results):
     x = (X_STD * torch.randn(Bl, n, C, generator=gen)).to(device, torch.bfloat16)
     ln, attn = blk["norm1"], blk["attn"]
 
-    def two_kernel():
+    def two_kernel(x=x, keep=keep):
         qkv, s = kb.fused_ln_qkv(x, ln, attn["qkv"], HEADS, 1e-6, True)
         idx, sel = select_tokens_dense(s, keep, x.dtype)
         return qkv, sel, idx, torch.take_along_dim(s, idx, dim=1)
@@ -1353,8 +1386,8 @@ def alternative_phases(device, peaks, results):
 
     # ... and against the two-kernel route it stands in for: the same
     # launches but for the selection, so the same kept tokens and bits
-    def route():
-        qkv, _, idx, ns = two_kernel()
+    def route(x=x, keep=keep):
+        qkv, _, idx, ns = two_kernel(x, keep)
         return (kb.fused_gather_sdpa_proj_residual(qkv, idx, x, attn["proj"], None, HEADS, scale),
                 ns, idx)
 
@@ -1370,6 +1403,117 @@ def alternative_phases(device, peaks, results):
            plain_ms, bound(flops, nbytes, peaks), max(err, e2), max(rel, r2))
     results[("fused_pruned_attn_block_long", KERNEL_ONLY)]["two_kernel_ms"] = two_ms
     print(f"{tag}: {ms:.3f} ms against B4 + torch selection + B5 {two_ms:.3f} ms")
+
+    for n, keep in ((548, 519), (520, 441), (442, 374), (375, 355)):  # not routed: timed only
+        x = (X_STD * torch.randn(Bl, n, C, generator=gen)).to(device, torch.bfloat16)
+        rescored = (x, ln, attn, None, None, HEADS, keep, scale, 1e-6, True)
+        got, two = kl.fused_pruned_attn_block_long(*rescored), route(x, keep)
+        tag = f"B20 N={n} K={keep + 1}"
+        check(all(torch.equal(g, t) for g, t in zip(got, (two[0], two[1], two[2]))),
+              f"{tag}: differs from the two-kernel route")
+        ms = cuda_ms(lambda: kl.fused_pruned_attn_block_long(*rescored))
+        two_ms = cuda_ms(lambda: route(x, keep))
+        print(f"{tag}: {ms:.3f} ms against B4 + torch selection + B5 {two_ms:.3f} ms")
+
+
+# The score kernel (csrc/common.cuh:score_kernel, inside K1, B4, B19, B20,
+# B11, B12 and B14) against _importance_f32 of the same bf16 qkv: both take
+# the same fp32 operations in another order of summation, so the scores
+# differ by a few ulp, amplified where the z-score's difference vn - mu
+# cancels. SCORE_SUM_RTOL bounds the largest relative error over the
+# scores: on an H100 SXM it read 3.084e-6 at most (197 and 577 tokens); the
+# limit is 2.5x that. It must reject a planted fault of the reference, the
+# value norms' variance taken over N instead of N - 1 (the z-score moves by
+# 0.09% at 577 tokens; it read 3.3e-3 and 9.2e-3).
+SCORE_SUM_RTOL = 7.7e-6
+
+
+def importance_biased_std(qkv32, num_heads: int, eps: float = 1e-6):
+    """``_importance_f32`` with the biased variance of the value norms: a
+    planted fault."""
+    import torch
+
+    from rajni_tpu_torch.kernels import block as kb
+
+    B_, n = qkv32.shape[:2]
+    s = kb._importance_f32(qkv32, num_heads, eps)
+    q5 = qkv32.reshape(B_, n, 3, num_heads, -1)
+    V = (q5[:, :, 2] * (1.0 / num_heads)).sum(dim=2)
+    V = V - V.mean(dim=1, keepdim=True)
+    vn = torch.sqrt((V * V).sum(dim=2))
+    mu = vn.mean(dim=1, keepdim=True)
+    var = (vn - mu).square().sum(dim=1, keepdim=True)
+    std_u, std_b = torch.sqrt(var / (n - 1)) + eps, torch.sqrt(var / n) + eps
+    return s / torch.sigmoid((vn - mu) / std_u) * torch.sigmoid((vn - mu) / std_b)
+
+
+def score_phases(device, peaks):
+    """B4's scores at 197 tokens (B=256) and 577 (B=128) against
+    ``_importance_f32`` of B4's own qkv on the card; then the score kernel's
+    device time at the five pruned blocks of ViT-B/16 224 (197, 187, 177,
+    150 and 127 tokens, B=256) and at 577 (B=128), against its byte bound
+    (the CLS q, every k and v row and the scores, once)."""
+    import torch
+
+    from rajni_tpu_torch.kernels import block as kb
+
+    gen = torch.Generator().manual_seed(15)
+    blk = make_block(gen, device)
+    ln, wqkv = blk["norm1"], blk["attn"]["qkv"]
+    for Bs, n in ((B, 197), (B384, 577)):
+        x = (X_STD * torch.randn(Bs, n, C, generator=gen)).to(device, torch.bfloat16)
+        qkv, got = kb.fused_ln_qkv(x, ln, wqkv, HEADS, 1e-6, True)
+        check(bool(torch.isfinite(got).all()) and bool((got > 0).all()),
+              f"scores B={Bs} N={n}: not finite and positive")
+        want = kb._importance_f32(qkv.float(), HEADS)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        bad = ((got - importance_biased_std(qkv.float(), HEADS)).abs() / want.abs()).max().item()
+        print(f"scores B={Bs} N={n}: rel err max {rel:.3e} against _importance_f32 of the same "
+              f"qkv; planted fault 'biased std' {bad:.3e}")
+        check(rel <= SCORE_SUM_RTOL, f"scores N={n}: rel err {rel} > {SCORE_SUM_RTOL}")
+        check(bad > SCORE_SUM_RTOL, f"scores N={n}: the gate missed the planted fault 'biased std'")
+
+    total = total_bound = 0.0
+    for Bs, n, path224 in ((B, 197, True), (B, 187, True), (B, 177, True), (B, 150, True),
+                           (B, 127, True), (B384, 577, False)):
+        x = (X_STD * torch.randn(Bs, n, C, generator=gen)).to(device, torch.bfloat16)
+        times = launch_ms(lambda: kb.fused_ln_qkv(x, ln, wqkv, HEADS, 1e-6, True))
+        ms = sum(v for k, v in times.items() if "score_kernel" in k)
+        bnd = bound(0.0, (Bs * n * 2 * C + Bs * C) * 2 + Bs * n * 4, peaks)
+        print(f"score kernel B={Bs} N={n}: {ms:.4f} ms of device time | bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) | {ms / bnd[0]:.2f}x")
+        if path224:
+            total, total_bound = total + ms, total_bound + bnd[0]
+    print(f"score kernel at ViT-B/16 224's five pruned blocks (B={B}): {total:.4f} ms against a "
+          f"byte bound of {total_bound:.4f} ms ({total / total_bound:.2f}x)")
+
+
+def attention_phases(device):
+    """The attention at and below 256 tokens, measured for its routing (no
+    path changes here): B6's wgmma body (``fused_sdpa``) against the
+    register-resident attention (``attention_kernel`` inside K2) at 197,
+    187 and 120 tokens, B=256, by device time; B6's output held to its
+    plain version there."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+    from rajni_tpu_torch.kernels import block as kb
+
+    gen = torch.Generator().manual_seed(16)
+    blk = make_block(gen, device)
+    scale = (C // HEADS) ** -0.5
+    for n in (197, 187, 120):
+        x = (X_STD * torch.randn(B, n, C, generator=gen)).to(device, torch.bfloat16)
+        args = (x, blk["norm1"], blk["attn"], None, HEADS, scale, 1e-6)
+        qkv = kb.ln_qkv_plain(x, blk["norm1"], blk["attn"]["qkv"], HEADS, 1e-6, False)[0]
+        got = ka.fused_sdpa(qkv, HEADS, scale)
+        compare(f"B6 N={n} B={B}", got, ka.fused_sdpa_plain(qkv, HEADS, scale),
+                torch.zeros_like(got))
+        reg = sum(v for k, v in launch_ms(lambda: kb.fused_attn_block(*args)).items()
+                  if "attention_kernel" in k)
+        body = sum(launch_ms(lambda: ka.fused_sdpa(qkv, HEADS, scale)).values())
+        print(f"attention N={n} B={B}: B6's wgmma body {body:.4f} ms | register attention "
+              f"(in K2) {reg:.4f} ms (device time)")
 
 
 TRAIN = f"train {PATH224}"  # the training path: ViT-B/16 224, batch 128
@@ -1567,9 +1711,10 @@ def train_kernel_phases(device, peaks, results):
                max(rels.values()), library=lib, device=dev)
 
 
-# The GEMM of K2 and K3 (csrc/gemm_sm90.cuh, through its own entry point
-# kernels/gemm.py:gemm) against gemm_plain, by relative L2 of the output, or
-# of the branch ``out - res`` where the epilogue adds a residual. Both round
+# The GEMM of K1, K2, K3, B4 and B5 (csrc/gemm_sm90.cuh, through its own
+# entry point kernels/gemm.py:gemm) against gemm_plain, by relative L2 of the
+# output, or of the branch ``out - res`` where the epilogue adds a residual
+# (the gathered rows of res where it reads them through res_idx). Both round
 # once from fp32 sums taken in another order, so they differ by one-ulp flips
 # where a sum lies within that order's error of a rounding edge. On an H100
 # SXM the sound readings were at most GEMM_SOUND (fc2 at K=4096, the longest
@@ -1577,9 +1722,13 @@ def train_kernel_phases(device, peaks, results):
 # that. It must reject two planted faults of the plain version: the GELU of
 # the bf16-rounded sum (B17's rounding point, not K3's; it read 3.0e-3 to
 # 3.1e-3) at every fc1 shape, and the last K-tile skipped (0.2 and up) at
-# every ragged one.
+# every ragged one. With res_idx, at K1's and B5's proj shapes, it must also
+# reject the residual added ungathered (row r of each image's rows instead of
+# row res_idx[r]) and the index shifted by one row.
 GEMM_SOUND = 1.533e-4
-GEMM_SOURCES = ("gemm.cu", "mlp.cu", "attn_block.cu")  # the sources that build it
+# the sources that build it
+GEMM_SOURCES = ("gemm.cu", "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "gather_attn.cu",
+                "ln_qkv.cu")
 GEMM_REL_L2 = 2.5 * GEMM_SOUND
 # (label, width, hidden) of the bf16 paths whose products the GEMM runs:
 # DeiT-S (P3a: B7's MLP half, B8), ViT-B (K2, K3, B16), ViT-L (P5c)
@@ -1588,37 +1737,58 @@ GEMM_WIDTHS = ((DEIT_S, C_S, HIDDEN_S), (PATH224, C, HIDDEN), (PATH_L, C_L, HIDD
 
 def gemm_faulty(fault: str):
     """gemm_plain with a planted fault."""
+    import torch
+
     from rajni_tpu_torch.kernels import gemm as kg
     from rajni_tpu_torch.kernels.math import gelu_fast
 
-    def fn(a, w, bias, epi, ls=None, res=None):
+    def fn(a, w, bias, epi, ls=None, res=None, res_idx=None, rows_out=1, rows_in=1):
         if fault == "K-tile skipped":  # the last 64 of K left out of the sum
-            return kg.gemm_plain(a[..., :-kg.BLOCK_K], w[:, :-kg.BLOCK_K], bias, epi, ls, res)
+            return kg.gemm_plain(a[..., :-kg.BLOCK_K], w[:, :-kg.BLOCK_K], bias, epi, ls, res,
+                                 res_idx, rows_out, rows_in)
+        if fault == "residual ungathered":  # each image's rows 0..rows_out-1, not res_idx's
+            ungathered = torch.arange(rows_out, dtype=torch.int32, device=a.device)
+            return kg.gemm_plain(a, w, bias, epi, ls, res,
+                                 ungathered.repeat(res_idx.numel() // rows_out), rows_out,
+                                 rows_in)
+        if fault == "index shifted by one row":
+            return kg.gemm_plain(a, w, bias, epi, ls, res, (res_idx + 1) % rows_in, rows_out,
+                                 rows_in)
         # "GELU of the rounded sum"
         h = (a.float() @ w.float().t() + bias.float()).to(a.dtype)
         return gelu_fast(h.float()).to(a.dtype)
     return fn
 
 
-def gemm_rel(got, want, res) -> float:
-    """Relative L2 of the outputs, or of the branches when ``res`` is added."""
+def gemm_rel(got, want, args) -> float:
+    """Relative L2 of the outputs, or of the branches when the residual of
+    the gemm arguments ``args`` is added (its gathered rows with res_idx)."""
+    from rajni_tpu_torch.kernels import gemm as kg
+
+    res = args[5]
     if res is None:
         return rel_l2(got, want)
-    return branch_rel(got, want, res)
+    if len(args) > 6 and args[6] is not None:
+        res = res.reshape(-1, res.shape[-1])[kg.gathered_rows(*args[6:9])]
+    return branch_rel(got.reshape(res.shape), want.reshape(res.shape), res)
 
 
 def gemm_phases(device, peaks):
-    """The GEMM of K2 and K3 on its own at each product of the bf16 paths
-    (QKV, proj, fc1 and fc2 at C = 384, 768 and 1024, M = 256·197 and
-    256·120), each timed beside ``F.linear`` (cuBLAS, which the port never
-    calls) by device time; and at ragged shapes, M in {1, 77, 128·394 + 1}
-    and N not a multiple of the tile, which no path runs. Every epilogue,
-    with and without the layer scale and the residual."""
+    """The GEMM on its own at each product of the bf16 paths (QKV, proj, fc1
+    and fc2 at C = 384, 768 and 1024, M = 256·197 and 256·120), each timed
+    beside ``F.linear`` (cuBLAS, which the port never calls) by device time;
+    K1's and B5's proj with the residual gathered through the kept indices
+    (M = 256·187 and 256·127 of 197 and 150 tokens, 128·548 of 577), timed
+    beside the same product with a contiguous residual; and at ragged
+    shapes, M in {1, 77, 128·394 + 1} and N not a multiple of the tile,
+    which no path runs. Every epilogue, with and without the layer scale and
+    the residual."""
     import torch
     import torch.nn.functional as Fnn
 
     from rajni_tpu_torch.kernels import gemm as kg
     from rajni_tpu_torch.kernels.math import gelu_fast
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
 
     gen = torch.Generator().manual_seed(14)
 
@@ -1637,12 +1807,12 @@ def gemm_phases(device, peaks):
 
     def held(tag, args, faults=()):
         got = kg.gemm(*args)
-        rel = gemm_rel(got, kg.gemm_plain(*args), args[5])
+        rel = gemm_rel(got, kg.gemm_plain(*args), args)
         print(f"GEMM {tag}: rel L2 {rel:.3e}")
         check(bool(torch.isfinite(got.float()).all()), f"GEMM {tag}: output not finite")
         check(rel <= GEMM_REL_L2, f"GEMM {tag}: rel L2 {rel} > {GEMM_REL_L2}")
         for fault in faults:
-            bad = gemm_rel(got, gemm_faulty(fault)(*args), args[5])
+            bad = gemm_rel(got, gemm_faulty(fault)(*args), args)
             print(f"GEMM {tag}: planted fault '{fault}': rel L2 {bad:.3e}")
             check(bad > GEMM_REL_L2, f"GEMM {tag}: the gate missed the planted fault '{fault}'")
         return got
@@ -1670,6 +1840,33 @@ def gemm_phases(device, peaks):
                 print(f"GEMM {tag}: {ms[0]:.3f} ms ({ms[1]}; events {ev:.3f}) | cuBLAS "
                       f"{lib[0]:.3f} ms ({lib[1]}; events {ev_lib:.3f}) | bound {bnd[0]:.3f} ms "
                       f"({bnd[1]})")
+
+    # K1's and B5's proj: the residual rows of x through the kept indices
+    # (CLS and a random selection, ascending), as the entry points pass them
+    for label, imgs, n, K in (("K1", B, 197, 187), ("K1", B, 150, 127), ("B5", B384, 577, 548)):
+        M = imgs * K
+        a, w, bias, epi, ls, _ = operands(M, C, C, kg.EPI_RESIDUAL, "proj", True, False)
+        x = (X_STD * torch.randn(imgs, n, C, generator=gen)).to(device, torch.bfloat16)
+        idx, _ = select_tokens_dense(torch.rand(imgs, n, generator=gen).to(device), K - 1,
+                                     torch.bool)
+        args = (a, w, bias, epi, ls, x, idx.to(torch.int32).reshape(M).contiguous(), K, n)
+        tag = f"{label} proj gathered M={M} ({imgs}x{n}->{K}) N={C} K={C}"
+        held(tag, args, ("residual ungathered", "index shifted by one row"))
+        contiguous = (a, w, bias, epi, ls, torch.take_along_dim(x, idx[..., None], dim=1)
+                      .reshape(M, C).contiguous())
+        # the gather's own cost: the same contiguous rows through an index
+        ident = (*contiguous, torch.arange(K, dtype=torch.int32, device=device).repeat(imgs),
+                 K, K)
+        ms, ms_c, ms_i = (device_ms(lambda: kg.gemm(*args), iters=10),
+                          device_ms(lambda: kg.gemm(*contiguous), iters=10),
+                          device_ms(lambda: kg.gemm(*ident), iters=10))
+        ev, ev_c = stream_ms(lambda: kg.gemm(*args)), stream_ms(lambda: kg.gemm(*contiguous))
+        lib = device_ms(lambda: Fnn.linear(a, w, bias), iters=10)
+        bnd = bound(2.0 * M * C * C, (2 * M * C + C * C + M * C) * 2 + M * 4, peaks)
+        print(f"GEMM {tag}: {ms[0]:.3f} ms ({ms[1]}; events {ev:.3f}) | contiguous residual "
+              f"{ms_c[0]:.3f} ms (events {ev_c:.3f}), through an identity index "
+              f"{ms_i[0]:.3f} ms | cuBLAS F.linear {lib[0]:.3f} ms | bound {bnd[0]:.3f} ms "
+              f"({bnd[1]})")
 
     # ragged: M past the 128-row tile (1, 77, 128·394 + 1), N past the
     # 128-column tile (200, 776), K of one or three 64-deep steps
@@ -2451,8 +2648,9 @@ def main() -> int:
               ("kernel phases B16/B17/B18 (training)",
                lambda: train_kernel_phases(device, peaks, results)),
               ("kernel phases B6/B18 at ragged lengths", lambda: ragged_phases(device)),
-              ("GEMM of K2/K3 (csrc/gemm_sm90.cuh) beside cuBLAS",
-               lambda: gemm_phases(device, peaks)),
+              ("GEMM (csrc/gemm_sm90.cuh) beside cuBLAS", lambda: gemm_phases(device, peaks)),
+              ("score kernel", lambda: score_phases(device, peaks)),
+              ("attention at and below 256 tokens", lambda: attention_phases(device)),
               ("training block ops", lambda: train_block_ops(device))]
     phases += [(f"end to end {path}", lambda path=path: end_to_end(device, device_name, results, path))
                for path in PATHS]

@@ -1,7 +1,8 @@
 // Building blocks shared by the kernels' entry points (K1
 // fused_pruned_attn_block, K2 fused_attn_block, K3 fused_ln_mlp_residual, B4
 // fused_ln_qkv, B5 fused_gather_sdpa_proj_residual, B6 fused_sdpa, and the
-// whole-block B7, B8, B14 and B15; the int8 parts are in int8.cuh). Each .cu
+// whole-block B7, B8, B14 and B15; the int8 parts are in int8.cuh, the
+// Hopper GEMM in gemm_sm90.cuh). Each .cu
 // file includes this header and exports a plain C entry point that launches
 // several of these kernels on the caller's stream; the Python wrapper loads
 // it with ctypes.
@@ -16,13 +17,14 @@
 // What bounds these kernels on the H100: at batch 256 the QKV, proj, fc1 and
 // fc2 products are compute-bound (hundreds of FLOP per byte), so the GEMM is
 // the part that matters. This header's GEMM (gemm_bf16_kernel) reaches the
-// tensor cores through ldmatrix + mma.sync m16n8k16 (Ampere-style); K1, B4,
-// B5 and B17 still take it. K2 and K3 (and B7's MLP half, B8 and B16 through
-// them) take the wgmma/TMA GEMM of gemm_sm90.cuh; the long-sequence attention
-// (sdpa.cu) and B18 (sdpa_bwd.cu) also use Hopper's wgmma, TMA and mbarriers
-// (hopper.cuh).
+// tensor cores through ldmatrix + mma.sync m16n8k16 (Ampere-style); only B17
+// (train_mlp.cu) still takes it. K1, K2, K3, B4 and B5 (and B7, B8, B16, B19
+// and B20 through them) take the wgmma/TMA GEMM of gemm_sm90.cuh; the
+// long-sequence attention (sdpa.cu) and B18 (sdpa_bwd.cu) also use Hopper's
+// wgmma, TMA and mbarriers (hopper.cuh).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -194,7 +196,10 @@ inline cudaError_t launch_layer_norm(const bf16* x, const bf16* scale, const bf1
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: out[M, N] = epilogue(A[M, K] @ W[N, K]^T)
+// GEMM: out[M, N] = epilogue(A[M, K] @ W[N, K]^T), the mma.sync GEMM of B17
+// train_ln_mlp (train_mlp.cu: fc1 with EPI_GELU_SAVE, fc2) alone; every other
+// product runs on gemm_sm90.cuh. It goes when B17 moves there, which needs
+// EPI_GELU_SAVE in that GEMM's epilogue.
 //   A row-major bf16 (activations), W row-major [out, in] bf16 (nn.Linear
 //   layout): both operands are K-contiguous, so both come to the tensor cores
 //   through ldmatrix (no transpose). 128x128x64 block tiles, 4 warps of 64x64,
@@ -203,7 +208,8 @@ inline cudaError_t launch_layer_norm(const bf16* x, const bf16* scale, const bf1
 //   by row (conflict-free for the copies and for ldmatrix), mma.sync
 //   m16n8k16 with fp32 accumulators, and the epilogue applied straight from
 //   the accumulator registers.
-//   Requires K % 64 == 0 and N % 8 == 0; M and N are masked.
+//   Requires K % 64 == 0 and N % 8 == 0; M and N are masked. The residual is
+//   contiguous (res_idx is the wgmma GEMM's alone).
 // ---------------------------------------------------------------------------
 
 // EPI_GELU_SAVE (B17 train_ln_mlp): h = round(acc + bias) goes to ep.aux,
@@ -345,11 +351,8 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(
             v1 *= l.y;
           }
           if (ep.res != nullptr) {
-            size_t rr = (size_t)r;
-            if (ep.res_idx != nullptr)
-              rr = (size_t)(r / ep.rows_out) * ep.rows_in + ep.res_idx[r];
-            const float2 x =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ep.res + rr * N + c));
+            const float2 x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(ep.res + (size_t)r * N + c));
             v0 = x.x + v0;
             v1 = x.y + v1;
           }
@@ -584,113 +587,305 @@ inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* o
 }
 
 // ---------------------------------------------------------------------------
-// RAJNI scores (K1 and B4): one block of 256 threads per image writes
-// scores[b, 0..N) in fp32, following _importance_f32 from the bf16 (rounded)
-// qkv [B, N, 3C]: CLS-row softmax over all heads with 1/sqrt(D), head-mean;
-// head-mean V centred over tokens; unbiased std with eps after the sqrt;
-// sigmoid z-score. ~2·N·C multiply-adds an image on the CUDA cores.
+// RAJNI scores (K1, B4, B19, B20 and the int8 B11, B12, B14): scores[b, 0..N)
+// in fp32, following _importance_f32 (rajni_tpu/kernels/block.py:340) from
+// the bf16 (rounded) qkv [B, N, 3C]: CLS-row softmax over all heads with
+// 1/sqrt(D), the head mean of the probabilities; head-mean V centred over
+// tokens; unbiased std of the value norms with eps after the sqrt; sigmoid
+// z-score. Only the order of the fp32 sums differs from the plain version.
+//
+// Bound on the H100: bytes. Every k and v row is read once (N · 2C · 2 bytes
+// an image: 0.16 GB at batch 256, N=197, C=768, 46 us at 3.35 TB/s) for ~2
+// FLOP a byte on the CUDA cores.
+//
+// Design: one cluster of CL blocks an image (CL = 2 up to 512 tokens, else
+// 4), block r taking the tokens [r·T, min(N, (r+1)·T)), T = ceil(N / CL), so
+// that CL·B blocks of 8 warps (two an SM) keep the memory busy where one
+// block an image left 128 blocks at batch 128 for 132 SMs. A warp streams a
+// token's whole k and v rows in 16-byte pieces (lane l holds pieces l + 32j,
+// head l/8 + 4j at head_dim 64); the CLS q's pieces sit in its registers. A
+// head's logit is the lanes' products summed over its 8 lanes (shuffles
+// within the 8); the head mean of v is each lane's heads summed and then
+// across the 4 lanes of the same 8 dims. A warp takes two tokens at a time,
+// both rows' loads in flight together (one at C > 768, where the registers
+// would not hold two). The block keeps its tokens' logits and head-mean
+// values (fp32) in shared memory and each warp a running max a head and ΣV
+// a dim. The statistics over the whole image are two-phase: each block
+// stores its partials (max and Σe a head, ΣV a dim, Σ vn, Σ (vn − mu)²) into
+// its slot of every block of the cluster (distributed shared memory), and
+// after a cluster barrier each block reduces the CL slots in rank order, so
+// every block gets the same bits. Three barriers wait (max and ΣV; Σe and
+// Σ vn; Σ (vn − mu)²); one more is only arrived at on entry and waited on
+// before the first remote store (every block of the cluster has started).
+// After the last no block touches another's shared memory, so blocks leave
+// without a barrier.
 // ---------------------------------------------------------------------------
 
+constexpr int SCORE_THREADS = 256;  // 8 warps
+constexpr int SCORE_WARPS = SCORE_THREADS / 32;
+constexpr int SCORE_CL_MAX = 4;
+
+// Blocks (one cluster) an image, and the tokens of each.
+__host__ __device__ inline int score_cluster(int N) { return N <= 512 ? 2 : SCORE_CL_MAX; }
+__host__ __device__ inline int score_tokens(int N) {
+  return (N + score_cluster(N) - 1) / score_cluster(N);
+}
+// Shared memory of a block; the kernel takes head_dim 64, C % 64 == 0, C <=
+// 1024 and 2 <= N <= 1024 (score_tokens(N) <= SCORE_THREADS).
 __host__ __device__ inline int score_smem(int N, int C, int H) {
-  const int D = C / H;
-  return (C + H * N + N * D + 2 * N + D + 2) * 4;
+  const int T = score_tokens(N), D = C / H;
+  return (T * (D + H + 1) + (SCORE_WARPS + 2 * SCORE_CL_MAX + 2) * H +
+          (SCORE_WARPS + SCORE_CL_MAX + 1) * D + 2 * SCORE_CL_MAX + SCORE_WARPS) *
+         4;
 }
 
-__global__ void __launch_bounds__(256) score_kernel(const bf16* __restrict__ qkv,
-                                                    float* __restrict__ scores, int N, int C,
-                                                    int H, float eps) {
-  extern __shared__ __align__(16) float sm[];
-  const int D = C / H;
-  float* s_q = sm;               // [C] CLS query
-  float* s_logit = s_q + C;      // [H, N] CLS logits, then softmax
-  float* s_V = s_logit + H * N;  // [N, D] head-mean values
-  float* s_score = s_V + N * D;  // [N]
-  float* s_vn = s_score + N;     // [N]
-  float* s_mean = s_vn + N;      // [D]
-  float* s_stat = s_mean + D;    // mu, std
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
-  const int b = blockIdx.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+// NV: the 16-byte pieces of a q, k or v row a lane holds, ceil(C / 256); CL:
+// the cluster's blocks.
+template <int NV, int CL>
+__global__ void __launch_bounds__(SCORE_THREADS, 2)
+    score_kernel(const bf16* __restrict__ qkv, float* __restrict__ scores, int N, int C, int H,
+                 float eps) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive();  // waited on before the first store into another block
+  extern __shared__ __align__(16) float sm[];
+  const int D = C / H, T = score_tokens(N);
+  float* s_V = sm;                              // [T][D] head-mean values of the block's tokens
+  float* s_e = s_V + T * D;                     // [H][T] CLS logits, then e^(l - max)
+  float* s_vn = s_e + H * T;                    // [T] value norms
+  float* s_wmax = s_vn + T;                     // [warp][H] each warp's running max
+  float* s_wv = s_wmax + SCORE_WARPS * H;       // [warp][D] each warp's running ΣV
+  float* s_max = s_wv + SCORE_WARPS * D;        // [rank][H] every block's max, stored by it
+  float* s_sum = s_max + SCORE_CL_MAX * H;      // [rank][H] every block's Σe
+  float* s_v = s_sum + SCORE_CL_MAX * H;        // [rank][D] every block's ΣV
+  float* s_gmax = s_v + SCORE_CL_MAX * D;       // [H] the image's max logit
+  float* s_inv = s_gmax + H;                    // [H] 1 / the image's Σe
+  float* s_mean = s_inv + H;                    // [D] the image's mean V
+  float* s_vns = s_mean + D;                    // [rank] every block's Σ vn
+  float* s_dev = s_vns + SCORE_CL_MAX;          // [rank] every block's Σ (vn - mu)²
+  float* s_warp = s_dev + SCORE_CL_MAX;         // [warp] partials of a block sum
+
+  const int b = blockIdx.x / CL, rank = static_cast<int>(cluster.block_rank());
+  const int n0 = rank * T, cnt = max(0, min(N, n0 + T) - n0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pieces = C / 8;  // 16-byte pieces of a q, k or v row; head h's are 8h..8h+7
   const size_t row3 = (size_t)3 * C;
   const bf16* base = qkv + (size_t)b * N * row3;
+  const float inv_sqrt_d = 1.0f / sqrtf((float)D), inv_h = 1.0f / (float)H;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // this block's partial into its slot of every block of the cluster
+  auto push = [&](float* slot, float v) {
+#pragma unroll
+    for (int r = 0; r < CL; ++r) *cluster.map_shared_rank(slot, r) = v;
+  };
 
-  for (int c = tid; c < C; c += 256) s_q[c] = __bfloat162float(base[c]);
-  __syncthreads();
-  const float inv_sqrt_d = 1.0f / sqrtf((float)D);
-  for (int p = tid; p < H * N; p += 256) {
-    const int h = p / N, n = p % N;
-    const bf16* k = base + (size_t)n * row3 + C + h * D;
-    float dot = 0.f;
-    for (int d = 0; d < D; ++d) dot += s_q[h * D + d] * __bfloat162float(k[d]);
-    s_logit[h * N + n] = dot * inv_sqrt_d;
+  uint4 qv[NV];  // the CLS q's pieces of this lane
+  float hmax[NV], vsum[8];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int ci = lane + 32 * j;
+    qv[j] = ci < pieces ? __ldg(reinterpret_cast<const uint4*>(base) + ci) : zero;
+    hmax[j] = -INFINITY;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) vsum[e] = 0.f;
+
+  // a token's k and v pieces of this lane
+  auto load = [&](int t, uint4 (&kp)[NV], uint4 (&vp)[NV]) {
+    const uint4* row = reinterpret_cast<const uint4*>(base + (size_t)(n0 + t) * row3);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int ci = lane + 32 * j;
+      kp[j] = ci < pieces ? __ldg(row + pieces + ci) : zero;
+      vp[j] = ci < pieces ? __ldg(row + 2 * pieces + ci) : zero;
+    }
+  };
+  // its logits (one a head, into s_e and the running max) and head-mean V
+  // (into s_V and the running ΣV)
+  auto token = [&](int t, const uint4 (&kp)[NV], const uint4 (&vp)[NV]) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      float qf[8], kf[8], vf[8];
+      unpack8(qv[j], qf);
+      unpack8(kp[j], kf);
+      unpack8(vp[j], vf);
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot += qf[e] * kf[e];
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);  // the head's 8 lanes
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+      if (lane + 32 * j < pieces) {
+        const float l = dot * inv_sqrt_d;
+        if ((lane & 7) == 0) s_e[((lane >> 3) + 4 * j) * T + t] = l;
+        hmax[j] = fmaxf(hmax[j], l);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] += vf[e] * inv_h;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {  // over the lanes of the same 8 dims
+      v[e] += __shfl_xor_sync(0xffffffffu, v[e], 8);
+      v[e] += __shfl_xor_sync(0xffffffffu, v[e], 16);
+      vsum[e] += v[e];
+    }
+    if (lane < 8) {
+      float4* dst = reinterpret_cast<float4*>(s_V + t * D + 8 * lane);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  };
+  // two tokens a warp at a time (t and t + 8), both rows' loads in flight,
+  // where the registers hold them (NV <= 3: C <= 768)
+  constexpr int STEP = NV <= 3 ? 2 : 1;
+  for (int t = warp; t < cnt; t += STEP * SCORE_WARPS) {
+    const bool two = STEP == 2 && t + SCORE_WARPS < cnt;
+    uint4 kp[NV], vp[NV], kp2[NV], vp2[NV];
+    load(t, kp, vp);
+    if (two) load(t + SCORE_WARPS, kp2, vp2);
+    token(t, kp, vp);
+    if (two) token(t + SCORE_WARPS, kp2, vp2);
+  }
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    if ((lane & 7) == 0 && lane + 32 * j < pieces) s_wmax[warp * H + (lane >> 3) + 4 * j] = hmax[j];
+  if (lane < 8) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s_wv[warp * D + 8 * lane + e] = vsum[e];
   }
   __syncthreads();
-  for (int h = warp; h < H; h += 8) {
-    float* l = s_logit + h * N;
+  cluster_wait();  // every block of the cluster has started
+  if (tid < H) {
     float m = -INFINITY;
-    for (int n = lane; n < N; n += 32) m = fmaxf(m, l[n]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      float e = expf(l[n] - m);
-      l[n] = e;
-      s += e;
-    }
-    const float inv = 1.0f / warp_sum(s);
-    for (int n = lane; n < N; n += 32) l[n] *= inv;
-  }
-  __syncthreads();
-  const float inv_h = 1.0f / (float)H;
-  for (int n = tid; n < N; n += 256) {
+    for (int w = 0; w < SCORE_WARPS; ++w) m = fmaxf(m, s_wmax[w * H + tid]);
+    push(s_max + rank * H + tid, m);
+  } else if (tid >= 64 && tid < 64 + D) {
     float a = 0.f;
-    for (int h = 0; h < H; ++h) a += s_logit[h * N + n];
-    s_score[n] = a / (float)H;
+    for (int w = 0; w < SCORE_WARPS; ++w) a += s_wv[w * D + tid - 64];
+    push(s_v + rank * D + tid - 64, a);
   }
-  for (int p = tid; p < N * D; p += 256) {
-    const int n = p / D, d = p % D;
-    const bf16* v = base + (size_t)n * row3 + 2 * C + d;
-    float s = 0.f;
-    for (int h = 0; h < H; ++h) s += __bfloat162float(v[h * D]) * inv_h;
-    s_V[p] = s;
+  cluster.sync();  // 1: every block's max a head and ΣV a dim
+
+  if (tid < H) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < CL; ++r) m = fmaxf(m, s_max[r * H + tid]);
+    s_gmax[tid] = m;
+  } else if (tid >= 64 && tid < 64 + D) {
+    float a = 0.f;
+#pragma unroll
+    for (int r = 0; r < CL; ++r) a += s_v[r * D + tid - 64];
+    s_mean[tid - 64] = a / (float)N;
   }
   __syncthreads();
-  for (int d = tid; d < D; d += 256) {
-    float s = 0.f;
-    for (int n = 0; n < N; ++n) s += s_V[n * D + d];
-    s_mean[d] = s / (float)N;
-  }
-  __syncthreads();
-  for (int n = tid; n < N; n += 256) {
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float t = s_V[n * D + d] - s_mean[d];
-      s += t * t;
+  for (int h = warp; h < H; h += SCORE_WARPS) {  // e^(l - max) and the block's Σe, a warp a head
+    const float m = s_gmax[h];
+    float a = 0.f;
+    for (int t = lane; t < cnt; t += 32) {
+      const float e = expf(s_e[h * T + t] - m);
+      s_e[h * T + t] = e;
+      a += e;
     }
-    s_vn[n] = sqrtf(s);
+    a = warp_sum(a);
+    if (lane == 0) push(s_sum + rank * H + h, a);
   }
+  for (int t = warp; t < cnt; t += SCORE_WARPS) {  // value norms, a warp a token
+    float a = 0.f;
+    for (int d = lane; d < D; d += 32) {
+      const float c = s_V[t * D + d] - s_mean[d];
+      a += c * c;
+    }
+    a = warp_sum(a);
+    if (lane == 0) s_vn[t] = sqrtf(a);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float a = 0.f;
+    for (int t = lane; t < cnt; t += 32) a += s_vn[t];
+    a = warp_sum(a);
+    if (lane == 0) push(s_vns + rank, a);
+  }
+  cluster.sync();  // 2: every block's Σe a head and Σ vn
+
+  if (tid < H) {
+    float a = 0.f;
+#pragma unroll
+    for (int r = 0; r < CL; ++r) a += s_sum[r * H + tid];
+    s_inv[tid] = 1.0f / a;
+  }
+  float mu = 0.f;
+#pragma unroll
+  for (int r = 0; r < CL; ++r) mu += s_vns[r];
+  mu = mu / (float)N;
+  __syncthreads();
+  float a_cls = 0.f, vn = 0.f, dev = 0.f;
+  if (tid < cnt) {  // a thread a token
+    for (int h = 0; h < H; ++h) a_cls += s_e[h * T + tid] * s_inv[h];
+    a_cls = a_cls / (float)H;
+    vn = s_vn[tid];
+    dev = (vn - mu) * (vn - mu);
+  }
+  dev = warp_sum(dev);
+  if (lane == 0) s_warp[warp] = dev;
   __syncthreads();
   if (tid == 0) {
-    float mu = 0.f;
-    for (int n = 0; n < N; ++n) mu += s_vn[n];
-    mu /= (float)N;
-    float var = 0.f;
-    for (int n = 0; n < N; ++n) var += (s_vn[n] - mu) * (s_vn[n] - mu);
-    var /= (float)(N - 1);
-    s_stat[0] = mu;
-    s_stat[1] = sqrtf(var) + eps;
+    float a = 0.f;
+    for (int w = 0; w < SCORE_WARPS; ++w) a += s_warp[w];
+    push(s_dev + rank, a);
   }
-  __syncthreads();
-  for (int n = tid; n < N; n += 256)
-    scores[(size_t)b * N + n] = s_score[n] * sigmoidf_((s_vn[n] - s_stat[0]) / s_stat[1]);
+  cluster.sync();  // 3: every block's Σ (vn - mu)²; no remote access after this
+
+  float var = 0.f;
+#pragma unroll
+  for (int r = 0; r < CL; ++r) var += s_dev[r];
+  var = var / (float)(N - 1);
+  const float sd = sqrtf(var) + eps;
+  if (tid < cnt) scores[(size_t)b * N + n0 + tid] = a_cls * sigmoidf_((vn - mu) / sd);
+}
+
+template <int NV>
+inline cudaError_t launch_score_nv(const bf16* qkv, float* scores, int B, int N, int C, int H,
+                                   float eps, cudaStream_t st) {
+  const int cl = score_cluster(N), smem = score_smem(N, C, H);
+  auto kernel = cl == 2 ? score_kernel<NV, 2> : score_kernel<NV, SCORE_CL_MAX>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cl);
+  cfg.blockDim = dim3(SCORE_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, qkv, scores, N, C, H, eps);
+  return e == cudaSuccess ? cudaGetLastError() : e;
 }
 
 inline cudaError_t launch_score(const bf16* qkv, float* scores, int B, int N, int C, int H,
                                 float eps, cudaStream_t st) {
-  const int smem = score_smem(N, C, H);
-  cudaError_t e =
-      cudaFuncSetAttribute(score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  score_kernel<<<B, 256, smem, st>>>(qkv, scores, N, C, H, eps);
-  return cudaGetLastError();
+  if (N < 2 || score_tokens(N) > SCORE_THREADS || C % 64 || C > 1024 || C != 64 * H)
+    return cudaErrorInvalidValue;
+  switch ((C / 8 + 31) / 32) {
+    case 1: return launch_score_nv<1>(qkv, scores, B, N, C, H, eps, st);
+    case 2: return launch_score_nv<2>(qkv, scores, B, N, C, H, eps, st);
+    case 3: return launch_score_nv<3>(qkv, scores, B, N, C, H, eps, st);
+    default: return launch_score_nv<4>(qkv, scores, B, N, C, H, eps, st);
+  }
 }
 
 // ---------------------------------------------------------------------------

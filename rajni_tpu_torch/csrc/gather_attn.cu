@@ -13,11 +13,12 @@
 // one-hot [K, N] product; since sel is 0/1 that product IS a gather, so both
 // launches read through the kept indices idx [B, K] instead:
 // * the attention reads q/k/v rows idx[b, t] of qkv [B, N, 3C] — the
-//   register-resident kernel up to ATTN_MAX_N kept tokens, the two-pass
-//   kernel of B6 past that (common.cuh:launch_attention_any);
-// * GEMM proj with the +bias→·ls→+x(fp32)→round epilogue, reading the
-//   pre-norm x rows through the same indices (res_idx, as K1 does).
-#include "common.cuh"
+//   register-resident kernel up to ATTN_MAX_N kept tokens, B6's wgmma body
+//   past that (common.cuh:launch_attention_any);
+// * proj on the wgmma/TMA GEMM of gemm_sm90.cuh with the
+//   +bias→·ls→+x(fp32)→round epilogue, reading the pre-norm x rows through
+//   the same indices (res_idx, by cp.async, as K1 does).
+#include "gemm_sm90.cuh"
 
 using namespace rajni;
 
@@ -33,8 +34,8 @@ extern "C" int rajni_gather_sdpa_proj_residual(const void* qkv, const void* idx,
 
   EpilogueArgs ep{static_cast<const bf16*>(bproj), static_cast<const bf16*>(ls),
                   static_cast<const bf16*>(x), static_cast<const int*>(idx), K, N};
-  e = launch_gemm<EPI_RESIDUAL>(static_cast<const bf16*>(attn_scratch),
-                                static_cast<const bf16*>(wproj), static_cast<bf16*>(out), B * K,
-                                C, C, ep, st);
+  e = launch_gemm_sm90<EPI_RESIDUAL>(static_cast<const bf16*>(attn_scratch),
+                                     static_cast<const bf16*>(wproj), static_cast<bf16*>(out),
+                                     B * K, C, C, ep, st);
   return e == cudaSuccess ? 0 : fail(e, 2);
 }

@@ -1,19 +1,25 @@
-// The Hopper GEMM of K2 fused_attn_block (QKV and proj, csrc/attn_block.cu)
-// and K3 fused_ln_mlp_residual (fc1 and fc2, csrc/mlp.cu), and so of B7's
-// MLP half, B8 and B16, which run those entry points:
+// The Hopper GEMM of K1 fused_pruned_attn_block (QKV and proj,
+// csrc/pruned_attn_block.cu), K2 fused_attn_block (QKV and proj,
+// csrc/attn_block.cu), K3 fused_ln_mlp_residual (fc1 and fc2, csrc/mlp.cu),
+// B4 fused_ln_qkv (QKV, csrc/ln_qkv.cu) and B5
+// fused_gather_sdpa_proj_residual (proj, csrc/gather_attn.cu), and so of
+// B7, B8, B16, B19 and B20, which run those entry points:
 //   out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ)
 // A row-major bf16 (activations), W row-major bf16 [out, in] (nn.Linear):
 // both operands are K-major, wgmma's plain SS case, with no transpose. The
 // epilogues are common.cuh's (EpilogueArgs, Epilogue): EPI_BIAS, EPI_GELU and
-// EPI_RESIDUAL with res_idx == nullptr. EPI_GELU_SAVE and res_idx (K1, B4, B5
-// and B17, still on common.cuh:gemm_bf16_kernel) return cudaErrorNotSupported.
+// EPI_RESIDUAL, the residual row either row r of res or, with res_idx (K1,
+// B5: the pre-norm x of the kept tokens), row (r / rows_out) · rows_in +
+// res_idx[r], as gemm_bf16_kernel reads it. EPI_GELU_SAVE (B17, still on
+// common.cuh:gemm_bf16_kernel) returns cudaErrorNotSupported.
 // Numerics: bf16 operands, fp32 accumulation, the epilogue in fp32 from the
 // fp32 sum and one rounding to bf16, as gemm_bf16_kernel (only the summation
 // order differs).
 //
 // Replaces, inside those entry points, the products of the TPU kernels
-// rajni_tpu/kernels/block.py:fused_attn_block (pallas_call at 573) and
-// rajni_tpu/kernels/mlp.py:fused_ln_mlp_residual (pallas_call at 172).
+// rajni_tpu/kernels/block.py:fused_pruned_attn_block (pallas_call at 1553),
+// fused_attn_block (573), fused_ln_qkv (677), fused_gather_sdpa_proj_residual
+// (1017, 1056) and rajni_tpu/kernels/mlp.py:fused_ln_mlp_residual (172).
 //
 // Bound on the H100: operations. At batch 256 and 197 tokens (M = 50432) the
 // products have hundreds of FLOP per byte of device memory (fc1 at C=768:
@@ -48,9 +54,21 @@
 //     GELU, layer scale and residual in fp32, one rounding, each chunk
 //     written into a swizzled 8 KB buffer in shared memory (two a consumer,
 //     alternating) and stored by TMA, which writes only rows < M and columns
-//     < N. The residual chunk comes by TMA into the same buffer (chunks 0 and
-//     1 while the tile's first products run, each later one as soon as the
-//     store two chunks back has read its buffer) and is added in place.
+//     < N. The residual chunk comes into the same buffer (chunks 0 and 1
+//     while the tile's first products run, each later one as soon as the
+//     store two chunks back has read its buffer) and is added in place:
+//     contiguous rows by TMA, completing on the buffer's mbarrier; rows
+//     through res_idx by cp.async, which can gather where TMA cannot (a
+//     Hopper tensor map addresses boxes of contiguous rows). Warp 0 of the
+//     consumer gathers: the tile's 64 residual row numbers go to shared
+//     memory once a tile, under its first products, when chunks 0 and 1 are
+//     gathered. Each lane copies 16 of the chunk's 512 16-byte pieces into
+//     their 128-byte-swizzled places (zero past M and N), then arrives on
+//     the buffer's mbarrier when its copies land
+//     (cp.async.mbarrier.arrive.noinc, 32 arrivals a phase). So, as with
+//     TMA, only the issuing warp waits for the store that last read the
+//     buffer; the others wait on the mbarrier. Each gathered row is a whole
+//     128-byte line, as TMA would read it.
 //     Stores and loads straight from the accumulator layout would move 16
 //     bytes of each of 8 rows a warp instruction; TMA moves whole 128-byte
 //     rows, off the consumers' instruction stream. GELU takes e^-logit by
@@ -62,7 +80,10 @@
 //   tile's products are short (K = C: QKV, proj, fc1) and in fc1, whose GELU
 //   is ~17 instructions an output on the CUDA cores. A ping-pong of the two
 //   consumers over alternate tiles would hide it, at half the rows a tile
-//   and so more L2 traffic a FLOP.
+//   and so more L2 traffic a FLOP. The gathered residual costs more than the
+//   TMA-loaded one, and as much through an identity index as through K1's
+//   (chip_smoke prints the three side by side): the cp.async path, not the
+//   rows' locality.
 #pragma once
 
 #include "hopper.cuh"
@@ -83,8 +104,10 @@ struct G9Tile {
   static constexpr int STAGES = G9_RING / STAGE;  // 4 at BN = 256, 6 at 128
   static constexpr int CHUNKS = BN / 64;          // output chunks of a consumer's rows
   // the ring, two output chunk buffers a consumer, the mbarriers (full and
-  // empty a stage, one a chunk buffer)
-  static constexpr int SMEM = STAGES * STAGE + 4 * G9_OUT + (2 * STAGES + 4) * 8 + 1024;
+  // empty a stage, one a chunk buffer), a tile's gathered residual rows (64
+  // a consumer)
+  static constexpr int SMEM = STAGES * STAGE + 4 * G9_OUT + (2 * STAGES + 4) * 8 + 2 * 64 * 4 +
+                              1024;
   static constexpr int ACC = BN / 2;  // fp32 accumulators of a consumer thread
 };
 
@@ -157,6 +180,13 @@ __device__ __forceinline__ float gelu_fast_epi(float x) {
   return x * row_recip(1.0f + ex2(-LOG2E * logit));
 }
 
+// Arrive on `bar` once this thread's cp.async copies so far have landed (the
+// arrival counts against the barrier's expected count: noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // Two bf16 of a vector operand at column c, zero past n (bias, ls, res rows).
 __device__ __forceinline__ float2 ld_pair(const bf16* p, int c, int n) {
   return c < n ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + c))
@@ -178,6 +208,7 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
   uint64_t* empty = full + T::STAGES;
   uint64_t* resbar = empty + T::STAGES;  // chunk buffer 2c + b holds its residual chunk
   const bool has_res = EPI == EPI_RESIDUAL && ep.res != nullptr;
+  const bool gathered = has_res && ep.res_idx != nullptr;  // residual rows through res_idx
   const int tiles_n = (N + BN - 1) / BN, tiles = (M + G9_BM - 1) / G9_BM * tiles_n;
   const int KT = K / G9_BK;
   const int wg = warpgroup_id();
@@ -187,7 +218,8 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
       mbar_init(&full[s], 1);   // the producer's expect_tx, then the bytes
       mbar_init(&empty[s], 2);  // both consumers
     }
-    for (int b = 0; b < 4; ++b) mbar_init(&resbar[b], 1);
+    // a TMA load's expect_tx, or the 32 lanes of the warp that gathers
+    for (int b = 0; b < 4; ++b) mbar_init(&resbar[b], gathered ? 32 : 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -230,6 +262,24 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
     mbar_expect_tx(&resbar[b], G9_OUT);
     tma_load_tile(outbuf + b * G9_OUT, &rmap, &resbar[b], n0 + 64 * q, m0 + cw * 64, 0);
   };
+  // the same through res_idx, by warp 0 of the consumer (once the buffer's
+  // last store has read it): lane l copies piece l % 8 of the tile's rows
+  // (l / 8) + 4i, row r taking residual row s_rrow[r]; its 32 lanes arrive
+  // on the buffer's mbarrier as their copies land
+  int* s_rrow = reinterpret_cast<int*>(resbar + 4) + 64 * cw;
+  const int cwarp = (threadIdx.x >> 5) & 3;
+  auto gather_res = [&](int q, int n0) {
+    const int b = 2 * cw + (q & 1), piece = lane & 7, c = n0 + 64 * q + 8 * piece;
+#pragma unroll 4
+    for (int i = 0; i < 16; ++i) {
+      const int r = (lane >> 3) + 4 * i, row = s_rrow[r];
+      const bool valid = row >= 0 && c < N;
+      cp_async16(outbuf + b * G9_OUT + sw128(r, piece),
+                 ep.res + (valid ? (size_t)row * N + c : 0), valid);
+    }
+    cp_async_commit();
+    cp_async_mbar_arrive(&resbar[b]);
+  };
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int m0 = t / tiles_n * G9_BM, n0 = t % tiles_n * BN;
     int prev = 0;  // the stage of the k-step before
@@ -244,10 +294,25 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < G9_BK / 16; ++kk) wgmma_k16(acc, da + 2 * kk, db + 2 * kk, kt | kk);
       wg_commit();
-      if (has_res && kt == 0 && leader) {  // chunks 0 and 1's residual, under the products
-        bulk_wait_read<0>();
-        load_res(0, m0, n0);
-        if (T::CHUNKS > 1) load_res(1, m0, n0);
+      if (has_res && kt == 0) {  // chunks 0 and 1's residual, under the products
+        if (gathered) {
+          if (cwarp == 0) {
+            // output row R takes residual row (R / rows_out) * rows_in + res_idx[R]
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int r = lane + 32 * i, R = m0 + cw * 64 + r;
+              s_rrow[r] = R < M ? (R / ep.rows_out) * ep.rows_in + __ldg(ep.res_idx + R) : -1;
+            }
+            if (lane == 0) bulk_wait_read<0>();  // the last tile's stores have read both buffers
+            __syncwarp();
+            gather_res(0, n0);
+            if (T::CHUNKS > 1) gather_res(1, n0);
+          }
+        } else if (leader) {
+          bulk_wait_read<0>();
+          load_res(0, m0, n0);
+          if (T::CHUNKS > 1) load_res(1, m0, n0);
+        }
       }
       wg_wait1();  // the k-step before has retired: its stage is free
       keep_acc(acc);
@@ -306,10 +371,15 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
       if (leader) {
         tma_store_tile(&omap, buf, n0 + 64 * q, m0 + cw * 64, 0);
         bulk_commit();
-        if (has_res && q + 2 < T::CHUNKS) {  // chunk q + 2's residual once buf is read
+        if (has_res && !gathered && q + 2 < T::CHUNKS) {  // chunk q + 2's residual once buf is read
           bulk_wait_read<0>();
           load_res(q + 2, m0, n0);
         }
+      }
+      if (gathered && cwarp == 0 && q + 2 < T::CHUNKS) {  // the same, gathered
+        if (lane == 0) bulk_wait_read<0>();
+        __syncwarp();
+        gather_res(q + 2, n0);
       }
     }
   }
@@ -332,17 +402,23 @@ inline cudaError_t launch_gemm_sm90_bn(const CUtensorMap& amap, const CUtensorMa
 }
 
 // out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ) on the stream. Takes M >= 1,
-// N % 8 == 0, K % 64 == 0 and 16-byte aligned A, W and out (every caller's
-// operands are contiguous tensors or fresh scratch); anything else, a
-// tensor map that does not encode, or a launch that fails returns its error.
+// N % 8 == 0, K % 64 == 0 and 16-byte aligned A, W, out and res (every
+// caller's operands are contiguous tensors or fresh scratch); with res_idx,
+// EPI_RESIDUAL with res, rows_out >= 1 dividing M and rows_in >= 1 (the
+// caller keeps each res_idx[r] in [0, rows_in)). Anything else, EPI_GELU_SAVE,
+// a tensor map that does not encode, or a launch that fails returns its
+// error.
 template <int EPI>
 inline cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, bf16* out, int M, int N, int K,
                                     const EpilogueArgs& ep, cudaStream_t st) {
   if constexpr (EPI != EPI_BIAS && EPI != EPI_GELU && EPI != EPI_RESIDUAL) {
     return cudaErrorNotSupported;
   } else {
-    if (ep.res_idx != nullptr) return cudaErrorNotSupported;
+    const bool gathered = ep.res_idx != nullptr;
     if (M < 1 || N < 8 || N % 8 || K < G9_BK || K % G9_BK) return cudaErrorInvalidValue;
+    if (gathered && (EPI != EPI_RESIDUAL || ep.res == nullptr || ep.rows_out < 1 ||
+                     ep.rows_in < 1 || M % ep.rows_out))
+      return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(W) |
          reinterpret_cast<uintptr_t>(out)) & 15)
       return cudaErrorMisalignedAddress;
@@ -353,8 +429,8 @@ inline cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, bf16* out, int
     cudaError_t e = make_tile_map(&amap, A, K, M, 1, G9_BM);
     if (e == cudaSuccess) e = make_tile_map(&wmap, W, K, N, 1, wide ? 256 : 128);
     if (e == cudaSuccess) e = make_tile_map(&omap, out, N, M, 1, 64);
-    if (e == cudaSuccess && EPI == EPI_RESIDUAL && ep.res != nullptr)
-      e = make_tile_map(&rmap, ep.res, N, M, 1, 64);
+    if (e == cudaSuccess && EPI == EPI_RESIDUAL && ep.res != nullptr && !gathered)
+      e = make_tile_map(&rmap, ep.res, N, M, 1, 64);  // gathered rows come by cp.async
     if (e != cudaSuccess) return e;
     return wide ? launch_gemm_sm90_bn<EPI, 256>(amap, wmap, omap, rmap, M, N, K, ep, st)
                 : launch_gemm_sm90_bn<EPI, 128>(amap, wmap, omap, rmap, M, N, K, ep, st);

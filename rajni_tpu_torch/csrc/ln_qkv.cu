@@ -11,12 +11,13 @@
 // scores are ~1e8 fp32 operations on the CUDA cores.
 //
 // Design: three launches on the caller's stream — row LayerNorm (bf16 out),
-// GEMM QKV with a +bias→round epilogue into the caller's qkv (out_w columns:
-// a head-aligned tensor-parallel shard passes its [3C_local, C] weight), and
-// either the score kernel shared with K1 (common.cuh:score_kernel, one block
+// QKV on the wgmma/TMA GEMM of gemm_sm90.cuh with a +bias→round epilogue
+// into the caller's qkv (out_w columns, N % 8 masked: a head-aligned
+// tensor-parallel shard passes its [3C_local, C] weight), and either the
+// score kernel shared with K1 (common.cuh:score_kernel, a cluster of blocks
 // per image, scoring from the rounded qkv as the TPU kernel does) or a zero
 // fill of the scores.
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 using namespace rajni;
 
@@ -32,8 +33,9 @@ extern "C" int rajni_ln_qkv(const void* x, const void* ln_scale, const void* ln_
   if (e != cudaSuccess) return fail(e, 1);
 
   EpilogueArgs ep{static_cast<const bf16*>(bqkv), nullptr, nullptr, nullptr, 1, 1};
-  e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(y_scratch), static_cast<const bf16*>(wqkv),
-                            static_cast<bf16*>(qkv_out), rows, out_w, C, ep, st);
+  e = launch_gemm_sm90<EPI_BIAS>(static_cast<const bf16*>(y_scratch),
+                                 static_cast<const bf16*>(wqkv), static_cast<bf16*>(qkv_out),
+                                 rows, out_w, C, ep, st);
   if (e != cudaSuccess) return fail(e, 2);
 
   if (with_scores)

@@ -15,19 +15,21 @@
 // counts its own launches.
 //
 // Bound on the H100: compute. At batch 256, N=197→K=187 the QKV (at N),
-// proj (at K) and attention (at K) products are ~2.6e11 FLOP; scoring and
-// selection are ~2e8 operations of fp32 CUDA-core work.
+// proj (at K) and attention (at K) products are ~2.6e11 FLOP; scoring reads
+// the k and v rows once (0.16 GB) and selection is ~1e7 compares.
 //
-// Design: six launches on the caller's stream — row LayerNorm, GEMM QKV
+// Design: six launches on the caller's stream — row LayerNorm, QKV
 // (+bias→round) into a [B, N, 3C] device scratch, the score kernel shared
-// with B4 (common.cuh:score_kernel, one block per image; skipped when the
-// threaded scores are used), the selection kernel (one block per
-// image), the shared attention kernel reading q/k/v rows through the kept
-// indices (a gather is exactly what the TPU kernel's one-hot product
-// computes, since sel is 0/1; register-resident up to ATTN_MAX_N kept
-// tokens, the two-pass kernel of B6 past that), and GEMM proj whose residual
-// epilogue reads the pre-norm x rows through the same indices.
-#include "common.cuh"
+// with B4 (common.cuh:score_kernel: a cluster of blocks per image over token
+// ranges; skipped when the threaded scores are used), the selection kernel
+// (one block per image), the shared attention kernel reading q/k/v rows
+// through the kept indices (a gather is exactly what the TPU kernel's one-hot
+// product computes, since sel is 0/1; register-resident up to ATTN_MAX_N kept
+// tokens, B6's wgmma body past that), and proj whose residual epilogue reads
+// the pre-norm x rows through the same indices. Both products run on the
+// wgmma/TMA GEMM of gemm_sm90.cuh (its header has the design), the gathered
+// residual by cp.async.
+#include "gemm_sm90.cuh"
 
 using namespace rajni;
 
@@ -44,8 +46,9 @@ extern "C" int rajni_pruned_attn_block(
   if (e != cudaSuccess) return fail(e, 1);
 
   EpilogueArgs ep1{static_cast<const bf16*>(bqkv), nullptr, nullptr, nullptr, 1, 1};
-  e = launch_gemm<EPI_BIAS>(static_cast<const bf16*>(y_scratch), static_cast<const bf16*>(wqkv),
-                            static_cast<bf16*>(qkv_scratch), B * N, 3 * C, C, ep1, st);
+  e = launch_gemm_sm90<EPI_BIAS>(static_cast<const bf16*>(y_scratch),
+                                 static_cast<const bf16*>(wqkv), static_cast<bf16*>(qkv_scratch),
+                                 B * N, 3 * C, C, ep1, st);
   if (e != cudaSuccess) return fail(e, 2);
 
   const float* scores = static_cast<const float*>(prev_scores);
@@ -65,8 +68,8 @@ extern "C" int rajni_pruned_attn_block(
 
   EpilogueArgs ep2{static_cast<const bf16*>(bproj), static_cast<const bf16*>(ls),
                    static_cast<const bf16*>(x), static_cast<const int*>(idx_out), K, N};
-  e = launch_gemm<EPI_RESIDUAL>(static_cast<const bf16*>(attn_scratch),
-                                static_cast<const bf16*>(wproj), static_cast<bf16*>(out), B * K,
-                                C, C, ep2, st);
+  e = launch_gemm_sm90<EPI_RESIDUAL>(static_cast<const bf16*>(attn_scratch),
+                                     static_cast<const bf16*>(wproj), static_cast<bf16*>(out),
+                                     B * K, C, C, ep2, st);
   return e == cudaSuccess ? 0 : fail(e, 6);
 }

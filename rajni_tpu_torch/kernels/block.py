@@ -64,7 +64,6 @@ from .mlp import _int8_matmul, _layer_norm_f32, _mm
 ATTN_MAX_N = 256  # csrc/common.cuh: whole softmax rows in registers
 HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
 _PHASED_MAX_BYTES = 4 * 1024 * 1024  # rajni_tpu/kernels/block.py:136
-_SMEM_MAX = 232448  # bytes of shared memory a Hopper block may use
 
 PRUNED_KERNEL = CudaKernel(
     "rajni_pruned_attn_block",
@@ -243,9 +242,12 @@ def _check_prev_scores(prev_scores, with_scores: bool, B: int, N: int):
     return prev_scores
 
 
-def _score_smem(N: int, C: int, H: int) -> int:
-    """csrc/common.cuh:score_smem."""
-    return (C + H * N + N * (C // H) + 2 * N + C // H + 2) * 4
+def _score_fits(N: int, C: int, H: int) -> bool:
+    """Whether ``csrc/common.cuh:score_kernel`` takes these shapes: head_dim
+    64, ``C % 64 == 0``, ``C <= 1024`` and ``2 <= N <= 1024`` (a cluster of 2
+    blocks an image up to 512 tokens, else 4, a block's share of the tokens
+    at most its 256 threads; its shared memory, 87 KB at most, always fits)."""
+    return C % 64 == 0 and C <= 1024 and C == HEAD_DIM * H and 2 <= N <= 1024
 
 
 def fused_attn_block(
@@ -360,7 +362,7 @@ def fused_ln_qkv(
             f"fused_ln_qkv needs C % 64 == 0, C <= 1024, out_w % 8 == 0 and N >= 2; "
             f"got C={C}, wqkv {tuple(w.shape)}, N={N}"
         )
-    if with_scores and (C % num_heads or _score_smem(N, C, num_heads) > _SMEM_MAX):
+    if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_ln_qkv cannot score N={N}, C={C}, heads={num_heads}")
     dev = x.device
     y = torch.empty(B * N, C, dtype=x.dtype, device=dev)
@@ -569,7 +571,7 @@ def fused_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float = 1e-
         raise ValueError("fused_ln_qkv_int8 on the card needs C % 128 == 0, C <= 1024, the "
                          f"full [3C, C] weight and N >= 2; got C={C}, wqkv {tuple(wq.shape)}, "
                          f"N={N}")
-    if with_scores and (C % num_heads or _score_smem(N, C, num_heads) > _SMEM_MAX):
+    if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_ln_qkv_int8 cannot score N={N}, C={C}, heads={num_heads}")
     dev = x.device
     q8 = torch.empty(B * N * C, dtype=torch.int8, device=dev)
@@ -675,7 +677,7 @@ def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num
                          f"{tuple(wqkv.shape)}, {tuple(wproj.shape)}")
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
-    if with_scores and _score_smem(N, C, num_heads) > _SMEM_MAX:
+    if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_pruned_attn_block_int8 cannot score N={N}, C={C}, "
                          f"heads={num_heads}")
     dev = x.device
@@ -728,9 +730,9 @@ def fused_ln_qkv_select(x, ln_params, qkv_params, num_heads: int, keep: int, eps
         wqkv=w, bqkv=b,
     )
     _check_ln_qkv(x, qkv_params, True)
-    if C % 64 or C > 1024 or N < 2 or C % num_heads or _score_smem(N, C, num_heads) > _SMEM_MAX:
-        raise ValueError(f"fused_ln_qkv_select needs C % 64 == 0, C <= 1024 and the scores of "
-                         f"N={N}, C={C}, heads={num_heads} in shared memory")
+    if not _score_fits(N, C, num_heads):
+        raise ValueError(f"fused_ln_qkv_select cannot score N={N}, C={C}, heads={num_heads} "
+                         "(it needs C % 64 == 0, C <= 1024 and head_dim 64)")
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
     dev = x.device

@@ -28,11 +28,10 @@ import torch
 from .attention import SDPA_KERNEL, SDPA_MAX_N
 from .block import (
     ATTN_MAX_N,
-    _SMEM_MAX,
     _check_attn_shapes,
     _check_prev_scores,
     PRUNED_KERNEL,
-    _score_smem,
+    _score_fits,
     pruned_attn_block_plain as pruned_attn_block_long_plain,
 )
 from .build import CudaKernel, check_cuda, ptr, stream
@@ -85,7 +84,7 @@ def fused_pruned_attn_block_long(x, ln_params, attn_params, ls, prev_scores, num
     _check_attn_shapes("fused_pruned_attn_block_long", N, C, num_heads, SDPA_MAX_N)
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
-    if with_scores and _score_smem(N, C, num_heads) > _SMEM_MAX:
+    if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_pruned_attn_block_long cannot score N={N}, C={C}, "
                          f"heads={num_heads}")
     dev = x.device

@@ -402,7 +402,7 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
     prev = _block._check_prev_scores(prev_scores, with_scores, B, N)
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
-    if with_scores and _block._score_smem(N, C, num_heads) > _block._SMEM_MAX:
+    if with_scores and not _block._score_fits(N, C, num_heads):
         raise ValueError(f"fused_pruned_block_full_int8 cannot score N={N}, C={C}, "
                          f"heads={num_heads}")
     dev = x.device

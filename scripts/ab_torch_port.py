@@ -7,12 +7,15 @@ Each root is a checkout of this repository (for example a parent commit
 unpacked with ``git archive`` into an ignored directory). For each root in
 the order given, a fresh process imports that root's ``rajni_tpu_torch``
 (which builds its kernels into its own ``_build``) and measures the
-throughput of ViT-B/16 224 bf16 (batch 256), ViT-B/16 384 bf16 (batch 128),
-ViT-B/16 224 int8 (P3b, batch 256), ViT-B/16 384 int8 (P4a, batch 128),
-DeiT-S/16 384 int8 (P5d, batch 128, ``DEIT_S_DYNAMIC``), ViT-L/16 224 bf16
-(P5c, batch 256, ``VIT_L_AGGRESSIVE``), DeiT-S/16 224 bf16 (P3a, batch 256,
+throughput of every path of ``chip_smoke.py``: ViT-B/16 224 bf16 (batch
+256), ViT-B/16 384 bf16 (batch 128), ViT-B/16 224 int8 dynamic and static
+(P3b, P3c, batch 256), ViT-B/16 384 int8 dynamic and static (P4a, P4b, batch
+128), DeiT-S/16 384 int8 (P5d, batch 128, ``DEIT_S_DYNAMIC``), ViT-L/16 224
+bf16 and int8 dynamic and static (P5c, P5a, P5b, batch 256,
+``VIT_L_AGGRESSIVE``), DeiT-S/16 224 bf16 and int8 (P3a, P3d, batch 256,
 ``DEIT_S_DYNAMIC``) and ViT-B/16 224 with MLP-only int8 (P4c, batch 256),
-pruned and with the identity schedule, and the train img/s of ViT-B/16 224
+pruned and with the identity schedule (static scales calibrated on the
+measured batch for each schedule), and the train img/s of ViT-B/16 224
 bf16 through the kernels (T6, batch 128), as chip_smoke.py measures them. Prints the card's
 name and power limit, then one JSON line per run; a path that a checkout
 does not route yet (``NotImplementedError``) reads null. Compare two versions
@@ -31,7 +34,8 @@ DEIT_S_DYNAMIC = {i: {"keep_ratio": 0.9, "update": True} for i in range(3, 11)}
 # scripts/bench_suite.py:37 VIT_L_AGGRESSIVE: keep 0.7 at blocks 4, 8, 12, 16
 VIT_L_AGGRESSIVE = {i: {"keep_ratio": 0.7} for i in (4, 8, 12, 16)}
 # (model, image side, batch, int8 mode, pruned schedule; None: REFERENCE_SCHEDULE).
-# int8 mode: None (bf16), "dynamic" (every product) or "mlp" (the MLP only)
+# int8 mode: None (bf16), "dynamic" (every product), "static" (calibrated
+# scales) or "mlp" (the MLP only)
 PATHS = (("vit_base_patch16_224", 224, 256, None, None),
          ("vit_base_patch16_384", 384, 128, None, None),
          ("vit_base_patch16_224", 224, 256, "dynamic", None),
@@ -39,7 +43,12 @@ PATHS = (("vit_base_patch16_224", 224, 256, None, None),
          ("deit_small_patch16_384", 384, 128, "dynamic", DEIT_S_DYNAMIC),
          ("vit_large_patch16_224", 224, 256, None, VIT_L_AGGRESSIVE),
          ("deit_small_patch16_224", 224, 256, None, DEIT_S_DYNAMIC),
-         ("vit_base_patch16_224", 224, 256, "mlp", None))
+         ("vit_base_patch16_224", 224, 256, "mlp", None),
+         ("vit_base_patch16_224", 224, 256, "static", None),
+         ("deit_small_patch16_224", 224, 256, "dynamic", DEIT_S_DYNAMIC),
+         ("vit_base_patch16_384", 384, 128, "static", None),
+         ("vit_large_patch16_224", 224, 256, "dynamic", VIT_L_AGGRESSIVE),
+         ("vit_large_patch16_224", 224, 256, "static", VIT_L_AGGRESSIVE))
 TRAIN_MODEL, TRAIN_BATCH = "vit_base_patch16_224", 128
 
 
@@ -51,7 +60,7 @@ def measure(root: str) -> dict:
 
     import rajni_tpu_torch
     from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
-    from rajni_tpu_torch.quant import quantize_params
+    from rajni_tpu_torch.quant import calibrate_act_scales, quantize_params
     from rajni_tpu_torch.utils.timing import measure_throughput
 
     if not rajni_tpu_torch.__file__.startswith(str(Path(root).resolve())):
@@ -67,7 +76,10 @@ def measure(root: str) -> dict:
         images = torch.randn(batch, side, side, 3, generator=gen).to(dev)
         for name, sched in (("pruned", schedule), ("identity", None)):
             key = f"{model}{f' int8 {int8}' if int8 else ''} {name}"
-            m = RAJNIViT(model, sched, params=params, kernels="cuda", device=dev)
+            scales = (calibrate_act_scales(raw.params, images, raw.config, sched)
+                      if int8 == "static" else None)
+            m = RAJNIViT(model, sched, params=params, kernels="cuda", device=dev,
+                         act_scales=scales)
             try:
                 ips = measure_throughput(m, images, batch=batch, device=dev, iters=10, warmup=2,
                                          repeats=3)

@@ -39,8 +39,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def kind_of(name: str) -> str:
     """A device kernel's kind, by its name: the port's own kernels (the
-    wgmma GEMM of K2 and K3, ``gemm_sm90_kernel``; the mma.sync GEMM of K1,
-    B4, B5 and B17, ``gemm_bf16_kernel``; the int8 GEMM; B18; other),
+    wgmma GEMM of K1-K3, B4 and B5, ``gemm_sm90_kernel``; the mma.sync GEMM
+    of B17, ``gemm_bf16_kernel``; the int8 GEMM; B18; other),
     library GEMMs, and PyTorch's elementwise, copy and reduction kernels."""
     if "rajni" in name:
         if "gemm_sm90" in name:

@@ -1,13 +1,16 @@
-"""The GEMM of K2 and K3 (``rajni_tpu_torch/kernels/gemm.py``) on the CPU.
+"""The GEMM of K1, K2, K3, B4 and B5 (``rajni_tpu_torch/kernels/gemm.py``)
+on the CPU.
 
 ``gemm_plain`` is the reference that ``chip_smoke.py`` holds the Hopper GEMM
 to at each product's shapes. These tests hold that it is the same function
-that the plain versions of K2 and K3 compute (exactly: the same arithmetic in
-the same order), and those plain versions are held to the JAX Pallas kernels
-(here too, once, and in ``tests/test_torch_kernels.py``). They also hold that
-the wrapper refuses what the kernel does not take before it dispatches, on
-any device. Inputs are made from a seed with numpy, at a narrow width (C=128,
-hidden 512, a few rows).
+that the plain versions of K2 and K3 compute, and with ``res_idx`` (the
+gathered residual) the proj step of K1's and B5's (exactly: the same
+arithmetic in the same order), and those plain versions are held to the JAX
+Pallas kernels (here too, once each, and in ``tests/test_torch_kernels.py``
+and ``tests/test_torch_longseq.py``). They also hold that the wrapper refuses
+what the kernel does not take before it dispatches, on any device. Inputs
+are made from a seed with numpy, at a narrow width (C=128, hidden 512, a few
+rows).
 """
 
 from __future__ import annotations
@@ -18,10 +21,13 @@ import torch
 
 import jax.numpy as jnp
 
+from rajni_tpu.kernels import block as jblock
 from rajni_tpu.kernels import mlp as jmlp
+from rajni_tpu.ops import pruning as jprune
 from rajni_tpu_torch.kernels import block as tblock
 from rajni_tpu_torch.kernels import gemm as tgemm
 from rajni_tpu_torch.kernels import mlp as tmlp
+from rajni_tpu_torch.ops import pruning as tprune
 
 B, N, C, H, HIDDEN = 2, 13, 128, 2, 512
 SCALE = (C // H) ** -0.5
@@ -138,3 +144,92 @@ def test_gemm_refuses_other_devices():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgemm.gemm(a, torch.empty(64, 128, device="meta"), torch.empty(64, device="meta"),
                    tgemm.EPI_BIAS)
+
+
+# ---------------------------------------------------------------------------
+# The gathered residual (res_idx): K1's and B5's proj step
+# ---------------------------------------------------------------------------
+
+KEEP = 8  # K = 9 of N = 13 tokens
+
+
+def _attn(rng, dt):
+    return {"qkv": _torch(_lin(rng, 3 * C, C), dt), "proj": _torch(_lin(rng, C, C), dt)}
+
+
+def _gathered_proj(qkv, keep_idx, x, proj, ls):
+    """The tail as the GEMM runs it: the attention of the kept tokens, then
+    proj with the residual rows of x read through keep_idx."""
+    qkv_g = torch.take_along_dim(qkv, keep_idx[..., None], dim=1)
+    a = tblock._mha(qkv_g, H, SCALE, x.dtype)
+    return tgemm.gemm_plain(a, proj["weight"], proj["bias"], tgemm.EPI_RESIDUAL, ls, x,
+                            keep_idx.to(torch.int32), keep_idx.shape[1], x.shape[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_ls", [False, True])
+@pytest.mark.parametrize("block", ["K1", "B5"])
+def test_gathered_residual_is_k1_and_b5_proj(rng, block, dtype, with_ls):
+    dt = DTYPES[dtype]
+    norm, attn = _torch(_norm(rng), dt), _attn(rng, dt)
+    ls = _torch(0.5 * rng.standard_normal(C).astype(np.float32), dt) if with_ls else None
+    x = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32)).to(dt)
+    qkv, _ = tblock.ln_qkv_plain(x, norm, attn["qkv"], H, 1e-6, False)
+    if block == "K1":
+        want, _, keep_idx = tblock.pruned_attn_block_plain(x, norm, attn, ls, None, H, KEEP,
+                                                           SCALE, 1e-6, True)
+    else:
+        scores = torch.from_numpy(rng.random((B, N)).astype(np.float32))
+        keep_idx, _ = tprune.select_tokens_dense(scores, KEEP)
+        want = tblock.gather_sdpa_proj_residual_plain(qkv, keep_idx, x, attn["proj"], ls, H,
+                                                      SCALE)
+    assert torch.equal(_gathered_proj(qkv, keep_idx, x, attn["proj"], ls), want)
+
+
+def test_gathered_residual_matches_pallas_b5(rng):
+    """The attention and the gathered-residual GEMM against the JAX kernel
+    B5 (interpret mode on the CPU), fp32, at the tolerances of
+    tests/test_torch_longseq.py."""
+    proj = _lin(rng, C, C)
+    ls = (0.5 * rng.standard_normal(C)).astype(np.float32)
+    qkv = rng.standard_normal((B, N, 3 * C)).astype(np.float32)
+    x = rng.standard_normal((B, N, C)).astype(np.float32)
+    scores = rng.random((B, N)).astype(np.float32)
+    keep_idx, _ = tprune.select_tokens_dense(torch.from_numpy(scores), KEEP)
+    j_idx, sel = jprune.select_tokens_dense(jnp.asarray(scores), KEEP, jnp.float32)
+    np.testing.assert_array_equal(keep_idx.numpy(), np.asarray(j_idx))
+    jproj = {"kernel": jnp.asarray(proj["weight"].T), "bias": jnp.asarray(proj["bias"])}
+    want = jblock.fused_gather_sdpa_proj_residual(jnp.asarray(qkv), sel, jnp.asarray(x), jproj,
+                                                  jnp.asarray(ls), H, SCALE)
+    got = _gathered_proj(torch.from_numpy(qkv), keep_idx, torch.from_numpy(x),
+                         _torch(proj, torch.float32), torch.from_numpy(ls))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case", ["res_idx shape", "res_idx dtype", "res_idx device",
+                                  "rows_out", "rows_in", "res_idx without res"])
+def test_gemm_refuses_bad_gather_before_dispatch(device, case):
+    """Shape, dtype and device checks only: a check of the index values would
+    sync the card."""
+    imgs, rows_out, rows_in, K, Nn = 2, 3, 5, 128, 64
+    a = torch.zeros(imgs * rows_out, K, device=device)
+    w = torch.zeros(Nn, K, device=device)
+    res = torch.zeros(imgs * rows_in, Nn, device=device)
+    idx = torch.zeros(imgs * rows_out, dtype=torch.int32, device=device)
+    if case == "res_idx shape":
+        idx = torch.zeros(imgs, rows_out, dtype=torch.int32, device=device)
+    elif case == "res_idx dtype":
+        idx = idx.long()
+    elif case == "res_idx device":
+        idx = torch.zeros(imgs * rows_out, dtype=torch.int32,
+                          device="meta" if device == "cpu" else "cpu")
+    elif case == "rows_out":
+        rows_out = 4  # does not divide the 6 output rows
+    elif case == "rows_in":
+        rows_in = 3  # divides the 10 residual rows into another number of images
+    else:
+        res = None
+    with pytest.raises(ValueError, match="gemm"):
+        tgemm.gemm(a, w, torch.zeros(Nn, device=device), tgemm.EPI_RESIDUAL, None, res, idx,
+                   rows_out, rows_in)
