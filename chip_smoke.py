@@ -21,8 +21,8 @@ exit) when it goes wrong:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rajni_tpu_torch/csrc`` into one library
    (one ``nvcc`` per source, in parallel, then one link), and require of
-   the sources of the wgmma GEMM (``gemm.cu``, ``mlp.cu``, ``attn_block.cu``,
-   ``pruned_attn_block.cu``, ``gather_attn.cu``, ``ln_qkv.cu``) that ptxas
+   the sources of the wgmma GEMM (``GEMM_SOURCES``: ``gemm.cu``, the bf16
+   sources of K1-K3, B4 and B5, and the seven int8 sources) that ptxas
    reports no spill and no serialized wgmma;
 3. hold each kernel against its plain PyTorch version on the card at each
    path's shapes: K1 ``fused_pruned_attn_block``, K2 ``fused_attn_block`` and
@@ -45,7 +45,14 @@ exit) when it goes wrong:
    own (``kernels/gemm.py``) at each bf16 path's QKV, proj, fc1 and fc2 (C =
    384, 768, 1024; M = 256·197, 256·120), at K1's and B5's proj with the
    residual gathered through the kept indices, and at ragged M and N, timed
-   beside ``F.linear`` (cuBLAS), which the port never calls; the score
+   beside ``F.linear`` (cuBLAS), which the port never calls; the int8
+   GEMM of B9-B15 on its own (``kernels/gemm.py:gemm_s8``) at each int8
+   path's qkv, proj (contiguous and gathered residual), fc1 and fc2
+   (grouped and not; C = 384, 768, 1024; M of P3b, P4a and P5a) and at
+   ragged M, N and K, bitwise equal to ``gemm_s8_plain`` but for the GELU,
+   timed beside ``torch._int_mm``, which the port never calls; fc1 with its
+   GELU quantized (``gelu_quant``) at every B9 and B15 shape, the entry
+   points' route bitwise equal to the two-launch route, both timed; the score
    kernel (B4's scores at 197 and 577 tokens) against ``_importance_f32`` of
    the same qkv, and its device time at ViT-B/16 224's five pruned blocks
    against its byte bound; K1's six launches, each by device time; B6's
@@ -58,7 +65,10 @@ exit) when it goes wrong:
    the rounded P and its dV from the unrounded P; for B6 and B18, P rounded
    before it is normalized, where it separates; for the GEMM, the GELU of
    the rounded sum, a K-tile skipped, the residual added ungathered and its
-   index shifted by one row; for the scores, the biased variance of the
+   index shifted by one row; for the int8 GEMM, the last k-tile skipped, a
+   group's flush scaled by its neighbour's row scale, the residual
+   ungathered; for fc1's quantized GELU, the tile's absmax for the group's
+   and the neighbouring column's sinv; for the scores, the biased
    value norms), and time both with CUDA
    events (B6 beside ``F.scaled_dot_product_attention``, B18 beside its
    forward and backward, which the port never calls, by their device time
@@ -1726,9 +1736,12 @@ def train_kernel_phases(device, peaks, results):
 # reject the residual added ungathered (row r of each image's rows instead of
 # row res_idx[r]) and the index shifted by one row.
 GEMM_SOUND = 1.533e-4
-# the sources that build it
+# the sources that build it (the int8 ones since the int8 products moved
+# there)
 GEMM_SOURCES = ("gemm.cu", "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "gather_attn.cu",
-                "ln_qkv.cu")
+                "ln_qkv.cu", "ln_mlp_int8.cu", "block_full_int8.cu", "pruned_block_full_int8.cu",
+                "attn_block_int8.cu", "ln_qkv_int8.cu", "gather_attn_int8.cu",
+                "pruned_attn_block_int8.cu")
 GEMM_REL_L2 = 2.5 * GEMM_SOUND
 # (label, width, hidden) of the bf16 paths whose products the GEMM runs:
 # DeiT-S (P3a: B7's MLP half, B8), ViT-B (K2, K3, B16), ViT-L (P5c)
@@ -1885,6 +1898,243 @@ def gemm_phases(device, peaks):
         args = operands(M, N, K, epi, "", with_ls, with_res)
         faults = ("K-tile skipped",) + (("GELU of the rounded sum",) if epi == kg.EPI_GELU else ())
         held(f"ragged M={M} N={N} K={K} epi={epi} ls={with_ls} res={with_res}", args, faults)
+
+
+# The int8 GEMM of B9-B15 (csrc/gemm_sm90.cuh's kernel with csrc/int8.cuh's
+# S8Epi, through its own entry point kernels/gemm.py:gemm_s8) against
+# gemm_s8_plain. The product is exact in int32 and the epilogue is the same
+# fp32 operations in the same order on both sides, so I8_BIAS and
+# I8_RESIDUAL (grouped, ungrouped, gathered) must be the plain version's
+# bits. I8_GELU takes the GELU by ex2 and a reciprocal where the plain
+# version takes expf and a division: held within GEMM_REL_L2, with the bf16
+# GEMM's fault "GELU of the rounded sum" (here the sum rounded to bf16). The
+# gates must reject three planted faults of the plain version: the last
+# 128-deep k-tile skipped (ragged shapes), each group's flush scaled by the
+# neighbouring group's row scale (grouped fc2), the residual added ungathered
+# (gathered proj).
+# (label, width, hidden, M) of the int8 paths' products: DeiT-S (P3d),
+# ViT-B at P3b's and P4a's rows, ViT-L (P5a); fc2 grouped at hc = hidden/2.
+S8_WIDTHS = ((DEIT_S, C_S, HIDDEN_S, B * 197), (PATH224, C, HIDDEN, B * 197),
+             (PATH384, C, HIDDEN, B384 * 577), (PATH_L, C_L, HIDDEN_L, B * 197))
+# fc1 with its GELU quantized (kernels/gemm.py:gelu_quant) at the B9 and B15
+# shapes (label, width, hidden, M, hc): the entry points' route (static: the
+# GELU quantized in fc1's epilogue; dynamic: fp32 h with each row and
+# group's absmax taken in fc1's epilogue, then one quantizing read) and the
+# two-launch route (I8_GELU to fp32 h, then the row quantizer, which reads h
+# twice) must give the same hq and hs, bit for bit. Planted faults of the
+# two-launch route the gate must reject: hq scaled by its 256-column tile's
+# absmax instead of its hc group's (dynamic), sinv of the neighbouring
+# column (static).
+GELU_Q_SHAPES = (("B9 P4a", C, HIDDEN, B384 * 577, HIDDEN), ("B9 P4a", C, HIDDEN, B384 * 577, 1536),
+                 ("B9 P4a", C, HIDDEN, B384 * 356, HIDDEN),
+                 ("B9 P5a", C_L, HIDDEN_L, B * 197, HIDDEN_L),
+                 ("B15 P3b", C, HIDDEN, B * 197, 1536), ("B15 P5a", C_L, HIDDEN_L, B * 67, 2048),
+                 ("B15 P5d", C_S, HIDDEN_S, B_S384 * 577, 768))
+
+
+def s8_operands(gen, device, M, N, K, groups=1, static=False, with_ls=False, with_res=False):
+    """int8 q [M, K] and w [N, K], row scales a [M, groups] (None if static),
+    w_scale and bias [N] fp32 scaled so the dequantized sums are O(1), ls
+    and res bf16."""
+    import torch
+
+    q = torch.randint(-127, 128, (M, K), generator=gen, device=device, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device=device, dtype=torch.int8)
+    a = None if static else 0.004 + 0.008 * torch.rand(M, groups, generator=gen, device=device)
+    ws = (0.5 + torch.rand(N, generator=gen, device=device)) / (64.0 * math.sqrt(K))
+    if static:
+        ws = ws / 127.0
+    bias = 0.1 * torch.randn(N, generator=gen, device=device)
+    ls = (1 + 0.1 * torch.randn(N, generator=gen, device=device)).to(torch.bfloat16) \
+        if with_ls else None
+    res = (X_STD * torch.randn(M, N, generator=gen, device=device)).to(torch.bfloat16) \
+        if with_res else None
+    return q, w, ws, bias, a, ls, res
+
+
+def s8_phases(device, peaks, int8_peak):
+    """The int8 GEMM on its own at each int8 path's products (qkv, proj with
+    the residual, fc1, fc2 ungrouped and grouped over hc = hidden/2; C = 384,
+    768, 1024; M = 256·197 and 128·577), each timed beside
+    ``torch._int_mm`` by device time; proj with the residual gathered
+    through the kept indices (B14 at P3b's 197→187, B13 at P4a's 442→375);
+    ragged M (1, 77, 128·394 + 1), N (400) and K (128, 384), dynamic and
+    static."""
+    import torch
+
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+
+    gen = torch.Generator(device=device).manual_seed(17)
+
+    def held(tag, args, kw, faults=()):
+        got = kg.gemm_s8(*args, **kw)
+        want = kg.gemm_s8_plain(*args, **kw)
+        check(bool(torch.isfinite(got.float()).all()), f"s8 GEMM {tag}: output not finite")
+        if args[4] == kg.I8_GELU:
+            rel = rel_l2(got, want)
+            print(f"s8 GEMM {tag}: rel L2 {rel:.3e} (GELU: ex2 and a reciprocal)")
+            check(rel <= GEMM_REL_L2, f"s8 GEMM {tag}: rel L2 {rel} > {GEMM_REL_L2}")
+        else:
+            diff = int((got != want).sum())
+            print(f"s8 GEMM {tag}: {diff} elements differ from gemm_s8_plain")
+            check(diff == 0, f"s8 GEMM {tag}: not bitwise equal to gemm_s8_plain ({diff})")
+        for fault in faults:
+            bad = s8_faulty(fault, args, kw)
+            if args[4] == kg.I8_GELU:
+                missed = rel_l2(got, bad) <= GEMM_REL_L2
+            else:
+                missed = torch.equal(got, bad)
+            print(f"s8 GEMM {tag}: planted fault '{fault}': "
+                  f"{'missed' if missed else 'rejected'}")
+            check(not missed, f"s8 GEMM {tag}: the gate missed the planted fault '{fault}'")
+        return got
+
+    def timed(tag, args, kw, nbytes):
+        q, w = args[0], args[1]
+        M, K, N = q.shape[0], q.shape[1], w.shape[0]
+        ms = device_ms(lambda: kg.gemm_s8(*args, **kw), iters=10)
+        # cuBLASLt's int8 product with no epilogue, int32 out
+        lib = device_ms(lambda: torch._int_mm(q, w.t()), iters=10)
+        bnd = bound(0.0, nbytes, peaks, 2.0 * M * N * K, int8_peak)
+        print(f"s8 GEMM {tag}: {ms[0]:.3f} ms ({ms[1]}) | torch._int_mm {lib[0]:.3f} ms "
+              f"({lib[1]}) | bound {bnd[0]:.3f} ms ({bnd[1]})")
+
+    for label, width, hidden, M in S8_WIDTHS:
+        products = (("qkv", 3 * width, width, kg.I8_BIAS, None, False, False),
+                    ("proj", width, width, kg.I8_RESIDUAL, None, True, True),
+                    ("fc1", hidden, width, kg.I8_GELU, None, False, False),
+                    ("fc2", width, hidden, kg.I8_RESIDUAL, None, True, True),
+                    ("fc2 grouped", width, hidden, kg.I8_RESIDUAL, hidden // 2, True, True))
+        for name, N, K, epi, gk, with_ls, with_res in products:
+            groups = K // (gk or K)
+            q, w, ws, bias, a, ls, res = s8_operands(gen, device, M, N, K, groups,
+                                                     with_ls=with_ls, with_res=with_res)
+            args, kw = (q, w, ws, bias, epi), dict(a=a, group_k=gk, ls=ls, res=res)
+            tag = f"{label} {name} M={M} N={N} K={K}"
+            faults = ("flush scaled by the neighbouring group's row scale",) if gk else ()
+            if epi == kg.I8_GELU:
+                faults = ("GELU of the rounded sum",)
+            held(tag, args, kw, faults)
+            out_bytes = 4 if epi == kg.I8_GELU else 2
+            timed(tag, args, kw, M * K + N * K + M * N * out_bytes + (M * N * 2 if with_res else 0)
+                  + M * groups * 4 + N * 8)
+        if label == PATH224:  # static scales: the same products without row scales
+            for name, N, K, epi, gk in (("qkv", 3 * width, width, kg.I8_BIAS, None),
+                                        ("fc2 grouped", width, hidden, kg.I8_RESIDUAL,
+                                         hidden // 2)):
+                q, w, ws, bias, a, ls, res = s8_operands(gen, device, M, N, K, static=True,
+                                                         with_ls=True, with_res=True)
+                if epi == kg.I8_BIAS:
+                    ls = res = None
+                held(f"{label} {name} static M={M} N={N} K={K}", (q, w, ws, bias, epi),
+                     dict(group_k=gk, ls=ls, res=res))
+
+    # proj with the residual rows of x through the kept indices: B14 at P3b's
+    # first pruned block, B13 at P4a's 442→375
+    for label, imgs, n, Kk in (("B14", B, 197, 187), ("B13", B384, 442, 375)):
+        M = imgs * Kk
+        q, w, ws, bias, a, ls, _ = s8_operands(gen, device, M, C, C, with_ls=True)
+        x = (X_STD * torch.randn(imgs, n, C, generator=gen, device=device)).to(torch.bfloat16)
+        idx, _ = select_tokens_dense(torch.rand(imgs, n, generator=gen, device=device), Kk - 1,
+                                     torch.bool)
+        res_idx = idx.to(torch.int32).reshape(M).contiguous()
+        args = (q, w, ws, bias, kg.I8_RESIDUAL)
+        kw = dict(a=a, ls=ls, res=x, res_idx=res_idx, rows_out=Kk, rows_in=n)
+        tag = f"{label} proj gathered M={M} ({imgs}x{n}->{Kk}) N={C} K={C}"
+        held(tag, args, kw, ("residual ungathered",))
+        timed(tag, args, kw, 2 * M * C + C * C + 2 * M * C * 2 + M * 8 + C * 10)
+
+    # ragged: M past the 128-row tile, N past the 128-column tile, K of one
+    # and three 128-deep steps, dynamic and static
+    for M in (1, 77, 128 * 394 + 1):
+        for N, K, epi, gk, static in ((3 * C_S, C_S, kg.I8_BIAS, None, False),
+                                      (400, 384, kg.I8_RESIDUAL, None, True),
+                                      (C_S, HIDDEN_S, kg.I8_RESIDUAL, 768, False),
+                                      (C_S, HIDDEN_S, kg.I8_RESIDUAL, 768, True),
+                                      (400, 128, kg.I8_GELU, None, False)):
+            q, w, ws, bias, a, ls, res = s8_operands(gen, device, M, N, K, K // (gk or K), static,
+                                                     epi == kg.I8_RESIDUAL,
+                                                     epi == kg.I8_RESIDUAL)
+            faults = ("k-tile skipped",) if K > 128 else ()
+            if gk and not static:
+                faults += ("flush scaled by the neighbouring group's row scale",)
+            held(f"ragged M={M} N={N} K={K} epi={epi} group_k={gk} "
+                 f"{'static' if static else 'dynamic'}", (q, w, ws, bias, epi),
+                 dict(a=a, group_k=gk, ls=ls, res=res), faults)
+
+
+def s8_faulty(fault: str, args, kw):
+    """gemm_s8_plain with a planted fault."""
+    import torch
+
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.kernels.math import gelu_fast
+
+    q, w, ws, bias, epi = args
+    kw = dict(kw)
+    if fault == "k-tile skipped":  # the last 128 of K left out of the sum
+        return kg.gemm_s8_plain(q[..., :-kg.S8_BLOCK_K], w[:, :-kg.S8_BLOCK_K], ws, bias, epi,
+                                **kw)
+    if fault == "flush scaled by the neighbouring group's row scale":
+        kw["a"] = torch.roll(kw["a"], 1, dims=-1)
+        return kg.gemm_s8_plain(q, w, ws, bias, epi, **kw)
+    if fault == "residual ungathered":  # each image's rows 0..rows_out-1, not res_idx's
+        ungathered = torch.arange(kw["rows_out"], dtype=torch.int32, device=q.device)
+        kw["res_idx"] = ungathered.repeat(kw["res_idx"].numel() // kw["rows_out"])
+        return kg.gemm_s8_plain(q, w, ws, bias, epi, **kw)
+    # "GELU of the rounded sum": the dequantized sum rounded to bf16 first
+    h = kg.gemm_s8_plain(q, w, ws, bias, kg.I8_BIAS, kw.get("a"))
+    return gelu_fast(h.float())
+
+
+def gelu_quant_phases(device, peaks, int8_peak):
+    """fc1 with its GELU quantized at every B9 and B15 shape (GELU_Q_SHAPES),
+    dynamic and static: the entry points' route against the two-launch
+    route, bit for bit, with the planted faults; both routes timed (CUDA
+    events)."""
+    import torch
+
+    from rajni_tpu_torch.kernels import gemm as kg
+
+    gen = torch.Generator(device=device).manual_seed(18)
+    for label, width, hidden, M, hc in GELU_Q_SHAPES:
+        for static in (False, True):
+            q, w, ws, bias, a, _, _ = s8_operands(gen, device, M, hidden, width, static=static)
+            # static: GELU outputs of O(1) times a per-column fold, most of
+            # them inside the int8 range
+            sinv = (20.0 + 20.0 * torch.rand(hidden, generator=gen, device=device)) \
+                if static else None
+            tag = f"{label} GELU-quantize M={M} hidden={hidden} C={width} hc={hc} " \
+                  f"{'static' if static else 'dynamic'}"
+            fused = kg.gelu_quant(q, w, ws, bias, hc, a, sinv)
+            two = kg.gelu_quant(q, w, ws, bias, hc, a, sinv, two_launch=True)
+            same = torch.equal(fused[0], two[0]) and (static or torch.equal(fused[1], two[1]))
+            # beside the plain quantizer of the kernel's own fp32 h, which
+            # takes 127 / absmax as 127 · (1 / absmax): a reading only
+            plain = kg.quant_groups_plain(kg.gemm_s8(q, w, ws, bias, kg.I8_GELU, a), hc, sinv)
+            steps = (fused[0].int() - plain[0].int()).abs()
+            print(f"{tag}: hq{'' if static else ' and hs'} bitwise equal to the two-launch "
+                  f"route {same}; against the plain quantizer of the kernel's h, "
+                  f"{int((steps > 0).sum())} of {steps.numel()} hq elements differ, by at most "
+                  f"{int(steps.max())}")
+            check(same, f"{tag}: the entry points' route differs from the two-launch route")
+            # the faults, planted in the two-launch route the gate holds to
+            if static:
+                fault = "sinv of the neighbouring column"
+                bad = kg.gelu_quant(q, w, ws, bias, hc, a, torch.roll(sinv, 1), two_launch=True)
+            else:
+                fault = "hq scaled by its tile's absmax"
+                bad = kg.gelu_quant(q, w, ws, bias, 256, a, sinv, two_launch=True)
+            missed = torch.equal(fused[0], bad[0])
+            print(f"{tag}: planted fault '{fault}': {'missed' if missed else 'rejected'}")
+            check(not missed, f"{tag}: the gate missed the planted fault '{fault}'")
+            ms_f = cuda_ms(lambda: kg.gelu_quant(q, w, ws, bias, hc, a, sinv))
+            ms_t = cuda_ms(lambda: kg.gelu_quant(q, w, ws, bias, hc, a, sinv, two_launch=True))
+            bnd = bound(0.0, M * width + hidden * width + M * hidden + hidden * 12, peaks,
+                        2.0 * M * hidden * width, int8_peak)
+            print(f"{tag}: entry points' route {ms_f:.3f} ms | two-launch {ms_t:.3f} ms | "
+                  f"bound {bnd[0]:.3f} ms ({bnd[1]})")
 
 
 def ragged_phases(device):
@@ -2649,6 +2899,10 @@ def main() -> int:
                lambda: train_kernel_phases(device, peaks, results)),
               ("kernel phases B6/B18 at ragged lengths", lambda: ragged_phases(device)),
               ("GEMM (csrc/gemm_sm90.cuh) beside cuBLAS", lambda: gemm_phases(device, peaks)),
+              ("int8 GEMM (csrc/gemm_sm90.cuh, S8Epi) beside torch._int_mm",
+               lambda: s8_phases(device, peaks, int8_peak)),
+              ("fc1's GELU quantized: the entry points' and the two-launch route",
+               lambda: gelu_quant_phases(device, peaks, int8_peak)),
               ("score kernel", lambda: score_phases(device, peaks)),
               ("attention at and below 256 tokens", lambda: attention_phases(device)),
               ("training block ops", lambda: train_block_ops(device))]

@@ -5,16 +5,19 @@
 // Replaces the TPU kernel rajni_tpu/kernels/block.py:fused_block_full_int8
 // (pallas_call at block.py:2472).
 //
-// Bound on the H100: operations (four int8 products); the fp32 GELU output
-// is written and read back once (csrc/int8.cuh).
+// Bound on the H100: operations (four int8 products on the wgmma GEMM); the
+// GELU output is quantized in fc1's epilogue under static scales, written
+// and read once in fp32 in dynamic mode (csrc/int8.cuh).
 //
-// Design: nine launches on the caller's stream (csrc/int8.cuh:
-// int8_block_head/_tail without the selection): LN1 → int8, the qkv product
-// (bf16 qkv: B15 does not round qkv itself, but its attention casts it to
-// bf16, block.py:284, which is the same), the attention with an fp32 output
-// (register-resident up to ATTN_MAX_N tokens, two-pass past that), the row
-// quantizer, the proj product with the residual, LN2 → int8, fc1 with the
-// GELU epilogue (fp32 h), the hc-group quantizer, and fc2 with the residual.
+// Design: eight launches in static mode and ten in dynamic mode on the
+// caller's stream (csrc/int8.cuh: int8_block_head/_tail without the
+// selection): LN1 → int8, the qkv product (bf16 qkv: B15 does not round qkv
+// itself, but its attention casts it to bf16, block.py:284, which is the
+// same), the attention with an fp32 output (register-resident up to
+// ATTN_MAX_N tokens, two-pass past that), the row quantizer, the proj
+// product with the residual, LN2 → int8, fc1 with its GELU quantized per hc
+// group in the epilogue (dynamic: the absmax scratch zeroed, fc1 to fp32 h
+// with the group absmax, then the quantizer), and fc2 with the residual.
 #include "int8.cuh"
 
 using namespace rajni;

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention kernels B6 (sdpa.cu, the
 // long-sequence attention of every path past ATTN_MAX_N tokens) and B18
-// (sdpa_bwd.cu), and of the GEMM of K2 and K3 (gemm_sm90.cuh, whose TMA
-// boxes are 64 x 128 and 64 x 256): mbarriers; loads of 64x64 bf16 tiles
+// (sdpa_bwd.cu), and of the bf16 and int8 GEMM (gemm_sm90.cuh, whose TMA
+// boxes are 128 bytes x 128 and 128 bytes x 256): mbarriers; loads of 64x64 bf16 tiles
 // (64 tokens of one head's 64 columns) into shared memory in the 128-byte
 // swizzle, by TMA where the tokens are contiguous rows and by cp.async where
 // they come through an index; wgmma descriptors; and the two m64n64k16
@@ -163,10 +163,13 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// Host: a tensor map over bf16 [batch][rows][inner] (row-major), box 64 x
-// box_rows x 1 (box_rows <= 256), 128-byte swizzle, zero fill past every edge.
+// Host: a tensor map over [batch][rows][inner] (row-major) of bf16 (or of
+// `type`: UINT8 for int8, FLOAT32), box 128 bytes x box_rows x 1 (64 bf16,
+// 128 int8 or 32 fp32 columns; box_rows <= 256), 128-byte swizzle, zero
+// fill past every edge.
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, int rows,
-                                 int batch, int box_rows = TILE) {
+                                 int batch, int box_rows = TILE,
+                                 CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -185,10 +188,14 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, 
       return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
+  const cuuint64_t esize = type == CU_TENSOR_MAP_DATA_TYPE_UINT8     ? 1
+                           : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                                                                     : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2, (cuuint64_t)rows * inner * 2};
-  const cuuint32_t box[3] = {TILE, (cuuint32_t)box_rows, 1}, estr[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * esize, (cuuint64_t)rows * inner * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows, 1},
+                   estr[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base),
                             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -2,9 +2,10 @@
 // fused_pruned_block_full_int8, B15 fused_block_full_int8) and the split
 // kernels (B9 fused_ln_mlp_residual_int8, B10 fused_attn_block_int8, B12
 // fused_ln_qkv_int8, B13 fused_gather_sdpa_proj_residual_int8): LayerNorm
-// quantized straight to int8, a quantizer for fp32 or bf16 rows, and an int8
-// GEMM whose epilogue dequantizes. The block body at the end is cut into
-// steps that each entry point runs its share of.
+// quantized straight to int8, a quantizer for fp32 or bf16 rows, and the
+// int8 GEMM (gemm_sm90.cuh's kernel with the dequantizing epilogues below,
+// fc1's GELU quantized in its epilogue). The block body at the end is cut
+// into steps that each entry point runs its share of.
 //
 // Numeric contract (block.py:1609-1710 and 2279-2371, and the plain versions
 // in rajni_tpu_torch/kernels/wholeblock.py):
@@ -14,8 +15,9 @@
 //  * NOT rounded, fp32 until quantized: the LayerNorm outputs (:1640, 1680,
 //    2324, 2341), the GELU output h (:1692, 2353) and the attention output
 //    (_mha_mixed(..., float32), :1663, 2329; B13 the same, :1122). Every
-//    other launch of the port writes bf16; these write int8 (LayerNorm) or
-//    fp32 (attention, fc1). The one exception is B10, whose TPU kernel
+//    other launch of the port writes bf16; these write int8 (LayerNorm,
+//    and fc1's GELU under static scales, quantized where they are
+//    computed) or fp32 (attention, fc1's GELU under dynamic scales). The one exception is B10, whose TPU kernel
 //    rounds its attention output to the activation dtype before quantizing
 //    it (_mha_mixed(..., x_ref.dtype, ...), :1255): its attention writes
 //    bf16 and its quantizer reads bf16.
@@ -40,12 +42,14 @@
 //    version does not make.
 //
 // Bound on the H100: operations for the products (int8 tensor cores at
-// twice the bf16 rate); the fp32 h of fc1 is written and read back once
-// more (B·K·hidden·4 bytes each way), and each quantize pass reads fp32 rows
-// and writes int8.
+// twice the bf16 rate). Under static scales fc1's GELU output never reaches
+// device memory in fp32: it is quantized in fc1's epilogue. In dynamic mode
+// the absmax of a row's hc group spans column tiles, so h is written in fp32
+// once and read once by its quantizer (launch_gelu_quant says why); the
+// attention output's quantize pass reads fp32 rows and writes int8.
 #pragma once
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace rajni {
 namespace {
@@ -152,10 +156,12 @@ inline cudaError_t launch_ln_quant(const bf16* x, const float* scale, const floa
 // Quantize rows [M, W] of fp32 (the int8 blocks' attention and GELU outputs)
 // or bf16 (B10's attention output, which the TPU kernel rounds to the
 // activation dtype first, block.py:1255) in groups of G columns: one warp
-// per (row, group), two passes over the group (absmax, then quantize).
-// Dynamic: scale to a_out[row * (W / G) + group]. Static: multiply by sinv
-// (when given; the attention output arrives pre-scaled by the V-column fold
-// and has none), round and clip. Requires W % 4 == 0 and G % 4 == 0.
+// per (row, group), two passes over the group (absmax, then quantize), or
+// one where the group's absmax comes in amax_in [M, W / G] (fc1's
+// epilogue took it: I8_GELU_MAX). Dynamic: scale to a_out[row * (W / G) +
+// group]. Static: multiply by sinv (when given; the attention output
+// arrives pre-scaled by the V-column fold and has none), round and clip.
+// Requires W % 4 == 0 and G % 4 == 0.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -171,7 +177,8 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
 template <typename T>
 __global__ void __launch_bounds__(256) quant_rows_kernel(
     const T* __restrict__ y, const float* __restrict__ sinv, int8_t* __restrict__ q,
-    float* __restrict__ a_out, int M, int W, int G, int static_act) {
+    float* __restrict__ a_out, const float* __restrict__ amax_in, int M, int W, int G,
+    int static_act) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int groups = W / G;
   const long long item = (long long)blockIdx.x * 8 + warp;
@@ -184,11 +191,16 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
   float mul = 1.f;
   if (!static_act) {
     float amax = 0.f;
-    for (int c = lane; c < nv; c += 32) {
-      const float4 t = load4(yr + 4 * c);
-      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(t.x), fabsf(t.y)), fmaxf(fabsf(t.z), fabsf(t.w))));
+    if (amax_in != nullptr) {
+      amax = amax_in[(size_t)row * groups + grp];
+    } else {
+      for (int c = lane; c < nv; c += 32) {
+        const float4 t = load4(yr + 4 * c);
+        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(t.x), fabsf(t.y)), fmaxf(fabsf(t.z), fabsf(t.w))));
+      }
+      amax = warp_max(amax);
     }
-    amax = fmaxf(warp_max(amax), 1e-8f);
+    amax = fmaxf(amax, 1e-8f);
     mul = __fdiv_rn(127.f, amax);
     if (lane == 0) a_out[(size_t)row * groups + grp] = __fmul_rn(amax, INV127);
   }
@@ -203,34 +215,52 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(
 
 template <typename T>
 inline cudaError_t launch_quant_rows(const T* y, const float* sinv, int8_t* q, float* a_out,
-                                     int M, int W, int G, int static_act, cudaStream_t st) {
-  if (W % 4 || G % 4 || W % G) return cudaErrorInvalidValue;
+                                     int M, int W, int G, int static_act, cudaStream_t st,
+                                     const float* amax_in = nullptr) {
+  if (G < 4 || W % 4 || G % 4 || W % G) return cudaErrorInvalidValue;
   const long long items = (long long)M * (W / G);
-  quant_rows_kernel<T><<<(unsigned)((items + 7) / 8), 256, 0, st>>>(y, sinv, q, a_out, M, W, G,
-                                                                    static_act);
+  quant_rows_kernel<T><<<(unsigned)((items + 7) / 8), 256, 0, st>>>(y, sinv, q, a_out, amax_in,
+                                                                    M, W, G, static_act);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Int8 GEMM: out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ), s8 × s8 → s32.
-//   A row-major int8 (quantized activations), W row-major [out, in] int8
-//   (the port's weight record): both K-contiguous. The byte layout is that
-//   of gemm_bf16_kernel (128-byte tile rows, 16-byte chunks XOR-swizzled by
-//   row, ldmatrix for both operands): a 16-byte chunk is 16 int8 here, and
-//   the m16n8k32 s8 fragments take exactly the words ldmatrix hands out.
-//   128x128x128 block tiles, 8 warps of 32x64, a 3-stage cp.async ring,
-//   mma.sync m16n8k32 with int32 accumulators.
-//   GROUPED: every group_k of the contraction the int32 sums are flushed to
-//   fp32 accumulators, times the group's row scale a[row, group] (dynamic)
-//   or as they are (static), and reset: fc2 over hc-wide groups of h.
-//   Otherwise one group: v = (float)acc [* a[row]].
-//   Epilogue: v * w_scale + bias, then I8_BIAS stores bf16; I8_GELU stores
-//   gelu_fast(v) in fp32; I8_RESIDUAL multiplies by ls (when given), adds
-//   the residual row (gathered through res_idx when given) and stores bf16.
-//   Requires K % 128 == 0, group_k % 128 == 0 and N even; M and N masked.
+// Int8 GEMM: out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ), s8 × s8 → s32, on
+// gemm_sm90.cuh's kernel (its header has the design): A row-major int8
+// (quantized activations), W row-major [out, in] int8 (the port's weight
+// record), both K-major; m64nBNk32 products, exact int32 sums; BK = 128 (a
+// stage is the bf16 GEMM's bytes), BN = 256 where N % 256 == 0, else 128.
+// S8Epi below is its epilogue policy, in int8.cuh's operation order:
+//   v = (float)acc [· a[row]] (GROUPED: every group_k of the contraction the
+//   int32 sums are flushed to fp32, accf += (float)acc [· a[row, group]],
+//   and the next group's first product starts from 0: fc2 over hc-wide
+//   groups of h; such launches take BN = 128, 64 int32 and 64 fp32
+//   registers a thread), then v · w_scale + bias, and
+//     I8_BIAS      stores bf16 (qkv);
+//     I8_RESIDUAL  · ls (when given), + the residual row (gathered through
+//                  res_idx when given), stores bf16 (proj, fc2);
+//     I8_GELU      gelu_fast(v) stored fp32 (fc1 to fp32 h; then
+//                  quant_rows: the two-launch route, kept only as the
+//                  yardstick and bitwise reference of launch_gelu_quant,
+//                  through csrc/gemm.cu);
+//     I8_GELU_Q    (static) fc1's GELU quantized where it is computed:
+//                  quant1(gelu · sinv[col]) stored int8, no fp32 h at all;
+//     I8_GELU_MAX  (dynamic) I8_GELU, and each row's |gelu| maximum over
+//                  the tile atomicMax'ed on the float's bits (non-negative,
+//                  so the integer order is the float order) into amax[row,
+//                  group] of hc-wide column groups, which the caller zeroes
+//                  first. A tile lies in one group (BN divides hc), and a
+//                  maximum does not depend on order, so amax is the group's
+//                  exact absmax, and quant_rows reads h once, not twice.
+//   The quantizer's own operations take amax to the multiplier and the
+//   scale, so both routes' hq and hs are those of I8_GELU + quant_rows bit
+//   for bit (launch_gelu_quant below). Requires K % 128 == 0, N % 16 == 0
+//   (int8 rows of 16-byte multiples), group_k % 128 == 0 dividing K, hc %
+//   128 == 0 dividing N; M and N are masked. Shapes it does not take return
+//   cudaErrorInvalidValue: there is no second GEMM to fall back to.
 // ---------------------------------------------------------------------------
 
-enum I8Epilogue { I8_BIAS = 0, I8_GELU = 1, I8_RESIDUAL = 2 };
+enum I8Epilogue { I8_BIAS = 0, I8_GELU = 1, I8_RESIDUAL = 2, I8_GELU_Q = 3, I8_GELU_MAX = 4 };
 
 struct I8EpilogueArgs {
   const float* a;        // row scales [M, K / group_k], or null (static)
@@ -242,206 +272,143 @@ struct I8EpilogueArgs {
   int rows_out;          // output rows per image (res_idx addressing)
   int rows_in;           // residual rows per image (res_idx addressing)
   int group_k;           // contraction width of one quantization group
+  const float* sinv;     // I8_GELU_Q: [N], the static 1/a_fc2 fold
+  float* amax;           // I8_GELU_MAX: [M, N / hc], each row and group's |gelu| maximum
+  int hc;                // I8_GELU_MAX: the column group
 };
 
-constexpr int I8_BM = 128, I8_BN = 128, I8_BK = 128, I8_STAGES = 3, I8_THREADS = 256;
-constexpr int I8_SMEM = I8_STAGES * (I8_BM + I8_BN) * I8_BK;  // 98,304 bytes
-
-// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a tile whose
-// rows are I8_BK = 128 bytes long.
-__device__ __forceinline__ int swz8(int row, int chunk) {
-  return row * I8_BK + ((chunk ^ (row & 7)) << 4);
-}
-
-// D += A·B: m16n8k32, s8 in, s32 accumulate. Fragments as mma_16816's with
-// four int8 in each 32-bit word (a0: row g, k 4t..4t+3; a2: k + 16; b0: k
-// 4t..4t+3, col g; b1: k + 16).
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int EPI, bool GROUPED, typename OutT>
-__global__ void __launch_bounds__(I8_THREADS) gemm_s8_kernel(
-    const int8_t* __restrict__ A, const int8_t* __restrict__ W, OutT* __restrict__ out, int M,
-    int N, int K, I8EpilogueArgs ep) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* As = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* Bs = As + I8_STAGES * I8_BM * I8_BK;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * I8_BM, n0 = blockIdx.x * I8_BN;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps, 32 x 64 each
-  const int KT = K / I8_BK;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  auto load_stage = [&](int slot, int k0) {
-    int8_t* as = As + slot * I8_BM * I8_BK;
-    int8_t* bs = Bs + slot * I8_BN * I8_BK;
-#pragma unroll
-    for (int i = 0; i < I8_BM * 8 / I8_THREADS; ++i) {  // A: 8 chunks a row
-      const int c = tid + i * I8_THREADS, r = c >> 3, ch = c & 7, gr = m0 + r;
-      cp_async16(as + swz8(r, ch), A + (size_t)(gr < M ? gr : 0) * K + k0 + ch * 16, gr < M);
-    }
-#pragma unroll
-    for (int i = 0; i < I8_BN * 8 / I8_THREADS; ++i) {  // W: 8 chunks a row
-      const int c = tid + i * I8_THREADS, r = c >> 3, ch = c & 7, gn = n0 + r;
-      cp_async16(bs + swz8(r, ch), W + (size_t)(gn < N ? gn : 0) * K + k0 + ch * 16, gn < N);
-    }
+template <int EPI, int BN_, bool GROUPED_>
+struct S8Epi {
+  using In = int8_t;
+  using Acc = int;
+  using Out = std::conditional_t<EPI == I8_GELU || EPI == I8_GELU_MAX, float,
+                                 std::conditional_t<EPI == I8_GELU_Q, int8_t, bf16>>;
+  using Args = I8EpilogueArgs;
+  static constexpr int BN = BN_;
+  static constexpr bool RESIDUAL = EPI == I8_RESIDUAL, GROUPED = GROUPED_,
+                        ROW_MAX = EPI == I8_GELU_MAX;
+  static constexpr bool GELU = EPI == I8_GELU || EPI == I8_GELU_Q || EPI == I8_GELU_MAX;
+  struct Rows {
+    float a;  // the row scale of an ungrouped product
   };
-
-  int acc[2][8][4];
-  float accf[GROUPED ? 2 : 1][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        if (GROUPED) accf[GROUPED ? i : 0][j][e] = 0.f;
-      }
-
-#pragma unroll
-  for (int s = 0; s < I8_STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s * I8_BK);
-    cp_async_commit();
+  struct Cols {
+    float2 ws, b, l;  // w_scale, bias, and ls (I8_RESIDUAL) or sinv (I8_GELU_Q)
+  };
+  __device__ static Rows rows(const Args& ep, int r, int M, int, int, int) {
+    return Rows{!GROUPED && ep.a != nullptr && r < M ? ep.a[r] : 1.f};
   }
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<I8_STAGES - 2>();
-    __syncthreads();
-    const int next = kt + I8_STAGES - 1;
-    if (next < KT) load_stage(next % I8_STAGES, next * I8_BK);
-    cp_async_commit();
-
-    const int8_t* as = As + (kt % I8_STAGES) * I8_BM * I8_BK;
-    const int8_t* bs = Bs + (kt % I8_STAGES) * I8_BN * I8_BK;
-#pragma unroll
-    for (int kk = 0; kk < I8_BK / 32; ++kk) {
-      uint32_t af[2][4], bfr[8][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(af[i], reinterpret_cast<const bf16*>(
-                               as + swz8(wm * 32 + i * 16 + (lane & 15), kk * 2 + (lane >> 4))));
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t r[4];
-        const int nrow = wn * 64 + jj * 16 + (lane & 7) + ((lane >> 4) << 3);
-        ldmatrix_x4(r, reinterpret_cast<const bf16*>(bs + swz8(nrow, kk * 2 + ((lane >> 3) & 1))));
-        bfr[2 * jj][0] = r[0];
-        bfr[2 * jj][1] = r[1];
-        bfr[2 * jj + 1][0] = r[2];
-        bfr[2 * jj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_s8(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+  __device__ static Cols cols(const Args& ep, int c, int N) {
+    Cols k{ld_pair(ep.w_scale, c, N), ld_pair(ep.bias, c, N), make_float2(1.f, 1.f)};
+    if (EPI == I8_RESIDUAL && ep.ls != nullptr) k.l = ld_pair(ep.ls, c, N);
+    if (EPI == I8_GELU_Q) k.l = ld_pair(ep.sinv, c, N);
+    return k;
+  }
+  __device__ static float2 apply(const Args& ep, float2 v, const Cols& k, const Rows& rw) {
+    if (!GROUPED && ep.a != nullptr) {
+      v.x = __fmul_rn(v.x, rw.a);
+      v.y = __fmul_rn(v.y, rw.a);
     }
-
-    if (GROUPED && ((kt + 1) * I8_BK) % ep.group_k == 0) {
-      // flush this group's exact int32 sums: accf += (float)acc * a[row, group]
-      const int groups = K / ep.group_k, grp = (kt + 1) * I8_BK / ep.group_k - 1;
+    v.x = __fadd_rn(__fmul_rn(v.x, k.ws.x), k.b.x);
+    v.y = __fadd_rn(__fmul_rn(v.y, k.ws.y), k.b.y);
+    if (GELU) {
+      v.x = gelu_fast_epi(v.x);
+      v.y = gelu_fast_epi(v.y);
+    }
+    if (EPI == I8_GELU_Q || (EPI == I8_RESIDUAL && ep.ls != nullptr)) {
+      v.x = __fmul_rn(v.x, k.l.x);
+      v.y = __fmul_rn(v.y, k.l.y);
+    }
+    return v;
+  }
+  __device__ static float2 add_res(float2 x, float2 v) {
+    return make_float2(__fadd_rn(x.x, v.x), __fadd_rn(x.y, v.y));
+  }
+  __device__ static float group_scale(const Args& ep, int r, int M, int groups, int grp) {
+    return ep.a != nullptr && r < M ? ep.a[(size_t)r * groups + grp] : 1.f;
+  }
+  // accf += (float)acc · a[row, group] (static: (float)acc), the plain
+  // version's order; element i is row r0 + 8·((i >> 1) & 1)
+  template <int NA>
+  __device__ static void flush(const Args& ep, float (&accf)[NA], const int (&acc)[NA],
+                               const float (&ga)[2]) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = m0 + wm * 32 + i * 16 + g + half * 8;
-          const bool scaled = ep.a != nullptr;
-          const float a = (scaled && r < M) ? ep.a[(size_t)r * groups + grp] : 1.f;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int k = 2 * half + e;
-              const float part = scaled ? __fmul_rn((float)acc[i][j][k], a) : (float)acc[i][j][k];
-              accf[GROUPED ? i : 0][j][k] = __fadd_rn(accf[GROUPED ? i : 0][j][k], part);
-              acc[i][j][k] = 0;
-            }
-        }
+    for (int i = 0; i < NA; ++i) {
+      const float part = __int2float_rn(acc[i]);
+      accf[i] = __fadd_rn(accf[i], ep.a != nullptr ? __fmul_rn(part, ga[(i >> 1) & 1]) : part);
     }
   }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = n0 + wn * 64 + j * 8 + 2 * t4;
-    if (c >= N) continue;
-    const float2 ws = *reinterpret_cast<const float2*>(ep.w_scale + c);
-    const float2 b = *reinterpret_cast<const float2*>(ep.bias + c);
-    float2 l = make_float2(1.f, 1.f);
-    if (EPI == I8_RESIDUAL && ep.ls != nullptr)
-      l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ep.ls + c));
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm * 32 + i * 16 + g + half * 8;
-        if (r >= M) continue;
-        float v0, v1;
-        if (GROUPED) {
-          v0 = accf[GROUPED ? i : 0][j][2 * half];
-          v1 = accf[GROUPED ? i : 0][j][2 * half + 1];
-        } else {
-          v0 = (float)acc[i][j][2 * half];
-          v1 = (float)acc[i][j][2 * half + 1];
-          if (ep.a != nullptr) {
-            const float a = ep.a[r];
-            v0 = __fmul_rn(v0, a);
-            v1 = __fmul_rn(v1, a);
-          }
-        }
-        v0 = __fadd_rn(__fmul_rn(v0, ws.x), b.x);
-        v1 = __fadd_rn(__fmul_rn(v1, ws.y), b.y);
-        if (EPI == I8_GELU) {
-          v0 = gelu_fast(v0);
-          v1 = gelu_fast(v1);
-        } else if (EPI == I8_RESIDUAL) {
-          if (ep.ls != nullptr) {
-            v0 = __fmul_rn(v0, l.x);
-            v1 = __fmul_rn(v1, l.y);
-          }
-          if (ep.res != nullptr) {
-            size_t rr = (size_t)r;
-            if (ep.res_idx != nullptr)
-              rr = (size_t)(r / ep.rows_out) * ep.rows_in + ep.res_idx[r];
-            const float2 x =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ep.res + rr * N + c));
-            v0 = __fadd_rn(x.x, v0);
-            v1 = __fadd_rn(x.y, v1);
-          }
-        }
-        store_pair(out + (size_t)r * N + c, v0, v1);
-      }
-    }
+  __device__ static void row_max(const Args& ep, int r, int M, int N, int n0, float m, int t4) {
+    if (t4 == 0 && r < M)
+      atomicMax(reinterpret_cast<int*>(ep.amax) + (size_t)r * (N / ep.hc) + n0 / ep.hc,
+                __float_as_int(m));
   }
+};
+
+template <int EPI, int BN, bool GROUPED>
+inline cudaError_t launch_gemm_s8_bn(const CUtensorMap (&maps)[4], int M, int N, int K,
+                                     const I8EpilogueArgs& ep, cudaStream_t st) {
+  return launch_gemm_g9<S8Epi<EPI, BN, GROUPED>>(maps[0], maps[1], maps[2], maps[3], M, N, K, ep,
+                                                 st);
 }
 
-template <int EPI, bool GROUPED, typename OutT>
-inline cudaError_t launch_gemm_s8_t(const int8_t* A, const int8_t* W, OutT* out, int M, int N,
-                                    int K, I8EpilogueArgs ep, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(gemm_s8_kernel<EPI, GROUPED, OutT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, I8_SMEM);
+// out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ) on the stream, out of
+// S8Epi<EPI>::Out. One group (group_k == K) needs no fp32 flush: (float)acc
+// · a is what the flush would give. Only I8_RESIDUAL (fc2) is ever grouped.
+template <int EPI>
+inline cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W, void* out, int M, int N,
+                                  int K, const I8EpilogueArgs& ep, cudaStream_t st) {
+  using Out = typename S8Epi<EPI, 128, false>::Out;
+  const bool grouped = EPI == I8_RESIDUAL && ep.group_k < K;
+  if (N < 16 || N % 16 || ep.group_k < G9_BKB || ep.group_k % G9_BKB || K % ep.group_k ||
+      (EPI != I8_RESIDUAL && ep.res_idx != nullptr) || (EPI == I8_GELU_Q && ep.sinv == nullptr) ||
+      (EPI == I8_GELU_MAX && (ep.amax == nullptr || ep.hc < 128 || ep.hc % 128 || N % ep.hc)))
+    return cudaErrorInvalidValue;
+  const bf16* res = EPI == I8_RESIDUAL ? ep.res : nullptr;
+  cudaError_t e = check_gemm_g9(A, W, out, M, K, G9_BKB, res, ep.res_idx, ep.rows_out, ep.rows_in);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + I8_BN - 1) / I8_BN, (M + I8_BM - 1) / I8_BM);
-  gemm_s8_kernel<EPI, GROUPED, OutT><<<grid, I8_THREADS, I8_SMEM, st>>>(A, W, out, M, N, K, ep);
-  return cudaGetLastError();
+  const bool wide = !grouped && N % 256 == 0 && (EPI != I8_GELU_MAX || ep.hc % 256 == 0);
+  CUtensorMap maps[4] = {};
+  e = make_gemm_maps(maps, A, W, static_cast<const Out*>(out), res, ep.res_idx != nullptr, M, N,
+                     K, wide ? 256 : 128);
+  if (e != cudaSuccess) return e;
+  if (grouped) {
+    if constexpr (EPI == I8_RESIDUAL) return launch_gemm_s8_bn<EPI, 128, true>(maps, M, N, K, ep, st);
+  }
+  return wide ? launch_gemm_s8_bn<EPI, 256, false>(maps, M, N, K, ep, st)
+              : launch_gemm_s8_bn<EPI, 128, false>(maps, M, N, K, ep, st);
 }
 
-// One group (group_k == K) needs no fp32 flush: (float)acc * a is what the
-// flush would give. Only fc2 (I8_RESIDUAL) is ever grouped.
-template <int EPI, typename OutT>
-inline cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W, OutT* out, int M, int N,
-                                  int K, I8EpilogueArgs ep, cudaStream_t st) {
-  if (K % I8_BK || ep.group_k % I8_BK || K % ep.group_k || N % 2) return cudaErrorInvalidValue;
-  if constexpr (EPI == I8_RESIDUAL) {
-    if (ep.group_k < K) return launch_gemm_s8_t<EPI, true>(A, W, out, M, N, K, ep, st);
+// fc1 with its GELU quantized per row and hc group into hq [M, N] int8 and
+// (dynamic) its row scales hs [M, N / hc]. Static (ep.sinv): one launch,
+// I8_GELU_Q. Dynamic: the absmax scratch hmax [M, N / hc] zeroed, fc1 to
+// fp32 h [M, N] with the group absmax (I8_GELU_MAX), then quant_rows reading
+// h once. Returns 0 or fail(e, step) (fc1 and the zeroing), fail(e, step +
+// 1) (the quantizer).
+//   A design choice, measured on the H100: in dynamic mode a row's scale is
+// the absmax over its hc group, which spans 6-16 column tiles, so no int8
+// can be written until every tile of the group is done. Running fc1 twice
+// (an absmax pass that stores nothing, then a quantizing pass) read slower
+// than writing fp32 h and quantizing it in a second launch, at nearly every
+// B9 and B15 shape: the second mainloop and GELU cost more than the fp32
+// round trip. What does pay is taking the absmax in fc1's epilogue, so that
+// the quantizer reads h once, where quant_rows alone reads it twice
+// (chip_smoke.py times this route beside that two-launch one).
+inline int launch_gelu_quant(const int8_t* A, const int8_t* W, int8_t* hq, float* hs, float* h,
+                             float* hmax, int M, int N, int K, I8EpilogueArgs ep, int step,
+                             cudaStream_t st) {
+  cudaError_t e;
+  if (ep.sinv != nullptr) {
+    e = launch_gemm_s8<I8_GELU_Q>(A, W, hq, M, N, K, ep, st);
+    return e == cudaSuccess ? 0 : fail(e, step);
   }
-  return launch_gemm_s8_t<EPI, false>(A, W, out, M, N, K, ep, st);
+  if (hmax == nullptr || ep.hc < 128 || N % ep.hc) return fail(cudaErrorInvalidValue, step);
+  ep.amax = hmax;
+  e = cudaMemsetAsync(hmax, 0, (size_t)M * (N / ep.hc) * sizeof(float), st);
+  if (e == cudaSuccess) e = launch_gemm_s8<I8_GELU_MAX>(A, W, h, M, N, K, ep, st);
+  if (e != cudaSuccess) return fail(e, step);
+  e = launch_quant_rows(static_cast<const float*>(h), (const float*)nullptr, hq, hs, M, N, ep.hc,
+                        0, st, hmax);
+  return e == cudaSuccess ? 0 : fail(e, step + 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,8 +426,10 @@ inline cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W, OutT* out, i
 //   6 quantize attn per row → q8, qs
 //   7 proj: dequant + bproj, · ls1, + x (gathered) → bf16 x_mid [B·n, C]
 //   8 LN2 → int8 q8, qs
-//   9 fc1: gelu_fast(dequant + b1) → fp32 h [B·n, hidden]
-//  10 quantize h per row and hc chunk (static: · sinv) → hq, hs
+//   9 fc1: gelu_fast(dequant + b1); static: · sinv, quantized in its
+//     epilogue → hq [B·n, hidden] int8; dynamic: hmax zeroed, then fp32 h
+//     [B·n, hidden] with each row and hc chunk's absmax → hmax
+//  10 (dynamic) quantize h per row and hc chunk with hmax → hq, hs
 //  11 fc2, grouped over hc: dequant · s2 + b2, · ls2, + x_mid → bf16 out
 // with n = K (B14, B13) or N (B15, B10). Static mode passes no row scales.
 // ---------------------------------------------------------------------------
@@ -487,7 +456,7 @@ struct Int8Block {
   bf16* qkv;
   float* attn;
   bf16* mid;
-  float* h;
+  float* h;  // dynamic: the GELU output [B·n, hidden], then its absmax [B·n, hidden / hc]
   int8_t* hq;
   float* hs;
   bf16* out;
@@ -538,14 +507,13 @@ inline int int8_mlp(const Int8Block& p, const bf16* xin, const bf16* res, int ro
   cudaError_t e = launch_ln_quant(xin, p.ln2s, p.ln2b, p.q8, p.qs, rows, p.C, p.eps,
                                   p.static_act, st);
   if (e != cudaSuccess) return fail(e, 8);
-  e = launch_gemm_s8<I8_GELU>(p.q8, p.w1, p.h, rows, p.hidden, p.C,
-                              I8EpilogueArgs{dyn, p.s1, p.b1, nullptr, nullptr, nullptr, 1, 1,
-                                             p.C},
-                              st);
-  if (e != cudaSuccess) return fail(e, 9);
-  e = launch_quant_rows(p.h, p.static_act ? p.sinv : nullptr, p.hq, p.hs, rows, p.hidden, p.hc,
-                        p.static_act, st);
-  if (e != cudaSuccess) return fail(e, 10);
+  float* hmax = p.static_act ? nullptr : p.h + (size_t)rows * p.hidden;
+  const int rc = launch_gelu_quant(
+      p.q8, p.w1, p.hq, p.hs, p.h, hmax, rows, p.hidden, p.C,
+      I8EpilogueArgs{dyn, p.s1, p.b1, nullptr, nullptr, nullptr, 1, 1, p.C,
+                     p.static_act ? p.sinv : nullptr, nullptr, p.hc},
+      9, st);
+  if (rc != 0) return rc;
   e = launch_gemm_s8<I8_RESIDUAL>(p.hq, p.w2, p.out, rows, p.C, p.hidden,
                                   I8EpilogueArgs{p.static_act ? nullptr : p.hs, p.s2, p.b2, p.ls2,
                                                  res, nullptr, 1, 1, p.hc},

@@ -6,18 +6,23 @@
 // (pallas_calls at mlp.py:413, the hidden-chunked body, and 453, the
 // resident one), which keeps the [rows, hidden] GELU output in VMEM.
 //
-// Bound on the H100: operations (two int8 products, 4·rows·C·hidden). The
-// fp32 GELU output is written once and read back by its quantize pass
-// (2·rows·hidden·4 bytes beyond the bound's bytes; 0.91 GB each way at
-// ViT-B/384 batch 128 and N=577).
+// Bound on the H100: operations (two int8 products, 4·rows·C·hidden). Under
+// static scales the GELU output does not reach device memory in fp32 (0.91
+// GB each way at ViT-B/384 batch 128 and N=577 when it did); in dynamic mode
+// it is written once and read once (csrc/int8.cuh:launch_gelu_quant).
 //
-// Design: four launches on the caller's stream, steps 8-11 of the int8 block
-// body (csrc/int8.cuh) run on the input x instead of x_mid: LN2 → int8 (per
-// row, or the folded static affine), fc1 with the GELU epilogue (fp32 h), the
-// quantizer over hc-wide groups of h (dynamic: one row scale a group, which
-// is the chunked TPU kernel's numerics, _ln_mlp_int8_chunk_kernel), and fc2
-// flushing each group's int32 sums to fp32 times its scale, then the
-// residual. hc comes from the port's copy of the JAX rule _hidden_chunk.
+// Design: steps 8-11 of the int8 block body (csrc/int8.cuh) on the input x
+// instead of x_mid, on the caller's stream, the products on the wgmma GEMM:
+// LN2 → int8 (per row, or the folded static affine); fc1 with the GELU, its
+// output quantized over hc-wide groups of h (dynamic: one row scale a
+// group, which is the chunked TPU kernel's numerics,
+// _ln_mlp_int8_chunk_kernel); and fc2 flushing each group's int32 sums to
+// fp32 times its scale, then the residual. Static mode: three launches, fc1
+// multiplying by sinv and rounding in its epilogue. Dynamic mode: five, as a
+// row's group absmax spans column tiles: the absmax scratch zeroed, fc1 to
+// fp32 h taking each row and group's absmax in its epilogue, the quantizer
+// reading h once. hc comes from the port's copy of the JAX rule
+// _hidden_chunk.
 #include "int8.cuh"
 
 using namespace rajni;

@@ -9,18 +9,21 @@
 // block.py:1865), which keeps the block's int8 weights (7.1 MB at ViT-B) in
 // VMEM and its fp32 intermediates with them.
 //
-// Bound on the H100: operations (four int8 products). The fp32 GELU output
-// between fc1 and fc2 is 0.62 GB at ViT-B batch 256 and N=197, written once
-// and read back by its quantize pass (csrc/int8.cuh says why it stays fp32).
+// Bound on the H100: operations (four int8 products on the wgmma GEMM). The
+// GELU output between fc1 and fc2 (0.62 GB in fp32 at ViT-B batch 256 and
+// N=197) is quantized in fc1's epilogue under static scales; in dynamic
+// mode it is written in fp32 once and read once (csrc/int8.cuh).
 //
-// Design: eleven launches on the caller's stream (csrc/int8.cuh:
-// int8_block_head/_tail): LN1 → int8, the qkv product (bf16 qkv), the score
-// kernel shared with K1 and B4 (skipped when the threaded scores are used),
-// the selection kernel shared with K1, the attention kernel through the kept
-// indices with an fp32 output, the row quantizer, the proj product with the
-// gathered residual (bf16 x_mid), LN2 → int8, the fc1 product with the GELU
-// epilogue (fp32 h), the quantizer over hc-wide groups, and the fc2 product
-// that adds the groups in fp32 and the x_mid residual.
+// Design: ten launches in static mode and twelve in dynamic mode on the
+// caller's stream (csrc/int8.cuh: int8_block_head/_tail): LN1 → int8, the
+// qkv product (bf16 qkv), the score kernel shared with K1 and B4 (skipped
+// when the threaded scores are used), the selection kernel shared with K1,
+// the attention kernel through the kept indices with an fp32 output, the
+// row quantizer, the proj product with the gathered residual (bf16 x_mid),
+// LN2 → int8, fc1 with its GELU quantized per hc group in the epilogue
+// (dynamic: the absmax scratch zeroed, fc1 to fp32 h with the group absmax,
+// then the quantizer), and the fc2 product that adds the groups in fp32 and
+// the x_mid residual.
 #include "int8.cuh"
 
 using namespace rajni;

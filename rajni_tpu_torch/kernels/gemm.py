@@ -1,24 +1,44 @@
-"""The Hopper GEMM of K1 ``fused_pruned_attn_block``, K2
-``fused_attn_block``, K3 ``fused_ln_mlp_residual``, B4 ``fused_ln_qkv`` and
-B5 ``fused_gather_sdpa_proj_residual`` behind an entry point of its own:
-``out[..., N] = epilogue(a[..., K] @ w[N, K]ᵀ)``.
+"""The Hopper GEMM (``csrc/gemm_sm90.cuh``: persistent, warp-specialized,
+TMA and wgmma) behind entry points of its own: bf16, the products of K1
+``fused_pruned_attn_block``, K2 ``fused_attn_block``, K3
+``fused_ln_mlp_residual``, B4 ``fused_ln_qkv`` and B5
+``fused_gather_sdpa_proj_residual`` (:func:`gemm`); and int8, the products
+of B9-B15 (:func:`gemm_s8`) and fc1 with its GELU quantized in the
+epilogue (:func:`gelu_quant`).
 
-No path calls :func:`gemm`: those entry points launch the same kernel
-(``csrc/gemm_sm90.cuh``: persistent, warp-specialized, TMA and wgmma) from
-their own sources. This wrapper exists so that the GEMM can be held to
-:func:`gemm_plain` and timed beside the library's GEMM at each product's
-shapes. On a CUDA tensor it launches ``csrc/gemm.cu``; on a CPU tensor it
-runs :func:`gemm_plain`.
+No path calls them: the entry points launch the same kernel from their own
+sources. These wrappers exist so that the GEMM can be held to its plain
+versions and timed beside the library's GEMM at each product's shapes. On a
+CUDA tensor each launches ``csrc/gemm.cu``; on a CPU tensor it runs its
+plain version.
 
-Numeric contract (the epilogues of ``csrc/common.cuh``): bf16 operands, the
-product accumulated in fp32, then in fp32 from that sum ``acc + b``
-(``EPI_BIAS``), ``gelu_fast(acc + b)`` (``EPI_GELU``: of the fp32 sum, not
-of a rounded one) or ``res + (acc + b) · ls`` (``EPI_RESIDUAL``, ``ls`` and
-``res`` optional), rounded once to the activation dtype. With ``res_idx``
-the residual is gathered, as K1's and B5's proj read the pre-norm x of the
-kept tokens: output row ``r`` (of ``M``, flattened) adds row ``(r //
+Numeric contract of :func:`gemm` (the epilogues of ``csrc/common.cuh``):
+bf16 operands, the product accumulated in fp32, then in fp32 from that sum
+``acc + b`` (``EPI_BIAS``), ``gelu_fast(acc + b)`` (``EPI_GELU``: of the fp32
+sum, not of a rounded one) or ``res + (acc + b) · ls`` (``EPI_RESIDUAL``,
+``ls`` and ``res`` optional), rounded once to the activation dtype. With
+``res_idx`` the residual is gathered, as K1's and B5's proj read the pre-norm
+x of the kept tokens: output row ``r`` (of ``M``, flattened) adds row ``(r //
 rows_out) * rows_in + res_idx[r]`` of ``res`` (flattened to ``[R, N]``), so
 that ``rows_out`` output rows and ``rows_in`` residual rows make an image.
+
+Numeric contract of :func:`gemm_s8` (``csrc/int8.cuh``): int8 operands, the
+product exact in int32 (the plain version takes it in float64, exact while
+``|Σ| < 2^53``, then rounds to fp32 as the int32 conversion does), then in
+fp32, each operation rounded once in this order: ``· a[row]`` (dynamic; a
+grouped product, ``group_k < K``, flushes each group's sum ``· a[row,
+group]`` and adds the groups), ``· w_scale``, ``+ bias``, then
+``I8_BIAS`` stores bf16, ``I8_GELU`` ``gelu_fast`` in fp32 (the kernel's GELU
+differs from :func:`..math.gelu_fast` in its last bits: ex2 and a
+reciprocal), ``I8_RESIDUAL`` ``· ls`` and ``res +``, bf16 (``res_idx`` as
+above). So ``I8_BIAS`` and ``I8_RESIDUAL`` are the plain version's bits.
+:func:`gelu_quant` quantizes ``I8_GELU``'s output per row and hc-wide column
+group as the int8 kernels' h is: ``quantize_rows`` of each group (dynamic,
+``(hq, hs)``) or ``quantize_static(h · sinv)`` (static, ``(hq, None)``). On
+the card its hq and hs are those of ``I8_GELU`` followed by the kernels' row
+quantizer, bit for bit; against :func:`quant_groups_plain` a few elements
+differ by one step, as ``quantize_rows`` takes ``127 / absmax`` as ``127 ·
+(1 / absmax)``.
 """
 
 from __future__ import annotations
@@ -26,14 +46,21 @@ from __future__ import annotations
 import torch
 
 from .build import I, P, CudaKernel, check_cuda, ptr, stream
-from .math import gelu_fast
+from .math import gelu_fast, quantize_rows, quantize_static
+from .mlp import _int8_mm
 
 # csrc/common.cuh: Epilogue
 EPI_BIAS, EPI_GELU, EPI_RESIDUAL, EPI_GELU_SAVE = 0, 1, 2, 3
 EPILOGUES = (EPI_BIAS, EPI_GELU, EPI_RESIDUAL)  # what csrc/gemm_sm90.cuh computes
-BLOCK_K = 64  # csrc/gemm_sm90.cuh: G9_BK, the k depth of a stage
+BLOCK_K = 64  # csrc/gemm_sm90.cuh: a stage is 128 bytes of k, 64 bf16
+S8_BLOCK_K = 128  # ... and 128 int8
+# csrc/int8.cuh: I8Epilogue
+I8_BIAS, I8_GELU, I8_RESIDUAL = 0, 1, 2
+S8_EPILOGUES = (I8_BIAS, I8_GELU, I8_RESIDUAL)
 
 KERNEL = CudaKernel("rajni_gemm_sm90", [P, P, P, I, I, I, I, P, P, P, P, I, I, P])
+S8_KERNEL = CudaKernel("rajni_gemm_s8", [P, P, P, I, I, I, I] + [P] * 6 + [I, I, I, P])
+GELU_QUANT_KERNEL = CudaKernel("rajni_gelu_quant_s8", [P] * 5 + [I] * 3 + [P] * 4 + [I, I, P])
 
 
 def gathered_rows(res_idx: torch.Tensor, rows_out: int, rows_in: int) -> torch.Tensor:
@@ -81,25 +108,30 @@ def _check(a, w, bias, epilogue, ls, res, res_idx, rows_out, rows_in) -> None:
         raise ValueError(f"gemm: bias and ls must be [{N}]")
     if epilogue != EPI_RESIDUAL and (ls is not None or res is not None):
         raise ValueError("gemm: ls and res belong to EPI_RESIDUAL")
+    _check_residual("gemm", a, N, res, res_idx, rows_out, rows_in)
+
+
+def _check_residual(name, a, N, res, res_idx, rows_out, rows_in) -> None:
+    """The residual's shapes: ``[..., N]`` rows of ``a``, or gathered through
+    ``res_idx`` (shapes only: a value check would sync the card)."""
     if res_idx is None:
         if res is not None and tuple(res.shape) != (*a.shape[:-1], N):
-            raise ValueError(f"gemm: res must be {(*a.shape[:-1], N)}, got {tuple(res.shape)}")
+            raise ValueError(f"{name}: res must be {(*a.shape[:-1], N)}, got {tuple(res.shape)}")
         return
-    # the gathered residual: shapes only (a value check would sync the card)
-    M = a.numel() // K
+    M = a.numel() // a.shape[-1]
     if res is None:
-        raise ValueError("gemm: res_idx needs res")
+        raise ValueError(f"{name}: res_idx needs res")
     if tuple(res_idx.shape) != tuple(a.shape[:-1]) or res_idx.dtype != torch.int32:
-        raise ValueError(f"gemm: res_idx must be int32 {tuple(a.shape[:-1])}, got "
+        raise ValueError(f"{name}: res_idx must be int32 {tuple(a.shape[:-1])}, got "
                          f"{res_idx.dtype} {tuple(res_idx.shape)}")
     if res_idx.device != a.device:
-        raise ValueError(f"gemm: res_idx must be on {a.device}, got {res_idx.device}")
+        raise ValueError(f"{name}: res_idx must be on {a.device}, got {res_idx.device}")
     if res.ndim < 1 or res.shape[-1] != N:
-        raise ValueError(f"gemm: res must be [..., {N}], got {tuple(res.shape)}")
+        raise ValueError(f"{name}: res must be [..., {N}], got {tuple(res.shape)}")
     R = res.numel() // N
     if (rows_out < 1 or rows_in < 1 or M % rows_out or R % rows_in
             or M // rows_out != R // rows_in):
-        raise ValueError(f"gemm: rows_out={rows_out} and rows_in={rows_in} must divide the "
+        raise ValueError(f"{name}: rows_out={rows_out} and rows_in={rows_in} must divide the "
                          f"{M} output and {R} residual rows into the same number of images")
 
 
@@ -126,3 +158,150 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
     KERNEL(ptr(a), ptr(w), ptr(out), M, N, K, epilogue, ptr(bias), ptr(ls), ptr(res),
            ptr(res_idx), rows_out, rows_in, stream())
     return out
+
+
+# ---------------------------------------------------------------------------
+# int8: the products of B9-B15
+# ---------------------------------------------------------------------------
+
+
+def gemm_s8_plain(q: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
+                  epilogue: int, a: torch.Tensor | None = None, group_k: int | None = None,
+                  ls: torch.Tensor | None = None, res: torch.Tensor | None = None,
+                  res_idx: torch.Tensor | None = None, rows_out: int = 1,
+                  rows_in: int = 1, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of the int8 GEMM: ``q [..., K]`` and ``w [N, K]``
+    int8, ``a [..., K // group_k]`` fp32 row scales (or None: static),
+    ``w_scale`` and ``bias [N]`` fp32, ``ls [N]`` and ``res`` bf16; the
+    module docstring's operations in the kernel's order. Returns
+    ``out_dtype`` (``I8_BIAS``, ``I8_RESIDUAL``: the kernel stores bf16) or
+    fp32 (``I8_GELU``)."""
+    K = q.shape[-1]
+    gk = group_k or K
+    acc = None
+    for g, j in enumerate(range(0, K, gk)):
+        part = _int8_mm(q[..., j:j + gk], w[:, j:j + gk])
+        if a is not None:
+            part = part * a[..., g:g + 1]
+        acc = part if acc is None else acc + part
+    out = acc * w_scale + bias
+    if epilogue == I8_GELU:
+        return gelu_fast(out)
+    if epilogue == I8_RESIDUAL:
+        if ls is not None:
+            out = out * ls.float()
+        if res is not None:
+            if res_idx is not None:
+                rows = gathered_rows(res_idx, rows_out, rows_in)
+                res = res.reshape(-1, res.shape[-1])[rows].reshape(out.shape)
+            out = res.float() + out
+    elif epilogue != I8_BIAS:
+        raise ValueError(f"gemm_s8_plain: unknown epilogue {epilogue}")
+    return out.to(out_dtype)
+
+
+def quant_groups_plain(h: torch.Tensor, hc: int, sinv: torch.Tensor | None = None):
+    """``h [..., N]`` fp32 quantized per row and hc-wide column group, as the
+    int8 kernels' GELU output is (``kernels/mlp.py:_ln_mlp_int8``): ``(hq
+    int8 [..., N], hs fp32 [..., N // hc])``, or ``(hq, None)`` with the
+    static fold ``sinv [N]``."""
+    qs, ss = [], []
+    for j in range(0, h.shape[-1], hc):
+        if sinv is not None:
+            qs.append(quantize_static(h[..., j:j + hc] * sinv[j:j + hc]))
+        else:
+            q, s = quantize_rows(h[..., j:j + hc])
+            qs.append(q)
+            ss.append(s)
+    return torch.cat(qs, dim=-1), (None if sinv is not None else torch.cat(ss, dim=-1))
+
+
+def gelu_quant_plain(q, w, w_scale, bias, hc: int, a=None, sinv=None):
+    """Plain PyTorch version of fc1 with its GELU quantized: ``I8_GELU`` of
+    :func:`gemm_s8_plain`, then :func:`quant_groups_plain`."""
+    return quant_groups_plain(gemm_s8_plain(q, w, w_scale, bias, I8_GELU, a), hc, sinv)
+
+
+def _check_s8(q, w, w_scale, bias, epilogue, a, group_k, ls, res, res_idx, rows_out,
+              rows_in) -> int:
+    """Shape checks of :func:`gemm_s8` (and :func:`gelu_quant`); returns
+    group_k."""
+    K, N = q.shape[-1], w.shape[0]
+    gk = group_k or K
+    if epilogue not in S8_EPILOGUES:
+        raise ValueError(f"gemm_s8 takes epilogues {S8_EPILOGUES}, got {epilogue}")
+    if w.ndim != 2 or w.shape[1] != K:
+        raise ValueError(f"gemm_s8: w must be [N, {K}], got {tuple(w.shape)}")
+    if K % S8_BLOCK_K or N % 16 or gk % S8_BLOCK_K or K % gk:
+        raise ValueError(f"gemm_s8 needs K % {S8_BLOCK_K} == 0, N % 16 == 0 and group_k % "
+                         f"{S8_BLOCK_K} == 0 dividing K; got K={K}, N={N}, group_k={gk}")
+    if q.numel() == 0:
+        raise ValueError("gemm_s8 needs at least one row")
+    if any(t is not None and tuple(t.shape) != (N,) for t in (w_scale, bias, ls)):
+        raise ValueError(f"gemm_s8: w_scale, bias and ls must be [{N}]")
+    if a is not None and tuple(a.shape) != (*q.shape[:-1], K // gk):
+        raise ValueError(f"gemm_s8: a must be {(*q.shape[:-1], K // gk)}, got {tuple(a.shape)}")
+    if gk != K and epilogue != I8_RESIDUAL:
+        raise ValueError("gemm_s8: only I8_RESIDUAL (fc2) is grouped")
+    if epilogue != I8_RESIDUAL and (ls is not None or res is not None):
+        raise ValueError("gemm_s8: ls and res belong to I8_RESIDUAL")
+    _check_residual("gemm_s8", q, N, res, res_idx, rows_out, rows_in)
+    return gk
+
+
+def gemm_s8(q: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
+            epilogue: int, a: torch.Tensor | None = None, group_k: int | None = None,
+            ls: torch.Tensor | None = None, res: torch.Tensor | None = None,
+            res_idx: torch.Tensor | None = None, rows_out: int = 1,
+            rows_in: int = 1) -> torch.Tensor:
+    """The int8 GEMM (:func:`gemm_s8_plain`'s arguments). Raises on shapes the
+    kernel does not take (``K % 128``, ``N % 16``, ``group_k``, a grouped
+    epilogue other than ``I8_RESIDUAL``, and :func:`gemm`'s ``res_idx``
+    refusals) before it dispatches, on any device."""
+    gk = _check_s8(q, w, w_scale, bias, epilogue, a, group_k, ls, res, res_idx, rows_out,
+                   rows_in)
+    if q.device.type == "cpu":
+        return gemm_s8_plain(q, w, w_scale, bias, epilogue, a, group_k, ls, res, res_idx,
+                             rows_out, rows_in)
+    check_cuda(torch.int8, q=q, w=w)
+    check_cuda(torch.float32, a=a, w_scale=w_scale, bias=bias)
+    check_cuda(torch.bfloat16, ls=ls, res=res)
+    check_cuda(torch.int32, res_idx=res_idx)
+    K, N = q.shape[-1], w.shape[0]
+    M = q.numel() // K
+    out = torch.empty(*q.shape[:-1], N, device=q.device,
+                      dtype=torch.float32 if epilogue == I8_GELU else torch.bfloat16)
+    S8_KERNEL(ptr(q), ptr(w), ptr(out), M, N, K, epilogue, ptr(a), ptr(w_scale), ptr(bias),
+              ptr(ls), ptr(res), ptr(res_idx), rows_out, rows_in, gk, stream())
+    return out
+
+
+def gelu_quant(q, w, w_scale, bias, hc: int, a=None, sinv=None, two_launch: bool = False):
+    """fc1 with its GELU quantized per row and hc group: ``(hq, hs)``
+    (dynamic) or ``(hq, None)`` (static, ``sinv [N]`` given), as
+    :func:`gelu_quant_plain`. On the card: the route of B9, B14 and B15
+    (static: the GELU quantized in fc1's epilogue; dynamic: fp32 h with each
+    row and group's absmax taken in fc1's epilogue, then a quantizer that
+    reads h once), or with ``two_launch`` ``I8_GELU`` to fp32 h and the row
+    quantizer, which reads h twice. Raises before it dispatches where ``hc %
+    128`` or ``N % hc``, or as :func:`gemm_s8` does."""
+    _check_s8(q, w, w_scale, bias, I8_GELU, a, None, None, None, None, 1, 1)
+    N = w.shape[0]
+    if hc < S8_BLOCK_K or hc % S8_BLOCK_K or N % hc:
+        raise ValueError(f"gelu_quant needs hc % {S8_BLOCK_K} == 0 dividing N={N}, got {hc}")
+    if sinv is not None and a is not None:
+        raise ValueError("gelu_quant: static (sinv) takes no row scales a")
+    if q.device.type == "cpu":
+        return gelu_quant_plain(q, w, w_scale, bias, hc, a, sinv)
+    check_cuda(torch.int8, q=q, w=w)
+    check_cuda(torch.float32, a=a, w_scale=w_scale, bias=bias, sinv=sinv)
+    K = q.shape[-1]
+    M = q.numel() // K
+    dev = q.device
+    hq = torch.empty(*q.shape[:-1], N, dtype=torch.int8, device=dev)
+    hs = None if sinv is not None else torch.empty(*q.shape[:-1], N // hc,
+                                                   dtype=torch.float32, device=dev)
+    scratch = torch.empty(M * (N + N // hc), dtype=torch.float32, device=dev)  # h, its absmax
+    GELU_QUANT_KERNEL(ptr(q), ptr(w), ptr(hq), ptr(hs), ptr(scratch), M, N, K, ptr(a),
+                      ptr(w_scale), ptr(bias), ptr(sinv), hc, int(two_launch), stream())
+    return hq, hs

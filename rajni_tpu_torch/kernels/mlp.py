@@ -4,8 +4,9 @@ with int8 weights and int8 activations.
 
 Ports of the functions of the same names in ``rajni_tpu/kernels/mlp.py``. On
 a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/mlp.cu``, ``csrc/ln_mlp_int8.cu``); on a CPU tensor it runs the plain
-PyTorch version beside it.
+(``csrc/mlp.cu``, ``csrc/ln_mlp_int8.cu``; both run their products on the
+wgmma GEMM of ``csrc/gemm_sm90.cuh``, B9 with its GELU quantized in fc1's
+epilogue); on a CPU tensor it runs the plain PyTorch version beside it.
 
 Numeric contract of K3 (shared with the TPU kernel): LayerNorm statistics in
 fp32 (biased variance), the normed rows rounded to the activation dtype; fc1
@@ -226,7 +227,9 @@ def fused_ln_mlp_residual_int8(x, ln_params, mlp_params, ls=None, eps: float = 1
     rows, dev = B * N, x.device
     q8 = torch.empty(rows * C, dtype=torch.int8, device=dev)
     qs = torch.empty(rows, dtype=torch.float32, device=dev)
-    h = torch.empty(rows * hidden, dtype=torch.float32, device=dev)
+    # dynamic: fp32 h, then each row and hc chunk's absmax (static: none)
+    h = (torch.empty(rows * (hidden + hidden // hc), dtype=torch.float32, device=dev)
+         if act_scales is None else None)
     hq = torch.empty(rows * hidden, dtype=torch.int8, device=dev)
     hs = torch.empty(rows * (hidden // hc), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)

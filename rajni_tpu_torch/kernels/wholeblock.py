@@ -364,15 +364,18 @@ def _int8_launch_operands(x, block, ops, num_heads: int, hc: int, max_n: int, na
             ptr(block.get("ls2")), ptr(ops["sinv"])]
 
 
-def _int8_scratch(B: int, N: int, n: int, C: int, hidden: int, hc: int, dev) -> list:
-    """q8, qs, qkv, attn, mid, h, hq, hs (csrc/int8.cuh:Int8Block)."""
+def _int8_scratch(B: int, N: int, n: int, C: int, hidden: int, hc: int, dev,
+                  static: bool) -> list:
+    """q8, qs, qkv, attn, mid, h, hq, hs (csrc/int8.cuh:Int8Block; h, the
+    fp32 GELU output and its absmax, in dynamic mode only)."""
     f32, i8 = torch.float32, torch.int8
     return [torch.empty(B * N * C, dtype=i8, device=dev),
             torch.empty(B * N, dtype=f32, device=dev),
             torch.empty(B * N * 3 * C, dtype=torch.bfloat16, device=dev),
             torch.empty(B * n * C, dtype=f32, device=dev),
             torch.empty(B * n * C, dtype=torch.bfloat16, device=dev),
-            torch.empty(B * n * hidden, dtype=f32, device=dev),
+            None if static else torch.empty(B * n * (hidden + hidden // hc), dtype=f32,
+                                            device=dev),
             torch.empty(B * n * hidden, dtype=i8, device=dev),
             torch.empty(B * n * (hidden // hc), dtype=f32, device=dev)]
 
@@ -406,7 +409,8 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
         raise ValueError(f"fused_pruned_block_full_int8 cannot score N={N}, C={C}, "
                          f"heads={num_heads}")
     dev = x.device
-    q8, qs, qkv, attn, mid, h, hq, hs = _int8_scratch(B, N, K, C, hidden, hc, dev)
+    q8, qs, qkv, attn, mid, h, hq, hs = _int8_scratch(B, N, K, C, hidden, hc, dev,
+                                                      act_scales is not None)
     scores = torch.empty(B, N, dtype=torch.float32, device=dev) if with_scores else None
     idx = torch.empty(B, K, dtype=torch.int32, device=dev)
     next_scores = torch.empty(B, K, dtype=torch.float32, device=dev)
@@ -436,7 +440,8 @@ def fused_block_full_int8(x, block, num_heads: int, scale: float, eps: float = 1
     ops = int8_operands(block, act_scales)
     args = _int8_launch_operands(x, block, ops, num_heads, hc, SDPA_MAX_N,
                                  "fused_block_full_int8")
-    q8, qs, qkv, attn, mid, h, hq, hs = _int8_scratch(B, N, N, C, hidden, hc, x.device)
+    q8, qs, qkv, attn, mid, h, hq, hs = _int8_scratch(B, N, N, C, hidden, hc, x.device,
+                                                      act_scales is not None)
     out = torch.empty_like(x)
     BLOCK_FULL_INT8_KERNEL(
         *args, int(act_scales is not None), ptr(q8), ptr(qs), ptr(qkv), ptr(attn), ptr(mid),
