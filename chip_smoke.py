@@ -52,11 +52,22 @@ exit) when it goes wrong:
    ragged M, N and K, bitwise equal to ``gemm_s8_plain`` but for the GELU,
    timed beside ``torch._int_mm``, which the port never calls; fc1 with its
    GELU quantized (``gelu_quant``) at every B9 and B15 shape, the entry
-   points' route bitwise equal to the two-launch route, both timed; the score
+   points' route bitwise equal to the two-launch route, both timed, and the
+   plain quantizer of the kernel's own h bitwise equal to both (C2); the int8
+   attention tail of B10, B11 and B13-B15 (the attention taking each row's
+   absmax, proj quantizing its input as it loads it) bitwise equal to its
+   two-launch route at every path shape, dynamic and static, both timed,
+   the attention each took read from B6's launch count (one crossover for
+   contiguous and one for gathered tokens), the launches by device time at
+   one shape of each, and the quantize-on-load proj
+   (``gemm_s8q``) bitwise equal to ``quantize_rows`` + ``gemm_s8``; B17's fc1
+   (``EPI_GELU_SAVE``) with its hidden bitwise PyTorch's ``gelu_fast`` of its
+   own h, at T6's and ragged shapes, and B17 timed beside K3 and cuBLAS; the score
    kernel (B4's scores at 197 and 577 tokens) against ``_importance_f32`` of
    the same qkv, and its device time at ViT-B/16 224's five pruned blocks
    against its byte bound; K1's six launches, each by device time; B6's
-   wgmma body beside the register attention at 197, 187 and 120 tokens, and
+   wgmma body beside the register attention at 197, 187 and 120 tokens and,
+   for the int8 tails' crossover, at 47-197 tokens, C = 768 and 1024; and
    B20 beside B4 + torch selection + B5 at the 384 path's five pruned
    blocks, measured for their routing. Show that the comparison rejects
    faults planted in the plain versions (the attention for K1-B8, B16 and
@@ -65,10 +76,12 @@ exit) when it goes wrong:
    the rounded P and its dV from the unrounded P; for B6 and B18, P rounded
    before it is normalized, where it separates; for the GEMM, the GELU of
    the rounded sum, a K-tile skipped, the residual added ungathered and its
-   index shifted by one row; for the int8 GEMM, the last k-tile skipped, a
-   group's flush scaled by its neighbour's row scale, the residual
-   ungathered; for fc1's quantized GELU, the tile's absmax for the group's
-   and the neighbouring column's sinv; for the scores, the biased
+   index shifted by one row, and for B17's fc1 the GELU of the unrounded
+   sum; for the int8 GEMM, the last k-tile skipped, a group's flush scaled
+   by its neighbour's row scale, the residual ungathered; for fc1's
+   quantized GELU, the tile's absmax for the group's and the neighbouring
+   column's sinv; for the int8 tail's proj, the absmax of one head's
+   columns only and the scale of the neighbouring row; for the scores, the biased
    value norms), and time both with CUDA
    events (B6 beside ``F.scaled_dot_product_attention``, B18 beside its
    forward and backward, which the port never calls, by their device time
@@ -889,17 +902,13 @@ def block_act_scales(blk, x, heads):
 
 
 @contextlib.contextmanager
-def ln_float64():
-    """The int8 plain versions with their LayerNorm statistics taken in
-    float64: a last-bit change of the LN output, to read how far the
-    quantizers carry such a change."""
-    def ln64(x32, scale, bias, eps):
-        x64 = x32.double()
-        mean = x64.mean(dim=-1, keepdim=True)
-        var = (x64 - mean).square().mean(dim=-1, keepdim=True)
-        return ((x64 - mean) / (var + eps).sqrt()).float() * scale.float() + bias.float()
+def ln_float32():
+    """The int8 plain versions with their LayerNorm statistics summed in
+    PyTorch's order instead of the kernel's: a last-bit change of the LN
+    output, to read how far the quantizers carry such a change."""
+    from rajni_tpu_torch.kernels import mlp as km
 
-    with swapped("_layer_norm_f32", ln64):
+    with swapped("_layer_norm_int8", km._layer_norm_f32):
         yield
 
 
@@ -954,9 +963,9 @@ def int8_phases(device, peaks, int8_peak, results, configs=INT8_WHOLE, seed=4):
                     got = wb.fused_block_full_int8(*args)
                     want = wb.block_full_int8_plain(*args)
                     err, rel = compare(tag, got, want, x, INT8_GATE)
-                    with ln_float64():
+                    with ln_float32():
                         alt = wb.block_full_int8_plain(*args)
-                    print(f"{tag}: plain vs plain with float64 LayerNorm statistics: "
+                    print(f"{tag}: plain vs plain with PyTorch's LayerNorm sum order: "
                           f"branch rel L2 {branch_rel(alt, want, x):.3e}")
                     reject_planted(tag, got, lambda: wb.block_full_int8_plain(*args), x, **faults)
                     timed = (lambda: wb.fused_block_full_int8(*args),
@@ -1185,7 +1194,7 @@ def b11_unrounded_scores(args):
 
     x, ln, attn, ls, _, heads, keep, scale, eps, _, act = args
     ops = kb.int8_attn_operands(ln, attn, act)
-    y = kb._layer_norm_f32(x.float(), ops["ln1s"], ops["ln1b"], eps)
+    y = kb._layer_norm_int8(x.float(), ops["ln1s"], ops["ln1b"], eps)
     qkv32 = km._int8_matmul(y, attn["qkv"]["weight"]["int8"], ops["sqkv"], act is not None)
     s = kb._importance_f32(qkv32 + ops["bqkv"], heads)
     return kb.pruned_attn_block_int8_plain(x, ln, attn, ls, s, heads, keep, scale, eps, False, act)
@@ -1498,12 +1507,20 @@ def score_phases(device, peaks):
           f"byte bound of {total_bound:.4f} ms ({total / total_bound:.2f}x)")
 
 
+# token counts of the int8 tails' attention on the paths, where the
+# crossover between the two attention kernels is read (csrc/int8.cuh:
+# INT8_TAIL_SDPA_MIN_N)
+CROSSOVER_N = (47, 67, 96, 120, 138, 197)
+
+
 def attention_phases(device):
-    """The attention at and below 256 tokens, measured for its routing (no
-    path changes here): B6's wgmma body (``fused_sdpa``) against the
-    register-resident attention (``attention_kernel`` inside K2) at 197,
-    187 and 120 tokens, B=256, by device time; B6's output held to its
-    plain version there."""
+    """The attention at and below 256 tokens, measured for its routing: B6's
+    wgmma body (``fused_sdpa``) against the register-resident attention
+    (``attention_kernel`` inside K2) at 197, 187 and 120 tokens, B=256, by
+    device time, B6's output held to its plain version there; and the
+    crossover of the int8 tails at CROSSOVER_N, C = 768 and 1024, tokens
+    contiguous (B10, B15) and gathered (B11, B13, B14), both routes through
+    ``kernels/attention.py:attention_route`` and held to its plain version."""
     import torch
 
     from rajni_tpu_torch.kernels import attention as ka
@@ -1524,6 +1541,34 @@ def attention_phases(device):
         body = sum(launch_ms(lambda: ka.fused_sdpa(qkv, HEADS, scale)).values())
         print(f"attention N={n} B={B}: B6's wgmma body {body:.4f} ms | register attention "
               f"(in K2) {reg:.4f} ms (device time)")
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+
+    for width, heads in ((C, HEADS), (C_L, HEADS_L)):
+        blk = make_block(gen, device, width, 4 * width)
+        for n in CROSSOVER_N:
+            for gathered in (False, True):
+                # gathered: n kept of 8n/7 tokens, the kept sets of B11, B13, B14
+                n_src = n + n // 7 if gathered else n
+                x = (X_STD * torch.randn(B, n_src, width, generator=gen)).to(device, torch.bfloat16)
+                qkv = kb.ln_qkv_plain(x, blk["norm1"], blk["attn"]["qkv"], heads, 1e-6, False)[0]
+                idx = None
+                if gathered:
+                    idx = select_tokens_dense(torch.rand(B, n_src, generator=gen).to(device), n - 1,
+                                              torch.bool)[0].to(torch.int32).contiguous()
+                want = ka.attention_route_plain(qkv, idx, heads, scale)
+                ms = {}
+                for wg in (False, True):
+                    got = ka.attention_route(qkv, idx, heads, scale, wg)
+                    rel = rel_l2(got, want)
+                    check(rel <= BF16_GATE[2], f"crossover N={n}: route wgmma={wg} rel L2 {rel}")
+                    ms[wg] = sum(launch_ms(lambda: ka.attention_route(qkv, idx, heads, scale, wg)
+                                           ).values())
+                kind = f"gathered from {n_src}" if gathered else "contiguous"
+                took = TAIL_ROUTES.get((gathered, n))
+                print(f"crossover C={width} N={n} ({kind}) B={B}: wgmma body {ms[True]:.4f} ms | "
+                      f"register {ms[False]:.4f} ms | ratio {ms[True] / ms[False]:.3f} (device "
+                      "time)" + ("" if took is None else
+                                 f" | the int8 tails took the {took} kernel at this n"))
 
 
 TRAIN = f"train {PATH224}"  # the training path: ViT-B/16 224, batch 128
@@ -1656,6 +1701,10 @@ def train_kernel_phases(device, peaks, results):
            cuda_ms(lambda: kt.train_attn_block(*args)),
            cuda_ms(lambda: attn_block_qkv_plain(*args), iters=5), bnd, err, max(rel, qrel))
 
+    from rajni_tpu_torch.kernels import gemm as kg
+
+    w1, b1 = blk["mlp"]["fc1"]["weight"], blk["mlp"]["fc1"]["bias"]
+    w2, b2 = blk["mlp"]["fc2"]["weight"], blk["mlp"]["fc2"]["bias"]
     for n in (197, 120):  # B17
         x = x_of(B_TRAIN, n)
         args = (x, blk["norm2"], blk["mlp"], None, 1e-6)
@@ -1669,8 +1718,25 @@ def train_kernel_phases(device, peaks, results):
         print(f"B17 y N={n}: planted fault 'GELU on the unrounded h': branch rel L2 {bad:.3e}")
         check(bad > B17_GATE[2], f"B17 N={n}: the gate missed the GELU on the unrounded h")
         M = B_TRAIN * n
+        # fc1's epilogue on B17's own LN output, bit for bit
+        yln = km._layer_norm_f32(x.float(), blk["norm2"]["scale"], blk["norm2"]["bias"],
+                                 1e-6).to(x.dtype).reshape(M, C)
+        hg = gelu_save_gate(f"B17 fc1 M={M}", yln, w1, b1)[0]
         bnd = bound(4.0 * M * C * HIDDEN, 2 * M * C * 2 + M * HIDDEN * 2 + 2 * C * HIDDEN * 2,
                     peaks)
+        # B17's launches beside K3's at the same rows (fc1 with EPI_GELU, no
+        # h) and cuBLAS's fc1 and fc2 (no GELU), by device time
+        parts = {kernel_name(k): v for k, v in launch_ms(lambda: kt.train_ln_mlp(*args)).items()}
+        k3 = {kernel_name(k): v
+              for k, v in launch_ms(lambda: km.fused_ln_mlp_residual(*args)).items()}
+        lib = (device_ms(lambda: Fn.linear(yln, w1, b1), iters=10)[0]
+               + device_ms(lambda: Fn.linear(hg, w2, b2), iters=10)[0])
+        print(f"B17 N={n} B={B_TRAIN}: {sum(parts.values()):.3f} ms ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f") | K3 {sum(k3.values()):.3f} ms ("
+              + ", ".join(f"{k} {v:.3f}" for k, v in k3.items())
+              + f") | cuBLAS fc1 + fc2 {lib:.3f} ms | bound {bnd[0]:.3f} ms ({bnd[1]}) "
+              "(device time)")
         record(results, "train_ln_mlp", TRAIN, f"B={B_TRAIN} N={n} C={C}",
                cuda_ms(lambda: kt.train_ln_mlp(*args)),
                cuda_ms(lambda: kt.train_ln_mlp_plain(*args), iters=5), bnd, err, max(rel, hrel))
@@ -1737,11 +1803,11 @@ def train_kernel_phases(device, peaks, results):
 # row res_idx[r]) and the index shifted by one row.
 GEMM_SOUND = 1.533e-4
 # the sources that build it (the int8 ones since the int8 products moved
-# there)
+# there, B17's since its fc1 and fc2 did)
 GEMM_SOURCES = ("gemm.cu", "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "gather_attn.cu",
                 "ln_qkv.cu", "ln_mlp_int8.cu", "block_full_int8.cu", "pruned_block_full_int8.cu",
                 "attn_block_int8.cu", "ln_qkv_int8.cu", "gather_attn_int8.cu",
-                "pruned_attn_block_int8.cu")
+                "pruned_attn_block_int8.cu", "train_mlp.cu")
 GEMM_REL_L2 = 2.5 * GEMM_SOUND
 # (label, width, hidden) of the bf16 paths whose products the GEMM runs:
 # DeiT-S (P3a: B7's MLP half, B8), ViT-B (K2, K3, B16), ViT-L (P5c)
@@ -1771,6 +1837,35 @@ def gemm_faulty(fault: str):
         h = (a.float() @ w.float().t() + bias.float()).to(a.dtype)
         return gelu_fast(h.float()).to(a.dtype)
     return fn
+
+
+def gelu_save_gate(tag, a, w, bias):
+    """fc1's EPI_GELU_SAVE (B17) through the GEMM's entry point, which runs
+    the instantiation B17 launches: the hidden must be PyTorch's gelu_fast
+    of the kernel's own h, rounded, bit for bit (every GELU input is a bf16
+    value), and h within GEMM_REL_L2 of gemm_plain's. The planted fault, the
+    GELU of the unrounded sum (K3's rounding point, which B17's plain
+    version computes under ``b17_unrounded_gelu``), must be rejected by the
+    bitwise gate. Returns the kernel's (hidden, h)."""
+    import torch
+
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.kernels.math import gelu_fast
+
+    hg, h = kg.gemm(a, w, bias, kg.EPI_GELU_SAVE)
+    want = gelu_fast(h.float()).to(h.dtype)
+    diff = int((hg.view(torch.int16) != want.view(torch.int16)).sum())
+    hrel = rel_l2(h, kg.gemm_plain(a, w, bias, kg.EPI_BIAS))
+    bad = kg.gemm_plain(a, w, bias, kg.EPI_GELU)  # the GELU of the unrounded fp32 sum
+    missed = torch.equal(hg, bad)
+    print(f"{tag} EPI_GELU_SAVE: {diff} of {hg.numel()} hidden elements differ from PyTorch's "
+          f"gelu_fast of the kernel's h; h rel L2 {hrel:.3e}; planted fault 'GELU of the "
+          f"unrounded sum': {'missed' if missed else 'rejected'}")
+    check(bool(torch.isfinite(hg.float()).all()), f"{tag}: hidden not finite")
+    check(diff == 0, f"{tag}: the hidden is not PyTorch's GELU of the kernel's h ({diff})")
+    check(hrel <= GEMM_REL_L2, f"{tag}: h rel L2 {hrel} > {GEMM_REL_L2}")
+    check(not missed, f"{tag}: the gate missed the GELU of the unrounded sum")
+    return hg, h
 
 
 def gemm_rel(got, want, args) -> float:
@@ -1898,6 +1993,10 @@ def gemm_phases(device, peaks):
         args = operands(M, N, K, epi, "", with_ls, with_res)
         faults = ("K-tile skipped",) + (("GELU of the rounded sum",) if epi == kg.EPI_GELU else ())
         held(f"ragged M={M} N={N} K={K} epi={epi} ls={with_ls} res={with_res}", args, faults)
+    # B17's EPI_GELU_SAVE past the tiles' edges
+    for M, N, K in ((77, 776, 192), (128 * 394 + 1, 200, 64), (1, 8, 64)):
+        a, w, bias = operands(M, N, K, kg.EPI_BIAS, "", False, False)[:3]
+        gelu_save_gate(f"GEMM ragged M={M} N={N} K={K}", a, w, bias)
 
 
 # The int8 GEMM of B9-B15 (csrc/gemm_sm90.cuh's kernel with csrc/int8.cuh's
@@ -2111,14 +2210,16 @@ def gelu_quant_phases(device, peaks, int8_peak):
             two = kg.gelu_quant(q, w, ws, bias, hc, a, sinv, two_launch=True)
             same = torch.equal(fused[0], two[0]) and (static or torch.equal(fused[1], two[1]))
             # beside the plain quantizer of the kernel's own fp32 h, which
-            # takes 127 / absmax as 127 · (1 / absmax): a reading only
+            # divides 127 / absmax once, as the kernels do (C2): bit for bit
             plain = kg.quant_groups_plain(kg.gemm_s8(q, w, ws, bias, kg.I8_GELU, a), hc, sinv)
-            steps = (fused[0].int() - plain[0].int()).abs()
+            steps = int((fused[0] != plain[0]).sum())
+            scales = 0 if static else int((fused[1] != plain[1]).sum())
             print(f"{tag}: hq{'' if static else ' and hs'} bitwise equal to the two-launch "
-                  f"route {same}; against the plain quantizer of the kernel's h, "
-                  f"{int((steps > 0).sum())} of {steps.numel()} hq elements differ, by at most "
-                  f"{int(steps.max())}")
+                  f"route {same}; against the plain quantizer of the kernel's h, {steps} of "
+                  f"{fused[0].numel()} hq and {scales} hs elements differ")
             check(same, f"{tag}: the entry points' route differs from the two-launch route")
+            check(steps == 0 and scales == 0,
+                  f"{tag}: {steps} hq and {scales} hs elements differ from the plain quantizer")
             # the faults, planted in the two-launch route the gate holds to
             if static:
                 fault = "sinv of the neighbouring column"
@@ -2135,6 +2236,201 @@ def gelu_quant_phases(device, peaks, int8_peak):
                         2.0 * M * hidden * width, int8_peak)
             print(f"{tag}: entry points' route {ms_f:.3f} ms | two-launch {ms_t:.3f} ms | "
                   f"bound {bnd[0]:.3f} ms ({bnd[1]})")
+
+
+# The int8 attention tail (csrc/int8.cuh:int8_attn_tail) of B10, B11, B13,
+# B14 and B15: the attention's epilogue takes each row's absmax, and proj
+# quantizes the attention output as it loads it. Held bit for bit to the
+# two-launch route (the same attention, the row quantizer, the int8 proj)
+# at every path shape, dynamic and static: (kernel, width, heads, hidden,
+# batch, paths, (n, K) with K None for the stock blocks).
+TAIL_SHAPES = (
+    ("B10", C, HEADS, HIDDEN, B384, "P4a/P4b", ((577, None),)),
+    ("B10", C_L, HEADS_L, HIDDEN_L, B, "P5a/P5b", ((197, None), (138, None), (96, None))),
+    ("B11", C_L, HEADS_L, HIDDEN_L, B, "P5a/P5b", ((197, 138), (138, 96), (96, 67), (67, 47))),
+    ("B11", C_S, HEADS_S, HIDDEN_S, B_S384, "P5d", ((577, 519),)),
+    ("B13", C, HEADS, HIDDEN, B384, "P4a/P4b", ((442, 375), (375, 356))),
+    ("B14", C, HEADS, HIDDEN, B, "P3b/P3c",
+     ((197, 187), (187, 177), (177, 150), (150, 127), (127, 120))),
+    ("B14", C_S, HEADS_S, HIDDEN_S, B, "P3d",
+     ((197, 177), (177, 159), (159, 143), (143, 128), (128, 115), (115, 103), (103, 92),
+      (92, 82))),
+    ("B14", C_S, HEADS_S, HIDDEN_S, B_S384, "P5d",
+     ((519, 467), (467, 420), (420, 378), (378, 340), (340, 306), (306, 275), (275, 247))),
+    ("B15", C, HEADS, HIDDEN, B, "P3b/P3c", ((197, None), (120, None))),
+    ("B15", C, HEADS, HIDDEN, B384, "P4a/P4b", ((356, None),)),
+    ("B15", C_L, HEADS_L, HIDDEN_L, B, "P5a/P5b", ((67, None), (47, None))),
+    ("B15", C_S, HEADS_S, HIDDEN_S, B, "P3d", ((197, None), (82, None))),
+    ("B15", C_S, HEADS_S, HIDDEN_S, B_S384, "P5d", ((577, None), (247, None))),
+)
+# the planted faults of the quantize-on-load proj (kernels/gemm.py:gemm_s8q),
+# each in the two-step reference that the gate holds it to
+TAIL_FAULTS = ("absmax of the first head's columns only", "scale of the neighbouring row")
+# the shapes whose launches are read by device time on both routes, beside
+# the first of each TAIL_SHAPES entry: (kernel, n, K)
+TAIL_BREAKDOWN = {("B11", 67, 47)}
+# the attention each tail took, by (gathered, attention tokens): "register"
+# or "wgmma body", as B6's launch count (counted in csrc/sdpa.cu) read it
+TAIL_ROUTES: dict = {}
+
+
+def tail_call(name, x, qblk, heads, K, scale, sc, qkv=None, keep_idx=None):
+    """One call of the int8 tail's entry point ``name`` (B10, B11, B13, B14,
+    B15) on x, as a function of ``two_launch``; its output tensor."""
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import wholeblock as wb
+
+    def call(two_launch):
+        if name == "B10":
+            return kb.fused_attn_block_int8(x, qblk["norm1"], qblk["attn"], None, heads, scale,
+                                            1e-6, None if sc is None else sc[:2],
+                                            two_launch=two_launch)
+        if name == "B11":
+            return kb.fused_pruned_attn_block_int8(x, qblk["norm1"], qblk["attn"], None, None,
+                                                   heads, K - 1, scale, 1e-6, True,
+                                                   None if sc is None else sc[:2],
+                                                   two_launch=two_launch)[0]
+        if name == "B13":
+            return kb.fused_gather_sdpa_proj_residual_int8(
+                qkv, keep_idx, x, qblk["attn"]["proj"], None, heads, scale,
+                None if sc is None else sc[1], two_launch=two_launch)
+        if name == "B14":
+            return wb.fused_pruned_block_full_int8(x, qblk, None, heads, K - 1, scale, 1e-6, True,
+                                                   sc, two_launch=two_launch)[0]
+        return wb.fused_block_full_int8(x, qblk, heads, scale, 1e-6, sc, two_launch=two_launch)
+    return call
+
+
+def tail_faults(tag, o, qblk, x, res_idx, n, K):
+    """The quantize-on-load proj (``gemm_s8q``) on an attention output o
+    [M, C] against the two-step route on the card (``quantize_rows``, which
+    divides as the kernels do, then ``gemm_s8``), bit for bit, dynamic and
+    static, with the residual x gathered through res_idx where given; the
+    planted faults TAIL_FAULTS must be rejected."""
+    import torch
+
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.kernels.math import quantize_rows, quantize_static
+
+    proj = qblk["attn"]["proj"]
+    w, ws, bias = proj["weight"]["int8"], proj["weight"]["scale"].float(), proj["bias"].float()
+    gather = {} if res_idx is None else dict(res_idx=res_idx, rows_out=K, rows_in=n)
+    res = x if res_idx is not None else x.reshape(o.shape)
+    amax = kg.row_absmax_plain(o)
+    got = kg.gemm_s8q(o, amax, w, ws, bias, None, res, **gather)
+    q, a = quantize_rows(o.float())
+    want = kg.gemm_s8(q, w, ws, bias, kg.I8_RESIDUAL, a, res=res, **gather)
+    got_s = kg.gemm_s8q(o, None, w, ws, bias, None, res, **gather)
+    want_s = kg.gemm_s8(quantize_static(o.float()), w, ws, bias, kg.I8_RESIDUAL, res=res,
+                        **gather)
+    diff, diff_s = int((got != want).sum()), int((got_s != want_s).sum())
+    head = o.float()[:, :64].abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    bad = {TAIL_FAULTS[0]: kg.gemm_s8(torch.clamp(torch.round(o.float() * (
+               torch.full_like(head, 127.0) / head)), -127, 127).to(torch.int8), w, ws, bias,
+               kg.I8_RESIDUAL, head * (1.0 / 127.0), res=res, **gather),
+           TAIL_FAULTS[1]: kg.gemm_s8(q, w, ws, bias, kg.I8_RESIDUAL, torch.roll(a, 1, dims=0),
+                                      res=res, **gather)}
+    missed = [f for f, b in bad.items() if torch.equal(got, b)]
+    print(f"{tag} proj quantized on load ({o.dtype}): {diff} (dynamic) and {diff_s} (static) "
+          f"elements differ from quantize_rows + gemm_s8; planted faults "
+          + ", ".join(f"'{f}' {'missed' if f in missed else 'rejected'}" for f in bad))
+    check(diff == 0 and diff_s == 0, f"{tag}: gemm_s8q differs from the two-step route")
+    check(not missed, f"{tag}: the gate missed {missed}")
+
+
+def tail_phases(device):
+    """The int8 tail at every path shape of TAIL_SHAPES, dynamic and static:
+    the entry point's route bitwise equal to its two-launch route, both
+    timed (CUDA events); the attention each took, from B6's launch count,
+    which must switch from the register kernel to B6's body at one n for
+    contiguous and one for gathered tokens, and agree with the kernels the
+    profiler saw; the launches by device time on each route at the first
+    shape of each entry and at TAIL_BREAKDOWN (no row quantizer on B10's,
+    B11's and B13's new route); and at one shape of each attention output
+    type and residual (B10 bf16, B11 bf16 gathered, B13 fp32 gathered) the
+    quantize-on-load proj alone against the two-step route, with the planted
+    faults."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+
+    gen = torch.Generator().manual_seed(19)
+    blocks = {}
+    faulted = set()
+    for name, width, heads, hidden, Bt, paths, shapes in TAIL_SHAPES:
+        if (width, hidden) not in blocks:
+            blk = make_block(gen, device, width, hidden)
+            blocks[width, hidden] = (blk, quantized_block(blk))
+        blk, qblk = blocks[width, hidden]
+        scale = (width // heads) ** -0.5
+        for n, K in shapes:
+            x = (X_STD * torch.randn(Bt, n, width, generator=gen)).to(device, torch.bfloat16)
+            qkv = keep_idx = None
+            if name == "B13":
+                qkv = kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], heads, 1e-6,
+                                           False)[0]
+                keep_idx, _ = select_tokens_dense(torch.rand(Bt, n, generator=gen).to(device),
+                                                  K - 1, torch.bool)
+            for static in (False, True):
+                sc = block_act_scales(blk, x, heads) if static else None
+                if name == "B13" and static:  # B12's qkv with the V-fold, as B13 reads it
+                    qkv = kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], heads,
+                                               1e-6, False, sc[:2])[0]
+                call = tail_call(name, x, qblk, heads, K or n, scale, sc, qkv, keep_idx)
+                tag = (f"int8 tail {name} ({paths}) B={Bt} N={n}" + (f" K={K}" if K else "")
+                       + f" C={width} {'static' if static else 'dynamic'}")
+                new, two = call(False), call(True)
+                diff = int((new != two).sum())
+                check(bool(torch.isfinite(new.float()).all()), f"{tag}: output not finite")
+                ms_new, ms_two = cuda_ms(lambda: call(False)), cuda_ms(lambda: call(True))
+                print(f"{tag}: {diff} of {new.numel()} elements differ from the two-launch route "
+                      f"| {ms_new:.3f} ms | two-launch {ms_two:.3f} ms")
+                check(diff == 0, f"{tag}: the tail differs from its two-launch route ({diff})")
+                gathered = name in ("B11", "B13", "B14")
+                ka.SDPA_KERNEL.launches = 0
+                call(False)
+                torch.cuda.synchronize()
+                body = ka.SDPA_KERNEL.launches
+                check(body in (0, 1), f"{tag}: B6's body launched {body} times")
+                took = "wgmma body" if body else "register"
+                check(TAIL_ROUTES.setdefault((gathered, K or n), took) == took,
+                      f"{tag}: the attention took another kernel than at the same n before")
+                if (n, K) == shapes[0] or (name, n, K) in TAIL_BREAKDOWN:
+                    for route, fn in (("new", lambda: call(False)),
+                                      ("two-launch", lambda: call(True))):
+                        parts = {kernel_name(k): v for k, v in launch_ms(fn).items()}
+                        print(f"{tag} {route} route: {sum(parts.values()):.3f} ms ("
+                              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+                              + ") (device time)")
+                        check(any("sdpa_wgmma" in k for k in parts) == bool(body),
+                              f"{tag} {route}: B6's count {body} disagrees with the kernels run")
+                        if route == "new" and name in ("B10", "B11", "B13"):
+                            check(not any("quant_rows" in k for k in parts),
+                                  f"{tag}: the new route launched the row quantizer")
+            if name in ("B10", "B11", "B13") and name not in faulted:
+                faulted.add(name)
+                o32 = kb._mha(qkv if name == "B13" else kb.ln_qkv_plain(
+                    x, blk["norm1"], blk["attn"]["qkv"], heads, 1e-6, False)[0], heads, scale,
+                    torch.float32)
+                res_idx = None
+                if name != "B10":
+                    idx, _ = select_tokens_dense(torch.rand(Bt, n, generator=gen).to(device),
+                                                 K - 1, torch.bool)
+                    o32 = torch.take_along_dim(o32, idx[..., None], dim=1)
+                    res_idx = idx.to(torch.int32).reshape(-1).contiguous()
+                o = o32 if name == "B13" else o32.to(torch.bfloat16)
+                tail_faults(f"int8 tail {name} B={Bt} N={n} C={width}",
+                            o.reshape(-1, width).contiguous(), qblk, x, res_idx, n, K or n)
+    for gathered in (False, True):
+        reg = sorted(n for (g, n), r in TAIL_ROUTES.items() if g == gathered and r == "register")
+        body = sorted(n for (g, n), r in TAIL_ROUTES.items() if g == gathered and r != "register")
+        kind = "gathered" if gathered else "contiguous"
+        print(f"int8 tails, {kind} tokens: the register kernel at n = {reg}, B6's body at n = "
+              f"{body} (B6's launch count)")
+        check(not reg or not body or reg[-1] < body[0],
+              f"int8 tails ({kind}): no single crossover between the two attention kernels")
 
 
 def ragged_phases(device):
@@ -2609,13 +2905,19 @@ VIT_L_COUNTS = [197] * 5 + [138] * 4 + [96] * 4 + [67] * 4 + [47] * 7
 DEIT_S384_COUNTS = [577, 577, 577, 577, 519, 467, 420, 378, 340, 306, 275, 247]
 # ViT-L/16 int8: the pruned blocks 4, 8, 12, 16 take B11 + B9; the stock
 # blocks at 197, 138 and 96 tokens B10 + B9 (no whole-block plan), at 67 and
-# 47 tokens B15
+# 47 tokens B15. The int8 tails' attention takes B6's kernel from
+# INT8_TAIL_SDPA_MIN_N = 120 contiguous tokens (B10 at 197 and 138), and past
+# 256 kept tokens through the kept indices (none here)
 VIT_L_INT8_LAUNCHES = {
     "pruned": launches(fused_pruned_attn_block_int8=4, fused_attn_block_int8=10,
-                       fused_ln_mlp_residual_int8=14, fused_block_full_int8=10),
-    "identity": launches(fused_attn_block_int8=24, fused_ln_mlp_residual_int8=24)}
-INT8_LAUNCHES = {"pruned": launches(fused_pruned_block_full_int8=5, fused_block_full_int8=7),
-                 "identity": launches(fused_block_full_int8=12)}
+                       fused_ln_mlp_residual_int8=14, fused_block_full_int8=10, fused_sdpa=7),
+    "identity": launches(fused_attn_block_int8=24, fused_ln_mlp_residual_int8=24,
+                         fused_sdpa=24)}
+# ViT-B/16 224 int8: B15's tail at 197 and 120 tokens on B6's kernel, B14's
+# kept tokens (187-120) on the register kernel
+INT8_LAUNCHES = {"pruned": launches(fused_pruned_block_full_int8=5, fused_block_full_int8=7,
+                                    fused_sdpa=7),
+                 "identity": launches(fused_block_full_int8=12, fused_sdpa=12)}
 INT8_384_LAUNCHES = {
     "pruned": launches(fused_attn_block_int8=3, fused_ln_mlp_residual_int8=8, fused_ln_qkv_int8=5,
                        fused_gather_sdpa_proj_residual=3, fused_gather_sdpa_proj_residual_int8=2,
@@ -2646,10 +2948,13 @@ PATHS = {
               counts=VIT_B_COUNTS, launches=INT8_LAUNCHES),
     P3C: dict(model=PATH224, quant="static", batch=B, img=224, schedule="reference",
               counts=VIT_B_COUNTS, launches=INT8_LAUNCHES),
+    # B6's kernel in the int8 tails: B15 at 197 tokens (3), not at 82 nor in
+    # B14 (kept tokens, 177 down to 82)
     P3D: dict(
         model=DEIT_S, quant="dynamic", batch=B, img=224, schedule="deit", counts=DEIT_S_COUNTS,
-        launches={"pruned": launches(fused_pruned_block_full_int8=8, fused_block_full_int8=4),
-                  "identity": launches(fused_block_full_int8=12)}),
+        launches={"pruned": launches(fused_pruned_block_full_int8=8, fused_block_full_int8=4,
+                                     fused_sdpa=3),
+                  "identity": launches(fused_block_full_int8=12, fused_sdpa=12)}),
     # the split int8 kernels: blocks 0-2 B10 + B9, 3-5 B12 + bf16 B5 + B9, 6-7
     # B12 + B13 + B9, 8-11 B15 at 356 tokens; the two-pass attention inside
     # B10 (577), B5 (548, 520, 442), B13 (375, 356) and B15 (356)
@@ -2672,15 +2977,16 @@ PATHS = {
                                      fused_ln_mlp_residual=24),
                   "identity": launches(fused_attn_block=24, fused_ln_mlp_residual=24)}),
     # DeiT-S/16 384 int8: blocks 0-2 B15 at 577 tokens, block 3 B11 + B9
-    # (577→519), blocks 4-10 B14 (519→247), block 11 B15; the two-pass
-    # attention inside B15 at 577 (3), B11 (1) and B14 past 256 kept tokens (6)
+    # (577→519), blocks 4-10 B14 (519→247), block 11 B15 at 247; B6's kernel
+    # in B15 (4: contiguous, from 120 tokens), B11 (1) and B14 past 256 kept
+    # tokens (6)
     P5D: dict(
         model=DEIT_S384, quant="dynamic", batch=B_S384, img=384, schedule="deit",
         counts=DEIT_S384_COUNTS,
         launches={"pruned": launches(fused_pruned_attn_block_int8=1,
                                      fused_ln_mlp_residual_int8=1,
                                      fused_pruned_block_full_int8=7, fused_block_full_int8=4,
-                                     fused_sdpa=10),
+                                     fused_sdpa=11),
                   "identity": launches(fused_block_full_int8=12, fused_sdpa=12)}),
 }
 
@@ -2903,6 +3209,8 @@ def main() -> int:
                lambda: s8_phases(device, peaks, int8_peak)),
               ("fc1's GELU quantized: the entry points' and the two-launch route",
                lambda: gelu_quant_phases(device, peaks, int8_peak)),
+              ("the int8 attention tail: the new route and the two-launch route",
+               lambda: tail_phases(device)),
               ("score kernel", lambda: score_phases(device, peaks)),
               ("attention at and below 256 tokens", lambda: attention_phases(device)),
               ("training block ops", lambda: train_block_ops(device))]

@@ -8,14 +8,18 @@
 // Bound on the H100: operations (the int8 qkv and proj products, 8·B·N·C²,
 // and the attention's 4·B·N²·C bf16 FLOP).
 //
-// Design: five launches on the caller's stream, steps 1-2 and 5-7 of the int8
-// block body (csrc/int8.cuh): LN1 → int8, the qkv product (bf16 qkv), the
-// attention (register-resident up to ATTN_MAX_N tokens, two-pass past that,
-// common.cuh:launch_attention_any), the row quantizer, and proj with the
-// residual. Unlike B13, B14 and B15, the TPU kernel rounds the attention
-// output to the activation dtype before quantizing it (block.py:1255), and a
-// quantizer turns that last bit into whole int8 steps: so the attention
-// writes bf16 here and the quantizer reads bf16.
+// Design: four launches on the caller's stream, steps 1-2 and 5-7 of the int8
+// block body (csrc/int8.cuh): LN1 → int8 (which also zeroes the row absmax),
+// the qkv product (bf16 qkv), the attention (int8.cuh:launch_tail_attention:
+// the register-resident kernel below INT8_TAIL_SDPA_MIN_N tokens, B6's wgmma
+// body from there), which in dynamic mode also takes each row's absmax, and
+// proj, which quantizes the attention output as it loads it, with the
+// residual (int8.cuh:int8_attn_tail says why). Unlike B13, B14 and B15, the
+// TPU kernel rounds the attention output to the activation dtype before
+// quantizing it (block.py:1255), and a quantizer turns that last bit into
+// whole int8 steps: so the attention writes bf16 here and proj reads bf16.
+// two_launch: the old tail (attention, row quantizer, int8 proj), five
+// launches, the bitwise reference of the new one.
 #include "int8.cuh"
 
 using namespace rajni;
@@ -23,8 +27,8 @@ using namespace rajni;
 extern "C" int rajni_attn_block_int8(
     const void* x, const void* ln1s, const void* ln1b, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* wproj, const void* sproj, const void* bproj, const void* ls1,
-    int static_act, void* q8, void* qs, void* qkv, void* attn, void* out, int B, int N, int C,
-    int H, float scale, float eps, void* stream) {
+    int static_act, int two_launch, void* q8, void* qs, void* qkv, void* attn, void* amax,
+    void* out, int B, int N, int C, int H, float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Int8Block p{};
   p.x = static_cast<const bf16*>(x);
@@ -38,6 +42,8 @@ extern "C" int rajni_attn_block_int8(
   p.bproj = static_cast<const float*>(bproj);
   p.ls1 = static_cast<const bf16*>(ls1);
   p.static_act = static_act;
+  p.two_launch = two_launch;
+  p.amax = static_cast<float*>(amax);
   p.q8 = static_cast<int8_t*>(q8);
   p.qs = static_cast<float*>(qs);
   p.qkv = static_cast<bf16*>(qkv);

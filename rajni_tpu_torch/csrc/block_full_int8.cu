@@ -9,15 +9,18 @@
 // GELU output is quantized in fc1's epilogue under static scales, written
 // and read once in fp32 in dynamic mode (csrc/int8.cuh).
 //
-// Design: eight launches in static mode and ten in dynamic mode on the
+// Design: seven launches in static mode and nine in dynamic mode on the
 // caller's stream (csrc/int8.cuh: int8_block_head/_tail without the
-// selection): LN1 → int8, the qkv product (bf16 qkv: B15 does not round qkv
-// itself, but its attention casts it to bf16, block.py:284, which is the
-// same), the attention with an fp32 output (register-resident up to
-// ATTN_MAX_N tokens, two-pass past that), the row quantizer, the proj
-// product with the residual, LN2 → int8, fc1 with its GELU quantized per hc
-// group in the epilogue (dynamic: the absmax scratch zeroed, fc1 to fp32 h
-// with the group absmax, then the quantizer), and fc2 with the residual.
+// selection): LN1 → int8 (zeroing the attention's row absmax, kept in h's
+// first floats), the qkv product (bf16 qkv: B15 does not round qkv itself,
+// but its attention casts it to bf16, block.py:284, which is the same), the
+// attention with an fp32 output and (dynamic) each row's absmax
+// (int8.cuh:launch_tail_attention), the proj product quantizing that output
+// as it loads it, with the residual (int8.cuh:int8_attn_tail), LN2 → int8,
+// fc1 with its GELU quantized per hc group in the epilogue (dynamic: the
+// absmax scratch zeroed, fc1 to fp32 h with the group absmax, then the
+// quantizer), and fc2 with the residual. two_launch: the attention tail's
+// old route, with the row quantizer before proj.
 #include "int8.cuh"
 
 using namespace rajni;
@@ -27,11 +30,11 @@ extern "C" int rajni_block_full_int8(
     const void* bqkv, const void* wproj, const void* sproj, const void* bproj, const void* ls1,
     const void* ln2s, const void* ln2b, const void* w1, const void* s1, const void* b1,
     const void* w2, const void* s2, const void* b2, const void* ls2, const void* sinv,
-    int static_act, void* q8, void* qs, void* qkv, void* attn, void* mid, void* h, void* hq,
-    void* hs, void* out, int B, int N, int C, int hidden, int hc, int H, float scale, float eps,
-    void* stream) {
+    int static_act, int two_launch, void* q8, void* qs, void* qkv, void* attn, void* mid,
+    void* h, void* hq, void* hs, void* out, int B, int N, int C, int hidden, int hc, int H,
+    float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Int8Block p{
+  Int8Block p{
       static_cast<const bf16*>(x),      static_cast<const float*>(ln1s),
       static_cast<const float*>(ln1b),  static_cast<const int8_t*>(wqkv),
       static_cast<const float*>(sqkv),  static_cast<const float*>(bqkv),
@@ -48,6 +51,8 @@ extern "C" int rajni_block_full_int8(
       static_cast<float*>(h),           static_cast<int8_t*>(hq),
       static_cast<float*>(hs),          static_cast<bf16*>(out),
       B, N, C, hidden, hc, H, scale, eps};
+  p.amax = static_act ? nullptr : p.h;  // the tail's absmax, before step 9 writes h
+  p.two_launch = two_launch;
   int rc = int8_block_head(p, st);
   if (rc != 0) return rc;
   return int8_block_tail(p, nullptr, N, st);

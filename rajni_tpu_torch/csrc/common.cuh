@@ -16,12 +16,12 @@
 //
 // What bounds these kernels on the H100: at batch 256 the QKV, proj, fc1 and
 // fc2 products are compute-bound (hundreds of FLOP per byte), so the GEMM is
-// the part that matters. This header's GEMM (gemm_bf16_kernel) reaches the
-// tensor cores through ldmatrix + mma.sync m16n8k16 (Ampere-style); only B17
-// (train_mlp.cu) still takes it. K1, K2, K3, B4 and B5 (and B7, B8, B16, B19
-// and B20 through them) take the wgmma/TMA GEMM of gemm_sm90.cuh; the
-// long-sequence attention (sdpa.cu) and B18 (sdpa_bwd.cu) also use Hopper's
-// wgmma, TMA and mbarriers (hopper.cuh).
+// the part that matters. Every product runs on the wgmma/TMA GEMM of
+// gemm_sm90.cuh (Epilogue and EpilogueArgs below are its bf16 epilogues);
+// the long-sequence attention (sdpa.cu) and B18 (sdpa_bwd.cu) also use
+// Hopper's wgmma, TMA and mbarriers (hopper.cuh). This header keeps the
+// LayerNorm, the register-resident attention (mma.sync m16n8k16), the RAJNI
+// scores and the selection.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -29,11 +29,15 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // B6's attention body (sdpa.cu): qkv [B, n_src, 3C] bf16, token t of image b
 // being row idx[b, t] when idx is given, into out [B, n, C] (fp32 when
-// out_fp32, else bf16). Returns a cudaError_t.
-extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, int out_fp32, int B,
-                               int n_src, int n, int C, int H, float scale, void* stream);
+// out_fp32, else bf16); with amax, each output row's absmax over its C
+// columns too (row_absmax). Returns a cudaError_t.
+extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float* amax,
+                               int out_fp32, int B, int n_src, int n, int C, int H, float scale,
+                               void* stream);
 
 // Everything here has internal linkage: the .cu files are separate
 // translation units of one library, and each includes its own copy.
@@ -120,17 +124,23 @@ __device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
   *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// The value store_pair stores for v, as a float: v rounded to bf16, or v.
+template <typename OutT>
+__device__ __forceinline__ float stored(float v) {
+  if constexpr (std::is_same_v<OutT, bf16>) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
 }
 
-// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i, and register i receives matrix i in mma layout.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+// The int8 tails' attention output absmax: amax[row] = max(amax[row], m)
+// for m >= 0, on the float's bits (a non-negative float orders as its bits
+// do), so the maximum over a row's heads is exact in any order. amax is
+// zeroed before the attention launch.
+__device__ __forceinline__ void row_absmax(float* amax, size_t row, float m) {
+  atomicMax(reinterpret_cast<int*>(amax) + row, __float_as_int(m));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -196,29 +206,15 @@ inline cudaError_t launch_layer_norm(const bf16* x, const bf16* scale, const bf1
 }
 
 // ---------------------------------------------------------------------------
-// GEMM: out[M, N] = epilogue(A[M, K] @ W[N, K]^T), the mma.sync GEMM of B17
-// train_ln_mlp (train_mlp.cu: fc1 with EPI_GELU_SAVE, fc2) alone; every other
-// product runs on gemm_sm90.cuh. It goes when B17 moves there, which needs
-// EPI_GELU_SAVE in that GEMM's epilogue.
-//   A row-major bf16 (activations), W row-major [out, in] bf16 (nn.Linear
-//   layout): both operands are K-contiguous, so both come to the tensor cores
-//   through ldmatrix (no transpose). 128x128x64 block tiles, 4 warps of 64x64,
-//   two blocks per SM (so one block's epilogue overlaps the other's main
-//   loop), a 3-stage cp.async ring in shared memory with 16-byte chunks XOR-swizzled
-//   by row (conflict-free for the copies and for ldmatrix), mma.sync
-//   m16n8k16 with fp32 accumulators, and the epilogue applied straight from
-//   the accumulator registers.
-//   Requires K % 64 == 0 and N % 8 == 0; M and N are masked. The residual is
-//   contiguous (res_idx is the wgmma GEMM's alone).
+// The bf16 epilogues of gemm_sm90.cuh's GEMM, out[M, N] = epilogue(A[M, K] ·
+// W[N, K]ᵀ), from the fp32 sum acc: EPI_BIAS acc + b; EPI_GELU gelu(acc + b)
+// (K3: the GELU of the fp32 sum); EPI_RESIDUAL res + (acc + b) · ls;
+// EPI_GELU_SAVE (B17 train_ln_mlp): h = round(acc + b) goes to ep.aux, and
+// out gets round(gelu_fast(h)) computed from that rounded h, the GELU of the
+// stored value.
 // ---------------------------------------------------------------------------
 
-// EPI_GELU_SAVE (B17 train_ln_mlp): h = round(acc + bias) goes to ep.aux,
-// and out gets round(gelu_fast(h)) computed from that rounded h — the GELU
-// of the stored value, where EPI_GELU (K3) takes it of the fp32 sum.
 enum Epilogue { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_GELU_SAVE = 3 };
-
-constexpr int GEMM_BM = 128, GEMM_BN = 128, GEMM_BK = 64, GEMM_STAGES = 3, GEMM_THREADS = 128;
-constexpr int GEMM_SMEM = GEMM_STAGES * (GEMM_BM + GEMM_BN) * GEMM_BK * 2;
 
 struct EpilogueArgs {
   const bf16* bias;      // [N]
@@ -238,141 +234,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Element offset of 16-byte chunk `chunk` (0..7) of row `row` in a tile whose
-// rows are GEMM_BK = 64 bf16 (128 bytes) long.
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * GEMM_BK + ((chunk ^ (row & 7)) << 3);
-}
-
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_bf16_kernel(
-    const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* __restrict__ out,
-    int M, int N, int K, EpilogueArgs ep) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Bs = As + GEMM_STAGES * GEMM_BM * GEMM_BK;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
-  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps, 64 x 64 each
-  const int KT = K / GEMM_BK;
-
-  auto load_stage = [&](int slot, int k0) {
-    bf16* as = As + slot * GEMM_BM * GEMM_BK;
-    bf16* bs = Bs + slot * GEMM_BN * GEMM_BK;
-#pragma unroll
-    for (int i = 0; i < GEMM_BM * 8 / GEMM_THREADS; ++i) {  // A: 8 chunks a row
-      const int c = tid + i * GEMM_THREADS, r = c >> 3, ch = c & 7, gr = m0 + r;
-      cp_async16(as + swz(r, ch), A + (size_t)(gr < M ? gr : 0) * K + k0 + ch * 8, gr < M);
-    }
-#pragma unroll
-    for (int i = 0; i < GEMM_BN * 8 / GEMM_THREADS; ++i) {  // W: 8 chunks a row
-      const int c = tid + i * GEMM_THREADS, r = c >> 3, ch = c & 7, gn = n0 + r;
-      cp_async16(bs + swz(r, ch), W + (size_t)(gn < N ? gn : 0) * K + k0 + ch * 8, gn < N);
-    }
-  };
-
-  float acc[4][8][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < GEMM_STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s * GEMM_BK);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<GEMM_STAGES - 2>();
-    __syncthreads();
-    const int next = kt + GEMM_STAGES - 1;
-    if (next < KT) load_stage(next % GEMM_STAGES, next * GEMM_BK);
-    cp_async_commit();
-
-    const bf16* as = As + (kt % GEMM_STAGES) * GEMM_BM * GEMM_BK;
-    const bf16* bs = Bs + (kt % GEMM_STAGES) * GEMM_BN * GEMM_BK;
-#pragma unroll
-    for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
-      uint32_t af[4][4], bfr[8][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], as + swz(wm * 64 + i * 16 + (lane & 15), kk * 2 + (lane >> 4)));
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t r[4];
-        const int nrow = wn * 64 + jj * 16 + (lane & 7) + ((lane >> 4) << 3);
-        ldmatrix_x4(r, bs + swz(nrow, kk * 2 + ((lane >> 3) & 1)));
-        bfr[2 * jj][0] = r[0];
-        bfr[2 * jj][1] = r[1];
-        bfr[2 * jj + 1][0] = r[2];
-        bfr[2 * jj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = n0 + wn * 64 + j * 8 + 2 * t4;
-    if (c >= N) continue;
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ep.bias + c));
-    float2 l = make_float2(1.f, 1.f);
-    if (EPI == EPI_RESIDUAL && ep.ls != nullptr)
-      l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ep.ls + c));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm * 64 + i * 16 + g + half * 8;
-        if (r >= M) continue;
-        float v0 = acc[i][j][2 * half] + b.x, v1 = acc[i][j][2 * half + 1] + b.y;
-        if (EPI == EPI_GELU) {
-          v0 = gelu_fast(v0);
-          v1 = gelu_fast(v1);
-        } else if (EPI == EPI_GELU_SAVE) {
-          const uint32_t hb = pack_bf16x2(v0, v1);
-          *reinterpret_cast<uint32_t*>(ep.aux + (size_t)r * N + c) = hb;
-          const float2 hr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hb));
-          v0 = gelu_fast(hr.x);
-          v1 = gelu_fast(hr.y);
-        } else if (EPI == EPI_RESIDUAL) {
-          if (ep.ls != nullptr) {
-            v0 *= l.x;
-            v1 *= l.y;
-          }
-          if (ep.res != nullptr) {
-            const float2 x = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(ep.res + (size_t)r * N + c));
-            v0 = x.x + v0;
-            v1 = x.y + v1;
-          }
-        }
-        *reinterpret_cast<uint32_t*>(out + (size_t)r * N + c) = pack_bf16x2(v0, v1);
-      }
-    }
-  }
-}
-
-template <int EPI>
-inline cudaError_t launch_gemm(const bf16* A, const bf16* W, bf16* out, int M, int N, int K,
-                               EpilogueArgs ep, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-  gemm_bf16_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, st>>>(A, W, out, M, N, K, ep);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // Attention: one block of 4 warps per (64-query tile, head, image), head_dim 64.
@@ -409,7 +270,7 @@ __device__ __forceinline__ uint32_t q_pair(const bf16* row, int d, float scale) 
 template <int MAXT, typename OutT>
 __global__ void __launch_bounds__(128) attention_kernel(
     const bf16* __restrict__ qkv, const int* __restrict__ idx, OutT* __restrict__ out,
-    int n_src, int n, int C, float scale) {
+    float* __restrict__ amax, int n_src, int n, int C, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int npad = attn_npad(n), nt = npad / 16, ldv = npad + 8;
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [npad][ATTN_LDH]
@@ -534,34 +395,55 @@ __global__ void __launch_bounds__(128) attention_kernel(
     if (ra < n) store_pair(oa + dt * 8, o[dt][0], o[dt][1]);
     if (rb < n) store_pair(ob + dt * 8, o[dt][2], o[dt][3]);
   }
+  if (amax != nullptr) {  // the int8 tails: |stored value|'s maximum over the head's columns
+    float ma = 0.f, mb = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      ma = fmaxf(ma, fmaxf(fabsf(stored<OutT>(o[dt][0])), fabsf(stored<OutT>(o[dt][1]))));
+      mb = fmaxf(mb, fmaxf(fabsf(stored<OutT>(o[dt][2])), fabsf(stored<OutT>(o[dt][3]))));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {  // over the four lanes of each row
+      ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
+      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
+    }
+    if (t4 == 0 && ra < n) row_absmax(amax, (size_t)b * n + ra, ma);
+    if (t4 == 0 && rb < n) row_absmax(amax, (size_t)b * n + rb, mb);
+  }
 }
 
 template <int MAXT, typename OutT>
-inline cudaError_t launch_attention_t(const bf16* qkv, const int* idx, OutT* out, int B,
-                                      int n_src, int n, int C, int H, float scale,
+inline cudaError_t launch_attention_t(const bf16* qkv, const int* idx, OutT* out, float* amax,
+                                      int B, int n_src, int n, int C, int H, float scale,
                                       cudaStream_t st) {
   const int smem = attn_smem(n);
   cudaError_t e = cudaFuncSetAttribute(attention_kernel<MAXT, OutT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((n + ATTN_QT - 1) / ATTN_QT, H, B);
-  attention_kernel<MAXT, OutT><<<grid, 128, smem, st>>>(qkv, idx, out, n_src, n, C, scale);
+  attention_kernel<MAXT, OutT><<<grid, 128, smem, st>>>(qkv, idx, out, amax, n_src, n, C,
+                                                         scale);
   return cudaGetLastError();
 }
 
+// amax: null, or the int8 tails' [B·n] row absmax (row_absmax), zeroed.
 template <typename OutT>
-inline cudaError_t launch_attention(const bf16* qkv, const int* idx, OutT* out, int B, int n_src,
-                                    int n, int C, int H, float scale, cudaStream_t st) {
+inline cudaError_t launch_attention(const bf16* qkv, const int* idx, OutT* out, float* amax,
+                                    int B, int n_src, int n, int C, int H, float scale,
+                                    cudaStream_t st) {
   const int tiles = attn_npad(n) / 16;
-  if (tiles <= 8) return launch_attention_t<8>(qkv, idx, out, B, n_src, n, C, H, scale, st);
-  if (tiles <= 13) return launch_attention_t<13>(qkv, idx, out, B, n_src, n, C, H, scale, st);
-  if (tiles <= 16) return launch_attention_t<16>(qkv, idx, out, B, n_src, n, C, H, scale, st);
+  if (tiles <= 8) return launch_attention_t<8>(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
+  if (tiles <= 13)
+    return launch_attention_t<13>(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
+  if (tiles <= 16)
+    return launch_attention_t<16>(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
   return cudaErrorInvalidValue;  // n > ATTN_MAX_N: the wrapper refuses it first
 }
 
 // ---------------------------------------------------------------------------
 // Long-sequence attention: B6 fused_sdpa's formula, also the attention of K2,
-// B5, K1/B20 and the int8 tails past ATTN_MAX_N tokens. The body is the
+// B5 and K1/B20 past ATTN_MAX_N tokens and of the int8 tails from
+// INT8_TAIL_SDPA_MIN_N tokens (int8.cuh). The body is the
 // wgmma kernel of sdpa.cu (its header has the design), compiled once there
 // and reached from the other translation units through rajni_sdpa_body.
 // ---------------------------------------------------------------------------
@@ -569,10 +451,10 @@ inline cudaError_t launch_attention(const bf16* qkv, const int* idx, OutT* out, 
 constexpr int SDPA_MAX_N = 848;
 
 template <typename OutT>
-inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, OutT* out, int B, int n_src,
-                               int n, int C, int H, float scale, cudaStream_t st) {
-  return static_cast<cudaError_t>(rajni_sdpa_body(qkv, idx, out, sizeof(OutT) == 4, B, n_src, n,
-                                                  C, H, scale, st));
+inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, OutT* out, float* amax, int B,
+                               int n_src, int n, int C, int H, float scale, cudaStream_t st) {
+  return static_cast<cudaError_t>(rajni_sdpa_body(qkv, idx, out, amax, sizeof(OutT) == 4, B,
+                                                  n_src, n, C, H, scale, st));
 }
 
 // The attention of K2 and B5: the register-resident kernel up to ATTN_MAX_N
@@ -582,8 +464,9 @@ template <typename OutT>
 inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* out, int B,
                                         int n_src, int n, int C, int H, float scale,
                                         cudaStream_t st) {
-  if (n <= ATTN_MAX_N) return launch_attention(qkv, idx, out, B, n_src, n, C, H, scale, st);
-  return launch_sdpa(qkv, idx, out, B, n_src, n, C, H, scale, st);
+  if (n <= ATTN_MAX_N)
+    return launch_attention(qkv, idx, out, nullptr, B, n_src, n, C, H, scale, st);
+  return launch_sdpa(qkv, idx, out, nullptr, B, n_src, n, C, H, scale, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -12,20 +12,24 @@
 // Bound on the H100: operations (the attention's 4·B·K²·C bf16 FLOP and the
 // int8 proj product, 2·B·K·C²).
 //
-// Design: three launches on the caller's stream, steps 5-7 of the int8 block
-// body (csrc/int8.cuh) with the kept indices, as B14 runs them after its
-// selection: the TPU kernel gathers with a one-hot [K, N] product, which is
-// a gather, so the attention reads q/k/v rows idx[b, t] of qkv (register-
-// resident up to ATTN_MAX_N kept tokens, two-pass past that) into fp32, the
-// row quantizer, and proj with the residual read through the same indices.
+// Design: steps 5-7 of the int8 block body (csrc/int8.cuh) with the kept
+// indices, as B14 runs them after its selection: the TPU kernel gathers with
+// a one-hot [K, N] product, which is a gather, so the attention reads q/k/v
+// rows idx[b, t] of qkv (int8.cuh:launch_tail_attention) into fp32 and
+// (dynamic) each row's absmax, which a memset zeroes first, and proj
+// quantizes that output as it loads it, with the residual read through the
+// same indices (int8.cuh:int8_attn_tail): two launches static, three
+// dynamic. two_launch: the old tail (attention, row quantizer, int8 proj).
 #include "int8.cuh"
 
 using namespace rajni;
 
 extern "C" int rajni_gather_sdpa_proj_residual_int8(
     const void* qkv, const void* idx, const void* x, const void* wproj, const void* sproj,
-    const void* bproj, const void* ls1, int static_act, void* attn, void* q8, void* qs,
-    void* out, int B, int N, int K, int C, int H, float scale, void* stream) {
+    const void* bproj, const void* ls1, int static_act, int two_launch, void* attn, void* amax,
+    void* q8, void* qs, void* out, int B, int N, int K, int C, int H, float scale,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Int8Block p{};
   p.x = static_cast<const bf16*>(x);
   p.wproj = static_cast<const int8_t*>(wproj);
@@ -33,6 +37,8 @@ extern "C" int rajni_gather_sdpa_proj_residual_int8(
   p.bproj = static_cast<const float*>(bproj);
   p.ls1 = static_cast<const bf16*>(ls1);
   p.static_act = static_act;
+  p.two_launch = two_launch;
+  p.amax = static_cast<float*>(amax);
   p.q8 = static_cast<int8_t*>(q8);
   p.qs = static_cast<float*>(qs);
   // the attention only reads qkv; Int8Block holds the pointer B12 writes
@@ -42,6 +48,10 @@ extern "C" int rajni_gather_sdpa_proj_residual_int8(
   p.C = C;
   p.H = H;
   p.scale = scale;
+  if (tail_amax(p) != nullptr) {  // no LN1 here to zero it
+    const cudaError_t e = cudaMemsetAsync(p.amax, 0, (size_t)B * K * sizeof(float), st);
+    if (e != cudaSuccess) return fail(e, 5);
+  }
   return int8_attn_tail(p, static_cast<const int*>(idx), K, static_cast<float*>(attn),
-                        static_cast<bf16*>(out), static_cast<cudaStream_t>(stream));
+                        static_cast<bf16*>(out), st);
 }

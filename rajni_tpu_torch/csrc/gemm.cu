@@ -3,10 +3,11 @@
 // plain versions (kernels/gemm.py) and timed beside the library's GEMM at
 // each product's shapes. No path calls them; the entry points call
 // launch_gemm_sm90 and launch_gemm_s8 from their own sources.
-//   * rajni_gemm_sm90, bf16 (K1, K2, K3, B4, B5): out[M, N] = epilogue(A[M,
-//     K] · W[N, K]ᵀ), epi one of EPI_BIAS, EPI_GELU, EPI_RESIDUAL (ls and res
-//     optional; with res_idx, output row r adds residual row (r / rows_out) ·
-//     rows_in + res_idx[r], the gathered residual of K1 and B5).
+//   * rajni_gemm_sm90, bf16 (K1, K2, K3, B4, B5, B17): out[M, N] =
+//     epilogue(A[M, K] · W[N, K]ᵀ), epi one of EPI_BIAS, EPI_GELU,
+//     EPI_RESIDUAL (ls and res optional; with res_idx, output row r adds
+//     residual row (r / rows_out) · rows_in + res_idx[r], the gathered
+//     residual of K1 and B5), EPI_GELU_SAVE (aux [M, N]: the rounded h).
 //   * rajni_gemm_s8, int8 (B9-B15): epi one of I8_BIAS (bf16 out), I8_GELU
 //     (fp32 out), I8_RESIDUAL (bf16 out; grouped over group_k < K with the
 //     row scales a [M, K / group_k]; res_idx as above).
@@ -15,25 +16,31 @@
 //     B9, B14 and B15 run (int8.cuh:launch_gelu_quant) or, with two_launch,
 //     by I8_GELU to fp32 h and quant_rows, its yardstick and bitwise
 //     reference; scratch: fp32 h [M, N], then the absmax [M, N / hc].
+//   * rajni_gemm_s8q: the int8 tails' proj (B10, B11, B13-B15), out[M, N] =
+//     I8_RESIDUAL(quant(A) · Wᵀ) with A [M, K] bf16 (a_fp32 = 0) or fp32
+//     quantized per row as it is loaded, by amax [M] (each row's absmax) or,
+//     with amax null, static (int8.cuh:launch_gemm_s8q).
 #include "int8.cuh"
 
 using namespace rajni;
 
 extern "C" int rajni_gemm_sm90(const void* a, const void* w, void* out, int M, int N, int K,
                                int epi, const void* bias, const void* ls, const void* res,
-                               const void* res_idx, int rows_out, int rows_in, void* stream) {
+                               const void* res_idx, int rows_out, int rows_in, void* aux,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* W = static_cast<const bf16*>(w);
   bf16* O = static_cast<bf16*>(out);
   const EpilogueArgs ep{static_cast<const bf16*>(bias), static_cast<const bf16*>(ls),
                         static_cast<const bf16*>(res), static_cast<const int*>(res_idx),
-                        rows_out, rows_in, nullptr};
-  cudaError_t e = cudaErrorNotSupported;  // EPI_GELU_SAVE and anything else
+                        rows_out, rows_in, static_cast<bf16*>(aux)};
+  cudaError_t e = cudaErrorNotSupported;
   switch (epi) {
     case EPI_BIAS: e = launch_gemm_sm90<EPI_BIAS>(A, W, O, M, N, K, ep, st); break;
     case EPI_GELU: e = launch_gemm_sm90<EPI_GELU>(A, W, O, M, N, K, ep, st); break;
     case EPI_RESIDUAL: e = launch_gemm_sm90<EPI_RESIDUAL>(A, W, O, M, N, K, ep, st); break;
+    case EPI_GELU_SAVE: e = launch_gemm_sm90<EPI_GELU_SAVE>(A, W, O, M, N, K, ep, st); break;
     default: break;
   }
   return e == cudaSuccess ? 0 : fail(e, 1);
@@ -58,6 +65,23 @@ extern "C" int rajni_gemm_s8(const void* a, const void* w, void* out, int M, int
     case I8_RESIDUAL: e = launch_gemm_s8<I8_RESIDUAL>(A, W, out, M, N, K, ep, st); break;
     default: break;
   }
+  return e == cudaSuccess ? 0 : fail(e, 1);
+}
+
+extern "C" int rajni_gemm_s8q(const void* a, int a_fp32, const void* amax, const void* w,
+                              void* out, int M, int N, int K, const void* w_scale,
+                              const void* bias, const void* ls, const void* res,
+                              const void* res_idx, int rows_out, int rows_in, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* W = static_cast<const int8_t*>(w);
+  bf16* O = static_cast<bf16*>(out);
+  I8EpilogueArgs ep{nullptr, static_cast<const float*>(w_scale), static_cast<const float*>(bias),
+                    static_cast<const bf16*>(ls), static_cast<const bf16*>(res),
+                    static_cast<const int*>(res_idx), rows_out, rows_in, K};
+  ep.amax_in = static_cast<const float*>(amax);
+  const cudaError_t e =
+      a_fp32 ? launch_gemm_s8q(static_cast<const float*>(a), W, O, M, N, K, ep, st)
+             : launch_gemm_s8q(static_cast<const bf16*>(a), W, O, M, N, K, ep, st);
   return e == cudaSuccess ? 0 : fail(e, 1);
 }
 

@@ -10,27 +10,30 @@
 //   * bf16 (Bf16Epi below, launch_gemm_sm90): the products of K1
 //     fused_pruned_attn_block (QKV and proj, csrc/pruned_attn_block.cu), K2
 //     fused_attn_block (csrc/attn_block.cu), K3 fused_ln_mlp_residual (fc1
-//     and fc2, csrc/mlp.cu), B4 fused_ln_qkv (csrc/ln_qkv.cu) and B5
-//     fused_gather_sdpa_proj_residual (proj, csrc/gather_attn.cu), and so of
-//     B7, B8, B16, B19 and B20. The epilogues are common.cuh's (EpilogueArgs,
-//     Epilogue): EPI_BIAS, EPI_GELU and EPI_RESIDUAL, the residual row either
-//     row r of res or, with res_idx (K1, B5: the pre-norm x of the kept
-//     tokens), row (r / rows_out) · rows_in + res_idx[r], as gemm_bf16_kernel
-//     reads it. EPI_GELU_SAVE (B17, still on common.cuh:gemm_bf16_kernel)
-//     returns cudaErrorNotSupported. Numerics: fp32 accumulation, the
-//     epilogue in fp32 from the fp32 sum and one rounding to bf16, as
-//     gemm_bf16_kernel (only the summation order differs).
+//     and fc2, csrc/mlp.cu), B4 fused_ln_qkv (csrc/ln_qkv.cu), B5
+//     fused_gather_sdpa_proj_residual (proj, csrc/gather_attn.cu) and B17
+//     train_ln_mlp (fc1 and fc2, csrc/train_mlp.cu), and so of B7, B8, B16,
+//     B19 and B20. The epilogues are common.cuh's (EpilogueArgs, Epilogue):
+//     EPI_BIAS, EPI_GELU, EPI_RESIDUAL, the residual row either row r of res
+//     or, with res_idx (K1, B5: the pre-norm x of the kept tokens), row (r /
+//     rows_out) · rows_in + res_idx[r]; and EPI_GELU_SAVE (B17), which stores
+//     two outputs a chunk, the rounded h to ep.aux and its GELU to out.
+//     Numerics: fp32 accumulation, the epilogue in fp32 from the fp32 sum and
+//     one rounding to bf16.
 //   * int8 (int8.cuh: S8Epi, launch_gemm_s8): every product of the int8
 //     kernels B9-B15, s8 x s8 -> s32 (m64nNk32), exact, with int8.cuh's
 //     dequantizing epilogues, fc2's grouped fp32 flush and fc1's GELU
-//     quantized in the epilogue.
+//     quantized in the epilogue; and the int8 tails' proj
+//     (launch_gemm_s8q), whose A operand is the attention output in bf16 or
+//     fp32, quantized per row as it is loaded.
 //
 // Replaces, inside those entry points, the products of the TPU kernels
 // rajni_tpu/kernels/block.py:fused_pruned_attn_block (pallas_call at 1553),
 // fused_attn_block (573), fused_ln_qkv (677), fused_gather_sdpa_proj_residual
 // (1017, 1056), the int8 kernels there (1304, 1408, 1167, 1865, 2472, 2616)
-// and rajni_tpu/kernels/mlp.py:fused_ln_mlp_residual (172) and
-// fused_ln_mlp_residual_int8 (413, 453).
+// rajni_tpu/kernels/mlp.py:fused_ln_mlp_residual (172) and
+// fused_ln_mlp_residual_int8 (413, 453), and
+// rajni_tpu/kernels/train.py:train_ln_mlp (388).
 //
 // Bound on the H100: operations (the bf16 rate, or the int8 rate of twice
 // it). At batch 256 and 197 tokens (M = 50432) the
@@ -93,6 +96,22 @@
 //     would spill the live accumulators. Its products and sums are explicit
 //     intrinsics, so that every instantiation rounds the same way (int8.cuh
 //     holds two of them to each other bit for bit).
+//   * EPI_GELU_SAVE (B17) stores each 128-byte chunk twice: the rounded h
+//     through the chunk buffer to ep.aux (the tensor map in the residual's
+//     slot, which B17 does not use), then its GELU through the other buffer
+//     to out, so a chunk is two turns of the same alternating buffers.
+//   * A quantized on load (QUANT_A, the int8 tails' proj): the producer
+//     loads the raw A tile (bf16 or fp32, two or four 128-byte boxes a
+//     stage) beside W, and each consumer thread reads its own A fragments
+//     from it (wgmma's register layout for 8-bit A, as mma.m16n8k32's),
+//     multiplies by its row's 127 / absmax, rounds, clips and packs them,
+//     and issues the s8 products with A from registers (the RS form), one
+//     k32 step a commit group, retired before the next step's fragment is
+//     made (four registers: the consumers' 168 hold the BN = 256
+//     accumulators with little to spare); each stage is freed as soon as
+//     its last step retires, so the ring of two or three stages double-
+//     buffers the loads. The row scale for the dequant is read again after
+//     the mainloop, not held through it.
 //   What limits it: the epilogue is not overlapped with the tensor cores of
 //   its own SM (both consumers finish a tile together); it costs most where a
 //   tile's products are short (K = C: QKV, proj, fc1) and in fc1, whose GELU
@@ -117,11 +136,15 @@ constexpr int G9_THREADS = 384;
 constexpr int G9_RING = 192 * 1024;  // bytes of the stage ring
 constexpr int G9_OUT = 64 * 128;     // an output chunk: 64 rows of 128 bytes, 8 KB
 
-template <int BN>
+// ASZ: 128-byte boxes of A a stage (1; 2 or 4 for an A of bf16 or fp32
+// quantized on load to int8)
+template <int BN, int ASZ = 1>
 struct G9Tile {
-  static constexpr int A_BYTES = G9_BM * G9_BKB;  // 16 KB
+  static constexpr int A_BYTES = G9_BM * G9_BKB * ASZ;  // 16 KB a box
   static constexpr int STAGE = A_BYTES + BN * G9_BKB;
-  static constexpr int STAGES = G9_RING / STAGE;  // 4 at BN = 256, 6 at 128
+  // 4 at BN = 256, 6 at 128; A quantized on load 3 (bf16) or 2 (fp32)
+  static constexpr int STAGES = G9_RING / STAGE;
+  static_assert(STAGES >= 2, "the ring needs two stages");
   // the ring, two output chunk buffers a consumer, the mbarriers (full and
   // empty a stage, one a chunk buffer), a tile's gathered residual rows (64
   // a consumer)
@@ -211,6 +234,27 @@ __device__ __forceinline__ void wgmma_step(int (&d)[128], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// The same with A from registers (the RS form): a holds this thread's
+// fragment of the 64 x 32 int8 A (mma.m16n8k32's layout per warp).
+__device__ __forceinline__ void wgmma_step_rs(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " RJ_D64
+      ", {%64, %65, %66, %67}, %68, p;\n}\n"
+      : RJ_S32(d, 0), RJ_S32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_step_rs(int (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " RJ_D128
+      ", {%128, %129, %130, %131}, %132, p;\n}\n"
+      : RJ_S32(d, 0), RJ_S32(d, 32), RJ_S32(d, 64), RJ_S32(d, 96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 #undef RJ_F32
 #undef RJ_S32
 #undef RJ_D64
@@ -232,6 +276,46 @@ __device__ __forceinline__ float gelu_fast_epi(float x) {
   p = __fmaf_rn(t2, p, p0);
   const float logit = __fmul_rn(t, p);
   return __fmul_rn(x, row_recip(__fadd_rn(1.0f, ex2(__fmul_rn(-LOG2E, logit)))));
+}
+
+// kernels/math.py:gelu_fast as PyTorch evaluates it on the card, for B17's
+// GELU of the rounded h (EPI_GELU_SAVE): each operation rounded once, in the
+// Python expression's order (p3 + t2·p4 first, then t · p), the coefficients
+// the Python floats rounded to fp32 as PyTorch rounds a scalar operand, and
+// torch.sigmoid's 1 / (1 + expf(-logit)). Every input of this epilogue is a
+// bf16 value, so chip_smoke holds it to PyTorch's gelu_fast of the stored h
+// bit for bit. 1 + e lies in [1, 1 + e^33) (|logit| <= 32.4 at the clamp),
+// far from the reciprocal's special cases.
+__device__ __forceinline__ float gelu_fast_torch(float x) {
+  const float p0 = (float)1.595741357441813, p1 = (float)0.07277895825923464,
+              p2 = (float)-1.7197148127561505e-4, p3 = (float)-7.415772250437636e-5,
+              p4 = (float)2.8973745195906267e-6;
+  const float t = fminf(fmaxf(x, -6.0f), 6.0f);
+  const float t2 = __fmul_rn(t, t);
+  float p = __fadd_rn(__fmul_rn(t2, p4), p3);
+  p = __fadd_rn(__fmul_rn(t2, p), p2);
+  p = __fadd_rn(__fmul_rn(t2, p), p1);
+  p = __fadd_rn(__fmul_rn(t2, p), p0);
+  const float logit = __fmul_rn(t, p);
+  return __fmul_rn(x, __frcp_rn(__fadd_rn(1.0f, expf(-logit))));
+}
+
+// Four raw A values (bf16 or fp32) at row r (0..127) and k .. k + 3 of a
+// stage's raw A tile: 128-byte boxes of 128 rows, box j holding k
+// [j·E, (j + 1)·E), E = 128 / sizeof(T), in the 128-byte swizzle.
+template <typename T>
+__device__ __forceinline__ float4 raw4(const uint8_t* tile, int r, int k) {
+  constexpr int E = G9_BKB / (int)sizeof(T);
+  const int byte = (k % E) * (int)sizeof(T);
+  const uint8_t* p = tile + (k / E) * (G9_BM * G9_BKB) + sw128(r, byte >> 4) + (byte & 15);
+  if constexpr (std::is_same_v<T, float>) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
 }
 
 // Arrive on `bar` once this thread's cp.async copies so far have landed (the
@@ -259,6 +343,34 @@ __device__ __forceinline__ float2 ld_pair(const float* p, int c, int n) {
 // that FRND and F2I would take.
 __device__ __forceinline__ uint32_t quant1_bits(float v) {
   return __float_as_uint(__fadd_rn(fminf(fmaxf(v, -127.f), 127.f), 12582912.f));
+}
+
+// Four values times mul, each rounded half to even and clipped (quant1),
+// packed as int8 in k order (lowest k in the lowest byte).
+__device__ __forceinline__ uint32_t quant4(float4 v, float mul) {
+  const uint32_t a = quant1_bits(__fmul_rn(v.x, mul)), b = quant1_bits(__fmul_rn(v.y, mul)),
+                 c = quant1_bits(__fmul_rn(v.z, mul)), d = quant1_bits(__fmul_rn(v.w, mul));
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// Pin an A fragment that a wgmma read asynchronously: a use after the wait
+// that retired it, so that its registers are not reused before.
+__device__ __forceinline__ void keep_frag(const uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(a[i]) : "memory");
+}
+
+// One k32 step's A fragment of a consumer thread, quantized from the stage's
+// raw A tile: register 0 row r, k .. k + 3; 1 row r + 8; 2 and 3 the same at
+// k + 16 (r = the thread's first row in the tile, k = 32·step + 4·(lane %
+// 4)); rows r and r + 8 take mul0 and mul1.
+template <typename T>
+__device__ __forceinline__ void quant_frag(uint32_t (&a)[4], const uint8_t* tile, int r, int k,
+                                           float mul0, float mul1) {
+  a[0] = quant4(raw4<T>(tile, r, k), mul0);
+  a[1] = quant4(raw4<T>(tile, r + 8, k), mul1);
+  a[2] = quant4(raw4<T>(tile, r, k + 16), mul0);
+  a[3] = quant4(raw4<T>(tile, r + 8, k + 16), mul1);
 }
 
 // Two adjacent outputs into an output chunk at o: bf16 (rounded), fp32, or
@@ -298,13 +410,17 @@ constexpr CUtensorMapDataType tile_map_type() {
 // The kernel's epilogue policy. Every Epi has
 //   In, Acc    the operand type and its accumulator (bf16 and float, or
 //              int8_t and int): a stage is 128 bytes of k of either;
+//   ARaw, QUANT_A  A's type in device memory: In, or (QUANT_A, int8 only)
+//              bf16 or fp32 quantized on load with each row's Rows::mul;
 //   Out        what a chunk holds, 128 bytes of a row (64 bf16, 32 fp32 or
 //              128 int8 columns);
 //   BN         the column tile; RESIDUAL (the bf16 residual is read into
 //              the chunk buffer and added in place), GROUPED (int8 fc2: the
-//              int32 sums are flushed to fp32 every group_k of k) and
+//              int32 sums are flushed to fp32 every group_k of k),
 //              ROW_MAX (each row's |output| maximum over the tile goes to
-//              row_max: int8.cuh's GELU absmax);
+//              row_max: int8.cuh's GELU absmax) and SAVE (EPI_GELU_SAVE:
+//              apply's value rounded to the aux map, then second(value) to
+//              out);
 //   Args       its arguments, with the residual's res, res_idx, rows_out,
 //              rows_in and group_k;
 //   Rows rows(ep, r, M, N, n0, t4)   per-row values of the tile at n0;
@@ -318,9 +434,11 @@ struct Bf16Epi {
   using In = bf16;
   using Acc = float;
   using Out = bf16;
+  using ARaw = bf16;
   using Args = EpilogueArgs;
   static constexpr int BN = BN_;
-  static constexpr bool RESIDUAL = EPI == EPI_RESIDUAL, GROUPED = false, ROW_MAX = false;
+  static constexpr bool RESIDUAL = EPI == EPI_RESIDUAL, GROUPED = false, ROW_MAX = false,
+                        QUANT_A = false, SAVE = EPI == EPI_GELU_SAVE;
   struct Rows {};
   struct Cols {
     float2 b, l;
@@ -344,6 +462,11 @@ struct Bf16Epi {
     return v;
   }
   __device__ static float2 add_res(float2 x, float2 v) { return make_float2(x.x + v.x, x.y + v.y); }
+  // EPI_GELU_SAVE's second output: the GELU of h = apply's value rounded
+  __device__ static float2 second(float2 h) {
+    return make_float2(gelu_fast_torch(__bfloat162float(__float2bfloat16_rn(h.x))),
+                       gelu_fast_torch(__bfloat162float(__float2bfloat16_rn(h.y))));
+  }
 };
 
 template <class Epi>
@@ -354,12 +477,15 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
                      const __grid_constant__ CUtensorMap rmap, int M, int N, int K,
                      const typename Epi::Args ep) {
   constexpr int BN = Epi::BN;
-  using T = G9Tile<BN>;
+  using ARaw = typename Epi::ARaw;
+  constexpr int ASZ = (int)(sizeof(ARaw) / sizeof(typename Epi::In));  // A's boxes a stage
+  using T = G9Tile<BN, ASZ>;
   using Acc = typename Epi::Acc;
   using Out = typename Epi::Out;
   constexpr int KB = G9_BKB / (int)sizeof(typename Epi::In);  // k elements of a stage
   constexpr int CB = 16 / (int)sizeof(Out);  // 8-column blocks of an output chunk
   constexpr int CHUNKS = BN / (8 * CB);
+  constexpr int PARTS = Epi::SAVE ? 2 : 1;  // outputs a chunk: EPI_GELU_SAVE's h and GELU
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_aligned(smem_raw);
   uint8_t* outbuf = sm + T::STAGES * T::STAGE;  // consumer c's chunk buffers: 2c, 2c + 1
@@ -395,7 +521,10 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
           if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
           uint8_t* stage = sm + s * T::STAGE;
           mbar_expect_tx(&full[s], T::STAGE);
-          tma_load_tile(stage, &amap, &full[s], kt * KB, m0, 0);
+#pragma unroll
+          for (int j = 0; j < ASZ; ++j)  // A's boxes: k [kt·KB, (kt + 1)·KB) of ARaw
+            tma_load_tile(stage + j * G9_BM * G9_BKB, &amap, &full[s],
+                          (kt * ASZ + j) * (G9_BKB / (int)sizeof(ARaw)), m0, 0);
           tma_load_tile(stage + T::A_BYTES, &wmap, &full[s], kt * KB, n0, 0);
           if (++s == T::STAGES) {
             s = 0;
@@ -446,8 +575,8 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
     const int m0 = t / tiles_n * G9_BM, n0 = t % tiles_n * BN;
     const int rb = m0 + cw * 64 + r0;  // this thread's rows rb, rb + 8
     // per-row values first, while no accumulator is live
-    const typename Epi::Rows rw[2] = {Epi::rows(ep, rb, M, N, n0, t4),
-                                      Epi::rows(ep, rb + 8, M, N, n0, t4)};
+    typename Epi::Rows rw[2] = {Epi::rows(ep, rb, M, N, n0, t4),
+                                Epi::rows(ep, rb + 8, M, N, n0, t4)};
     float ga[2] = {1.f, 1.f};  // a grouped product: its group's row scales
     int prev = 0;  // the stage of the k-step before
 #pragma unroll
@@ -459,13 +588,36 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
     for (int kt = 0; kt < KT; ++kt) {
       mbar_wait(&full[s], round & 1);
       const uint8_t* stage = sm + s * T::STAGE;
-      const uint64_t da = desc_k(stage + cw * 64 * 128), db = desc_k(stage + T::A_BYTES);
+      const uint64_t db = desc_k(stage + T::A_BYTES);
       const int kg = Epi::GROUPED ? kt % GS : kt;  // 0: a group's sums start anew
-      keep_acc(acc);
-      wg_fence();
+      if constexpr (Epi::QUANT_A) {
+        // k32 step by step, the products from registers: one 4-register
+        // fragment, retired before the next is made (the other consumer's
+        // products run meanwhile); the stage is free once its last step
+        // has retired. Making step kk + 1's fragment under step kk's
+        // products (8 fragment registers) spilled 28-36 bytes at BN = 256
+        // and read no faster (chip_smoke's tail phase, H100).
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_step(acc, da + 2 * kk, db + 2 * kk, kg | kk);
-      wg_commit();
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t f[4];
+          quant_frag<ARaw>(f, stage, cw * 64 + r0, 32 * kk + 4 * t4, rw[0].mul, rw[1].mul);
+          keep_acc(acc);
+          wg_fence();
+          wgmma_step_rs(acc, f, db + 2 * kk, kg | kk);
+          wg_commit();
+          wg_wait0();
+          keep_acc(acc);
+          keep_frag(f);
+        }
+        if (leader) mbar_arrive(&empty[s]);
+      } else {
+        const uint64_t da = desc_k(stage + cw * 64 * 128);
+        keep_acc(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_step(acc, da + 2 * kk, db + 2 * kk, kg | kk);
+        wg_commit();
+      }
       if constexpr (Epi::GROUPED) {
         if (kg == 0) {  // the group's row scales, read under its products
           const int groups = K / ep.group_k, grp = kt / GS;
@@ -493,17 +645,19 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
           if (CHUNKS > 1) load_res(1, m0, n0);
         }
       }
-      if (Epi::GROUPED && kg == GS - 1) {
-        // the group's last products: flush its exact sums to fp32
-        wg_wait0();
-        keep_acc(acc);
-        if constexpr (Epi::GROUPED) Epi::flush(ep, accf, acc, ga);
-      } else {
-        wg_wait1();  // the k-step before has retired: its stage is free
-        keep_acc(acc);
+      if constexpr (!Epi::QUANT_A) {
+        if (Epi::GROUPED && kg == GS - 1) {
+          // the group's last products: flush its exact sums to fp32
+          wg_wait0();
+          keep_acc(acc);
+          if constexpr (Epi::GROUPED) Epi::flush(ep, accf, acc, ga);
+        } else {
+          wg_wait1();  // the k-step before has retired: its stage is free
+          keep_acc(acc);
+        }
+        if (kt > 0 && leader) mbar_arrive(&empty[prev]);
+        prev = s;
       }
-      if (kt > 0 && leader) mbar_arrive(&empty[prev]);
-      prev = s;
       if (++s == T::STAGES) {
         s = 0;
         ++round;
@@ -511,18 +665,25 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
     }
     wg_wait0();
     keep_acc(acc);
-    if (leader) mbar_arrive(&empty[prev]);
+    if (!Epi::QUANT_A && leader) mbar_arrive(&empty[prev]);
 
+    if constexpr (Epi::QUANT_A) {  // the row scales, not held through the mainloop
+      Epi::dequant_rows(ep, rw[0], rb, M);
+      Epi::dequant_rows(ep, rw[1], rb + 8, M);
+    }
     {
       // epilogue, chunk by chunk (8·CB columns: acc[4·CB·q ..]): the fp32
       // epilogue from the accumulators, rounded into a swizzled chunk
       // buffer in shared memory (two a consumer, alternating), stored by
       // TMA, which writes only the rows < M and columns < N; with ROW_MAX,
-      // each row's |output| maximum over the tile too
+      // each row's |output| maximum over the tile too; with SAVE, PARTS = 2
+      // turns u a chunk (h to the aux map, then its GELU to out)
       float mx[2] = {0.f, 0.f};
 #pragma unroll
-      for (int q = 0; q < CHUNKS; ++q) {
-        uint8_t* buf = outbuf + (2 * cw + (q & 1)) * G9_OUT;
+      for (int u = 0; u < CHUNKS * PARTS; ++u) {
+        const int q = u / PARTS;  // the chunk; u == q but with SAVE
+        const bool gelu_turn = Epi::SAVE && (u & 1);
+        uint8_t* buf = outbuf + (2 * cw + (u & 1)) * G9_OUT;
         if (has_res) {  // buf holds the chunk's residual
           mbar_wait(&resbar[2 * cw + (q & 1)], (rphase >> (q & 1)) & 1);
           rphase ^= 1u << (q & 1);
@@ -537,6 +698,9 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float2 v = Epi::apply(ep, acc_pair<Epi::GROUPED>(acc, accf, 4 * j + 2 * h), k, rw[h]);
+            if constexpr (Epi::SAVE) {
+              if (gelu_turn) v = Epi::second(v);
+            }
             if constexpr (Epi::ROW_MAX) mx[h] = fmaxf(mx[h], fmaxf(fabsf(v.x), fabsf(v.y)));
             const int byte = (8 * jj + 2 * t4) * (int)sizeof(Out);
             uint8_t* o = buf + sw128(r0 + 8 * h, byte >> 4) + (byte & 15);
@@ -552,7 +716,9 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
         fence_proxy_async();
         named_sync(1 + cw, 128);
         if (leader) {
-          tma_store_tile(&omap, buf, n0 + 8 * CB * q, m0 + cw * 64, 0);
+          // SAVE's h goes to the aux map, in the residual's slot
+          tma_store_tile(Epi::SAVE && !gelu_turn ? &rmap : &omap, buf, n0 + 8 * CB * q,
+                         m0 + cw * 64, 0);
           bulk_commit();
           if (has_res && !gathered && q + 2 < CHUNKS) {  // chunk q + 2's residual once buf is read
             bulk_wait_read<0>();
@@ -579,13 +745,14 @@ inline cudaError_t launch_gemm_g9(const CUtensorMap& amap, const CUtensorMap& wm
                                   const CUtensorMap& omap, const CUtensorMap& rmap, int M, int N,
                                   int K, const typename Epi::Args& ep, cudaStream_t st) {
   auto kernel = gemm_sm90_kernel<Epi>;
+  constexpr int SMEM =
+      G9Tile<Epi::BN, sizeof(typename Epi::ARaw) / sizeof(typename Epi::In)>::SMEM;
   static int done[KERNEL_CACHE_DEVICES] = {};  // one per instantiation
   int sms = 0;
-  const cudaError_t e = ready_kernel(kernel, G9Tile<Epi::BN>::SMEM, done, &sms);
+  const cudaError_t e = ready_kernel(kernel, SMEM, done, &sms);
   if (e != cudaSuccess) return e;
   const int tiles = (M + G9_BM - 1) / G9_BM * ((N + Epi::BN - 1) / Epi::BN);
-  kernel<<<min(tiles, sms), G9_THREADS, G9Tile<Epi::BN>::SMEM, st>>>(amap, wmap, omap, rmap, M,
-                                                                       N, K, ep);
+  kernel<<<min(tiles, sms), G9_THREADS, SMEM, st>>>(amap, wmap, omap, rmap, M, N, K, ep);
   return cudaGetLastError();
 }
 
@@ -605,14 +772,14 @@ inline cudaError_t check_gemm_g9(const void* A, const void* W, const void* out, 
   return cudaSuccess;
 }
 
-// The tensor maps of a launch: A [M, K] and W [N, K] of In (box rows 128 and
-// BN), out [M, N] of Out (box rows 64; none when out is null), and a
+// The tensor maps of a launch: A [M, K] of TA and W [N, K] of TW (box rows
+// 128 and BN), out [M, N] of Out (box rows 64; none when out is null), and a
 // contiguous residual res [M, N] of bf16 (none when it is gathered).
-template <typename In, typename Out>
-inline cudaError_t make_gemm_maps(CUtensorMap (&maps)[4], const In* A, const In* W, const Out* out,
+template <typename TA, typename TW, typename Out>
+inline cudaError_t make_gemm_maps(CUtensorMap (&maps)[4], const TA* A, const TW* W, const Out* out,
                                   const bf16* res, bool gathered, int M, int N, int K, int BN) {
-  cudaError_t e = make_tile_map(&maps[0], A, K, M, 1, G9_BM, tile_map_type<In>());
-  if (e == cudaSuccess) e = make_tile_map(&maps[1], W, K, N, 1, BN, tile_map_type<In>());
+  cudaError_t e = make_tile_map(&maps[0], A, K, M, 1, G9_BM, tile_map_type<TA>());
+  if (e == cudaSuccess) e = make_tile_map(&maps[1], W, K, N, 1, BN, tile_map_type<TW>());
   if (e == cudaSuccess && out != nullptr)
     e = make_tile_map(&maps[2], out, N, M, 1, 64, tile_map_type<Out>());
   if (e == cudaSuccess && res != nullptr && !gathered)
@@ -622,29 +789,33 @@ inline cudaError_t make_gemm_maps(CUtensorMap (&maps)[4], const In* A, const In*
 
 // out[M, N] = epilogue(A[M, K] · W[N, K]ᵀ), bf16, on the stream. Takes
 // check_gemm_g9's operands with K % 64 == 0 and N % 8 == 0; with res_idx,
-// EPI_RESIDUAL. Anything else, EPI_GELU_SAVE, a tensor map that does not
-// encode, or a launch that fails returns its error.
+// EPI_RESIDUAL; EPI_GELU_SAVE with a 16-byte aligned ep.aux [M, N]. Anything
+// else, a tensor map that does not encode, or a launch that fails returns
+// its error.
 template <int EPI>
 inline cudaError_t launch_gemm_sm90(const bf16* A, const bf16* W, bf16* out, int M, int N, int K,
                                     const EpilogueArgs& ep, cudaStream_t st) {
-  if constexpr (EPI != EPI_BIAS && EPI != EPI_GELU && EPI != EPI_RESIDUAL) {
-    return cudaErrorNotSupported;
-  } else {
-    if (N < 8 || N % 8 || (ep.res_idx != nullptr && EPI != EPI_RESIDUAL))
-      return cudaErrorInvalidValue;
-    const bf16* res = EPI == EPI_RESIDUAL ? ep.res : nullptr;
-    cudaError_t e = check_gemm_g9(A, W, out, M, K, G9_BKB / 2, res, ep.res_idx, ep.rows_out,
-                                  ep.rows_in);
-    if (e != cudaSuccess) return e;
-    const bool wide = N % 256 == 0;
-    CUtensorMap maps[4] = {};
-    e = make_gemm_maps(maps, A, W, out, res, ep.res_idx != nullptr, M, N, K, wide ? 256 : 128);
-    if (e != cudaSuccess) return e;
-    return wide ? launch_gemm_g9<Bf16Epi<EPI, 256>>(maps[0], maps[1], maps[2], maps[3], M, N, K,
-                                                    ep, st)
-                : launch_gemm_g9<Bf16Epi<EPI, 128>>(maps[0], maps[1], maps[2], maps[3], M, N, K,
-                                                    ep, st);
-  }
+  static_assert(EPI == EPI_BIAS || EPI == EPI_GELU || EPI == EPI_RESIDUAL || EPI == EPI_GELU_SAVE,
+                "an epilogue of common.cuh:Epilogue");
+  if (N < 8 || N % 8 || (ep.res_idx != nullptr && EPI != EPI_RESIDUAL) ||
+      (EPI == EPI_GELU_SAVE && ep.aux == nullptr))
+    return cudaErrorInvalidValue;
+  if (EPI == EPI_GELU_SAVE && (reinterpret_cast<uintptr_t>(ep.aux) & 15))
+    return cudaErrorMisalignedAddress;
+  const bf16* res = EPI == EPI_RESIDUAL ? ep.res : nullptr;
+  cudaError_t e = check_gemm_g9(A, W, out, M, K, G9_BKB / 2, res, ep.res_idx, ep.rows_out,
+                                ep.rows_in);
+  if (e != cudaSuccess) return e;
+  const bool wide = N % 256 == 0;
+  CUtensorMap maps[4] = {};
+  e = make_gemm_maps(maps, A, W, out, res, ep.res_idx != nullptr, M, N, K, wide ? 256 : 128);
+  if (e == cudaSuccess && EPI == EPI_GELU_SAVE)
+    e = make_tile_map(&maps[3], ep.aux, N, M, 1, 64);  // h, stored as out is
+  if (e != cudaSuccess) return e;
+  return wide ? launch_gemm_g9<Bf16Epi<EPI, 256>>(maps[0], maps[1], maps[2], maps[3], M, N, K,
+                                                  ep, st)
+              : launch_gemm_g9<Bf16Epi<EPI, 128>>(maps[0], maps[1], maps[2], maps[3], M, N, K,
+                                                  ep, st);
 }
 
 }  // namespace

@@ -45,8 +45,9 @@
 // twice the bf16 rate). Under static scales fc1's GELU output never reaches
 // device memory in fp32: it is quantized in fc1's epilogue. In dynamic mode
 // the absmax of a row's hc group spans column tiles, so h is written in fp32
-// once and read once by its quantizer (launch_gelu_quant says why); the
-// attention output's quantize pass reads fp32 rows and writes int8.
+// once and read once by its quantizer (launch_gelu_quant says why). The
+// attention output is written once (bf16 or fp32) and read once, by proj,
+// which quantizes it as it loads it (int8_attn_tail says how).
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -71,14 +72,26 @@ constexpr float INV127 = (float)(1.0 / 127.0);
 // fp32 LN output is quantized where it is computed and never stored.
 // Dynamic: per-row scale to a_out[row]; static (static_act): the affine
 // carries the 1/a fold, so the kernel only rounds and clips.
+//   The statistics are fp32 sums in a fixed order, each operation an
+// explicit _rn intrinsic: lane l adds its elements 8c..8c+7 of chunks c = l,
+// l + 32, ... in turn, the warp's xor butterfly adds the lanes, mean =
+// sum / C, rstd = 1 / sqrt(var / C + eps) correctly rounded. The plain version
+// (kernels/mlp.py:_layer_norm_int8) adds in the same order, so both give the
+// same LN output bit for bit, and no quantizer step flips between them on a
+// summation order (a flipped k or v element moves a RAJNI score by up to
+// ~1%).
 // ---------------------------------------------------------------------------
 
+// zero: null, or a [M] buffer this launch zeroes (the int8 tails' attention
+// absmax, int8_attn_tail), so that no launch of its own does.
 __global__ void __launch_bounds__(256) ln_quant_kernel(
     const bf16* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
-    int8_t* __restrict__ q, float* __restrict__ a_out, int M, int C, float eps, int static_act) {
+    int8_t* __restrict__ q, float* __restrict__ a_out, float* __restrict__ zero, int M, int C,
+    float eps, int static_act) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * 8 + warp;
   if (row >= M) return;
+  if (zero != nullptr && lane == 0) zero[row] = 0.f;
   const int nvec = C / 8;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
   float v[LN_MAXV][8];
@@ -89,10 +102,10 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
     if (c < nvec) {
       unpack8(xr[c], v[i]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s += v[i][j];
+      for (int j = 0; j < 8; ++j) s = __fadd_rn(s, v[i][j]);
     }
   }
-  const float mean = warp_sum(s) / (float)C;
+  const float mean = __fdiv_rn(warp_sum(s), (float)C);
   float sq = 0.f;
 #pragma unroll
   for (int i = 0; i < LN_MAXV; ++i) {
@@ -100,12 +113,13 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
     if (c < nvec) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float d = v[i][j] - mean;
-        sq += d * d;
+        const float d = __fsub_rn(v[i][j], mean);
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
       }
     }
   }
-  const float rstd = rsqrtf(warp_sum(sq) / (float)C + eps);
+  const float rstd =
+      __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)C), eps)));
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < LN_MAXV; ++i) {
@@ -147,15 +161,17 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
 
 inline cudaError_t launch_ln_quant(const bf16* x, const float* scale, const float* bias,
                                    int8_t* q, float* a_out, int M, int C, float eps,
-                                   int static_act, cudaStream_t st) {
-  ln_quant_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, q, a_out, M, C, eps, static_act);
+                                   int static_act, cudaStream_t st, float* zero = nullptr) {
+  ln_quant_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, q, a_out, zero, M, C, eps,
+                                               static_act);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Quantize rows [M, W] of fp32 (the int8 blocks' attention and GELU outputs)
-// or bf16 (B10's attention output, which the TPU kernel rounds to the
-// activation dtype first, block.py:1255) in groups of G columns: one warp
+// Quantize rows [M, W] of fp32 (the GELU output h; the int8 blocks'
+// attention output on the two-launch route) or bf16 (B10's and B11's
+// attention output there, which the TPU kernel rounds to the activation
+// dtype first, block.py:1255) in groups of G columns: one warp
 // per (row, group), two passes over the group (absmax, then quantize), or
 // one where the group's absmax comes in amax_in [M, W / G] (fc1's
 // epilogue took it: I8_GELU_MAX). Dynamic: scale to a_out[row * (W / G) +
@@ -254,7 +270,13 @@ inline cudaError_t launch_quant_rows(const T* y, const float* sinv, int8_t* q, f
 //                  exact absmax, and quant_rows reads h once, not twice.
 //   The quantizer's own operations take amax to the multiplier and the
 //   scale, so both routes' hq and hs are those of I8_GELU + quant_rows bit
-//   for bit (launch_gelu_quant below). Requires K % 128 == 0, N % 16 == 0
+//   for bit (launch_gelu_quant below).
+// And with ARaw bf16 or fp32 (QUANT_A, launch_gemm_s8q: the int8 tails' proj,
+// I8_RESIDUAL ungrouped), A is the attention output, quantized as it is
+// loaded: row r by mul = 127 / max(amax_in[r], 1e-8) and dequantized by
+// max(amax_in[r], 1e-8) · (1/127), quant_rows' operations on its absmax
+// (static: amax_in null, mul 1 and no row scale: the 1/a_proj fold came
+// with V). Requires K % 128 == 0, N % 16 == 0
 //   (int8 rows of 16-byte multiples), group_k % 128 == 0 dividing K, hc %
 //   128 == 0 dividing N; M and N are masked. Shapes it does not take return
 //   cudaErrorInvalidValue: there is no second GEMM to fall back to.
@@ -275,27 +297,44 @@ struct I8EpilogueArgs {
   const float* sinv;     // I8_GELU_Q: [N], the static 1/a_fc2 fold
   float* amax;           // I8_GELU_MAX: [M, N / hc], each row and group's |gelu| maximum
   int hc;                // I8_GELU_MAX: the column group
+  const float* amax_in;  // QUANT_A, dynamic: [M] each row's absmax of A; null: static
 };
 
-template <int EPI, int BN_, bool GROUPED_>
+template <int EPI, int BN_, bool GROUPED_, typename ARaw_ = int8_t>
 struct S8Epi {
   using In = int8_t;
+  using ARaw = ARaw_;
   using Acc = int;
   using Out = std::conditional_t<EPI == I8_GELU || EPI == I8_GELU_MAX, float,
                                  std::conditional_t<EPI == I8_GELU_Q, int8_t, bf16>>;
   using Args = I8EpilogueArgs;
   static constexpr int BN = BN_;
   static constexpr bool RESIDUAL = EPI == I8_RESIDUAL, GROUPED = GROUPED_,
-                        ROW_MAX = EPI == I8_GELU_MAX;
+                        ROW_MAX = EPI == I8_GELU_MAX, SAVE = false,
+                        QUANT_A = !std::is_same_v<ARaw, int8_t>;
   static constexpr bool GELU = EPI == I8_GELU || EPI == I8_GELU_Q || EPI == I8_GELU_MAX;
+  static_assert(!QUANT_A || (EPI == I8_RESIDUAL && !GROUPED), "A quantized on load: proj only");
   struct Rows {
-    float a;  // the row scale of an ungrouped product
+    float a;    // the row scale of an ungrouped product
+    float mul;  // QUANT_A: A's multiplier before its rounding
   };
+  // dynamic: a row scale to multiply by
+  __device__ static bool scaled(const Args& ep) {
+    return QUANT_A ? ep.amax_in != nullptr : ep.a != nullptr;
+  }
   struct Cols {
     float2 ws, b, l;  // w_scale, bias, and ls (I8_RESIDUAL) or sinv (I8_GELU_Q)
   };
   __device__ static Rows rows(const Args& ep, int r, int M, int, int, int) {
-    return Rows{!GROUPED && ep.a != nullptr && r < M ? ep.a[r] : 1.f};
+    if constexpr (QUANT_A) {  // the multiplier; the scale after the mainloop
+      if (ep.amax_in == nullptr || r >= M) return Rows{1.f, 1.f};
+      return Rows{1.f, __fdiv_rn(127.f, fmaxf(ep.amax_in[r], 1e-8f))};
+    }
+    return Rows{!GROUPED && ep.a != nullptr && r < M ? ep.a[r] : 1.f, 1.f};
+  }
+  // QUANT_A: row r's dequant scale, max(amax, 1e-8) · (1/127)
+  __device__ static void dequant_rows(const Args& ep, Rows& rw, int r, int M) {
+    if (ep.amax_in != nullptr && r < M) rw.a = __fmul_rn(fmaxf(ep.amax_in[r], 1e-8f), INV127);
   }
   __device__ static Cols cols(const Args& ep, int c, int N) {
     Cols k{ld_pair(ep.w_scale, c, N), ld_pair(ep.bias, c, N), make_float2(1.f, 1.f)};
@@ -304,7 +343,7 @@ struct S8Epi {
     return k;
   }
   __device__ static float2 apply(const Args& ep, float2 v, const Cols& k, const Rows& rw) {
-    if (!GROUPED && ep.a != nullptr) {
+    if (!GROUPED && scaled(ep)) {
       v.x = __fmul_rn(v.x, rw.a);
       v.y = __fmul_rn(v.y, rw.a);
     }
@@ -378,6 +417,27 @@ inline cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W, void* out, i
               : launch_gemm_s8_bn<EPI, 128, false>(maps, M, N, K, ep, st);
 }
 
+// The int8 tails' proj: out[M, N] = I8_RESIDUAL(quant(A) · Wᵀ) with A [M, K]
+// of bf16 or fp32 (the attention output) quantized per row as it is loaded
+// (S8Epi's QUANT_A: row r's absmax in ep.amax_in[r], or static with none;
+// ep.a unused), ungrouped (group_k == K). Shapes as launch_gemm_s8's.
+template <typename ARaw>
+inline cudaError_t launch_gemm_s8q(const ARaw* A, const int8_t* W, bf16* out, int M, int N, int K,
+                                   const I8EpilogueArgs& ep, cudaStream_t st) {
+  if (N < 16 || N % 16 || ep.group_k != K) return cudaErrorInvalidValue;
+  cudaError_t e = check_gemm_g9(A, W, out, M, K, G9_BKB, ep.res, ep.res_idx, ep.rows_out,
+                                ep.rows_in);
+  if (e != cudaSuccess) return e;
+  const bool wide = N % 256 == 0;
+  CUtensorMap maps[4] = {};
+  e = make_gemm_maps(maps, A, W, out, ep.res, ep.res_idx != nullptr, M, N, K, wide ? 256 : 128);
+  if (e != cudaSuccess) return e;
+  return wide ? launch_gemm_g9<S8Epi<I8_RESIDUAL, 256, false, ARaw>>(maps[0], maps[1], maps[2],
+                                                                     maps[3], M, N, K, ep, st)
+              : launch_gemm_g9<S8Epi<I8_RESIDUAL, 128, false, ARaw>>(maps[0], maps[1], maps[2],
+                                                                     maps[3], M, N, K, ep, st);
+}
+
 // fc1 with its GELU quantized per row and hc group into hq [M, N] int8 and
 // (dynamic) its row scales hs [M, N / hc]. Static (ep.sinv): one launch,
 // I8_GELU_Q. Dynamic: the absmax scratch hmax [M, N / hc] zeroed, fc1 to
@@ -415,16 +475,19 @@ inline int launch_gelu_quant(const int8_t* A, const int8_t* W, int8_t* hq, float
 // The int8 block bodies. B14 (pruned: idx/ns/scores given) and B15 (stock)
 // run every step; the split kernels run parts of them: B12
 // fused_ln_qkv_int8 steps 1-3, B10 fused_attn_block_int8 steps 1-2 and 5-7
-// (its attention output in bf16), B13 fused_gather_sdpa_proj_residual_int8
-// steps 5-7, B9 fused_ln_mlp_residual_int8 steps 8-11 on its input x.
+// (its attention output in bf16), B11 fused_pruned_attn_block_int8 steps
+// 1-7 (bf16), B13 fused_gather_sdpa_proj_residual_int8 steps 5-7, B9
+// fused_ln_mlp_residual_int8 steps 8-11 on its input x.
 // Launch steps (the return code's step, common.cuh:fail):
-//   1 LN1 → int8 q8 [B·N, C] (+ row scales qs)
+//   1 LN1 → int8 q8 [B·N, C] (+ row scales qs; dynamic, and zeroes amax)
 //   2 qkv = dequant(q8 · Wqkvᵀ) + bqkv → bf16 [B·N, 3C]
 //   3 scores (B14 rescoring, B12; common.cuh:score_kernel)   4 selection (B14)
 //   5 attention through the kept indices (B14, B13) → fp32 attn [B·n, C]
-//     (B10: bf16)
-//   6 quantize attn per row → q8, qs
-//   7 proj: dequant + bproj, · ls1, + x (gathered) → bf16 x_mid [B·n, C]
+//     (B10, B11: bf16), and (dynamic) each row's absmax → amax [B·n]
+//   7 proj: A = attn quantized as it is loaded (by amax), dequant + bproj,
+//     · ls1, + x (gathered) → bf16 x_mid [B·n, C]
+//   (two_launch: 5 without amax, 6 quantize attn per row → q8, qs, 7 proj
+//   of q8 by qs: the old route, kept as the new one's bitwise reference)
 //   8 LN2 → int8 q8, qs
 //   9 fc1: gelu_fast(dequant + b1); static: · sinv, quantized in its
 //     epilogue → hq [B·n, hidden] int8; dynamic: hmax zeroed, then fp32 h
@@ -462,14 +525,24 @@ struct Int8Block {
   bf16* out;
   int B, N, C, hidden, hc, H;
   float scale, eps;
+  // dynamic: the attention output's row absmax [B·N] (B14, B15: h's first
+  // floats, which step 9 overwrites later)
+  float* amax;
+  int two_launch;  // the attention tail's two-launch route (int8_attn_tail)
 };
 
-// Steps 1-2: LN1 → int8 and the qkv product.
+// The absmax that the attention tail's dynamic route takes (int8_attn_tail),
+// or null.
+inline float* tail_amax(const Int8Block& p) {
+  return p.static_act || p.two_launch ? nullptr : p.amax;
+}
+
+// Steps 1-2: LN1 → int8 and the qkv product; LN1 zeroes the tail's absmax.
 inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
   const int rows = p.B * p.N;
   const float* dyn = p.static_act ? nullptr : p.qs;
   cudaError_t e = launch_ln_quant(p.x, p.ln1s, p.ln1b, p.q8, p.qs, rows, p.C, p.eps,
-                                  p.static_act, st);
+                                  p.static_act, st, tail_amax(p));
   if (e != cudaSuccess) return fail(e, 1);
   e = launch_gemm_s8<I8_BIAS>(p.q8, p.wqkv, p.qkv, rows, 3 * p.C, p.C,
                               I8EpilogueArgs{dyn, p.sqkv, p.bqkv, nullptr, nullptr, nullptr, 1, 1,
@@ -478,24 +551,73 @@ inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
   return e == cudaSuccess ? 0 : fail(e, 2);
 }
 
-// Steps 5-7, on the kept tokens sel [B, n] (B14, B13) or on all of them
-// (sel null, n = N): the attention of p.qkv into attn (fp32, or bf16 for
-// B10), its row quantizer, and proj with the (gathered) residual p.x into
-// out [B·n, C].
+// The int8 tails' attention: the register-resident kernel below a crossover,
+// B6's wgmma body (sdpa.cu) from there on; one crossover for contiguous
+// tokens (B10, B15) and one for tokens through the kept indices (B11, B13,
+// B14), whose tiles the body gathers by cp.async. On an H100 SXM at batch 256,
+// contiguous, the body read 4-11% slower at 67 and 96 tokens and 9-10% faster
+// at 120 (50-60% slower at 47, 35% faster at 197), at C = 768 and 1024 alike;
+// gathered, it read 1.4-3.2x the register kernel's time up to 138 kept
+// tokens and level at 197, so the gathered tails keep the register kernel up
+// to ATTN_MAX_N. chip_smoke.py's crossover phase prints both kinds.
+constexpr int INT8_TAIL_SDPA_MIN_N = 120;
+constexpr int INT8_TAIL_SDPA_MIN_N_GATHERED = ATTN_MAX_N + 1;
+static_assert(INT8_TAIL_SDPA_MIN_N <= ATTN_MAX_N + 1 &&
+                  INT8_TAIL_SDPA_MIN_N_GATHERED <= ATTN_MAX_N + 1,
+              "the register kernel takes n <= 256");
+
+template <typename OutT>
+inline cudaError_t launch_tail_attention(const bf16* qkv, const int* idx, OutT* out, float* amax,
+                                         int B, int n_src, int n, int C, int H, float scale,
+                                         cudaStream_t st) {
+  if (n < (idx == nullptr ? INT8_TAIL_SDPA_MIN_N : INT8_TAIL_SDPA_MIN_N_GATHERED))
+    return launch_attention(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
+  return launch_sdpa(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
+}
+
+// Steps 5-7, on the kept tokens sel [B, n] (B11, B13, B14) or on all of them
+// (sel null, n = N): the attention of p.qkv into attn (fp32, or bf16 for B10
+// and B11), and proj with the (gathered) residual p.x into out [B·n, C].
+//   A row's dynamic scale is the absmax over its C columns, which span
+// every head, and each attention block holds one head. So the attention's
+// epilogue takes each row's absmax over its head's columns by atomicMax into
+// amax (zeroed by LN1's launch, or by the caller where the tail runs alone:
+// B13), exact in any order, and proj quantizes its A operand as it loads it
+// (launch_gemm_s8q), with quant_rows' operations on that absmax: no int8
+// copy of the attention output, and no launch to make one. Static mode needs
+// no absmax (the 1/a_proj fold came with V): proj only rounds and clips as it
+// loads. p.two_launch runs the old route instead, attention, quant_rows (one
+// launch, reading attn twice) and the int8 proj, the new route's bitwise
+// reference (the same attention on both).
+//   Measured on the H100 (chip_smoke's tail phase): proj quantizing an fp32
+// attention output on load (B13-B15) costs about what the int8 proj and the
+// quantizer launch cost together; a bf16 one (B10, B11) costs more, since
+// each of the N / BN column tiles reads and quantizes the raw A again
+// (ROADMAP queue B2). The attention storing int8 itself under static scales
+// (no proj change at all) was tried; B6's body then read 13% slower (ptxas
+// serialized its wgmma in those instantiations), more than the quantizer it
+// saved.
 template <typename AttnT>
 inline int int8_attn_tail(const Int8Block& p, const int* sel, int n, AttnT* attn, bf16* out,
                           cudaStream_t st) {
   const int rows_n = p.B * n;
-  const float* dyn = p.static_act ? nullptr : p.qs;
-  cudaError_t e = launch_attention_any(p.qkv, sel, attn, p.B, p.N, n, p.C, p.H, p.scale, st);
+  const I8EpilogueArgs proj{p.static_act ? nullptr : p.qs, p.sproj, p.bproj, p.ls1, p.x, sel, n,
+                            p.N, p.C};
+  float* amax = tail_amax(p);
+  if (!p.static_act && !p.two_launch && amax == nullptr) return fail(cudaErrorInvalidValue, 5);
+  cudaError_t e =
+      launch_tail_attention(p.qkv, sel, attn, amax, p.B, p.N, n, p.C, p.H, p.scale, st);
   if (e != cudaSuccess) return fail(e, 5);
+  if (!p.two_launch) {
+    I8EpilogueArgs ep = proj;
+    ep.amax_in = amax;
+    e = launch_gemm_s8q(static_cast<const AttnT*>(attn), p.wproj, out, rows_n, p.C, p.C, ep, st);
+    return e == cudaSuccess ? 0 : fail(e, 7);
+  }
   e = launch_quant_rows(attn, (const float*)nullptr, p.q8, p.qs, rows_n, p.C, p.C, p.static_act,
                         st);
   if (e != cudaSuccess) return fail(e, 6);
-  e = launch_gemm_s8<I8_RESIDUAL>(p.q8, p.wproj, out, rows_n, p.C, p.C,
-                                  I8EpilogueArgs{dyn, p.sproj, p.bproj, p.ls1, p.x, sel, n, p.N,
-                                                 p.C},
-                                  st);
+  e = launch_gemm_s8<I8_RESIDUAL>(p.q8, p.wproj, out, rows_n, p.C, p.C, proj, st);
   return e == cudaSuccess ? 0 : fail(e, 7);
 }
 

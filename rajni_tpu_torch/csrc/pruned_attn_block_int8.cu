@@ -15,16 +15,18 @@
 // operations (~0.2 ms at 1,979 TOP/s) and the attention ~2e10 bf16 FLOP;
 // scoring and selection are fp32 CUDA-core work of a few 1e8 operations.
 //
-// Design: seven launches on the caller's stream (six with the threaded
+// Design: six launches on the caller's stream (five with the threaded
 // scores), all of them the int8 block body's (csrc/int8.cuh) and the shared
 // score and selection kernels (csrc/common.cuh), as B14 runs them without its
-// MLP: LN1 → int8 (per-row scale, or the folded static affine), the int8 qkv
-// product whose epilogue rounds to bf16 into a [B, N, 3C] scratch
-// (block.py:2548), the score kernel on that rounded qkv (block.py:2550), the
-// selection kernel, the attention reading q/k/v rows through the kept indices
-// (register-resident up to ATTN_MAX_N kept tokens, two-pass past that) with a
-// bf16 output, the row quantizer reading bf16, and the proj product whose
-// residual epilogue reads the pre-norm x rows through the same indices. The
+// MLP: LN1 → int8 (per-row scale, or the folded static affine; it zeroes the
+// row absmax), the int8 qkv product whose epilogue rounds to bf16 into a [B,
+// N, 3C] scratch (block.py:2548), the score kernel on that rounded qkv
+// (block.py:2550), the selection kernel, the attention reading q/k/v rows
+// through the kept indices (int8.cuh:launch_tail_attention) with a bf16
+// output and (dynamic) each row's absmax, and the proj product, which
+// quantizes that output as it loads it and whose residual epilogue reads the
+// pre-norm x rows through the same indices (int8.cuh:int8_attn_tail;
+// two_launch: the old tail with the row quantizer between them). The
 // bf16 attention output is B10's instantiation, not B13-B15's fp32 one: the
 // TPU kernel runs _mha_mixed(..., dtype, dtype) (block.py:2566), so it rounds
 // the attention output to the activation dtype before quantizing it. Under
@@ -38,9 +40,9 @@ using namespace rajni;
 extern "C" int rajni_pruned_attn_block_int8(
     const void* x, const void* ln1s, const void* ln1b, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* wproj, const void* sproj, const void* bproj, const void* ls1,
-    const void* prev_scores, int with_scores, int static_act, void* q8, void* qs, void* qkv,
-    void* scores, void* attn, void* idx_out, void* ns_out, void* out, int B, int N, int K, int C,
-    int H, float scale, float eps, void* stream) {
+    const void* prev_scores, int with_scores, int static_act, int two_launch, void* q8, void* qs,
+    void* qkv, void* scores, void* attn, void* amax, void* idx_out, void* ns_out, void* out,
+    int B, int N, int K, int C, int H, float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Int8Block p{};
   p.x = static_cast<const bf16*>(x);
@@ -54,6 +56,8 @@ extern "C" int rajni_pruned_attn_block_int8(
   p.bproj = static_cast<const float*>(bproj);
   p.ls1 = static_cast<const bf16*>(ls1);
   p.static_act = static_act;
+  p.two_launch = two_launch;
+  p.amax = static_cast<float*>(amax);
   p.q8 = static_cast<int8_t*>(q8);
   p.qs = static_cast<float*>(qs);
   p.qkv = static_cast<bf16*>(qkv);

@@ -14,13 +14,16 @@
 // N=197) is quantized in fc1's epilogue under static scales; in dynamic
 // mode it is written in fp32 once and read once (csrc/int8.cuh).
 //
-// Design: ten launches in static mode and twelve in dynamic mode on the
-// caller's stream (csrc/int8.cuh: int8_block_head/_tail): LN1 → int8, the
-// qkv product (bf16 qkv), the score kernel shared with K1 and B4 (skipped
-// when the threaded scores are used), the selection kernel shared with K1,
-// the attention kernel through the kept indices with an fp32 output, the
-// row quantizer, the proj product with the gathered residual (bf16 x_mid),
-// LN2 → int8, fc1 with its GELU quantized per hc group in the epilogue
+// Design: nine launches in static mode and eleven in dynamic mode on the
+// caller's stream (csrc/int8.cuh: int8_block_head/_tail): LN1 → int8
+// (zeroing the attention's row absmax, kept in h's first floats), the qkv
+// product (bf16 qkv), the score kernel shared with K1 and B4 (skipped when
+// the threaded scores are used), the selection kernel shared with K1, the
+// attention through the kept indices with an fp32 output and (dynamic) each
+// row's absmax (int8.cuh:launch_tail_attention), the proj product
+// quantizing that output as it loads it, with the gathered residual (bf16
+// x_mid; int8.cuh:int8_attn_tail; two_launch: the old route, with the row
+// quantizer before proj), LN2 → int8, fc1 with its GELU quantized per hc group in the epilogue
 // (dynamic: the absmax scratch zeroed, fc1 to fp32 h with the group absmax,
 // then the quantizer), and the fc2 product that adds the groups in fp32 and
 // the x_mid residual.
@@ -33,12 +36,12 @@ extern "C" int rajni_pruned_block_full_int8(
     const void* bqkv, const void* wproj, const void* sproj, const void* bproj, const void* ls1,
     const void* ln2s, const void* ln2b, const void* w1, const void* s1, const void* b1,
     const void* w2, const void* s2, const void* b2, const void* ls2, const void* sinv,
-    const void* prev_scores, int with_scores, int static_act, void* q8, void* qs, void* qkv,
-    void* scores, void* attn, void* mid, void* h, void* hq, void* hs, void* idx_out,
-    void* ns_out, void* out, int B, int N, int K, int C, int hidden, int hc, int H, float scale,
-    float eps, void* stream) {
+    const void* prev_scores, int with_scores, int static_act, int two_launch, void* q8,
+    void* qs, void* qkv, void* scores, void* attn, void* mid, void* h, void* hq, void* hs,
+    void* idx_out, void* ns_out, void* out, int B, int N, int K, int C, int hidden, int hc, int H,
+    float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Int8Block p{
+  Int8Block p{
       static_cast<const bf16*>(x),      static_cast<const float*>(ln1s),
       static_cast<const float*>(ln1b),  static_cast<const int8_t*>(wqkv),
       static_cast<const float*>(sqkv),  static_cast<const float*>(bqkv),
@@ -55,6 +58,8 @@ extern "C" int rajni_pruned_block_full_int8(
       static_cast<float*>(h),           static_cast<int8_t*>(hq),
       static_cast<float*>(hs),          static_cast<bf16*>(out),
       B, N, C, hidden, hc, H, scale, eps};
+  p.amax = static_act ? nullptr : p.h;  // the tail's absmax, before step 9 writes h
+  p.two_launch = two_launch;
   int rc = int8_block_head(p, st);
   if (rc != 0) return rc;
   const float* s = static_cast<const float*>(prev_scores);

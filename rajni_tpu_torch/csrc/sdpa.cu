@@ -79,13 +79,16 @@ struct SdpaArgs {
   const bf16* qkv;
   const int* idx;  // [B, n] or null
   void* out;       // [B, n, C], OutT
+  float* amax;     // [B·n] row absmax of out (the int8 tails: AMAX), or null
   int n_src, n, C, H, units;  // units: B·H (one pass) or B·H·ceil(n/64) slabs (two passes)
   float scale;
 };
 
 // NT: the key tiles each consumer holds in registers (one pass, NT = T0), or
-// 0 for the two-pass form.
-template <int NT, typename OutT>
+// 0 for the two-pass form. AMAX: take each output row's absmax into a.amax
+// (the int8 tails' dynamic route), an instantiation of its own, since its
+// code in the epilogue slowed the others down by ~10% (H100, chip_smoke).
+template <int NT, typename OutT, bool AMAX>
 __global__ void __launch_bounds__(SD_THREADS, 1)
     sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map, SdpaArgs a) {
   constexpr bool ONEPASS = NT > 0;
@@ -409,7 +412,10 @@ __global__ void __launch_bounds__(SD_THREADS, 1)
       // the two partial P·V sums added once, through shared memory: consumer
       // 0 adds and stores rows 0-31, consumer 1 rows 32-63 (warps 0-1 and
       // 2-3 of each own those rows), each handing the other its half
-      const bool mine = (cw == 0) == (r0 < 32);
+      // warp-uniform (warps 0-1 of a consumer hold rows 0-31), and so seen
+      // by ptxas through the shuffle: the row absmax's shuffles below would
+      // otherwise make it serialize the wgmma
+      const bool mine = __shfl_sync(0xffffffffu, (int)((cw == 0) == (r0 < 32)), 0);
       if (!mine) {
 #pragma unroll
         for (int e = 0; e < 32; e += 2)
@@ -428,14 +434,26 @@ __global__ void __launch_bounds__(SD_THREADS, 1)
         OutT* out = static_cast<OutT*>(a.out) + ((size_t)b * n + q0) * C + h * TILE;
         store_acc(q0 + r0 < n ? out + (size_t)r0 * C : nullptr,
                   q0 + r0 + 8 < n ? out + (size_t)(r0 + 8) * C : nullptr, o, t4);
+        if constexpr (AMAX) {  // |stored value|'s maximum over the head's columns
+          float ma = 0.f, mb = 0.f;
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            float& m = acc_row8(e) ? mb : ma;
+            m = fmaxf(m, fabsf(stored<OutT>(o[e])));
+          }
+          ma = quad_max(ma);
+          mb = quad_max(mb);
+          if (t4 == 0 && q0 + r0 < n) row_absmax(a.amax, (size_t)b * n + q0 + r0, ma);
+          if (t4 == 0 && q0 + r0 + 8 < n) row_absmax(a.amax, (size_t)b * n + q0 + r0 + 8, mb);
+        }
       }
     }
   }
 }
 
-template <int NT, typename OutT>
+template <int NT, typename OutT, bool AMAX>
 cudaError_t launch_sdpa_wgmma(const CUtensorMap& map, const SdpaArgs& a, cudaStream_t st) {
-  auto kernel = sdpa_wgmma_kernel<NT, OutT>;
+  auto kernel = sdpa_wgmma_kernel<NT, OutT, AMAX>;
   static int done[KERNEL_CACHE_DEVICES] = {};  // one per instantiation
   int sms = 0;
   const cudaError_t e = ready_kernel(kernel, SD_SMEM, done, &sms);
@@ -444,7 +462,7 @@ cudaError_t launch_sdpa_wgmma(const CUtensorMap& map, const SdpaArgs& a, cudaStr
   return cudaGetLastError();
 }
 
-template <typename OutT>
+template <typename OutT, bool AMAX>
 cudaError_t sdpa_body(const SdpaArgs& a, int B, cudaStream_t st) {
   CUtensorMap map = {};
   if (a.idx == nullptr) {  // contiguous tokens: TMA
@@ -452,12 +470,12 @@ cudaError_t sdpa_body(const SdpaArgs& a, int B, cudaStream_t st) {
     if (e != cudaSuccess) return e;
   }
   switch ((a.n + 2 * TILE - 1) / (2 * TILE)) {  // T0 = ceil(T / 2)
-    case 1: return launch_sdpa_wgmma<1, OutT>(map, a, st);
-    case 2: return launch_sdpa_wgmma<2, OutT>(map, a, st);
-    case 3: return launch_sdpa_wgmma<3, OutT>(map, a, st);
-    case 4: return launch_sdpa_wgmma<4, OutT>(map, a, st);
-    case SD_NT: return launch_sdpa_wgmma<SD_NT, OutT>(map, a, st);
-    default: return launch_sdpa_wgmma<0, OutT>(map, a, st);
+    case 1: return launch_sdpa_wgmma<1, OutT, AMAX>(map, a, st);
+    case 2: return launch_sdpa_wgmma<2, OutT, AMAX>(map, a, st);
+    case 3: return launch_sdpa_wgmma<3, OutT, AMAX>(map, a, st);
+    case 4: return launch_sdpa_wgmma<4, OutT, AMAX>(map, a, st);
+    case SD_NT: return launch_sdpa_wgmma<SD_NT, OutT, AMAX>(map, a, st);
+    default: return launch_sdpa_wgmma<0, OutT, AMAX>(map, a, st);
   }
 }
 
@@ -466,20 +484,49 @@ cudaError_t sdpa_body(const SdpaArgs& a, int B, cudaStream_t st) {
 
 using namespace rajni;
 
+// The body's launches since the library was loaded. Every caller's launch
+// comes through rajni_sdpa_body, so they are counted here, where they happen:
+// kernels/attention.py reads this as fused_sdpa's count (rajni_sdpa_launches).
+static long long body_launches = 0;
+
 // The body behind common.cuh:launch_sdpa (every caller's long-sequence
-// attention): returns a cudaError_t.
-extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, int out_fp32, int B,
-                               int n_src, int n, int C, int H, float scale, void* stream) {
+// attention, and the int8 tails' from INT8_TAIL_SDPA_MIN_N tokens): returns
+// a cudaError_t.
+extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float* amax,
+                               int out_fp32, int B, int n_src, int n, int C, int H, float scale,
+                               void* stream) {
   if (n < 1 || n > SDPA_MAX_N || C != H * ATTN_D) return (int)cudaErrorInvalidValue;
   const int T = (n + TILE - 1) / TILE;
-  const SdpaArgs a{static_cast<const bf16*>(qkv), idx, out, n_src, n, C, H,
+  const SdpaArgs a{static_cast<const bf16*>(qkv), idx, out, amax, n_src, n, C, H,
                    B * H * (T <= 2 * SD_NT ? 1 : T), scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(out_fp32 ? sdpa_body<float>(a, B, st) : sdpa_body<bf16>(a, B, st));
+  cudaError_t e;
+  if (amax != nullptr)
+    e = out_fp32 ? sdpa_body<float, true>(a, B, st) : sdpa_body<bf16, true>(a, B, st);
+  else
+    e = out_fp32 ? sdpa_body<float, false>(a, B, st) : sdpa_body<bf16, false>(a, B, st);
+  if (e == cudaSuccess) ++body_launches;
+  return (int)e;
 }
 
-extern "C" int rajni_sdpa(const void* qkv, void* out, int B, int N, int C, int H, float scale,
-                          void* stream) {
-  const int e = rajni_sdpa_body(qkv, nullptr, out, 0, B, N, N, C, H, scale, stream);
-  return e == 0 ? 0 : fail(static_cast<cudaError_t>(e), 1);
+extern "C" long long rajni_sdpa_launches() { return body_launches; }
+
+// B6 fused_sdpa (idx null, reg 0): the attention of qkv [B, n_src, 3C] into
+// bf16 out [B, n, C], token t being row idx[b, t] when idx is given, by this
+// body, or with reg by the register kernel (n <= ATTN_MAX_N), which
+// chip_smoke.py times against the body for the int8 tails' crossover
+// (int8.cuh:launch_tail_attention), contiguous and gathered.
+extern "C" int rajni_sdpa(const void* qkv, const void* idx, void* out, int reg, int B, int n_src,
+                          int n, int C, int H, float scale, void* stream) {
+  const int* i = static_cast<const int*>(idx);
+  if (!reg) {
+    const int e = rajni_sdpa_body(qkv, i, out, nullptr, 0, B, n_src, n, C, H, scale, stream);
+    return e == 0 ? 0 : fail(static_cast<cudaError_t>(e), 1);
+  }
+  const cudaError_t e =
+      n <= ATTN_MAX_N ? launch_attention(static_cast<const bf16*>(qkv), i, static_cast<bf16*>(out),
+                                         nullptr, B, n_src, n, C, H, scale,
+                                         static_cast<cudaStream_t>(stream))
+                      : cudaErrorInvalidValue;
+  return e == cudaSuccess ? 0 : fail(e, 1);
 }

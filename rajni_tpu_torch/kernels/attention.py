@@ -13,8 +13,9 @@ dtype before P·V, P·V accumulated in fp32, output rounded.
 
 The same kernel body (``rajni_sdpa_body``) is the attention inside K2
 ``fused_attn_block``, B5 ``fused_gather_sdpa_proj_residual``, K1/B20 and the
-int8 tails past ``ATTN_MAX_N`` tokens, where the register-resident kernel of
-K1/K2 cannot hold a softmax row.
+int8 tails from a crossover (``csrc/int8.cuh``). The library counts the
+body's launches where they happen, whichever entry point makes them, and
+``SDPA_KERNEL.launches`` reads that count.
 """
 
 from __future__ import annotations
@@ -28,7 +29,11 @@ HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
 # kernels (the config demotes past it, models/vit.py:cuda_kernels_take).
 SDPA_MAX_N = 848
 
-SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, I, I, I, I, F, P])
+# its launches are the body's, counted in csrc/sdpa.cu wherever an entry
+# point launches it (K2, B5, K1/B20 and the int8 tails run it inside theirs)
+SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, P, I, I, I, I, I, I, F, P],
+                         counter="rajni_sdpa_launches")
+ATTN_MAX_N = 256  # csrc/common.cuh: the register kernel's whole softmax rows
 
 
 def _packed(qkv: torch.Tensor) -> torch.Tensor:
@@ -80,5 +85,44 @@ def fused_sdpa(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     if not 1 <= N <= SDPA_MAX_N:
         raise ValueError(f"fused_sdpa supports 1 <= N <= {SDPA_MAX_N}, got N={N}")
     out = torch.empty(B, N, C, dtype=qkv.dtype, device=qkv.device)
-    SDPA_KERNEL(ptr(qkv), ptr(out), B, N, C, num_heads, float(scale), stream())
+    SDPA_KERNEL(ptr(qkv), None, ptr(out), 0, B, N, N, C, num_heads, float(scale), stream())
+    return out
+
+
+def attention_route_plain(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
+                          scale: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`attention_route`: B6's function on the
+    tokens ``idx [B, n]`` of ``qkv [B, n_src, 3C]`` (all of them when None)."""
+    if idx is not None:
+        qkv = torch.take_along_dim(qkv, idx.long()[..., None], dim=1)
+    return fused_sdpa_plain(qkv, num_heads, scale)
+
+
+def attention_route(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int, scale: float,
+                    wgmma: bool) -> torch.Tensor:
+    """The attention by the route chosen (B6's entry point ``csrc/sdpa.cu:
+    rajni_sdpa``): the register kernel (``wgmma=False``, n <= 256) or B6's
+    kernel, on contiguous tokens or through ``idx`` (int32 ``[B, n]``). No
+    path calls it; ``chip_smoke.py`` times the two routes with it for the int8
+    tails' crossover. Raises on shapes the kernels do not take before it
+    dispatches."""
+    qkv = _packed(qkv)
+    B, n_src, three_c = qkv.shape
+    C = three_c // 3
+    n = n_src if idx is None else idx.shape[1]
+    if three_c % 3 or C != num_heads * HEAD_DIM:
+        raise ValueError(f"attention_route needs head_dim {HEAD_DIM}; got C={C}, "
+                         f"heads={num_heads}")
+    if not 1 <= n <= (SDPA_MAX_N if wgmma else ATTN_MAX_N) or n_src > SDPA_MAX_N:
+        raise ValueError(f"attention_route: n={n} of n_src={n_src} out of range")
+    if idx is not None and (idx.shape[0] != B or idx.dtype != torch.int32):
+        raise ValueError(f"attention_route: idx must be int32 [{B}, n], got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    if qkv.device.type == "cpu":
+        return attention_route_plain(qkv, idx, num_heads, scale)
+    check_cuda(torch.bfloat16, qkv=qkv)
+    check_cuda(torch.int32, idx=idx)
+    out = torch.empty(B, n, C, dtype=qkv.dtype, device=qkv.device)
+    SDPA_KERNEL(ptr(qkv), ptr(idx), ptr(out), int(not wgmma), B, n_src, n, C, num_heads,
+                float(scale), stream())
     return out

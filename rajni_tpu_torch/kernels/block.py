@@ -36,7 +36,9 @@ B6's kernel (``N > ATTN_MAX_N``) per-head. At head_dim 64 the scale is
 1/8, so both forms give the same bits and the switch points need not agree.
 
 The int8 kernels (``block.py:1098-1440``) quantize the LN output straight
-from fp32 and the attention output before proj, per row or with calibrated
+from fp32 (its statistics summed in the kernel's order,
+:func:`..mlp._layer_norm_int8`, so that kernel and plain version agree bit
+for bit) and the attention output before proj, per row or with calibrated
 static scales folded into the operands (:func:`..math.fold_static_attn`);
 qkv is rounded to the activation dtype (B11 and B12 score it, B12 stores it,
 B10's attention casts it). B10 and B11 round their attention output to the
@@ -47,6 +49,16 @@ Under static scales B12 folds ``1/a_proj`` into the V columns, which only
 B13 undoes: a caller that sends B12's qkv to B5 passes no scales to B12.
 B11 always folds (``block.py:2611-2614``), since its own proj undoes it; its
 scores then come from the pre-scaled V.
+
+On the card the int8 tails (B10, B11, B13, and B14 and B15 in
+``wholeblock.py``) run ``csrc/int8.cuh:int8_attn_tail``: the attention
+(the register kernel below a crossover, ``INT8_TAIL_SDPA_MIN_N`` there,
+B6's kernel from it), which in dynamic mode also takes each output row's
+absmax, and
+proj, which quantizes the attention output as it loads it
+(:func:`..gemm.gemm_s8q`), with no quantizer launch between them.
+``two_launch=True`` runs the old tail instead (attention, row quantizer,
+int8 proj), the new one's bitwise reference.
 """
 
 from __future__ import annotations
@@ -56,12 +68,11 @@ import math
 import torch
 
 from ..ops.pruning import select_tokens_dense
-from .attention import SDPA_KERNEL, SDPA_MAX_N, _sdpa_perhead
+from .attention import ATTN_MAX_N, SDPA_MAX_N, _sdpa_perhead
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 from .math import fold_static_attn
-from .mlp import _int8_matmul, _layer_norm_f32, _mm
+from .mlp import _int8_matmul, _layer_norm_f32, _layer_norm_int8, _mm
 
-ATTN_MAX_N = 256  # csrc/common.cuh: whole softmax rows in registers
 HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
 _PHASED_MAX_BYTES = 4 * 1024 * 1024  # rajni_tpu/kernels/block.py:136
 
@@ -82,16 +93,16 @@ GATHER_KERNEL = CudaKernel(
     [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
 )
 ATTN_INT8_KERNEL = CudaKernel(
-    "rajni_attn_block_int8", [P] * 10 + [I] + [P] * 5 + [I] * 4 + [F, F, P],
+    "rajni_attn_block_int8", [P] * 10 + [I, I] + [P] * 6 + [I] * 4 + [F, F, P],
 )
 LN_QKV_INT8_KERNEL = CudaKernel(
     "rajni_ln_qkv_int8", [P] * 6 + [I, I] + [P] * 4 + [I] * 4 + [F, P],
 )
 GATHER_INT8_KERNEL = CudaKernel(
-    "rajni_gather_sdpa_proj_residual_int8", [P] * 7 + [I] + [P] * 4 + [I] * 5 + [F, P],
+    "rajni_gather_sdpa_proj_residual_int8", [P] * 7 + [I, I] + [P] * 5 + [I] * 5 + [F, P],
 )
 PRUNED_INT8_KERNEL = CudaKernel(
-    "rajni_pruned_attn_block_int8", [P] * 11 + [I, I] + [P] * 8 + [I] * 5 + [F, F, P],
+    "rajni_pruned_attn_block_int8", [P] * 11 + [I, I, I] + [P] * 9 + [I] * 5 + [F, F, P],
 )
 LN_QKV_SELECT_KERNEL = CudaKernel("rajni_ln_qkv_select", [P] * 11 + [I] * 5 + [F, P])
 
@@ -285,8 +296,6 @@ def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params,
         ptr(y), ptr(qkv), ptr(attn), ptr(out), B, N, C, num_heads, float(scale),
         float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # csrc/attn_block.cu launched B6's kernel
-        SDPA_KERNEL.launches += 1
     return out, qkv
 
 
@@ -420,8 +429,6 @@ def fused_gather_sdpa_proj_residual(
         ptr(qkv), ptr(idx), ptr(x), ptr(w), ptr(b), ptr(ls), ptr(attn), ptr(out),
         B, N, K, C, num_heads, float(scale), stream(),
     )
-    if K > ATTN_MAX_N:  # csrc/gather_attn.cu launched B6's kernel
-        SDPA_KERNEL.launches += 1
     return out
 
 
@@ -448,7 +455,7 @@ def int8_attn_operands(ln_params, attn_params, act_scales=None) -> dict:
 def _int8_qkv(x, wqkv_q, ops, static: bool, eps: float) -> torch.Tensor:
     """LN1 (fp32) quantized, the int8 qkv product dequantized, + bias,
     rounded to the activation dtype: ``[B, N, out_w]``."""
-    y = _layer_norm_f32(x.float(), ops["ln1s"], ops["ln1b"], eps)
+    y = _layer_norm_int8(x.float(), ops["ln1s"], ops["ln1b"], eps)
     return (_int8_matmul(y, wqkv_q, ops["sqkv"], static) + ops["bqkv"]).to(x.dtype)
 
 
@@ -519,11 +526,20 @@ def _check_int8(x, ls, ops, **weights) -> None:
     check_cuda(torch.float32, **{k: v for k, v in ops.items() if v is not None})
 
 
+def int8_tail_scratch(B: int, n_rows: int, n: int, C: int, dtype, dev, static: bool):
+    """The int8 tail's attention output ``[B·n·C]`` of ``dtype`` and, in
+    dynamic mode, its row absmax ``[n_rows]`` fp32 (None static), which
+    LN1's launch zeroes over its ``n_rows >= B·n`` rows."""
+    attn = torch.empty(B * n * C, dtype=dtype, device=dev)
+    return attn, None if static else torch.empty(n_rows, dtype=torch.float32, device=dev)
+
+
 def fused_attn_block_int8(x, ln_params, attn_params, ls, num_heads: int, scale: float,
-                          eps: float = 1e-6, act_scales=None):
+                          eps: float = 1e-6, act_scales=None, two_launch: bool = False):
     """Stock attention half with int8 qkv and proj weights: ``x + ls1 ·
     proj(mhsa(qkv(norm1(x))))`` on ``[B, N, C]``. ``act_scales = (a_qkv,
-    a_proj)`` selects calibrated static quantization."""
+    a_proj)`` selects calibrated static quantization; ``two_launch`` the
+    old attention tail on the card (module docstring)."""
     if x.device.type == "cpu":
         return attn_block_int8_plain(x, ln_params, attn_params, ls, num_heads, scale, eps,
                                      act_scales)
@@ -535,20 +551,18 @@ def fused_attn_block_int8(x, ln_params, attn_params, ls, num_heads: int, scale: 
     if wqkv.shape != (3 * C, C) or wproj.shape != (C, C):
         raise ValueError(f"fused_attn_block_int8: bad int8 weight shapes {tuple(wqkv.shape)}, "
                          f"{tuple(wproj.shape)}")
-    rows, dev = B * N, x.device
+    rows, dev, static = B * N, x.device, act_scales is not None
     q8 = torch.empty(rows * C, dtype=torch.int8, device=dev)
     qs = torch.empty(rows, dtype=torch.float32, device=dev)
     qkv = torch.empty(rows * 3 * C, dtype=x.dtype, device=dev)
-    attn = torch.empty(rows * C, dtype=x.dtype, device=dev)
+    attn, amax = int8_tail_scratch(B, rows, N, C, x.dtype, dev, static)
     out = torch.empty_like(x)
     ATTN_INT8_KERNEL(
         ptr(x), ptr(ops["ln1s"]), ptr(ops["ln1b"]), ptr(wqkv), ptr(ops["sqkv"]),
         ptr(ops["bqkv"]), ptr(wproj), ptr(ops["sproj"]), ptr(ops["bproj"]), ptr(ls),
-        int(act_scales is not None), ptr(q8), ptr(qs), ptr(qkv), ptr(attn), ptr(out), B, N, C,
-        num_heads, float(scale), float(eps), stream(),
+        int(static), int(two_launch), ptr(q8), ptr(qs), ptr(qkv), ptr(attn), ptr(amax), ptr(out),
+        B, N, C, num_heads, float(scale), float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
-        SDPA_KERNEL.launches += 1
     return out
 
 
@@ -587,12 +601,13 @@ def fused_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float = 1e-
 
 
 def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_heads: int,
-                                         scale: float, act_scale=None):
+                                         scale: float, act_scale=None, two_launch: bool = False):
     """Int8 pruned attention tail: ``gather(x) + ls1 ·
     proj(mhsa(gather(qkv)))`` → ``[B, K, C]`` with an int8 proj record;
     ``keep_idx [B, K]`` as in :func:`fused_gather_sdpa_proj_residual`.
     ``act_scale``: the static ``a_proj`` (the qkv from
-    :func:`fused_ln_qkv_int8` with the same scales)."""
+    :func:`fused_ln_qkv_int8` with the same scales); ``two_launch`` the old
+    attention tail on the card (module docstring)."""
     if x.device.type == "cpu":
         return gather_sdpa_proj_residual_int8_plain(qkv, keep_idx, x, proj_params, ls,
                                                     num_heads, scale, act_scale)
@@ -612,18 +627,16 @@ def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_
         raise ValueError(f"keep_idx must be [{B}, K <= {N}], got {tuple(keep_idx.shape)}")
     idx = keep_idx.to(torch.int32).contiguous()
     check_cuda(torch.int32, keep_idx=idx)
-    dev = x.device
-    attn = torch.empty(B * K * C, dtype=torch.float32, device=dev)
-    q8 = torch.empty(B * K * C, dtype=torch.int8, device=dev)
+    dev, static = x.device, act_scale is not None
+    attn, amax = int8_tail_scratch(B, B * K, K, C, torch.float32, dev, static)
+    q8 = torch.empty(B * K * C, dtype=torch.int8, device=dev)  # the two-launch route's
     qs = torch.empty(B * K, dtype=torch.float32, device=dev)
     out = torch.empty(B, K, C, dtype=x.dtype, device=dev)
     GATHER_INT8_KERNEL(
         ptr(qkv), ptr(idx), ptr(x), ptr(wq), ptr(ops["sproj"]), ptr(ops["bproj"]), ptr(ls),
-        int(act_scale is not None), ptr(attn), ptr(q8), ptr(qs), ptr(out), B, N, K, C,
-        num_heads, float(scale), stream(),
+        int(static), int(two_launch), ptr(attn), ptr(amax), ptr(q8), ptr(qs), ptr(out), B, N, K,
+        C, num_heads, float(scale), stream(),
     )
-    if K > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
-        SDPA_KERNEL.launches += 1
     return out
 
 
@@ -654,12 +667,14 @@ def pruned_attn_block_int8_plain(x, ln_params, attn_params, ls, prev_scores, num
 
 def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num_heads: int,
                                  keep: int, scale: float, eps: float = 1e-6,
-                                 with_scores: bool = True, act_scales=None):
+                                 with_scores: bool = True, act_scales=None,
+                                 two_launch: bool = False):
     """Pruned attention half with int8 qkv and proj weights: ``(x [B, K, C],
     next_scores [B, K] fp32, keep_idx [B, K])`` with ``K = keep + 1``.
     ``with_scores=False`` selects from ``prev_scores [B, N]``;
     ``act_scales = (a_qkv, a_proj)`` selects calibrated static quantization,
-    with the V-column fold always applied."""
+    with the V-column fold always applied; ``two_launch`` the old attention
+    tail on the card (module docstring)."""
     if not with_scores and prev_scores is None:
         raise ValueError("with_scores=False needs prev_scores")
     if x.device.type == "cpu":
@@ -680,24 +695,22 @@ def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num
     if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_pruned_attn_block_int8 cannot score N={N}, C={C}, "
                          f"heads={num_heads}")
-    dev = x.device
+    dev, static = x.device, act_scales is not None
     q8 = torch.empty(B * N * C, dtype=torch.int8, device=dev)
     qs = torch.empty(B * N, dtype=torch.float32, device=dev)
     qkv = torch.empty(B * N * 3 * C, dtype=x.dtype, device=dev)
     scores = torch.empty(B, N, dtype=torch.float32, device=dev) if with_scores else None
-    attn = torch.empty(B * K * C, dtype=x.dtype, device=dev)
+    attn, amax = int8_tail_scratch(B, B * N, K, C, x.dtype, dev, static)
     idx = torch.empty(B, K, dtype=torch.int32, device=dev)
     next_scores = torch.empty(B, K, dtype=torch.float32, device=dev)
     out = torch.empty(B, K, C, dtype=x.dtype, device=dev)
     PRUNED_INT8_KERNEL(
         ptr(x), ptr(ops["ln1s"]), ptr(ops["ln1b"]), ptr(wqkv), ptr(ops["sqkv"]),
         ptr(ops["bqkv"]), ptr(wproj), ptr(ops["sproj"]), ptr(ops["bproj"]), ptr(ls), ptr(prev),
-        int(with_scores), int(act_scales is not None), ptr(q8), ptr(qs), ptr(qkv), ptr(scores),
-        ptr(attn), ptr(idx), ptr(next_scores), ptr(out), B, N, K, C, num_heads, float(scale),
-        float(eps), stream(),
+        int(with_scores), int(static), int(two_launch), ptr(q8), ptr(qs), ptr(qkv), ptr(scores),
+        ptr(attn), ptr(amax), ptr(idx), ptr(next_scores), ptr(out), B, N, K, C, num_heads,
+        float(scale), float(eps), stream(),
     )
-    if K > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
-        SDPA_KERNEL.launches += 1
     return out, next_scores, idx.long()
 
 

@@ -119,14 +119,39 @@ class CudaKernel:
     """One C entry point of the kernel library, with a launch counter.
 
     ``launches`` counts successful launches; it is a plain integer that a
-    caller may reset to 0 to count the launches of one run.
+    caller may reset to 0 to count the launches of one run. With
+    ``counter``, the name of a C function that returns the library's own
+    count of the kernel's launches (a kernel that other entry points launch
+    inside their calls: B6's body), ``launches`` reads that count, so every
+    launch is counted where it happens, and a call adds nothing itself.
     """
 
-    def __init__(self, symbol: str, argtypes: list):
+    def __init__(self, symbol: str, argtypes: list, counter: str | None = None):
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
+        self.counter = counter
+        self._count = 0  # the launches counted (or set) here
+        self._base = 0  # the library's count when ``launches`` was last set
         self._fn = None
+
+    def _library_count(self) -> int:
+        """The library's count (0 before the library is loaded: it starts there)."""
+        if _LIB is None:
+            return 0
+        fn = getattr(_LIB, self.counter)
+        fn.restype = ctypes.c_longlong
+        return fn()
+
+    @property
+    def launches(self) -> int:
+        if self.counter is None:
+            return self._count
+        return self._count + self._library_count() - self._base
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self._count = value
+        self._base = 0 if self.counter is None else self._library_count()
 
     def _load(self):
         fn = getattr(_library(), self.symbol)
@@ -144,7 +169,8 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol}: launch {step} failed with CUDA error {code} ({msg})"
             )
-        self.launches += 1
+        if self.counter is None:
+            self._count += 1
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

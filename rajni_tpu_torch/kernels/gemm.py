@@ -1,10 +1,11 @@
 """The Hopper GEMM (``csrc/gemm_sm90.cuh``: persistent, warp-specialized,
 TMA and wgmma) behind entry points of its own: bf16, the products of K1
 ``fused_pruned_attn_block``, K2 ``fused_attn_block``, K3
-``fused_ln_mlp_residual``, B4 ``fused_ln_qkv`` and B5
-``fused_gather_sdpa_proj_residual`` (:func:`gemm`); and int8, the products
-of B9-B15 (:func:`gemm_s8`) and fc1 with its GELU quantized in the
-epilogue (:func:`gelu_quant`).
+``fused_ln_mlp_residual``, B4 ``fused_ln_qkv``, B5
+``fused_gather_sdpa_proj_residual`` and B17 ``train_ln_mlp``
+(:func:`gemm`); and int8, the products of B9-B15 (:func:`gemm_s8`), fc1 with
+its GELU quantized in the epilogue (:func:`gelu_quant`), and the int8 tails'
+proj with its A operand quantized as it is loaded (:func:`gemm_s8q`).
 
 No path calls them: the entry points launch the same kernel from their own
 sources. These wrappers exist so that the GEMM can be held to its plain
@@ -16,7 +17,11 @@ Numeric contract of :func:`gemm` (the epilogues of ``csrc/common.cuh``):
 bf16 operands, the product accumulated in fp32, then in fp32 from that sum
 ``acc + b`` (``EPI_BIAS``), ``gelu_fast(acc + b)`` (``EPI_GELU``: of the fp32
 sum, not of a rounded one) or ``res + (acc + b) · ls`` (``EPI_RESIDUAL``,
-``ls`` and ``res`` optional), rounded once to the activation dtype. With
+``ls`` and ``res`` optional), rounded once to the activation dtype; or
+``EPI_GELU_SAVE`` (B17), two outputs, ``h = round(acc + b)`` and
+``round(gelu_fast(h))``, the GELU of the rounded h (on the card computed as
+PyTorch computes :func:`..math.gelu_fast`, so it is PyTorch's GELU of the
+kernel's h bit for bit). With
 ``res_idx`` the residual is gathered, as K1's and B5's proj read the pre-norm
 x of the kept tokens: output row ``r`` (of ``M``, flattened) adds row ``(r //
 rows_out) * rows_in + res_idx[r]`` of ``res`` (flattened to ``[R, N]``), so
@@ -36,9 +41,18 @@ above). So ``I8_BIAS`` and ``I8_RESIDUAL`` are the plain version's bits.
 group as the int8 kernels' h is: ``quantize_rows`` of each group (dynamic,
 ``(hq, hs)``) or ``quantize_static(h · sinv)`` (static, ``(hq, None)``). On
 the card its hq and hs are those of ``I8_GELU`` followed by the kernels' row
-quantizer, bit for bit; against :func:`quant_groups_plain` a few elements
-differ by one step, as ``quantize_rows`` takes ``127 / absmax`` as ``127 ·
-(1 / absmax)``.
+quantizer, bit for bit, and those of :func:`quant_groups_plain` of the
+kernel's h (``quantize_rows`` divides ``127 / absmax`` once, as the kernels
+do).
+
+:func:`gemm_s8q` is ``I8_RESIDUAL`` of :func:`gemm_s8` (ungrouped) on ``q,
+a = quantize_rows(o)`` of the attention output ``o`` (bf16 or fp32), with
+the quantizer's operations done as the GEMM loads ``o``: row ``r`` by ``127
+/ max(amax[r], 1e-8)``, ``amax`` its absmax (:func:`row_absmax_plain`, which
+the attention kernels take in their epilogue), dequantized by ``max(amax[r],
+1e-8) · (1/127)``; or static (``amax`` None): ``quantize_static(o)``, no row
+scale. Its plain version :func:`gemm_s8q_plain` is bitwise the two-step
+route.
 """
 
 from __future__ import annotations
@@ -51,16 +65,17 @@ from .mlp import _int8_mm
 
 # csrc/common.cuh: Epilogue
 EPI_BIAS, EPI_GELU, EPI_RESIDUAL, EPI_GELU_SAVE = 0, 1, 2, 3
-EPILOGUES = (EPI_BIAS, EPI_GELU, EPI_RESIDUAL)  # what csrc/gemm_sm90.cuh computes
+EPILOGUES = (EPI_BIAS, EPI_GELU, EPI_RESIDUAL, EPI_GELU_SAVE)
 BLOCK_K = 64  # csrc/gemm_sm90.cuh: a stage is 128 bytes of k, 64 bf16
 S8_BLOCK_K = 128  # ... and 128 int8
 # csrc/int8.cuh: I8Epilogue
 I8_BIAS, I8_GELU, I8_RESIDUAL = 0, 1, 2
 S8_EPILOGUES = (I8_BIAS, I8_GELU, I8_RESIDUAL)
 
-KERNEL = CudaKernel("rajni_gemm_sm90", [P, P, P, I, I, I, I, P, P, P, P, I, I, P])
+KERNEL = CudaKernel("rajni_gemm_sm90", [P, P, P, I, I, I, I, P, P, P, P, I, I, P, P])
 S8_KERNEL = CudaKernel("rajni_gemm_s8", [P, P, P, I, I, I, I] + [P] * 6 + [I, I, I, P])
 GELU_QUANT_KERNEL = CudaKernel("rajni_gelu_quant_s8", [P] * 5 + [I] * 3 + [P] * 4 + [I, I, P])
+S8Q_KERNEL = CudaKernel("rajni_gemm_s8q", [P, I, P, P, P, I, I, I] + [P] * 5 + [I, I, P])
 
 
 def gathered_rows(res_idx: torch.Tensor, rows_out: int, rows_in: int) -> torch.Tensor:
@@ -73,11 +88,15 @@ def gathered_rows(res_idx: torch.Tensor, rows_out: int, rows_in: int) -> torch.T
 def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
                ls: torch.Tensor | None = None, res: torch.Tensor | None = None,
                res_idx: torch.Tensor | None = None, rows_out: int = 1,
-               rows_in: int = 1) -> torch.Tensor:
+               rows_in: int = 1):
     """Plain PyTorch version of the GEMM: the same arithmetic, in the same
-    order, as the plain versions of K1, K2, K3, B4 and B5
-    (``kernels/block.py``, ``kernels/mlp.py``)."""
+    order, as the plain versions of K1, K2, K3, B4, B5 and B17
+    (``kernels/block.py``, ``kernels/mlp.py``, ``kernels/train.py``). Returns
+    ``out``, or ``(out, h)`` for ``EPI_GELU_SAVE``."""
     out = a.float() @ w.float().t() + bias.float()
+    if epilogue == EPI_GELU_SAVE:
+        h = out.to(a.dtype)
+        return gelu_fast(h.float()).to(a.dtype), h
     if epilogue == EPI_GELU:
         out = gelu_fast(out)
     elif epilogue == EPI_RESIDUAL:
@@ -138,11 +157,12 @@ def _check_residual(name, a, N, res, res_idx, rows_out, rows_in) -> None:
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
          ls: torch.Tensor | None = None, res: torch.Tensor | None = None,
          res_idx: torch.Tensor | None = None, rows_out: int = 1,
-         rows_in: int = 1) -> torch.Tensor:
+         rows_in: int = 1):
     """``[..., K] @ [N, K]ᵀ -> [..., N]`` with the epilogue ``epilogue``
-    (with ``res_idx``, the gathered residual of the module docstring).
-    Raises on shapes the kernel does not take (``K % 64``, ``N % 8``,
-    ``EPI_GELU_SAVE``, a ``res_idx`` that is not int32 ``a.shape[:-1]`` on
+    (with ``res_idx``, the gathered residual of the module docstring;
+    ``EPI_GELU_SAVE`` returns ``(out, h)``). Raises on shapes the kernel
+    does not take (``K % 64``, ``N % 8``, an epilogue code not in
+    ``EPILOGUES``, a ``res_idx`` that is not int32 ``a.shape[:-1]`` on
     ``a``'s device, ``rows_out``/``rows_in`` that do not split the output
     and residual rows into the same images) before it dispatches, on any
     device. Each ``res_idx[r]`` must lie in ``[0, rows_in)``; that is not
@@ -155,9 +175,10 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
     K, N = a.shape[-1], w.shape[0]
     M = a.numel() // K
     out = torch.empty(*a.shape[:-1], N, dtype=a.dtype, device=a.device)
+    h = torch.empty_like(out) if epilogue == EPI_GELU_SAVE else None
     KERNEL(ptr(a), ptr(w), ptr(out), M, N, K, epilogue, ptr(bias), ptr(ls), ptr(res),
-           ptr(res_idx), rows_out, rows_in, stream())
-    return out
+           ptr(res_idx), rows_out, rows_in, ptr(h), stream())
+    return out if h is None else (out, h)
 
 
 # ---------------------------------------------------------------------------
@@ -305,3 +326,70 @@ def gelu_quant(q, w, w_scale, bias, hc: int, a=None, sinv=None, two_launch: bool
     GELU_QUANT_KERNEL(ptr(q), ptr(w), ptr(hq), ptr(hs), ptr(scratch), M, N, K, ptr(a),
                       ptr(w_scale), ptr(bias), ptr(sinv), hc, int(two_launch), stream())
     return hq, hs
+
+
+# ---------------------------------------------------------------------------
+# The int8 tails' proj: the attention output quantized as it is loaded
+# ---------------------------------------------------------------------------
+
+
+def row_absmax_plain(o: torch.Tensor) -> torch.Tensor:
+    """Each row's absmax of the attention output ``o [..., C]`` as stored
+    (bf16 or fp32), fp32 ``[...]``: what the attention kernels' epilogue
+    takes (the maximum over the heads of each head's maximum, which is the
+    row's)."""
+    return o.float().abs().amax(dim=-1)
+
+
+def gemm_s8q_plain(o: torch.Tensor, amax: torch.Tensor | None, w: torch.Tensor,
+                   w_scale: torch.Tensor, bias: torch.Tensor, ls: torch.Tensor | None = None,
+                   res: torch.Tensor | None = None, res_idx: torch.Tensor | None = None,
+                   rows_out: int = 1, rows_in: int = 1,
+                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of :func:`gemm_s8q`: ``o [..., K]`` (bf16 or
+    fp32) quantized per row by its absmax ``amax [...]`` (None: static) with
+    the operations of :func:`..math.quantize_rows`, then ``I8_RESIDUAL`` of
+    :func:`gemm_s8_plain` (stored in ``out_dtype``; the kernel stores
+    bf16)."""
+    o32 = o.float()
+    if amax is None:
+        q, a = quantize_static(o32), None
+    else:
+        m = torch.clamp_min(amax.float(), 1e-8)[..., None]
+        mul = torch.full_like(m, 127.0) / m
+        q = torch.clamp(torch.round(o32 * mul), -127, 127).to(torch.int8)
+        a = m * (1.0 / 127.0)
+    return gemm_s8_plain(q, w, w_scale, bias, I8_RESIDUAL, a, None, ls, res, res_idx, rows_out,
+                         rows_in, out_dtype)
+
+
+def gemm_s8q(o: torch.Tensor, amax: torch.Tensor | None, w: torch.Tensor,
+             w_scale: torch.Tensor, bias: torch.Tensor, ls: torch.Tensor | None = None,
+             res: torch.Tensor | None = None, res_idx: torch.Tensor | None = None,
+             rows_out: int = 1, rows_in: int = 1) -> torch.Tensor:
+    """The int8 tails' proj (``csrc/int8.cuh:launch_gemm_s8q``), arguments
+    as :func:`gemm_s8q_plain`. Raises before it dispatches, on any device,
+    where ``o`` is neither bf16 nor fp32, ``amax`` is not fp32 ``o.shape[:-1]``
+    on ``o``'s device, or as :func:`gemm_s8` does (``K % 128``, ``N % 16``,
+    the residual's shapes)."""
+    if o.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gemm_s8q takes a bf16 or fp32 A, got {o.dtype}")
+    if amax is not None and (tuple(amax.shape) != tuple(o.shape[:-1])
+                             or amax.dtype != torch.float32 or amax.device != o.device):
+        raise ValueError(f"gemm_s8q: amax must be fp32 {tuple(o.shape[:-1])} on {o.device}, "
+                         f"got {amax.dtype} {tuple(amax.shape)} on {amax.device}")
+    _check_s8(o, w, w_scale, bias, I8_RESIDUAL, None, None, ls, res, res_idx, rows_out, rows_in)
+    if o.device.type == "cpu":
+        return gemm_s8q_plain(o, amax, w, w_scale, bias, ls, res, res_idx, rows_out, rows_in)
+    check_cuda(o.dtype, o=o)
+    check_cuda(torch.int8, w=w)
+    check_cuda(torch.float32, amax=amax, w_scale=w_scale, bias=bias)
+    check_cuda(torch.bfloat16, ls=ls, res=res)
+    check_cuda(torch.int32, res_idx=res_idx)
+    K, N = o.shape[-1], w.shape[0]
+    M = o.numel() // K
+    out = torch.empty(*o.shape[:-1], N, dtype=torch.bfloat16, device=o.device)
+    S8Q_KERNEL(ptr(o), int(o.dtype == torch.float32), ptr(amax), ptr(w), ptr(out), M, N, K,
+               ptr(w_scale), ptr(bias), ptr(ls), ptr(res), ptr(res_idx), rows_out, rows_in,
+               stream())
+    return out

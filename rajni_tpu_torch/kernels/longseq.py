@@ -25,9 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from .attention import SDPA_KERNEL, SDPA_MAX_N
+from .attention import SDPA_MAX_N
 from .block import (
-    ATTN_MAX_N,
     _check_attn_shapes,
     _check_prev_scores,
     PRUNED_KERNEL,
@@ -102,6 +101,4 @@ def fused_pruned_attn_block_long(x, ln_params, attn_params, ls, prev_scores, num
         ptr(next_scores), ptr(out), B, N, K, C, num_heads, float(scale), float(eps),
         stream(),
     )
-    if K > ATTN_MAX_N:  # the attention took B6's kernel
-        SDPA_KERNEL.launches += 1
     return out, next_scores, idx.long()

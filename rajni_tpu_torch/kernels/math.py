@@ -2,10 +2,11 @@
 counterpart of ``rajni_tpu/kernels/math.py``): the GELU forms, and the int8
 activation quantizers with their static-scale folds.
 
-The kernels use :func:`gelu_fast`; ``csrc/common.cuh`` carries the same
-coefficients and clamp. ``csrc/int8.cuh`` quantizes as :func:`quantize_rows`
-and :func:`quantize_static` do: ``rint`` (round half to even, as
-``jnp.round``), then a clip to ±127.
+The kernels use :func:`gelu_fast`; ``csrc/common.cuh`` and
+``csrc/gemm_sm90.cuh`` carry the same coefficients and clamp.
+``csrc/int8.cuh`` quantizes as :func:`quantize_rows` and
+:func:`quantize_static` do: ``rint`` (round half to even, as ``jnp.round``),
+then a clip to ±127.
 """
 
 from __future__ import annotations
@@ -18,11 +19,15 @@ def quantize_rows(y32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     [..., 1])`` with ``y ≈ int8 * scale``.
 
     Quantizes as ``y * (127 / absmax)`` (absmax floored at 1e-8), a per-row
-    reciprocal multiply as the TPU kernels do, not ``y / scale``: the two
-    differ by one on exact ties. Rounds half to even.
+    multiplier as the TPU kernels take it, not ``y / scale``: the two differ
+    by one on exact ties. The multiplier is one division, as in
+    ``rajni_tpu/kernels/math.py`` and ``csrc/int8.cuh``: PyTorch takes
+    ``127.0 / tensor`` as ``127 · (1 / tensor)``, two roundings, so the
+    dividend is a tensor here. Rounds half to even.
     """
     absmax = torch.clamp_min(y32.abs().amax(dim=-1, keepdim=True), 1e-8)
-    q = torch.clamp(torch.round(y32 * (127.0 / absmax)), -127, 127).to(torch.int8)
+    mul = torch.full_like(absmax, 127.0) / absmax
+    q = torch.clamp(torch.round(y32 * mul), -127, 127).to(torch.int8)
     return q, absmax * (1.0 / 127.0)
 
 

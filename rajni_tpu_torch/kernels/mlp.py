@@ -68,6 +68,51 @@ def _layer_norm_f32(x32, scale, bias, eps: float) -> torch.Tensor:
     return y * scale.float() + bias.float()
 
 
+# csrc/common.cuh: a warp a row, LN_MAXV 8-element chunks a lane
+_LN_LANES, _LN_MAXV = 32, 4
+
+
+def _lane_sum(parts: torch.Tensor) -> torch.Tensor:
+    """``parts [..., LN_MAXV, 32, 8]`` summed as the kernel's warp sums
+    them: each lane its chunks in turn, then the lanes by the xor butterfly
+    (``common.cuh:warp_sum``), every step one fp32 addition: ``[..., 1]``."""
+    s = torch.zeros(parts.shape[:-3] + (_LN_LANES,), dtype=torch.float32, device=parts.device)
+    for i in range(_LN_MAXV):
+        for j in range(8):
+            s = s + parts[..., i, :, j]
+    lanes = torch.arange(_LN_LANES, device=parts.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[..., lanes ^ o]
+    return s[..., :1]
+
+
+def _layer_norm_int8(x32, scale, bias, eps: float) -> torch.Tensor:
+    """The LayerNorm before an int8 quantizer, in the fp32 operations of
+    ``csrc/int8.cuh:ln_quant_kernel`` and in its order (lane l adds its
+    elements ``8c..8c+7`` of chunks ``c = l, l + 32, ...``, the lanes added by
+    the warp's xor butterfly; ``mean = sum / C``, ``rstd = 1 / sqrt(var / C +
+    eps)``, each correctly rounded), so that kernel and plain version give the
+    same LN output bit for bit and no quantization step flips between them
+    on a summation order. The kernel takes C % 8 == 0, C <= 1024; at any
+    other width (which only the plain route runs) it is
+    :func:`_layer_norm_f32`."""
+    lead, C = x32.shape[:-1], x32.shape[-1]
+    if C % 8 or C > _LN_MAXV * _LN_LANES * 8:
+        return _layer_norm_f32(x32, scale, bias, eps)
+    nv = C // 8
+    slots = _LN_MAXV * _LN_LANES
+    chunks = torch.zeros(*lead, slots, 8, dtype=torch.float32, device=x32.device)
+    chunks[..., :nv, :] = x32.reshape(*lead, nv, 8)
+    valid = (torch.arange(slots, device=x32.device) < nv).reshape(_LN_MAXV, _LN_LANES, 1)
+    chunks = chunks.reshape(*lead, _LN_MAXV, _LN_LANES, 8)
+    count = torch.full(lead + (1,), float(C), dtype=torch.float32, device=x32.device)
+    mean = _lane_sum(chunks) / count
+    d = chunks - mean[..., None, None]
+    var = _lane_sum(torch.where(valid, d * d, torch.zeros_like(d))) / count
+    rstd = 1.0 / torch.sqrt(var + eps)
+    return ((x32 - mean) * rstd) * scale.float() + bias.float()
+
+
 def ln_mlp_residual_plain(
     x: torch.Tensor, ln_params, mlp_params, ls=None, eps: float = 1e-6,
     add_residual: bool = True,
@@ -157,7 +202,7 @@ def int8_mlp_operands(ln_params, mlp_params, act_scales=None) -> dict:
 
 def _ln_mlp_int8(x, mlp_params, ops, ls, hc: int, eps: float, add_residual: bool = True):
     """The int8 MLP on rows ``x`` with its vector operands ``ops``: LN2
-    quantized (fp32 LN, never rounded), fc1 with GELU in fp32, each hc chunk
+    quantized (:func:`_layer_norm_int8`, never rounded), fc1 with GELU in fp32, each hc chunk
     of h quantized with its own row scale (static: ``· sinv``, rounded), fc2
     partial sums dequantized per chunk and added in fp32, then ``x + (acc ·
     s2 + b2) · ls`` (``mlp.py:225-327``; B14/B15 run it on ``x_mid``,
@@ -165,7 +210,7 @@ def _ln_mlp_int8(x, mlp_params, ops, ls, hc: int, eps: float, add_residual: bool
     static = ops["sinv"] is not None
     w1q, w2q = mlp_params["fc1"]["weight"]["int8"], mlp_params["fc2"]["weight"]["int8"]
     x32 = x.float()
-    y2 = _layer_norm_f32(x32, ops["ln2s"], ops["ln2b"], eps)
+    y2 = _layer_norm_int8(x32, ops["ln2s"], ops["ln2b"], eps)
     if static:
         y2q, a1 = quantize_static(y2), None
     else:

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.pruning import select_tokens_dense
-from .attention import SDPA_KERNEL, SDPA_MAX_N
+from .attention import SDPA_MAX_N
 from .block import (
     ATTN_MAX_N,
     HEAD_DIM,
@@ -56,10 +56,10 @@ ATTN_MLP_KERNEL = CudaKernel(
     "rajni_attn_mlp_block", [P] * 15 + [P] * 6 + [I] * 5 + [F, F, P],
 )
 PRUNED_FULL_INT8_KERNEL = CudaKernel(
-    "rajni_pruned_block_full_int8", [P] * 21 + [I, I] + [P] * 12 + [I] * 7 + [F, F, P],
+    "rajni_pruned_block_full_int8", [P] * 21 + [I, I, I] + [P] * 12 + [I] * 7 + [F, F, P],
 )
 BLOCK_FULL_INT8_KERNEL = CudaKernel(
-    "rajni_block_full_int8", [P] * 20 + [I] + [P] * 9 + [I] * 6 + [F, F, P],
+    "rajni_block_full_int8", [P] * 20 + [I, I] + [P] * 9 + [I] * 6 + [F, F, P],
 )
 
 # ---------------------------------------------------------------------------
@@ -335,8 +335,6 @@ def fused_attn_mlp_block(x, block, num_heads: int, scale: float, eps: float = 1e
         ptr(x), *ptrs, ptr(y), ptr(qkv), ptr(attn), ptr(mid), ptr(h), ptr(out), B, N, C,
         hidden, num_heads, float(scale), float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # csrc/attn_block.cu launched B6's kernel
-        SDPA_KERNEL.launches += 1
     return out
 
 
@@ -367,7 +365,8 @@ def _int8_launch_operands(x, block, ops, num_heads: int, hc: int, max_n: int, na
 def _int8_scratch(B: int, N: int, n: int, C: int, hidden: int, hc: int, dev,
                   static: bool) -> list:
     """q8, qs, qkv, attn, mid, h, hq, hs (csrc/int8.cuh:Int8Block; h, the
-    fp32 GELU output and its absmax, in dynamic mode only)."""
+    fp32 GELU output and its absmax, in dynamic mode only, whose first B·N
+    floats first hold the attention output's row absmax)."""
     f32, i8 = torch.float32, torch.int8
     return [torch.empty(B * N * C, dtype=i8, device=dev),
             torch.empty(B * N, dtype=f32, device=dev),
@@ -382,11 +381,12 @@ def _int8_scratch(B: int, N: int, n: int, C: int, hidden: int, hc: int, dev,
 
 def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: int,
                                  scale: float, eps: float = 1e-6, with_scores: bool = True,
-                                 act_scales=None):
+                                 act_scales=None, two_launch: bool = False):
     """Whole pruned block with int8 weights: ``(x [B, K, C], next_scores
     [B, K] fp32, keep_idx [B, K])``. ``act_scales = (a_qkv, a_proj, a_fc1,
     a_fc2)`` selects static quantization; ``hc`` comes from
-    :func:`_pruned_full_int8_plan` (a shape with no plan raises)."""
+    :func:`_pruned_full_int8_plan` (a shape with no plan raises);
+    ``two_launch`` the old attention tail on the card (``block.py``)."""
     if not with_scores and prev_scores is None:
         raise ValueError("with_scores=False needs prev_scores")
     if x.device.type == "cpu":
@@ -398,8 +398,8 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
     hc = _plan_hc(_pruned_full_int8_plan(N, K, C, hidden, x.element_size()),
                   "fused_pruned_block_full_int8", f"N={N}, K={K}, C={C}, hidden={hidden}")
     ops = int8_operands(block, act_scales)
-    # the attention on the kept tokens takes B6's kernel past
-    # ATTN_MAX_N (DeiT-S/16 384 runs B14 from 519 tokens)
+    # the attention on the kept tokens takes B6's kernel past ATTN_MAX_N
+    # kept tokens (csrc/int8.cuh; DeiT-S/16 384 runs B14 from 519)
     args = _int8_launch_operands(x, block, ops, num_heads, hc, SDPA_MAX_N,
                                  "fused_pruned_block_full_int8")
     prev = _block._check_prev_scores(prev_scores, with_scores, B, N)
@@ -416,21 +416,21 @@ def fused_pruned_block_full_int8(x, block, prev_scores, num_heads: int, keep: in
     next_scores = torch.empty(B, K, dtype=torch.float32, device=dev)
     out = torch.empty(B, K, C, dtype=x.dtype, device=dev)
     PRUNED_FULL_INT8_KERNEL(
-        *args, ptr(prev), int(with_scores), int(act_scales is not None), ptr(q8), ptr(qs),
+        *args, ptr(prev), int(with_scores), int(act_scales is not None), int(two_launch),
+        ptr(q8), ptr(qs),
         ptr(qkv), ptr(scores), ptr(attn), ptr(mid), ptr(h), ptr(hq), ptr(hs), ptr(idx),
         ptr(next_scores), ptr(out), B, N, K, C, hidden, hc, num_heads, float(scale),
         float(eps), stream(),
     )
-    if K > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
-        SDPA_KERNEL.launches += 1
     return out, next_scores, idx.long()
 
 
 def fused_block_full_int8(x, block, num_heads: int, scale: float, eps: float = 1e-6,
-                          act_scales=None):
+                          act_scales=None, two_launch: bool = False):
     """Whole stock block with int8 weights: ``[B, N, C] -> [B, N, C]``;
-    ``act_scales`` and ``hc`` as in :func:`fused_pruned_block_full_int8`
-    (the plan is :func:`_block_full_int8_plan`)."""
+    ``act_scales``, ``hc`` and ``two_launch`` as in
+    :func:`fused_pruned_block_full_int8` (the plan is
+    :func:`_block_full_int8_plan`)."""
     if x.device.type == "cpu":
         return block_full_int8_plain(x, block, num_heads, scale, eps, act_scales)
     B, N, C = x.shape
@@ -444,10 +444,8 @@ def fused_block_full_int8(x, block, num_heads: int, scale: float, eps: float = 1
                                                       act_scales is not None)
     out = torch.empty_like(x)
     BLOCK_FULL_INT8_KERNEL(
-        *args, int(act_scales is not None), ptr(q8), ptr(qs), ptr(qkv), ptr(attn), ptr(mid),
-        ptr(h), ptr(hq), ptr(hs), ptr(out), B, N, C, hidden, hc, num_heads, float(scale),
-        float(eps), stream(),
+        *args, int(act_scales is not None), int(two_launch), ptr(q8), ptr(qs), ptr(qkv),
+        ptr(attn), ptr(mid), ptr(h), ptr(hq), ptr(hs), ptr(out), B, N, C, hidden, hc, num_heads,
+        float(scale), float(eps), stream(),
     )
-    if N > ATTN_MAX_N:  # int8.cuh's attention took B6's kernel
-        SDPA_KERNEL.launches += 1
     return out

@@ -39,16 +39,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def kind_of(name: str) -> str:
     """A device kernel's kind, by its name: the port's own kernels (the
-    wgmma GEMM, ``gemm_sm90_kernel``, bf16 (K1-K3, B4, B5) or int8 (its
-    ``S8Epi`` instantiations, B9-B15); the mma.sync GEMM of B17,
-    ``gemm_bf16_kernel``; the row quantizer, ``quant_rows_kernel``; B18;
-    other), library GEMMs, and PyTorch's elementwise, copy and reduction
-    kernels."""
+    wgmma GEMM, ``gemm_sm90_kernel``, bf16 (K1-K3, B4, B5, B17) or int8 (its
+    ``S8Epi`` instantiations, B9-B15); the row quantizer,
+    ``quant_rows_kernel``; B18; other), library GEMMs, and PyTorch's
+    elementwise, copy and reduction kernels."""
     if "rajni" in name:
         if "gemm_sm90" in name:
             return "port GEMM int8 wgmma" if "S8Epi" in name else "port GEMM wgmma"
-        if "gemm_bf16" in name:
-            return "port GEMM mma.sync"
         if "quant_rows" in name:
             return "port row quantizer"
         return "port B18" if "sdpa_bwd" in name else "port other"

@@ -1,10 +1,11 @@
-"""The GEMM of K1, K2, K3, B4 and B5 (``rajni_tpu_torch/kernels/gemm.py``)
+"""The GEMM of K1, K2, K3, B4, B5 and B17 (``rajni_tpu_torch/kernels/gemm.py``)
 on the CPU.
 
 ``gemm_plain`` is the reference that ``chip_smoke.py`` holds the Hopper GEMM
 to at each product's shapes. These tests hold that it is the same function
-that the plain versions of K2 and K3 compute, and with ``res_idx`` (the
-gathered residual) the proj step of K1's and B5's (exactly: the same
+that the plain versions of K2 and K3 compute, with ``res_idx`` (the
+gathered residual) the proj step of K1's and B5's, and with
+``EPI_GELU_SAVE`` fc1 of B17's, ``(hidden, h)`` (exactly: the same
 arithmetic in the same order), and those plain versions are held to the JAX
 Pallas kernels (here too, once each, and in ``tests/test_torch_kernels.py``
 and ``tests/test_torch_longseq.py``). They also hold that the wrapper refuses
@@ -27,6 +28,8 @@ from rajni_tpu.ops import pruning as jprune
 from rajni_tpu_torch.kernels import block as tblock
 from rajni_tpu_torch.kernels import gemm as tgemm
 from rajni_tpu_torch.kernels import mlp as tmlp
+from rajni_tpu_torch.kernels import train as ttrain
+from rajni_tpu_torch.kernels.math import gelu_fast
 from rajni_tpu_torch.ops import pruning as tprune
 
 B, N, C, H, HIDDEN = 2, 13, 128, 2, 512
@@ -112,9 +115,28 @@ def test_two_gemms_match_pallas_mlp(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("with_ls", [False, True])
+def test_gelu_save_is_b17_fc1(rng, with_ls):
+    """``EPI_GELU_SAVE`` returns ``(hidden, h)``: h and the GELU of the
+    rounded h that fc2 reads, bit for bit B17's plain version (bf16, the
+    kernels' type), and fc2 on that hidden is B17's output."""
+    dt = torch.bfloat16
+    norm = _torch(_norm(rng), dt)
+    mlp = {"fc1": _torch(_lin(rng, HIDDEN, C), dt), "fc2": _torch(_lin(rng, C, HIDDEN), dt)}
+    ls = _torch(0.5 * rng.standard_normal(C).astype(np.float32), dt) if with_ls else None
+    x = torch.from_numpy(rng.standard_normal((B, N, C)).astype(np.float32)).to(dt)
+    want_y, want_h = ttrain.train_ln_mlp_plain(x, norm, mlp, ls, 1e-6)
+    hidden, h = tgemm.gemm_plain(_ln(x, norm), mlp["fc1"]["weight"], mlp["fc1"]["bias"],
+                                 tgemm.EPI_GELU_SAVE)
+    assert torch.equal(h, want_h)
+    assert torch.equal(hidden, gelu_fast(want_h.float()).to(dt))
+    y = tgemm.gemm(hidden, mlp["fc2"]["weight"], mlp["fc2"]["bias"], tgemm.EPI_RESIDUAL, ls, x)
+    assert torch.equal(y, want_y)
+
+
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-@pytest.mark.parametrize("case", ["K % 64", "N % 8", "EPI_GELU_SAVE", "w shape", "res shape",
-                                  "ls without EPI_RESIDUAL"])
+@pytest.mark.parametrize("case", ["K % 64", "N % 8", "unknown epilogue", "w shape",
+                                  "res shape", "ls without EPI_RESIDUAL"])
 def test_gemm_refuses_before_dispatch(device, case):
     M, K, Nn, epi = 5, 128, 64, tgemm.EPI_RESIDUAL
     ls = res = None
@@ -123,8 +145,8 @@ def test_gemm_refuses_before_dispatch(device, case):
         K = 96
     elif case == "N % 8":
         Nn = 60
-    elif case == "EPI_GELU_SAVE":
-        epi = tgemm.EPI_GELU_SAVE
+    elif case == "unknown epilogue":
+        epi = 4
     elif case == "w shape":
         w_shape = (Nn, K + 64)
     elif case == "res shape":

@@ -58,7 +58,7 @@ def _mlp_chain(x, mlp, ops, ls, hc: int, out_dtype=torch.bfloat16):
     """B9's MLP on rows x as the kernel runs it: LN2 quantized, fc1 with its
     GELU quantized per hc group, fc2 grouped over hc with the residual."""
     static = ops["sinv"] is not None
-    q, a = _quant(tmlp._layer_norm_f32(x.float(), ops["ln2s"], ops["ln2b"], 1e-6), static)
+    q, a = _quant(tmlp._layer_norm_int8(x.float(), ops["ln2s"], ops["ln2b"], 1e-6), static)
     hq, hs = tgemm.gelu_quant_plain(q, mlp["fc1"]["weight"]["int8"], ops["s1"], ops["b1"], hc, a,
                                     ops["sinv"])
     return tgemm.gemm_s8_plain(hq, mlp["fc2"]["weight"]["int8"], ops["s2"], ops["b2"],
@@ -89,7 +89,7 @@ def test_s8_plain_is_b9(blk, monkeypatch, static, hc):
     want = tmlp._ln_mlp_int8(x, mlp, ops, ls, hc, 1e-6)
     monkeypatch.undo()
 
-    q, a = _quant(tmlp._layer_norm_f32(x.float(), ops["ln2s"], ops["ln2b"], 1e-6), static)
+    q, a = _quant(tmlp._layer_norm_int8(x.float(), ops["ln2s"], ops["ln2b"], 1e-6), static)
     w1 = mlp["fc1"]["weight"]["int8"]
     h = tgemm.gemm_s8_plain(q, w1, ops["s1"], ops["b1"], tgemm.I8_GELU, a)
     assert torch.equal(h, torch.cat(seen["gelu"], dim=-1))
@@ -118,7 +118,7 @@ def test_s8_plain_is_b15(blk, static):
     want = twb.block_full_int8_plain(x, blk_, H, SCALE, 1e-6, scales)
 
     a_, m_ = blk_["attn"], blk_["mlp"]
-    q, a = _quant(tmlp._layer_norm_f32(x.float(), ops["ln1s"], ops["ln1b"], 1e-6), static)
+    q, a = _quant(tmlp._layer_norm_int8(x.float(), ops["ln1s"], ops["ln1b"], 1e-6), static)
     qkv = tgemm.gemm_s8_plain(q, a_["qkv"]["weight"]["int8"], ops["sqkv"], ops["bqkv"],
                               tgemm.I8_BIAS, a)
     qa, aa = _quant(tblock._mha(qkv, H, SCALE, torch.float32), static)
