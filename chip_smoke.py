@@ -57,17 +57,24 @@ exit) when it goes wrong:
    attention tail of B10, B11 and B13-B15 (the attention taking each row's
    absmax, proj quantizing its input as it loads it) bitwise equal to its
    two-launch route at every path shape, dynamic and static, both timed,
-   the attention each took read from B6's launch count (one crossover for
-   contiguous and one for gathered tokens), the launches by device time at
+   the attention each took read from the launch counts of B6's body and the
+   short-row kernel (each kernel one range of n), the launches by device time at
    one shape of each, and the quantize-on-load proj
    (``gemm_s8q``) bitwise equal to ``quantize_rows`` + ``gemm_s8``; B17's fc1
    (``EPI_GELU_SAVE``) with its hidden bitwise PyTorch's ``gelu_fast`` of its
-   own h, at T6's and ragged shapes, and B17 timed beside K3 and cuBLAS; the score
+   own h, at T6's and ragged shapes, and B17 timed beside K3 and cuBLAS; the
+   weight quantizer on the card against the CPU at ViT-B's and ViT-L's weights
+   (C3: 0 scales and 0 int8 values apart); the short-row attention
+   (``csrc/short_attn.cu``, every attention up to 256 tokens) at every path
+   shape up to 256 tokens, gathered and contiguous, bf16 and fp32 out, its
+   row absmax exact; the score
    kernel (B4's scores at 197 and 577 tokens) against ``_importance_f32`` of
    the same qkv, and its device time at ViT-B/16 224's five pruned blocks
-   against its byte bound; K1's six launches, each by device time; B6's
-   wgmma body beside the register attention at 197, 187 and 120 tokens and,
-   for the int8 tails' crossover, at 47-197 tokens, C = 768 and 1024; and
+   against its byte bound; K1's six launches, B7's nine and B14's eleven (nine
+   static), each by device time; B6's wgmma body beside K2's attention at 197,
+   187 and 120 tokens and, for the crossover, the short-row kernel beside B6's
+   body, the byte bound and ``scaled_dot_product_attention`` (which the port
+   never calls) at 47-197 tokens, C = 768 and 1024, contiguous and gathered; and
    B20 beside B4 + torch selection + B5 at the 384 path's five pruned
    blocks, measured for their routing. Show that the comparison rejects
    faults planted in the plain versions (the attention for K1-B8, B16 and
@@ -82,7 +89,9 @@ exit) when it goes wrong:
    quantized GELU, the tile's absmax for the group's and the neighbouring
    column's sinv; for the int8 tail's proj, the absmax of one head's
    columns only and the scale of the neighbouring row; for the scores, the biased
-   value norms), and time both with CUDA
+   value norms; for the short-row attention, the gather ignored, keys past n
+   unmasked, P rounded before it is normalized; for C3, the weight scale
+   taken as absmax / 127.0), and time both with CUDA
    events (B6 beside ``F.scaled_dot_product_attention``, B18 beside its
    forward and backward, which the port never calls, by their device time
    from ``torch.profiler``: the host side of that call takes longer than its
@@ -151,6 +160,8 @@ VIT_L_SCHEDULE = {i: {"keep_ratio": 0.7} for i in (4, 8, 12, 16)}
 P5A, P5B, P5C = f"{PATH_L} int8", f"{PATH_L} int8 static", PATH_L
 P5D = f"{DEIT_S384} int8"
 KERNEL_ONLY = "kernel phase only"  # B19 and B20: no path runs them
+TRAIN = f"train {PATH224}"  # the training path: ViT-B/16 224, batch 128
+B_TRAIN = 128
 # Kernel vs its plain version. Both round the same intermediates to bf16 and
 # differ only in fp32 summation order, so they disagree where a value lies
 # within that order's error of a rounding edge: single-ulp flips, most of
@@ -607,6 +618,10 @@ KERNELS = {
     "train_attn_block": ("csrc/attn_block.cu", "rajni_tpu/kernels/train.py:89"),
     "train_ln_mlp": ("csrc/train_mlp.cu", "rajni_tpu/kernels/train.py:347"),
     "train_sdpa_bwd": ("csrc/sdpa_bwd.cu", "rajni_tpu/kernels/train.py:295"),
+    # no TPU kernel of its own: the _mha (phased) inside the Pallas kernels
+    # whose attention up to 256 tokens it runs (K1, K2, B5, B7, B8, B10, B11,
+    # B13-B16)
+    "short_attention": ("csrc/short_attn.cu", "rajni_tpu/kernels/block.py:130"),
 }
 
 
@@ -864,11 +879,16 @@ def wholeblock_phases(device, peaks, results):
                                 bf16_scores(x, blk, HEADS_S), keep, x, DEIT_GATE)
         ms = cuda_ms(lambda: wb.fused_pruned_block_full(*rescored))
         plain_ms = cuda_ms(lambda: wb.pruned_block_full_plain(*rescored), iters=5)
+        parts = launch_ms(lambda: wb.fused_pruned_block_full(*rescored))
+        dev = sum(parts.values())
+        print(f"B7 N={n} K={K}: its launches, device ms a call (sum {dev:.3f}): "
+              + "; ".join(f"{kernel_name(k)} {v:.3f}" for k, v in parts.items()))
         flops = (2.0 * B * n * C_S * 3 * C_S + 2.0 * B * K * C_S * C_S + 4.0 * B * K * K * C_S
                  + 4.0 * B * K * C_S * HIDDEN_S)
         nbytes = B * n * C_S * 2 + wbytes + B * K * C_S * 2 + B * K * 8
         record(results, "fused_pruned_block_full", P3A, f"B={B} N={n} K={K} C={C_S}", ms,
-               plain_ms, bound(flops, nbytes, peaks), max(err, e2), max(rel, r2))
+               plain_ms, bound(flops, nbytes, peaks), max(err, e2), max(rel, r2),
+               device=(dev, "its launches summed"))
 
 
 def quantized_block(blk):
@@ -996,6 +1016,12 @@ def int8_phases(device, peaks, int8_peak, results, configs=INT8_WHOLE, seed=4):
                     kname = "fused_pruned_block_full_int8"
                 ms = cuda_ms(timed[0])
                 plain_ms = cuda_ms(timed[1], iters=3, warmup=1)
+                dev = None
+                if keep is not None:  # B14: its events read the host; its launches by device time
+                    parts = launch_ms(timed[0])
+                    dev = (sum(parts.values()), "its launches summed")
+                    print(f"{tag} K={K}: its launches, device ms a call (sum {dev[0]:.3f}): "
+                          + "; ".join(f"{kernel_name(k)} {v:.3f}" for k, v in parts.items()))
                 int8_ops = 2.0 * batch * (n * width * 3 * width + K * width * width
                                       + 2 * K * width * hidden)
                 nbytes = (batch * n * width * 2 + wbytes + batch * K * width * 2
@@ -1003,7 +1029,7 @@ def int8_phases(device, peaks, int8_peak, results, configs=INT8_WHOLE, seed=4):
                 record(results, kname, path, f"B={batch} N={n} K={K} C={width} hc={hc}", ms,
                        plain_ms,
                        bound(4.0 * batch * K * K * width, nbytes, peaks, int8_ops, int8_peak),
-                       err, rel)
+                       err, rel, device=dev)
 
 
 @contextlib.contextmanager
@@ -1507,20 +1533,212 @@ def score_phases(device, peaks):
           f"byte bound of {total_bound:.4f} ms ({total / total_bound:.2f}x)")
 
 
-# token counts of the int8 tails' attention on the paths, where the
-# crossover between the two attention kernels is read (csrc/int8.cuh:
-# INT8_TAIL_SDPA_MIN_N)
+# C3: rajni_tpu_torch/quant.py:quantize_weight on the card against the CPU
+# at ViT-B's and ViT-L's qkv, proj, fc1 and fc2 weights ([out, in], N(0,
+# 0.02) in fp32); the old expression, absmax / 127.0 (on CUDA a multiply by
+# fl(1/127), two roundings), is the planted fault the count must see.
+C3_SHAPES = tuple((f"{model} {layer}", out, inp)
+                  for model, c in (("ViT-B", C), ("ViT-L", C_L))
+                  for layer, out, inp in (("qkv", 3 * c, c), ("proj", c, c), ("fc1", 4 * c, c),
+                                          ("fc2", c, 4 * c)))
+
+
+def quantize_weight_two_roundings(w):
+    """``quant.quantize_weight`` as it was before C3's repair: the absmax
+    divided by the Python float 127.0."""
+    import torch
+
+    w32 = w.float()
+    scale = torch.clamp_min(w32.abs().amax(dim=1, keepdim=True), 1e-8) / 127.0
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return {"int8": q, "scale": scale[:, 0]}
+
+
+def c3_phase(device):
+    """C3: the weight quantizer on the card gives the CPU's (true division)
+    scales and int8 values, 0 of each differing, at every C3_SHAPES weight;
+    the old expression must differ in more than 0 scales over them."""
+    import torch
+
+    from rajni_tpu_torch.quant import quantize_weight
+
+    gen = torch.Generator().manual_seed(21)
+    old_scales = 0
+    for tag, out, inp in C3_SHAPES:
+        w = 0.02 * torch.randn(out, inp, generator=gen)
+        cpu = quantize_weight(w)
+        card = quantize_weight(w.to(device))
+        old = quantize_weight_two_roundings(w.to(device))
+        ds = int((card["scale"].cpu() != cpu["scale"]).sum())
+        dq = int((card["int8"].cpu() != cpu["int8"]).sum())
+        os_ = int((old["scale"].cpu() != cpu["scale"]).sum())
+        oq = int((old["int8"].cpu() != cpu["int8"]).sum())
+        old_scales += os_
+        print(f"C3 {tag} [{out}, {inp}]: {ds} of {out} scales and {dq} int8 values differ "
+              f"from the CPU's | planted fault (absmax / 127.0): {os_} scales, {oq} int8 values")
+        check(ds == 0 and dq == 0, f"C3 {tag}: {ds} scales and {dq} int8 values differ")
+    check(old_scales > 0, "C3: the count missed the old expression (absmax / 127.0)")
+
+
+# Every attention at or below 256 tokens that the 14 paths run: (label,
+# width, heads, batch, n_src, n, gathered). Gathered: K1 / B14 (ViT-B/224),
+# B7 / B14 (DeiT-S), K1 / B11 (ViT-L), B14 (DeiT-S/384 275→247), B5 (T6,
+# batch 128); contiguous: K2, B8, B10, B15, B16.
+SHORT_SHAPES = (
+    *((f"{PATH224} K1/B14", C, HEADS, B, ns, n, True)
+      for ns, n in ((197, 187), (187, 177), (177, 150), (150, 127), (127, 120))),
+    *((f"{PATH224} K2/B15", C, HEADS, B, n, n, False) for n in (197, 120)),
+    *((f"{DEIT_S} B7/B14", C_S, HEADS_S, B, ns, n, True)
+      for ns, n in ((197, 177), (177, 159), (159, 143), (143, 128), (128, 115), (115, 103),
+                    (103, 92), (92, 82))),
+    (f"{DEIT_S} B8/B15", C_S, HEADS_S, B, 197, 197, False),
+    (f"{DEIT_S} B15", C_S, HEADS_S, B, 82, 82, False),
+    *((f"{PATH_L} K1/B11", C_L, HEADS_L, B, ns, n, True)
+      for ns, n in ((197, 138), (138, 96), (96, 67), (67, 47))),
+    *((f"{PATH_L} K2/B10/B15", C_L, HEADS_L, B, n, n, False) for n in (197, 138, 96, 67, 47)),
+    (f"{DEIT_S384} B14", C_S, HEADS_S, B_S384, 275, 247, True),
+    (f"{DEIT_S384} B15", C_S, HEADS_S, B_S384, 247, 247, False),
+    (f"{TRAIN} B5", C, HEADS, B_TRAIN, 197, 187, True),
+)
+SHORT_FAULTS = ("gather ignored", "keys past n unmasked")
+
+
+def short_faulty(fault, qkv, idx, heads, scale, out_dtype):
+    """The short-row attention's plain version with one planted fault: the
+    rows 0..n-1 read instead of rows idx (gather ignored), or the kept rows
+    padded with zero rows to whole 64-token tiles and every key of them
+    softmaxed (keys past n unmasked)."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+
+    kept = kept_rows(qkv, idx)
+    n = kept.shape[1]
+    if fault == "gather ignored":
+        return ka.attention_route_plain(qkv[:, :n].contiguous(), None, heads, scale, out_dtype)
+    padded = torch.nn.functional.pad(kept, (0, 0, 0, -n % 64))
+    return ka._sdpa_perhead(padded, heads, scale, out_dtype)[:, :n]
+
+
+def kept_indices(gen, batch, n_src, n, device):
+    """int32 [batch, n]: CLS and n - 1 other tokens of n_src, ascending."""
+    import torch
+
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+
+    if n == n_src:
+        return None
+    return select_tokens_dense(torch.rand(batch, n_src, generator=gen).to(device), n - 1,
+                               torch.bool)[0].to(torch.int32).contiguous()
+
+
+def kept_rows(qkv, idx):
+    """The rows idx [B, n] of qkv [B, n_src, 3C] (all of them when None)."""
+    import torch
+
+    return qkv if idx is None else torch.take_along_dim(qkv, idx.long()[..., None], dim=1)
+
+
+def attention_bytes(batch, n, width, out_bytes, gathered):
+    """Bytes the attention must move: the kept q, k and v rows read once (and
+    their indices), the output written once."""
+    return batch * n * (3 * width * 2 + width * out_bytes + (4 if gathered else 0))
+
+
+def library_sdpa_ms(qkv, idx, heads):
+    """Device time of torch.nn.functional.scaled_dot_product_attention (the
+    library yardstick; the port never calls it) on the same heads already
+    laid out [B, H, n, 64]."""
+    import torch
+
+    kept = kept_rows(qkv, idx)
+    Bq, n, three_c = kept.shape
+    q, k, v = (t.contiguous() for t in
+               kept.reshape(Bq, n, 3, heads, three_c // (3 * heads)).permute(2, 0, 3, 1, 4))
+    return device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+
+
+def short_attn_phases(device, peaks, results):
+    """The short-row attention (csrc/short_attn.cu) at every SHORT_SHAPES
+    shape, bf16 and fp32 out, with and without the row absmax: held to its
+    plain version (attention_route_plain) under BF16_GATE and by relative L2
+    at B6_REL_L2; its absmax equal to that of its own stored output, element
+    for element; the planted faults SHORT_FAULTS rejected (the gather where
+    tokens are gathered, keys past n where n is not a multiple of 64), and
+    "P rounded before normalization" where
+    it separates (at one shape at least). Timed at ViT-B/224's 197→187 and
+    DeiT-S's 197→177, beside its byte bound and the library's device time."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+
+    gen = torch.Generator().manual_seed(22)
+    separated = 0
+    for label, width, heads, batch, n_src, n, gathered in SHORT_SHAPES:
+        scale = (width // heads) ** -0.5
+        qkv = torch.randn(batch, n_src, 3 * width, generator=gen).to(device, torch.bfloat16)
+        idx = kept_indices(gen, batch, n_src, n, device)
+        kind = f"{n} of {n_src}" if gathered else f"{n} contiguous"
+        tag = f"short attention {label} B={batch} C={width} N={kind}"
+        outs = {}
+        for out_dtype in (torch.bfloat16, torch.float32):
+            want = ka.attention_route_plain(qkv, idx, heads, scale, out_dtype)
+            for amax in (False, True):
+                got, am = ka.short_attention(qkv, idx, heads, scale, out_dtype, amax)
+                name = f"{tag} {str(out_dtype)[6:]}" + (" amax" if amax else "")
+                err, _ = compare(name, got, want, torch.zeros_like(got))
+                rel = rel_l2(got, want)
+                check(rel <= B6_REL_L2, f"{name}: rel L2 {rel} > {B6_REL_L2}")
+                if amax:
+                    diff = int((am != got.float().abs().amax(dim=-1).reshape(-1)).sum())
+                    check(diff == 0, f"{name}: {diff} row absmax values differ from the "
+                                     "absmax of its stored output")
+                outs[out_dtype, amax] = (got, want, err, rel)
+        got, want, err, rel = outs[torch.bfloat16, False]
+        for fault in SHORT_FAULTS:
+            if (fault == "keys past n unmasked" and n % 64 == 0) or (
+                    fault == "gather ignored" and not gathered):
+                continue
+            bad = short_faulty(fault, qkv, idx, heads, scale, torch.bfloat16)
+            missed = (torch.allclose(got.float(), bad.float(), atol=ATOL, rtol=RTOL)
+                      and rel_l2(got, bad) <= B6_REL_L2)
+            print(f"{tag}: planted fault '{fault}': rel L2 {rel_l2(got, bad):.3e}")
+            check(not missed, f"{tag}: the gate missed '{fault}'")
+        unnorm = b6_unnormalized(kept_rows(qkv, idx), heads, scale)
+        separated += rel_or_zero(unnorm, want) >= B6_REL_L2
+        rounding_point(tag, {"out": got}, {"out": want}, {"out": unnorm}, {"out": B6_REL_L2})
+        if (width, n_src, n, batch) in ((C, 197, 187, B), (C_S, 197, 177, B)):
+            ms = cuda_ms(lambda: ka.short_attention(qkv, idx, heads, scale))
+            dev = device_ms(lambda: ka.short_attention(qkv, idx, heads, scale))
+            plain_ms = cuda_ms(lambda: ka.attention_route_plain(qkv, idx, heads, scale), iters=5)
+            bnd = bound(4.0 * batch * n * n * width,
+                        attention_bytes(batch, n, width, 2, gathered), peaks)
+            record(results, "short_attention", PATH224 if width == C else P3A,
+                   f"B={batch} N={n_src} K={n} C={width}", ms, plain_ms, bnd, max(
+                       e for _, _, e, _ in outs.values()), max(r for _, _, _, r in outs.values()),
+                   library=library_sdpa_ms(qkv, idx, heads), device=dev)
+    check(separated > 0, "short attention: 'P rounded before normalization' separated nowhere")
+
+
+# token counts of the attention on the paths, where the crossover between
+# the attention kernels is read (csrc/common.cuh: SHORT_ATTN_MAX_N)
 CROSSOVER_N = (47, 67, 96, 120, 138, 197)
 
 
-def attention_phases(device):
+# the attention kernels up to 256 tokens, as kernels/attention.py:
+# attention_route names them
+ATTENTION_ROUTES = ("short", "body")
+
+
+def attention_phases(device, peaks):
     """The attention at and below 256 tokens, measured for its routing: B6's
-    wgmma body (``fused_sdpa``) against the register-resident attention
-    (``attention_kernel`` inside K2) at 197, 187 and 120 tokens, B=256, by
-    device time, B6's output held to its plain version there; and the
-    crossover of the int8 tails at CROSSOVER_N, C = 768 and 1024, tokens
-    contiguous (B10, B15) and gathered (B11, B13, B14), both routes through
-    ``kernels/attention.py:attention_route`` and held to its plain version."""
+    wgmma body (``fused_sdpa``) against the attention inside K2 at 197, 187
+    and 120 tokens, B=256, by device time, B6's output held to its plain
+    version there; and the crossover at CROSSOVER_N, C = 768 and 1024,
+    tokens contiguous (K2, B10, B15) and gathered (K1, B5, B11, B13, B14):
+    each of ATTENTION_ROUTES through ``kernels/attention.py:attention_route``,
+    held to its plain version, beside the byte bound and the library's
+    ``scaled_dot_product_attention`` on the heads laid out ``[B, H, n, 64]``."""
     import torch
 
     from rajni_tpu_torch.kernels import attention as ka
@@ -1536,13 +1754,11 @@ def attention_phases(device):
         got = ka.fused_sdpa(qkv, HEADS, scale)
         compare(f"B6 N={n} B={B}", got, ka.fused_sdpa_plain(qkv, HEADS, scale),
                 torch.zeros_like(got))
-        reg = sum(v for k, v in launch_ms(lambda: kb.fused_attn_block(*args)).items()
-                  if "attention_kernel" in k)
+        att = {kernel_name(k): v for k, v in launch_ms(lambda: kb.fused_attn_block(*args)).items()
+               if "short_attn" in k}
         body = sum(launch_ms(lambda: ka.fused_sdpa(qkv, HEADS, scale)).values())
-        print(f"attention N={n} B={B}: B6's wgmma body {body:.4f} ms | register attention "
-              f"(in K2) {reg:.4f} ms (device time)")
-    from rajni_tpu_torch.ops.pruning import select_tokens_dense
-
+        print(f"attention N={n} B={B}: B6's wgmma body {body:.4f} ms | K2's attention "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in att.items()) + " (device time)")
     for width, heads in ((C, HEADS), (C_L, HEADS_L)):
         blk = make_block(gen, device, width, 4 * width)
         for n in CROSSOVER_N:
@@ -1551,28 +1767,24 @@ def attention_phases(device):
                 n_src = n + n // 7 if gathered else n
                 x = (X_STD * torch.randn(B, n_src, width, generator=gen)).to(device, torch.bfloat16)
                 qkv = kb.ln_qkv_plain(x, blk["norm1"], blk["attn"]["qkv"], heads, 1e-6, False)[0]
-                idx = None
-                if gathered:
-                    idx = select_tokens_dense(torch.rand(B, n_src, generator=gen).to(device), n - 1,
-                                              torch.bool)[0].to(torch.int32).contiguous()
+                idx = kept_indices(gen, B, n_src, n, device) if gathered else None
                 want = ka.attention_route_plain(qkv, idx, heads, scale)
                 ms = {}
-                for wg in (False, True):
-                    got = ka.attention_route(qkv, idx, heads, scale, wg)
+                for route in ATTENTION_ROUTES:
+                    got = ka.attention_route(qkv, idx, heads, scale, route)
                     rel = rel_l2(got, want)
-                    check(rel <= BF16_GATE[2], f"crossover N={n}: route wgmma={wg} rel L2 {rel}")
-                    ms[wg] = sum(launch_ms(lambda: ka.attention_route(qkv, idx, heads, scale, wg)
-                                           ).values())
+                    check(rel <= BF16_GATE[2], f"crossover N={n}: route {route} rel L2 {rel}")
+                    ms[route] = sum(launch_ms(
+                        lambda: ka.attention_route(qkv, idx, heads, scale, route)).values())
+                lib = library_sdpa_ms(qkv, idx, heads)[0]
+                bnd = bound(4.0 * B * n * n * width, attention_bytes(B, n, width, 2, gathered),
+                            peaks)[0]
                 kind = f"gathered from {n_src}" if gathered else "contiguous"
                 took = TAIL_ROUTES.get((gathered, n))
-                print(f"crossover C={width} N={n} ({kind}) B={B}: wgmma body {ms[True]:.4f} ms | "
-                      f"register {ms[False]:.4f} ms | ratio {ms[True] / ms[False]:.3f} (device "
-                      "time)" + ("" if took is None else
-                                 f" | the int8 tails took the {took} kernel at this n"))
-
-
-TRAIN = f"train {PATH224}"  # the training path: ViT-B/16 224, batch 128
-B_TRAIN = 128
+                print(f"crossover C={width} N={n} ({kind}) B={B}: "
+                      + " | ".join(f"{r} {v:.4f} ms" for r, v in ms.items())
+                      + f" | library {lib:.4f} ms | byte bound {bnd:.4f} ms (device time)"
+                      + ("" if took is None else f" | the int8 tails took the {took} kernel"))
 
 
 def rel_l2(got, want) -> float:
@@ -1807,7 +2019,7 @@ GEMM_SOUND = 1.533e-4
 GEMM_SOURCES = ("gemm.cu", "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "gather_attn.cu",
                 "ln_qkv.cu", "ln_mlp_int8.cu", "block_full_int8.cu", "pruned_block_full_int8.cu",
                 "attn_block_int8.cu", "ln_qkv_int8.cu", "gather_attn_int8.cu",
-                "pruned_attn_block_int8.cu", "train_mlp.cu")
+                "pruned_attn_block_int8.cu", "train_mlp.cu", "short_attn.cu")
 GEMM_REL_L2 = 2.5 * GEMM_SOUND
 # (label, width, hidden) of the bf16 paths whose products the GEMM runs:
 # DeiT-S (P3a: B7's MLP half, B8), ViT-B (K2, K3, B16), ViT-L (P5c)
@@ -2269,8 +2481,9 @@ TAIL_FAULTS = ("absmax of the first head's columns only", "scale of the neighbou
 # the shapes whose launches are read by device time on both routes, beside
 # the first of each TAIL_SHAPES entry: (kernel, n, K)
 TAIL_BREAKDOWN = {("B11", 67, 47)}
-# the attention each tail took, by (gathered, attention tokens): "register"
-# or "wgmma body", as B6's launch count (counted in csrc/sdpa.cu) read it
+# the attention each tail took, by (gathered, attention tokens): "register",
+# "short-row" or "wgmma body", as the launch counts of B6's body and the
+# short-row kernel (counted in csrc/sdpa.cu and csrc/short_attn.cu) read it
 TAIL_ROUTES: dict = {}
 
 
@@ -2341,10 +2554,10 @@ def tail_faults(tag, o, qblk, x, res_idx, n, K):
 def tail_phases(device):
     """The int8 tail at every path shape of TAIL_SHAPES, dynamic and static:
     the entry point's route bitwise equal to its two-launch route, both
-    timed (CUDA events); the attention each took, from B6's launch count,
-    which must switch from the register kernel to B6's body at one n for
-    contiguous and one for gathered tokens, and agree with the kernels the
-    profiler saw; the launches by device time on each route at the first
+    timed (CUDA events); the attention each took, from the launch counts of
+    B6's body and the short-row kernel, each kernel taking one range of n
+    for contiguous and one for gathered tokens, and agreeing with the
+    kernels the profiler saw; the launches by device time on each route at the first
     shape of each entry and at TAIL_BREAKDOWN (no row quantizer on B10's,
     B11's and B13's new route); and at one shape of each attention output
     type and residual (B10 bf16, B11 bf16 gathered, B13 fp32 gathered) the
@@ -2389,12 +2602,13 @@ def tail_phases(device):
                       f"| {ms_new:.3f} ms | two-launch {ms_two:.3f} ms")
                 check(diff == 0, f"{tag}: the tail differs from its two-launch route ({diff})")
                 gathered = name in ("B11", "B13", "B14")
-                ka.SDPA_KERNEL.launches = 0
+                ka.SDPA_KERNEL.launches = ka.SHORT_KERNEL.launches = 0
                 call(False)
                 torch.cuda.synchronize()
-                body = ka.SDPA_KERNEL.launches
-                check(body in (0, 1), f"{tag}: B6's body launched {body} times")
-                took = "wgmma body" if body else "register"
+                body, short = ka.SDPA_KERNEL.launches, ka.SHORT_KERNEL.launches
+                check(body in (0, 1) and short in (0, 1) and body + short <= 1,
+                      f"{tag}: B6's body launched {body} times, the short-row kernel {short}")
+                took = "wgmma body" if body else "short-row" if short else "register"
                 check(TAIL_ROUTES.setdefault((gathered, K or n), took) == took,
                       f"{tag}: the attention took another kernel than at the same n before")
                 if (n, K) == shapes[0] or (name, n, K) in TAIL_BREAKDOWN:
@@ -2406,6 +2620,9 @@ def tail_phases(device):
                               + ") (device time)")
                         check(any("sdpa_wgmma" in k for k in parts) == bool(body),
                               f"{tag} {route}: B6's count {body} disagrees with the kernels run")
+                        check(any("short_attn" in k for k in parts) == bool(short),
+                              f"{tag} {route}: the short-row count {short} disagrees with the "
+                              "kernels run")
                         if route == "new" and name in ("B10", "B11", "B13"):
                             check(not any("quant_rows" in k for k in parts),
                                   f"{tag}: the new route launched the row quantizer")
@@ -2424,13 +2641,15 @@ def tail_phases(device):
                 tail_faults(f"int8 tail {name} B={Bt} N={n} C={width}",
                             o.reshape(-1, width).contiguous(), qblk, x, res_idx, n, K or n)
     for gathered in (False, True):
-        reg = sorted(n for (g, n), r in TAIL_ROUTES.items() if g == gathered and r == "register")
-        body = sorted(n for (g, n), r in TAIL_ROUTES.items() if g == gathered and r != "register")
+        seq = [r for (g, n), r in sorted(TAIL_ROUTES.items()) if g == gathered]
         kind = "gathered" if gathered else "contiguous"
-        print(f"int8 tails, {kind} tokens: the register kernel at n = {reg}, B6's body at n = "
-              f"{body} (B6's launch count)")
-        check(not reg or not body or reg[-1] < body[0],
-              f"int8 tails ({kind}): no single crossover between the two attention kernels")
+        print(f"int8 tails, {kind} tokens: " + "; ".join(
+            f"the {r} kernel at n = "
+            + str(sorted(n for (g, n), t in TAIL_ROUTES.items() if g == gathered and t == r))
+            for r in dict.fromkeys(seq)) + " (the kernels' launch counts)")
+        runs = [r for i, r in enumerate(seq) if i == 0 or seq[i - 1] != r]
+        check(len(runs) == len(set(runs)),
+              f"int8 tails ({kind}): an attention kernel takes more than one range of n")
 
 
 def ragged_phases(device):
@@ -2891,13 +3110,15 @@ COUNTED = ("fused_pruned_attn_block", "fused_attn_block", "fused_ln_mlp_residual
            "fused_ln_mlp_residual_int8", "fused_attn_block_int8", "fused_ln_qkv_int8",
            "fused_gather_sdpa_proj_residual_int8", "fused_pruned_attn_block_int8",
            "fused_ln_qkv_select", "fused_pruned_attn_block_long", "train_attn_block",
-           "train_ln_mlp", "train_sdpa_bwd")
+           "train_ln_mlp", "train_sdpa_bwd", "short_attention")
 # the training path: B16 in every stock block, B4 + B5 in every pruned
-# block, B17 and B18 in every block; no inference kernel
+# block, B17 and B18 in every block; no inference kernel. The attention of
+# B16 and B5 (at most 197 tokens) is the short-row kernel
 TRAIN_LAUNCHES = {
     "pruned": launches(train_attn_block=7, fused_ln_qkv=5, fused_gather_sdpa_proj_residual=5,
-                       train_ln_mlp=12, train_sdpa_bwd=12),
-    "identity": launches(train_attn_block=12, train_ln_mlp=12, train_sdpa_bwd=12)}
+                       train_ln_mlp=12, train_sdpa_bwd=12, short_attention=12),
+    "identity": launches(train_attn_block=12, train_ln_mlp=12, train_sdpa_bwd=12,
+                         short_attention=12)}
 VIT_B384_COUNTS = [577, 577, 577, 577, 548, 520, 442, 375, 356, 356, 356, 356]
 VIT_B_COUNTS = [197, 197, 197, 197, 187, 177, 150, 127, 120, 120, 120, 120]
 DEIT_S_COUNTS = [197, 197, 197, 197, 177, 159, 143, 128, 115, 103, 92, 82]
@@ -2905,19 +3126,19 @@ VIT_L_COUNTS = [197] * 5 + [138] * 4 + [96] * 4 + [67] * 4 + [47] * 7
 DEIT_S384_COUNTS = [577, 577, 577, 577, 519, 467, 420, 378, 340, 306, 275, 247]
 # ViT-L/16 int8: the pruned blocks 4, 8, 12, 16 take B11 + B9; the stock
 # blocks at 197, 138 and 96 tokens B10 + B9 (no whole-block plan), at 67 and
-# 47 tokens B15. The int8 tails' attention takes B6's kernel from
-# INT8_TAIL_SDPA_MIN_N = 120 contiguous tokens (B10 at 197 and 138), and past
-# 256 kept tokens through the kept indices (none here)
+# 47 tokens B15. Every attention up to 256 tokens (csrc/common.cuh:
+# SHORT_ATTN_MAX_N), here all of them, takes the short-row kernel
 VIT_L_INT8_LAUNCHES = {
     "pruned": launches(fused_pruned_attn_block_int8=4, fused_attn_block_int8=10,
-                       fused_ln_mlp_residual_int8=14, fused_block_full_int8=10, fused_sdpa=7),
+                       fused_ln_mlp_residual_int8=14, fused_block_full_int8=10,
+                       short_attention=24),
     "identity": launches(fused_attn_block_int8=24, fused_ln_mlp_residual_int8=24,
-                         fused_sdpa=24)}
-# ViT-B/16 224 int8: B15's tail at 197 and 120 tokens on B6's kernel, B14's
-# kept tokens (187-120) on the register kernel
+                         short_attention=24)}
+# ViT-B/16 224 int8: B15's tail at 197 and 120 tokens and B14's kept tokens
+# (187-120) on the short-row kernel
 INT8_LAUNCHES = {"pruned": launches(fused_pruned_block_full_int8=5, fused_block_full_int8=7,
-                                    fused_sdpa=7),
-                 "identity": launches(fused_block_full_int8=12, fused_sdpa=12)}
+                                    short_attention=12),
+                 "identity": launches(fused_block_full_int8=12, short_attention=12)}
 INT8_384_LAUNCHES = {
     "pruned": launches(fused_attn_block_int8=3, fused_ln_mlp_residual_int8=8, fused_ln_qkv_int8=5,
                        fused_gather_sdpa_proj_residual=3, fused_gather_sdpa_proj_residual_int8=2,
@@ -2928,8 +3149,9 @@ PATHS = {
         model=PATH224, quant=None, batch=B, img=224, schedule="reference", counts=VIT_B_COUNTS,
         launches={
             "pruned": launches(fused_pruned_attn_block=5, fused_attn_block=7,
-                               fused_ln_mlp_residual=12),
-            "identity": launches(fused_attn_block=12, fused_ln_mlp_residual=12)}),
+                               fused_ln_mlp_residual=12, short_attention=12),
+            "identity": launches(fused_attn_block=12, fused_ln_mlp_residual=12,
+                                 short_attention=12)}),
     # every block runs past ATTN_MAX_N tokens: B6's two-pass kernel is the
     # attention inside each K2 (7) and each B5 (5)
     PATH384: dict(
@@ -2942,19 +3164,20 @@ PATHS = {
     # the whole-block paths: no K1, K2 or K3 launch
     P3A: dict(
         model=DEIT_S, quant=None, batch=B, img=224, schedule="deit", counts=DEIT_S_COUNTS,
-        launches={"pruned": launches(fused_pruned_block_full=8, fused_attn_mlp_block=4),
-                  "identity": launches(fused_attn_mlp_block=12)}),
+        launches={"pruned": launches(fused_pruned_block_full=8, fused_attn_mlp_block=4,
+                                     short_attention=12),
+                  "identity": launches(fused_attn_mlp_block=12, short_attention=12)}),
     P3B: dict(model=PATH224, quant="dynamic", batch=B, img=224, schedule="reference",
               counts=VIT_B_COUNTS, launches=INT8_LAUNCHES),
     P3C: dict(model=PATH224, quant="static", batch=B, img=224, schedule="reference",
               counts=VIT_B_COUNTS, launches=INT8_LAUNCHES),
-    # B6's kernel in the int8 tails: B15 at 197 tokens (3), not at 82 nor in
-    # B14 (kept tokens, 177 down to 82)
+    # the short-row kernel in every int8 tail (B15 at 197 and 82 tokens, B14
+    # at 177 down to 82 kept tokens)
     P3D: dict(
         model=DEIT_S, quant="dynamic", batch=B, img=224, schedule="deit", counts=DEIT_S_COUNTS,
         launches={"pruned": launches(fused_pruned_block_full_int8=8, fused_block_full_int8=4,
-                                     fused_sdpa=3),
-                  "identity": launches(fused_block_full_int8=12, fused_sdpa=12)}),
+                                     short_attention=12),
+                  "identity": launches(fused_block_full_int8=12, short_attention=12)}),
     # the split int8 kernels: blocks 0-2 B10 + B9, 3-5 B12 + bf16 B5 + B9, 6-7
     # B12 + B13 + B9, 8-11 B15 at 356 tokens; the two-pass attention inside
     # B10 (577), B5 (548, 520, 442), B13 (375, 356) and B15 (356)
@@ -2965,8 +3188,9 @@ PATHS = {
     P4C: dict(
         model=PATH224, quant="mlp", batch=B, img=224, schedule="reference", counts=VIT_B_COUNTS,
         launches={"pruned": launches(fused_pruned_attn_block=5, fused_attn_block=7,
-                                     fused_ln_mlp_residual_int8=12),
-                  "identity": launches(fused_attn_block=12, fused_ln_mlp_residual_int8=12)}),
+                                     fused_ln_mlp_residual_int8=12, short_attention=12),
+                  "identity": launches(fused_attn_block=12, fused_ln_mlp_residual_int8=12,
+                                       short_attention=12)}),
     P5A: dict(model=PATH_L, quant="dynamic", batch=B, img=224, schedule="vit_l",
               counts=VIT_L_COUNTS, launches=VIT_L_INT8_LAUNCHES),
     P5B: dict(model=PATH_L, quant="static", batch=B, img=224, schedule="vit_l",
@@ -2974,19 +3198,20 @@ PATHS = {
     P5C: dict(
         model=PATH_L, quant=None, batch=B, img=224, schedule="vit_l", counts=VIT_L_COUNTS,
         launches={"pruned": launches(fused_pruned_attn_block=4, fused_attn_block=20,
-                                     fused_ln_mlp_residual=24),
-                  "identity": launches(fused_attn_block=24, fused_ln_mlp_residual=24)}),
+                                     fused_ln_mlp_residual=24, short_attention=24),
+                  "identity": launches(fused_attn_block=24, fused_ln_mlp_residual=24,
+                                       short_attention=24)}),
     # DeiT-S/16 384 int8: blocks 0-2 B15 at 577 tokens, block 3 B11 + B9
     # (577→519), blocks 4-10 B14 (519→247), block 11 B15 at 247; B6's kernel
-    # in B15 (4: contiguous, from 120 tokens), B11 (1) and B14 past 256 kept
-    # tokens (6)
+    # past 256 tokens in B15 (3), B11 (1) and B14 (6), the short-row kernel at
+    # 247 in B14 (275→247) and B15
     P5D: dict(
         model=DEIT_S384, quant="dynamic", batch=B_S384, img=384, schedule="deit",
         counts=DEIT_S384_COUNTS,
         launches={"pruned": launches(fused_pruned_attn_block_int8=1,
                                      fused_ln_mlp_residual_int8=1,
                                      fused_pruned_block_full_int8=7, fused_block_full_int8=4,
-                                     fused_sdpa=11),
+                                     fused_sdpa=10, short_attention=2),
                   "identity": launches(fused_block_full_int8=12, fused_sdpa=12)}),
 }
 
@@ -3045,7 +3270,8 @@ def kernel_counters() -> dict:
             "fused_pruned_attn_block_long": kl.LONG_KERNEL,
             "train_attn_block": kt.TRAIN_ATTN_KERNEL,
             "train_ln_mlp": kt.TRAIN_MLP_KERNEL,
-            "train_sdpa_bwd": kt.SDPA_BWD_KERNEL}
+            "train_sdpa_bwd": kt.SDPA_BWD_KERNEL,
+            "short_attention": ka.SHORT_KERNEL}
 
 
 def end_to_end(device, device_name, results, path):
@@ -3187,7 +3413,10 @@ def main() -> int:
 
     peaks, int8_peak = device_peaks(device_name), device_int8_peak(device_name)
     results: dict = {}
-    phases = [("kernel phases 224", lambda: kernel_phases(device, peaks, results)),
+    phases = [("C3: the weight quantizer on the card", lambda: c3_phase(device)),
+              ("the short-row attention (csrc/short_attn.cu)",
+               lambda: short_attn_phases(device, peaks, results)),
+              ("kernel phases 224", lambda: kernel_phases(device, peaks, results)),
               ("kernel phases 384", lambda: long_phases(device, peaks, results)),
               ("kernel phases B7/B8", lambda: wholeblock_phases(device, peaks, results)),
               ("kernel phases B14/B15", lambda: int8_phases(device, peaks, int8_peak, results)),
@@ -3212,7 +3441,7 @@ def main() -> int:
               ("the int8 attention tail: the new route and the two-launch route",
                lambda: tail_phases(device)),
               ("score kernel", lambda: score_phases(device, peaks)),
-              ("attention at and below 256 tokens", lambda: attention_phases(device)),
+              ("attention at and below 256 tokens", lambda: attention_phases(device, peaks)),
               ("training block ops", lambda: train_block_ops(device))]
     phases += [(f"end to end {path}", lambda path=path: end_to_end(device, device_name, results, path))
                for path in PATHS]

@@ -13,9 +13,8 @@
 // memory), the attention kernel, and proj with a +bias→·ls→+x(fp32)→round
 // epilogue; both products on the wgmma/TMA GEMM of gemm_sm90.cuh (its header
 // has the design). Up to ATTN_MAX_N = 256 tokens the attention is the
-// register-resident kernel (one block per image, head and 64-query tile: K
-// and Vᵀ of the head in shared memory, each warp's whole logit rows in
-// mma.sync accumulator registers); past that, B6's wgmma body (sdpa.cu,
+// short-row kernel (short_attn.cu: each (image, head)'s q, k and v loaded
+// into shared memory once, by TMA); past that, B6's wgmma body (sdpa.cu,
 // N <= SDPA_MAX_N = 848).
 #include "gemm_sm90.cuh"
 
@@ -40,7 +39,8 @@ extern "C" int rajni_attn_block(const void* x, const void* ln_scale, const void*
   if (e != cudaSuccess) return fail(e, 2);
 
   e = launch_attention_any(static_cast<const bf16*>(qkv_scratch), nullptr,
-                           static_cast<bf16*>(attn_scratch), B, N, N, C, H, scale, st);
+                           static_cast<bf16*>(attn_scratch), nullptr, B, N, N, C, H, scale,
+                           st);
   if (e != cudaSuccess) return fail(e, 3);
 
   EpilogueArgs ep2{static_cast<const bf16*>(bproj), static_cast<const bf16*>(ls),

@@ -10,9 +10,9 @@
 //
 // Design: four launches on the caller's stream, steps 1-2 and 5-7 of the int8
 // block body (csrc/int8.cuh): LN1 → int8 (which also zeroes the row absmax),
-// the qkv product (bf16 qkv), the attention (int8.cuh:launch_tail_attention:
-// the register-resident kernel below INT8_TAIL_SDPA_MIN_N tokens, B6's wgmma
-// body from there), which in dynamic mode also takes each row's absmax, and
+// the qkv product (bf16 qkv), the attention (common.cuh:launch_attention_any:
+// the short-row kernel up to 256 tokens, B6's wgmma body past them), which in
+// dynamic mode also takes each row's absmax, and
 // proj, which quantizes the attention output as it loads it, with the
 // residual (int8.cuh:int8_attn_tail says why). Unlike B13, B14 and B15, the
 // TPU kernel rounds the attention output to the activation dtype before

@@ -11,8 +11,8 @@
 // bf16 rounding at the half boundary (block.py:2179-2180; docstring at
 // 2207-2209).
 //
-// Design: the K2 entry point (csrc/attn_block.cu: four launches; past
-// ATTN_MAX_N tokens its attention is B6's two-pass kernel) then the K3 entry
+// Design: the K2 entry point (csrc/attn_block.cu: four launches; its
+// attention the short-row kernel up to ATTN_MAX_N tokens) then the K3 entry
 // point (three), on the caller's stream. Return codes: K2's steps 1-4, K3's
 // as steps 5-7.
 

@@ -15,7 +15,7 @@
 // first floats), the qkv product (bf16 qkv: B15 does not round qkv itself,
 // but its attention casts it to bf16, block.py:284, which is the same), the
 // attention with an fp32 output and (dynamic) each row's absmax
-// (int8.cuh:launch_tail_attention), the proj product quantizing that output
+// (common.cuh:launch_attention_any), the proj product quantizing that output
 // as it loads it, with the residual (int8.cuh:int8_attn_tail), LN2 → int8,
 // fc1 with its GELU quantized per hc group in the epilogue (dynamic: the
 // absmax scratch zeroed, fc1 to fp32 h with the group absmax, then the

@@ -19,9 +19,9 @@
 // the part that matters. Every product runs on the wgmma/TMA GEMM of
 // gemm_sm90.cuh (Epilogue and EpilogueArgs below are its bf16 epilogues);
 // the long-sequence attention (sdpa.cu) and B18 (sdpa_bwd.cu) also use
-// Hopper's wgmma, TMA and mbarriers (hopper.cuh). This header keeps the
-// LayerNorm, the register-resident attention (mma.sync m16n8k16), the RAJNI
-// scores and the selection.
+// Hopper's wgmma, TMA and mbarriers (hopper.cuh), as does every attention
+// up to 256 tokens (short_attn.cu). This header keeps the LayerNorm, the
+// RAJNI scores, the selection and the attention's routing.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -38,6 +38,12 @@
 extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float* amax,
                                int out_fp32, int B, int n_src, int n, int C, int H, float scale,
                                void* stream);
+// The short-row attention (short_attn.cu): the same function for n <=
+// ATTN_MAX_N, qkv [B, n_src, 3C] with n == n_src when idx is null. Returns a
+// cudaError_t.
+extern "C" int rajni_short_attn_body(const void* qkv, const int* idx, void* out, float* amax,
+                                     int out_fp32, int B, int n_src, int n, int C, int H,
+                                     float scale, void* stream);
 
 // Everything here has internal linkage: the .cu files are separate
 // translation units of one library, and each includes its own copy.
@@ -98,18 +104,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return u;
 }
 
-// D += A·B on the tensor cores: m16n8k16, bf16 in, fp32 accumulate. Fragment
-// layout (g = lane / 4, t = lane % 4): a0 (row g, k 2t..2t+1), a1 (row g+8),
-// a2 (k + 8), a3 (row g+8, k + 8); b0 (k 2t..2t+1, col g), b1 (k + 8);
-// c0,c1 (row g, cols 2t, 2t+1), c2,c3 (row g+8).
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -137,10 +131,6 @@ __device__ __forceinline__ float stored(float v) {
 // zeroed before the attention launch.
 __device__ __forceinline__ void row_absmax(float* amax, size_t row, float m) {
   atomicMax(reinterpret_cast<int*>(amax) + row, __float_as_int(m));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -236,218 +226,16 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // ---------------------------------------------------------------------------
-// Attention: one block of 4 warps per (64-query tile, head, image), head_dim 64.
-//   Reads q/k/v rows of the packed qkv [B, n_src, 3C] (lanes (qkv, head, dim)),
-//   token t of the attended sequence being row idx[b, t] when idx is given
-//   (the one-hot gather of the TPU kernel: sel is 0/1, so it IS a gather),
-//   else row t. Writes out [B, n, C] in OutT: bf16 (rounded), or fp32 for
-//   the int8 blocks (_mha_mixed's fp32 output, block.py:1663, 2329).
-//   Form: the "phased" SDPA of the TPU kernels — q scaled in fp32 and rounded
-//   to bf16, logits = q·kᵀ in fp32, full-row fp32 softmax exp(l - max) *
-//   (1 / sum), P rounded to bf16, P·V in fp32, output rounded. No online
-//   rescaling: each warp keeps its 16 query rows' whole logit rows in
-//   registers (mma.sync m16n8k16 accumulators), so the rounding points are
-//   those of the plain version. K (row-major) and V (transposed) of the head
-//   sit in shared memory; the P accumulators become the A operand of P·V
-//   without leaving registers.
+// Attention, head_dim 64. Up to ATTN_MAX_N tokens every caller's attention is
+// the short-row kernel of short_attn.cu (its header has the design), past it
+// B6's body (sdpa.cu); both are compiled once there and reached from the
+// other translation units through their C entry points.
 // ---------------------------------------------------------------------------
 
-constexpr int ATTN_D = 64, ATTN_QT = 64, ATTN_LDH = ATTN_D + 8, ATTN_MAX_N = 256;
+constexpr int ATTN_D = 64, ATTN_MAX_N = 256;
 
-__host__ __device__ inline int attn_npad(int n) { return (n + 15) / 16 * 16; }
-__host__ __device__ inline int attn_smem(int n) {
-  return attn_npad(n) * ATTN_LDH * 2 + ATTN_D * (attn_npad(n) + 8) * 2;
-}
-
-// Two adjacent q values, scaled in fp32 and rounded (zero past the sequence).
-__device__ __forceinline__ uint32_t q_pair(const bf16* row, int d, float scale) {
-  if (row == nullptr) return 0u;
-  float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + d));
-  return pack_bf16x2(f.x * scale, f.y * scale);
-}
-
-// MAXT: the most 16-token tiles this instantiation keeps in registers.
-template <int MAXT, typename OutT>
-__global__ void __launch_bounds__(128) attention_kernel(
-    const bf16* __restrict__ qkv, const int* __restrict__ idx, OutT* __restrict__ out,
-    float* __restrict__ amax, int n_src, int n, int C, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int npad = attn_npad(n), nt = npad / 16, ldv = npad + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [npad][ATTN_LDH]
-  bf16* Vt = Ks + npad * ATTN_LDH;               // [ATTN_D][ldv], V transposed
-
-  const int q0 = blockIdx.x * ATTN_QT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
-  const size_t row3 = (size_t)3 * C;
-  const bf16* base = qkv + (size_t)b * n_src * row3 + h * ATTN_D;
-
-  for (int c = tid; c < npad * 8; c += 128) {
-    const int t = c >> 3, col = (c & 7) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (t < n) {
-      const int src = idx ? idx[(size_t)b * n + t] : t;
-      const bf16* r = base + (size_t)src * row3;
-      kv = *reinterpret_cast<const uint4*>(r + C + col);
-      vv = *reinterpret_cast<const uint4*>(r + 2 * C + col);
-    }
-    *reinterpret_cast<uint4*>(Ks + t * ATTN_LDH + col) = kv;
-    const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Vt[(col + j) * ldv + t] = v8[j];
-  }
-
-  // This warp's two fragment rows: query q0 + 16*warp + g and + 8.
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const bf16* qa = nullptr;
-  const bf16* qb = nullptr;
-  if (ra < n) qa = base + (size_t)(idx ? idx[(size_t)b * n + ra] : ra) * row3;
-  if (rb < n) qb = base + (size_t)(idx ? idx[(size_t)b * n + rb] : rb) * row3;
-  uint32_t qf[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int d = ks * 16 + 2 * t4;
-    qf[ks][0] = q_pair(qa, d, scale);
-    qf[ks][1] = q_pair(qb, d, scale);
-    qf[ks][2] = q_pair(qa, d + 8, scale);
-    qf[ks][3] = q_pair(qb, d + 8, scale);
-  }
-  __syncthreads();
-
-  // S = Q Kᵀ: s[j][0..3] covers tokens 16j + (0..7), s[j][4..7] tokens 16j + (8..15);
-  // elements 0,1 / 4,5 are row ra, 2,3 / 6,7 row rb, at tokens +2*t4 and +2*t4+1.
-  float s[MAXT][8];
-#pragma unroll
-  for (int j = 0; j < MAXT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s[j][e] = 0.f;
-    if (j < nt) {
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const bf16* k0 = Ks + (16 * j + g) * ATTN_LDH + ks * 16 + 2 * t4;
-        const bf16* k1 = k0 + 8 * ATTN_LDH;
-        mma_16816(s[j], qf[ks], ld_u32(k0), ld_u32(k0 + 8));
-        mma_16816(s[j] + 4, qf[ks], ld_u32(k1), ld_u32(k1 + 8));
-      }
-    }
-  }
-
-  float ma = -INFINITY, mb = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < MAXT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int tok = 16 * j + (e & 4 ? 8 : 0) + 2 * t4 + (e & 1);
-      if (j >= nt || tok >= n) s[j][e] = -INFINITY;
-      if (e & 2) mb = fmaxf(mb, s[j][e]);
-      else ma = fmaxf(ma, s[j][e]);
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, o));
-    mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
-  }
-  float sa = 0.f, sb = 0.f;
-#pragma unroll
-  for (int j = 0; j < MAXT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float p = expf(s[j][e] - ((e & 2) ? mb : ma));
-      s[j][e] = p;
-      if (e & 2) sb += p;
-      else sa += p;
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    sa += __shfl_xor_sync(0xffffffffu, sa, o);
-    sb += __shfl_xor_sync(0xffffffffu, sb, o);
-  }
-  const float ia = 1.0f / sa, ib = 1.0f / sb;
-
-  // O = P V: the accumulator layout of S is the A-fragment layout of P.
-  float o[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < MAXT; ++j) {
-    if (j < nt) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[j][0] * ia, s[j][1] * ia);
-      pa[1] = pack_bf16x2(s[j][2] * ib, s[j][3] * ib);
-      pa[2] = pack_bf16x2(s[j][4] * ia, s[j][5] * ia);
-      pa[3] = pack_bf16x2(s[j][6] * ib, s[j][7] * ib);
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        const bf16* v = Vt + (dt * 8 + g) * ldv + 16 * j + 2 * t4;
-        mma_16816(o[dt], pa, ld_u32(v), ld_u32(v + 8));
-      }
-    }
-  }
-
-  OutT* oa = out + ((size_t)b * n + ra) * C + h * ATTN_D + 2 * t4;
-  OutT* ob = oa + (size_t)8 * C;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    if (ra < n) store_pair(oa + dt * 8, o[dt][0], o[dt][1]);
-    if (rb < n) store_pair(ob + dt * 8, o[dt][2], o[dt][3]);
-  }
-  if (amax != nullptr) {  // the int8 tails: |stored value|'s maximum over the head's columns
-    float ma = 0.f, mb = 0.f;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      ma = fmaxf(ma, fmaxf(fabsf(stored<OutT>(o[dt][0])), fabsf(stored<OutT>(o[dt][1]))));
-      mb = fmaxf(mb, fmaxf(fabsf(stored<OutT>(o[dt][2])), fabsf(stored<OutT>(o[dt][3]))));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {  // over the four lanes of each row
-      ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
-      mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
-    }
-    if (t4 == 0 && ra < n) row_absmax(amax, (size_t)b * n + ra, ma);
-    if (t4 == 0 && rb < n) row_absmax(amax, (size_t)b * n + rb, mb);
-  }
-}
-
-template <int MAXT, typename OutT>
-inline cudaError_t launch_attention_t(const bf16* qkv, const int* idx, OutT* out, float* amax,
-                                      int B, int n_src, int n, int C, int H, float scale,
-                                      cudaStream_t st) {
-  const int smem = attn_smem(n);
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel<MAXT, OutT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((n + ATTN_QT - 1) / ATTN_QT, H, B);
-  attention_kernel<MAXT, OutT><<<grid, 128, smem, st>>>(qkv, idx, out, amax, n_src, n, C,
-                                                         scale);
-  return cudaGetLastError();
-}
-
-// amax: null, or the int8 tails' [B·n] row absmax (row_absmax), zeroed.
-template <typename OutT>
-inline cudaError_t launch_attention(const bf16* qkv, const int* idx, OutT* out, float* amax,
-                                    int B, int n_src, int n, int C, int H, float scale,
-                                    cudaStream_t st) {
-  const int tiles = attn_npad(n) / 16;
-  if (tiles <= 8) return launch_attention_t<8>(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
-  if (tiles <= 13)
-    return launch_attention_t<13>(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
-  if (tiles <= 16)
-    return launch_attention_t<16>(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
-  return cudaErrorInvalidValue;  // n > ATTN_MAX_N: the wrapper refuses it first
-}
-
-// ---------------------------------------------------------------------------
-// Long-sequence attention: B6 fused_sdpa's formula, also the attention of K2,
-// B5 and K1/B20 past ATTN_MAX_N tokens and of the int8 tails from
-// INT8_TAIL_SDPA_MIN_N tokens (int8.cuh). The body is the
-// wgmma kernel of sdpa.cu (its header has the design), compiled once there
-// and reached from the other translation units through rajni_sdpa_body.
-// ---------------------------------------------------------------------------
-
+// Long-sequence attention: B6 fused_sdpa's formula, also the attention of
+// K2, B5, K1/B20 and the int8 tails past ATTN_MAX_N tokens.
 constexpr int SDPA_MAX_N = 848;
 
 template <typename OutT>
@@ -457,16 +245,34 @@ inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, OutT* out, float
                                                   n_src, n, C, H, scale, st));
 }
 
-// The attention of K2 and B5: the register-resident kernel up to ATTN_MAX_N
-// tokens, B6's body above it. At head_dim 64 the scale is 1/8 and
-// both forms give the same bits.
 template <typename OutT>
-inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* out, int B,
-                                        int n_src, int n, int C, int H, float scale,
+inline cudaError_t launch_short_attention(const bf16* qkv, const int* idx, OutT* out,
+                                          float* amax, int B, int n_src, int n, int C, int H,
+                                          float scale, cudaStream_t st) {
+  return static_cast<cudaError_t>(rajni_short_attn_body(qkv, idx, out, amax, sizeof(OutT) == 4,
+                                                        B, n_src, n, C, H, scale, st));
+}
+
+// Every caller's attention (K1/B20, K2 so B8 and B16, B5, and with the row
+// absmax amax or null the int8 tails B10, B11, B13-B15): the short-row
+// kernel up to SHORT_ATTN_MAX_N tokens, contiguous or through idx, B6's body
+// past it. The crossover that set it (chip_smoke.py's crossover phase, H100
+// SXM 700 W, B = 256, bf16 output, device time, at 47, 67, 96, 120, 138 and
+// 197 tokens, C = 768 and 1024): the short-row kernel read 0.36-0.69x B6's
+// body contiguous and 0.20-0.43x gathered; in its first (ex2) form, in
+// another call, 0.25-0.61x the register kernel (mma.sync, one block a
+// 64-query tile) that it replaced. So no n up to 256 keeps another kernel,
+// and the register kernel was deleted. At head_dim 64 the scale is 1/8, and
+// the logits scaled or q scaled give the same bits.
+constexpr int SHORT_ATTN_MAX_N = ATTN_MAX_N;
+
+template <typename OutT>
+inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* out, float* amax,
+                                        int B, int n_src, int n, int C, int H, float scale,
                                         cudaStream_t st) {
-  if (n <= ATTN_MAX_N)
-    return launch_attention(qkv, idx, out, nullptr, B, n_src, n, C, H, scale, st);
-  return launch_sdpa(qkv, idx, out, nullptr, B, n_src, n, C, H, scale, st);
+  if (n <= SHORT_ATTN_MAX_N)
+    return launch_short_attention(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
+  return launch_sdpa(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
 }
 
 // ---------------------------------------------------------------------------

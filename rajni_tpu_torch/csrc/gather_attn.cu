@@ -13,8 +13,8 @@
 // one-hot [K, N] product; since sel is 0/1 that product IS a gather, so both
 // launches read through the kept indices idx [B, K] instead:
 // * the attention reads q/k/v rows idx[b, t] of qkv [B, N, 3C] — the
-//   register-resident kernel up to ATTN_MAX_N kept tokens, B6's wgmma body
-//   past that (common.cuh:launch_attention_any);
+//   short-row kernel up to ATTN_MAX_N kept tokens, B6's wgmma body past that
+//   (common.cuh:launch_attention_any);
 // * proj on the wgmma/TMA GEMM of gemm_sm90.cuh with the
 //   +bias→·ls→+x(fp32)→round epilogue, reading the pre-norm x rows through
 //   the same indices (res_idx, by cp.async, as K1 does).
@@ -28,8 +28,10 @@ extern "C" int rajni_gather_sdpa_proj_residual(const void* qkv, const void* idx,
                                                int B, int N, int K, int C, int H, float scale,
                                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_attention_any(static_cast<const bf16*>(qkv), static_cast<const int*>(idx),
-                                       static_cast<bf16*>(attn_scratch), B, N, K, C, H, scale, st);
+  cudaError_t e = launch_attention_any(static_cast<const bf16*>(qkv),
+                                       static_cast<const int*>(idx),
+                                       static_cast<bf16*>(attn_scratch), nullptr, B, N, K, C, H,
+                                       scale, st);
   if (e != cudaSuccess) return fail(e, 1);
 
   EpilogueArgs ep{static_cast<const bf16*>(bproj), static_cast<const bf16*>(ls),

@@ -15,7 +15,7 @@
 // Design: steps 5-7 of the int8 block body (csrc/int8.cuh) with the kept
 // indices, as B14 runs them after its selection: the TPU kernel gathers with
 // a one-hot [K, N] product, which is a gather, so the attention reads q/k/v
-// rows idx[b, t] of qkv (int8.cuh:launch_tail_attention) into fp32 and
+// rows idx[b, t] of qkv (common.cuh:launch_attention_any) into fp32 and
 // (dynamic) each row's absmax, which a memset zeroes first, and proj
 // quantizes that output as it loads it, with the residual read through the
 // same indices (int8.cuh:int8_attn_tail): two launches static, three

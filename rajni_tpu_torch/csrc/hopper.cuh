@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the attention kernels B6 (sdpa.cu, the
-// long-sequence attention of every path past ATTN_MAX_N tokens) and B18
+// long-sequence attention of every path past ATTN_MAX_N tokens), the
+// short-row attention (short_attn.cu, every path's up to ATTN_MAX_N) and B18
 // (sdpa_bwd.cu), and of the bf16 and int8 GEMM (gemm_sm90.cuh, whose TMA
 // boxes are 128 bytes x 128 and 128 bytes x 256): mbarriers; loads of 64x64 bf16 tiles
 // (64 tokens of one head's 64 columns) into shared memory in the 128-byte

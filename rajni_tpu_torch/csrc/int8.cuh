@@ -551,30 +551,6 @@ inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
   return e == cudaSuccess ? 0 : fail(e, 2);
 }
 
-// The int8 tails' attention: the register-resident kernel below a crossover,
-// B6's wgmma body (sdpa.cu) from there on; one crossover for contiguous
-// tokens (B10, B15) and one for tokens through the kept indices (B11, B13,
-// B14), whose tiles the body gathers by cp.async. On an H100 SXM at batch 256,
-// contiguous, the body read 4-11% slower at 67 and 96 tokens and 9-10% faster
-// at 120 (50-60% slower at 47, 35% faster at 197), at C = 768 and 1024 alike;
-// gathered, it read 1.4-3.2x the register kernel's time up to 138 kept
-// tokens and level at 197, so the gathered tails keep the register kernel up
-// to ATTN_MAX_N. chip_smoke.py's crossover phase prints both kinds.
-constexpr int INT8_TAIL_SDPA_MIN_N = 120;
-constexpr int INT8_TAIL_SDPA_MIN_N_GATHERED = ATTN_MAX_N + 1;
-static_assert(INT8_TAIL_SDPA_MIN_N <= ATTN_MAX_N + 1 &&
-                  INT8_TAIL_SDPA_MIN_N_GATHERED <= ATTN_MAX_N + 1,
-              "the register kernel takes n <= 256");
-
-template <typename OutT>
-inline cudaError_t launch_tail_attention(const bf16* qkv, const int* idx, OutT* out, float* amax,
-                                         int B, int n_src, int n, int C, int H, float scale,
-                                         cudaStream_t st) {
-  if (n < (idx == nullptr ? INT8_TAIL_SDPA_MIN_N : INT8_TAIL_SDPA_MIN_N_GATHERED))
-    return launch_attention(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
-  return launch_sdpa(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
-}
-
 // Steps 5-7, on the kept tokens sel [B, n] (B11, B13, B14) or on all of them
 // (sel null, n = N): the attention of p.qkv into attn (fp32, or bf16 for B10
 // and B11), and proj with the (gathered) residual p.x into out [B·n, C].
@@ -606,7 +582,7 @@ inline int int8_attn_tail(const Int8Block& p, const int* sel, int n, AttnT* attn
   float* amax = tail_amax(p);
   if (!p.static_act && !p.two_launch && amax == nullptr) return fail(cudaErrorInvalidValue, 5);
   cudaError_t e =
-      launch_tail_attention(p.qkv, sel, attn, amax, p.B, p.N, n, p.C, p.H, p.scale, st);
+      launch_attention_any(p.qkv, sel, attn, amax, p.B, p.N, n, p.C, p.H, p.scale, st);
   if (e != cudaSuccess) return fail(e, 5);
   if (!p.two_launch) {
     I8EpilogueArgs ep = proj;

@@ -24,8 +24,8 @@
 // ranges; skipped when the threaded scores are used), the selection kernel
 // (one block per image), the shared attention kernel reading q/k/v rows
 // through the kept indices (a gather is exactly what the TPU kernel's one-hot
-// product computes, since sel is 0/1; register-resident up to ATTN_MAX_N kept
-// tokens, B6's wgmma body past that), and proj whose residual epilogue reads
+// product computes, since sel is 0/1; the short-row kernel up to ATTN_MAX_N
+// kept tokens, B6's wgmma body past that), and proj whose residual epilogue reads
 // the pre-norm x rows through the same indices. Both products run on the
 // wgmma/TMA GEMM of gemm_sm90.cuh (its header has the design), the gathered
 // residual by cp.async.
@@ -62,8 +62,9 @@ extern "C" int rajni_pruned_attn_block(
   e = launch_select(scores, static_cast<int*>(idx_out), static_cast<float*>(ns_out), B, N, K, st);
   if (e != cudaSuccess) return fail(e, 4);
 
-  e = launch_attention_any(static_cast<const bf16*>(qkv_scratch), static_cast<const int*>(idx_out),
-                           static_cast<bf16*>(attn_scratch), B, N, K, C, H, scale, st);
+  e = launch_attention_any(static_cast<const bf16*>(qkv_scratch),
+                           static_cast<const int*>(idx_out), static_cast<bf16*>(attn_scratch),
+                           nullptr, B, N, K, C, H, scale, st);
   if (e != cudaSuccess) return fail(e, 5);
 
   EpilogueArgs ep2{static_cast<const bf16*>(bproj), static_cast<const bf16*>(ls),

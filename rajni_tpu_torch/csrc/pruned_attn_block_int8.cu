@@ -22,7 +22,7 @@
 // row absmax), the int8 qkv product whose epilogue rounds to bf16 into a [B,
 // N, 3C] scratch (block.py:2548), the score kernel on that rounded qkv
 // (block.py:2550), the selection kernel, the attention reading q/k/v rows
-// through the kept indices (int8.cuh:launch_tail_attention) with a bf16
+// through the kept indices (common.cuh:launch_attention_any) with a bf16
 // output and (dynamic) each row's absmax, and the proj product, which
 // quantizes that output as it loads it and whose residual epilogue reads the
 // pre-norm x rows through the same indices (int8.cuh:int8_attn_tail;

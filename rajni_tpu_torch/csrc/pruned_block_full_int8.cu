@@ -20,7 +20,7 @@
 // product (bf16 qkv), the score kernel shared with K1 and B4 (skipped when
 // the threaded scores are used), the selection kernel shared with K1, the
 // attention through the kept indices with an fp32 output and (dynamic) each
-// row's absmax (int8.cuh:launch_tail_attention), the proj product
+// row's absmax (common.cuh:launch_attention_any), the proj product
 // quantizing that output as it loads it, with the gathered residual (bf16
 // x_mid; int8.cuh:int8_attn_tail; two_launch: the old route, with the row
 // quantizer before proj), LN2 → int8, fc1 with its GELU quantized per hc group in the epilogue

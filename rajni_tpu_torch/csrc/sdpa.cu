@@ -489,9 +489,8 @@ using namespace rajni;
 // kernels/attention.py reads this as fused_sdpa's count (rajni_sdpa_launches).
 static long long body_launches = 0;
 
-// The body behind common.cuh:launch_sdpa (every caller's long-sequence
-// attention, and the int8 tails' from INT8_TAIL_SDPA_MIN_N tokens): returns
-// a cudaError_t.
+// The body behind common.cuh:launch_sdpa (every caller's attention past
+// ATTN_MAX_N tokens): returns a cudaError_t.
 extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float* amax,
                                int out_fp32, int B, int n_src, int n, int C, int H, float scale,
                                void* stream) {
@@ -511,22 +510,13 @@ extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float
 
 extern "C" long long rajni_sdpa_launches() { return body_launches; }
 
-// B6 fused_sdpa (idx null, reg 0): the attention of qkv [B, n_src, 3C] into
-// bf16 out [B, n, C], token t being row idx[b, t] when idx is given, by this
-// body, or with reg by the register kernel (n <= ATTN_MAX_N), which
-// chip_smoke.py times against the body for the int8 tails' crossover
-// (int8.cuh:launch_tail_attention), contiguous and gathered.
-extern "C" int rajni_sdpa(const void* qkv, const void* idx, void* out, int reg, int B, int n_src,
-                          int n, int C, int H, float scale, void* stream) {
-  const int* i = static_cast<const int*>(idx);
-  if (!reg) {
-    const int e = rajni_sdpa_body(qkv, i, out, nullptr, 0, B, n_src, n, C, H, scale, stream);
-    return e == 0 ? 0 : fail(static_cast<cudaError_t>(e), 1);
-  }
-  const cudaError_t e =
-      n <= ATTN_MAX_N ? launch_attention(static_cast<const bf16*>(qkv), i, static_cast<bf16*>(out),
-                                         nullptr, B, n_src, n, C, H, scale,
-                                         static_cast<cudaStream_t>(stream))
-                      : cudaErrorInvalidValue;
-  return e == cudaSuccess ? 0 : fail(e, 1);
+// B6 fused_sdpa (idx null): the attention of qkv [B, n_src, 3C] into bf16
+// out [B, n, C] by this body, token t being row idx[b, t] when idx is given
+// (kernels/attention.py:attention_route, which chip_smoke.py times against
+// the short-row kernel, contiguous and gathered).
+extern "C" int rajni_sdpa(const void* qkv, const void* idx, void* out, int B, int n_src, int n,
+                          int C, int H, float scale, void* stream) {
+  const int e = rajni_sdpa_body(qkv, static_cast<const int*>(idx), out, nullptr, 0, B, n_src, n,
+                                C, H, scale, stream);
+  return e == 0 ? 0 : fail(static_cast<cudaError_t>(e), 1);
 }

@@ -13,9 +13,11 @@ dtype before P·V, P·V accumulated in fp32, output rounded.
 
 The same kernel body (``rajni_sdpa_body``) is the attention inside K2
 ``fused_attn_block``, B5 ``fused_gather_sdpa_proj_residual``, K1/B20 and the
-int8 tails from a crossover (``csrc/int8.cuh``). The library counts the
-body's launches where they happen, whichever entry point makes them, and
-``SDPA_KERNEL.launches`` reads that count.
+int8 tails past 256 tokens (``csrc/common.cuh``, ``csrc/int8.cuh``); up to 256
+tokens they run the short-row kernel (``csrc/short_attn.cu``,
+:func:`short_attention`). The library counts each kernel's launches where
+they happen, whichever entry point makes them, and ``SDPA_KERNEL.launches``
+and ``SHORT_KERNEL.launches`` read those counts.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ SDPA_MAX_N = 848
 
 # its launches are the body's, counted in csrc/sdpa.cu wherever an entry
 # point launches it (K2, B5, K1/B20 and the int8 tails run it inside theirs)
-SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, P, I, I, I, I, I, I, F, P],
+SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, P, I, I, I, I, I, F, P],
                          counter="rajni_sdpa_launches")
-ATTN_MAX_N = 256  # csrc/common.cuh: the register kernel's whole softmax rows
+ATTN_MAX_N = 256  # csrc/common.cuh: the short-row kernel's longest row (4 key tiles)
 
 
 def _packed(qkv: torch.Tensor) -> torch.Tensor:
@@ -85,44 +87,103 @@ def fused_sdpa(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     if not 1 <= N <= SDPA_MAX_N:
         raise ValueError(f"fused_sdpa supports 1 <= N <= {SDPA_MAX_N}, got N={N}")
     out = torch.empty(B, N, C, dtype=qkv.dtype, device=qkv.device)
-    SDPA_KERNEL(ptr(qkv), None, ptr(out), 0, B, N, N, C, num_heads, float(scale), stream())
+    SDPA_KERNEL(ptr(qkv), None, ptr(out), B, N, N, C, num_heads, float(scale), stream())
     return out
 
 
 def attention_route_plain(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
-                          scale: float) -> torch.Tensor:
-    """Plain PyTorch version of :func:`attention_route`: B6's function on the
-    tokens ``idx [B, n]`` of ``qkv [B, n_src, 3C]`` (all of them when None)."""
+                          scale: float, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`attention_route` and
+    :func:`short_attention`: B6's function on the tokens ``idx [B, n]`` of
+    ``qkv [B, n_src, 3C]`` (all of them when None), its output in
+    ``out_dtype`` (``qkv``'s by default)."""
+    qkv = _packed(qkv)
     if idx is not None:
         qkv = torch.take_along_dim(qkv, idx.long()[..., None], dim=1)
-    return fused_sdpa_plain(qkv, num_heads, scale)
+    if qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % num_heads:
+        raise ValueError(f"C={qkv.shape[-1] // 3} not divisible by num_heads={num_heads}")
+    return _sdpa_perhead(qkv, num_heads, scale, out_dtype or qkv.dtype)
+
+
+# the longest sequence each of attention_route's kernels takes
+ROUTES = {"body": SDPA_MAX_N, "short": ATTN_MAX_N}
+
+
+def _check_route_shapes(name: str, qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
+                        max_n: int) -> tuple[int, int, int, int]:
+    """``(B, n_src, n, C)`` of a packed qkv and its kept indices; raises on what
+    the kernels do not take (head_dim 64, 1 <= n <= max_n, n_src <= SDPA_MAX_N,
+    idx int32 ``[B, n]``)."""
+    B, n_src, three_c = qkv.shape
+    C = three_c // 3
+    if three_c % 3 or C != num_heads * HEAD_DIM:
+        raise ValueError(f"{name} needs head_dim {HEAD_DIM}; got C={C}, heads={num_heads}")
+    if idx is not None and (idx.ndim != 2 or idx.shape[0] != B or idx.dtype != torch.int32):
+        raise ValueError(f"{name}: idx must be int32 [{B}, n], got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    n = n_src if idx is None else idx.shape[1]
+    if not 1 <= n <= max_n or n_src > SDPA_MAX_N:
+        raise ValueError(f"{name}: n={n} of n_src={n_src} out of range (n <= {max_n})")
+    return B, n_src, n, C
 
 
 def attention_route(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int, scale: float,
-                    wgmma: bool) -> torch.Tensor:
-    """The attention by the route chosen (B6's entry point ``csrc/sdpa.cu:
-    rajni_sdpa``): the register kernel (``wgmma=False``, n <= 256) or B6's
-    kernel, on contiguous tokens or through ``idx`` (int32 ``[B, n]``). No
-    path calls it; ``chip_smoke.py`` times the two routes with it for the int8
-    tails' crossover. Raises on shapes the kernels do not take before it
-    dispatches."""
+                    route: str) -> torch.Tensor:
+    """The attention by the kernel named: ``"body"``, B6's wgmma body (its
+    entry point ``csrc/sdpa.cu:rajni_sdpa``); ``"short"``, the short-row
+    kernel (:func:`short_attention`, n <= 256); on contiguous tokens or
+    through ``idx`` (int32 ``[B, n]``), into bf16. No path calls it;
+    ``chip_smoke.py`` times the routes with it for the routing of
+    ``csrc/common.cuh:launch_attention_any``. Raises on an unknown route and
+    on shapes the kernel does not take before it dispatches."""
+    if route not in ROUTES:
+        raise ValueError(f"attention_route: unknown route {route!r} (one of {sorted(ROUTES)})")
     qkv = _packed(qkv)
-    B, n_src, three_c = qkv.shape
-    C = three_c // 3
-    n = n_src if idx is None else idx.shape[1]
-    if three_c % 3 or C != num_heads * HEAD_DIM:
-        raise ValueError(f"attention_route needs head_dim {HEAD_DIM}; got C={C}, "
-                         f"heads={num_heads}")
-    if not 1 <= n <= (SDPA_MAX_N if wgmma else ATTN_MAX_N) or n_src > SDPA_MAX_N:
-        raise ValueError(f"attention_route: n={n} of n_src={n_src} out of range")
-    if idx is not None and (idx.shape[0] != B or idx.dtype != torch.int32):
-        raise ValueError(f"attention_route: idx must be int32 [{B}, n], got {idx.dtype} "
-                         f"{tuple(idx.shape)}")
+    B, n_src, n, C = _check_route_shapes("attention_route", qkv, idx, num_heads, ROUTES[route])
     if qkv.device.type == "cpu":
         return attention_route_plain(qkv, idx, num_heads, scale)
+    if route == "short":
+        return short_attention(qkv, idx, num_heads, scale)[0]
     check_cuda(torch.bfloat16, qkv=qkv)
     check_cuda(torch.int32, idx=idx)
     out = torch.empty(B, n, C, dtype=qkv.dtype, device=qkv.device)
-    SDPA_KERNEL(ptr(qkv), ptr(idx), ptr(out), int(not wgmma), B, n_src, n, C, num_heads,
-                float(scale), stream())
+    SDPA_KERNEL(ptr(qkv), ptr(idx), ptr(out), B, n_src, n, C, num_heads, float(scale), stream())
     return out
+
+
+# its launches are counted in csrc/short_attn.cu wherever an entry point
+# launches it (K1, K2, B5, B7, B8, B10, B11, B13-B16 run it inside theirs)
+SHORT_KERNEL = CudaKernel("rajni_short_attn", [P, P, P, P, I, I, I, I, I, I, F, P],
+                          counter="rajni_short_attn_launches")
+
+
+def short_attention_plain(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
+                          scale: float, out_dtype: torch.dtype = torch.bfloat16,
+                          amax: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of :func:`short_attention`: the output, and with
+    ``amax`` each output row's absmax over its C columns (fp32 ``[B·n]``)."""
+    out = attention_route_plain(qkv, idx, num_heads, scale, out_dtype)
+    return out, (out.float().abs().amax(dim=-1).reshape(-1) if amax else None)
+
+
+def short_attention(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int, scale: float,
+                    out_dtype: torch.dtype = torch.bfloat16,
+                    amax: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The short-row attention (``csrc/short_attn.cu``) on its own: B6's
+    function on ``n <= 256`` tokens of ``qkv [B, n_src, 3C]`` (through ``idx``
+    int32 ``[B, n]``, or all ``n_src``), into ``out_dtype`` (bf16 or fp32);
+    with ``amax``, each output row's absmax too, as the int8 tails take it.
+    Raises on shapes the kernel does not take before it dispatches."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"short_attention: out_dtype must be bf16 or fp32, got {out_dtype}")
+    qkv = _packed(qkv)
+    B, n_src, n, C = _check_route_shapes("short_attention", qkv, idx, num_heads, ATTN_MAX_N)
+    if qkv.device.type == "cpu":
+        return short_attention_plain(qkv, idx, num_heads, scale, out_dtype, amax)
+    check_cuda(torch.bfloat16, qkv=qkv)
+    check_cuda(torch.int32, idx=idx)
+    out = torch.empty(B, n, C, dtype=out_dtype, device=qkv.device)
+    am = torch.zeros(B * n, dtype=torch.float32, device=qkv.device) if amax else None
+    SHORT_KERNEL(ptr(qkv), ptr(idx), ptr(out), ptr(am), int(out_dtype == torch.float32), B,
+                 n_src, n, C, num_heads, float(scale), stream())
+    return out, am

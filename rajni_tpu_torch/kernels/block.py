@@ -31,9 +31,10 @@ The SDPA has two forms, switched as the TPU kernels switch them
 (``block.py:136``): the "phased" form (``q * scale`` in fp32, rounded, then
 the logits) while ``H·N²·6 <= 4 MiB``, else the per-head form (scale on the
 fp32 logits, :func:`..attention.fused_sdpa_plain`). On the card the
-register-resident attention kernel (``N <= ATTN_MAX_N``) is phased and the
-B6's kernel (``N > ATTN_MAX_N``) per-head. At head_dim 64 the scale is
-1/8, so both forms give the same bits and the switch points need not agree.
+short-row kernel (``N <= ATTN_MAX_N``, ``csrc/short_attn.cu``) and B6's
+kernel (``N > ATTN_MAX_N``) scale the fp32 logits. At head_dim 64 the scale
+is 1/8, so both forms give the same bits and the switch points need not
+agree.
 
 The int8 kernels (``block.py:1098-1440``) quantize the LN output straight
 from fp32 (its statistics summed in the kernel's order,
@@ -52,10 +53,8 @@ scores then come from the pre-scaled V.
 
 On the card the int8 tails (B10, B11, B13, and B14 and B15 in
 ``wholeblock.py``) run ``csrc/int8.cuh:int8_attn_tail``: the attention
-(the register kernel below a crossover, ``INT8_TAIL_SDPA_MIN_N`` there,
-B6's kernel from it), which in dynamic mode also takes each output row's
-absmax, and
-proj, which quantizes the attention output as it loads it
+(the short-row kernel up to 256 tokens, B6's kernel past them), which in
+dynamic mode also takes each output row's absmax, and proj, which quantizes the attention output as it loads it
 (:func:`..gemm.gemm_s8q`), with no quantizer launch between them.
 ``two_launch=True`` runs the old tail instead (attention, row quantizer,
 int8 proj), the new one's bitwise reference.
@@ -145,7 +144,8 @@ def _importance_f32(qkv32: torch.Tensor, num_heads: int, eps: float = 1e-6):
     V = V - V.mean(dim=1, keepdim=True)
     vn = torch.sqrt((V * V).sum(dim=2))
     mu = vn.mean(dim=1, keepdim=True)
-    var = (vn - mu).square().sum(dim=1, keepdim=True) / (N - 1)
+    ss = (vn - mu).square().sum(dim=1, keepdim=True)
+    var = ss / torch.full_like(ss, float(N - 1))  # a true division on CUDA too
     std = torch.sqrt(var) + eps
     return a_cls * torch.sigmoid((vn - mu) / std)
 

@@ -36,7 +36,9 @@ def compute_importance(
         q5 = qkv.reshape(B, N, 3, num_heads, D)
         q_cls = q5[:, 0, 0].float()  # [B, H, D]
         k = q5[:, :, 1].float()  # [B, N, H, D]
-        logits = torch.einsum("bhd,bnhd->bhn", q_cls, k) / math.sqrt(D)
+        logits = torch.einsum("bhd,bnhd->bhn", q_cls, k)
+        # a true division on CUDA too (a Python divisor is a reciprocal multiply)
+        logits = logits / torch.full_like(logits[..., :1], math.sqrt(D))
         a_cls = torch.softmax(logits, dim=-1).mean(dim=1)  # [B, N]
 
         V = q5[:, :, 2].float().mean(dim=2)  # [B, N, D]

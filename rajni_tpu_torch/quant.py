@@ -38,10 +38,14 @@ Params = dict[str, Any]
 
 def quantize_weight(w: torch.Tensor) -> dict:
     """Symmetric per-output-channel int8 quantization of ``weight [out,
-    in]``: ``{"int8": int8 [out, in], "scale": f32 [out]}``. Divides by the
-    scale (``w / scale``), as ``rajni_tpu.quant.quantize_weight`` does."""
+    in]``: ``{"int8": int8 [out, in], "scale": f32 [out]}``. Divides the
+    absmax by 127 and the weights by the scale (``w / scale``), as
+    ``rajni_tpu.quant.quantize_weight`` does: tensor by tensor, since on CUDA
+    PyTorch takes ``tensor / 127.0`` as a multiply by ``fl(1 / 127)``, two
+    roundings."""
     w32 = w.float()
-    scale = torch.clamp_min(w32.abs().amax(dim=1, keepdim=True), 1e-8) / 127.0
+    absmax = torch.clamp_min(w32.abs().amax(dim=1, keepdim=True), 1e-8)
+    scale = absmax / torch.full_like(absmax, 127.0)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return {"int8": q.contiguous(), "scale": scale[:, 0].contiguous()}
 

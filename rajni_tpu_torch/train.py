@@ -85,6 +85,22 @@ def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
     return lambda count: (init - end) * (1 - min(max(count, 0), steps) / steps) + end
 
 
+def _divisors(value: float):
+    """``t -> value`` as a 0-dim tensor of ``t``'s dtype on its device, made
+    once per (dtype, device): dividing by it is a true division, as optax
+    divides by its traced scalars cast to the leaf's dtype (on CUDA PyTorch
+    takes ``tensor / python_number`` as a multiply by the reciprocal)."""
+    made: dict = {}
+
+    def of(t: torch.Tensor) -> torch.Tensor:
+        key = (t.dtype, t.device)
+        if key not in made:
+            made[key] = torch.full((), value, dtype=t.dtype, device=t.device)
+        return made[key]
+
+    return of
+
+
 def _cosine(init: float, steps: int) -> Callable[[int], float]:
     """``optax.cosine_decay_schedule`` to 0."""
     return lambda count: init * 0.5 * (1 + math.cos(math.pi * min(count, steps) / steps))
@@ -130,8 +146,9 @@ class AdamW:
         move ``params`` in place."""
         if self.grad_accum > 1:
             n = state.mini_step
+            count = _divisors(n + 1)
             for a, g in zip(state.acc, grads):
-                a.add_((g.to(a.dtype) - a) / (n + 1))
+                a.add_((g.to(a.dtype) - a) / count(a))
             state.mini_step = (n + 1) % self.grad_accum
             if state.mini_step:
                 return
@@ -142,11 +159,11 @@ class AdamW:
                 grads = [(g / norm.to(g.dtype)) * self.grad_clip for g in grads]
         lr = self.lr(state.count)
         state.count += 1
-        c1, c2 = 1 - self.b1**state.count, 1 - self.b2**state.count
+        c1, c2 = _divisors(1 - self.b1**state.count), _divisors(1 - self.b2**state.count)
         for p, g, m, v in zip(params, grads, state.mu, state.nu):
             m.mul_(self.b1).add_((1 - self.b1) * g)
             v.mul_(self.b2).add_((1 - self.b2) * g * g)
-            u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            u = (m / c1(m)) / (torch.sqrt(v / c2(v)) + self.eps)
             p.add_(-lr * (u + self.weight_decay * p))
         if self.grad_accum > 1:
             for a in state.acc:

@@ -41,14 +41,19 @@ def kind_of(name: str) -> str:
     """A device kernel's kind, by its name: the port's own kernels (the
     wgmma GEMM, ``gemm_sm90_kernel``, bf16 (K1-K3, B4, B5, B17) or int8 (its
     ``S8Epi`` instantiations, B9-B15); the row quantizer,
-    ``quant_rows_kernel``; B18; other), library GEMMs, and PyTorch's
-    elementwise, copy and reduction kernels."""
+    ``quant_rows_kernel``; B18; the forward attention, the short-row kernel
+    or B6's body; other), library GEMMs, and PyTorch's elementwise, copy and
+    reduction kernels."""
     if "rajni" in name:
         if "gemm_sm90" in name:
             return "port GEMM int8 wgmma" if "S8Epi" in name else "port GEMM wgmma"
         if "quant_rows" in name:
             return "port row quantizer"
-        return "port B18" if "sdpa_bwd" in name else "port other"
+        if "sdpa_bwd" in name:
+            return "port B18"
+        if "short_attn" in name or "sdpa_wgmma" in name:
+            return "port attention"
+        return "port other"
     if any(k in name for k in ("nvjet", "cutlass", "gemm", "splitKreduce")):
         return "library GEMM"
     if "copy" in name or "Memcpy" in name:
