@@ -622,6 +622,9 @@ KERNELS = {
     # whose attention up to 256 tokens it runs (K1, K2, B5, B7, B8, B10, B11,
     # B13-B16)
     "short_attention": ("csrc/short_attn.cu", "rajni_tpu/kernels/block.py:130"),
+    # no TPU kernel of its own: the selection JAX runs outside Pallas on the
+    # two-kernel route (rajni_tpu/models/vit.py:867-928)
+    "select_kept": ("csrc/select.cu", "rajni_tpu/ops/pruning.py:86"),
 }
 
 
@@ -1103,8 +1106,10 @@ def split_int8_phases(device, peaks, int8_peak, results):
             x = x_of(n)
             sc = block_act_scales(blk, x, HEADS)[:2] if static else None
             args = (x, qblk["norm1"], qblk["attn"], None, HEADS, scale, 1e-6, sc)
+            ab = attached(qblk, sc)
+            kargs = (x, ab["norm1"], ab["attn"], *args[3:])
             tag = f"B10 N={n} {mode}"
-            got = kb.fused_attn_block_int8(*args)
+            got = kb.fused_attn_block_int8(*kargs)
             err, rel = gate(tag, got, lambda: kb.attn_block_int8_plain(*args), x,
                             ("bqkv without V-fold" if static else "row scales shifted",
                              "attention output fp32"))
@@ -1112,16 +1117,18 @@ def split_int8_phases(device, peaks, int8_peak, results):
             bnd = bound(4.0 * Bl * n * n * C, 2 * M * C * 2 + a_bytes, peaks, 8.0 * M * C * C,
                         int8_peak)
             timed("fused_attn_block_int8", path, f"B={Bl} N={n} C={C}",
-                  lambda: kb.fused_attn_block_int8(*args), lambda: kb.attn_block_int8_plain(*args),
-                  bnd, err, rel)
+                  lambda: kb.fused_attn_block_int8(*kargs),
+                  lambda: kb.attn_block_int8_plain(*args), bnd, err, rel)
 
         for n in (577, 442):  # B12
             x = x_of(n)
             sc = block_act_scales(blk, x, HEADS)[:2] if static else None
             for with_scores in (True, False):
                 args = (x, qblk["norm1"], qblk["attn"]["qkv"], HEADS, 1e-6, with_scores, sc)
+                ab = attached(qblk, sc)
+                kargs = (x, ab["norm1"], ab["attn"]["qkv"], *args[3:])
                 tag = f"B12 N={n} {mode} with_scores={with_scores}"
-                gq, gs = kb.fused_ln_qkv_int8(*args)
+                gq, gs = kb.fused_ln_qkv_int8(*kargs)
                 wq, ws = kb.ln_qkv_int8_plain(*args)
                 # compared with V in its own units: static V carries 1/a_proj
                 col = torch.ones(3 * C, device=device)
@@ -1148,7 +1155,7 @@ def split_int8_phases(device, peaks, int8_peak, results):
                 bnd = bound(0.0, M * C * 2 + 3 * C * C + 6 * C * 4 + M * 3 * C * 2 + M * 4, peaks,
                             6.0 * M * C * C, int8_peak)
                 timed("fused_ln_qkv_int8", path, f"B={Bl} N={n} C={C} scores={with_scores}",
-                      lambda: kb.fused_ln_qkv_int8(*args), lambda: kb.ln_qkv_int8_plain(*args),
+                      lambda: kb.fused_ln_qkv_int8(*kargs), lambda: kb.ln_qkv_int8_plain(*args),
                       bnd, err, rel)
 
         for n, K in ((442, 375), (375, 356)):  # B13, on B12's (folded) qkv
@@ -1160,16 +1167,17 @@ def split_int8_phases(device, peaks, int8_peak, results):
                                               torch.bool)
             args = (qkv, keep_idx, x, qblk["attn"]["proj"], None, HEADS, scale,
                     None if sc is None else sc[1])
+            kargs = (*args[:3], attached(qblk, sc)["attn"]["proj"], *args[4:])
             tag = f"B13 N={n} K={K} {mode}"
             x_kept = torch.take_along_dim(x, keep_idx[..., None], dim=1)
-            got = kb.fused_gather_sdpa_proj_residual_int8(*args)
+            got = kb.fused_gather_sdpa_proj_residual_int8(*kargs)
             err, rel = gate(tag, got, lambda: kb.gather_sdpa_proj_residual_int8_plain(*args),
                             x_kept, ("sproj without a_proj" if static else "row scales shifted",))
             bnd = bound(4.0 * Bl * K * K * C,
                         Bl * K * (3 * C * 2 + C * 2 + 8 + C * 2) + C * C + 2 * C * 4, peaks,
                         2.0 * Bl * K * C * C, int8_peak)
             timed("fused_gather_sdpa_proj_residual_int8", path, f"B={Bl} N={n} K={K} C={C}",
-                  lambda: kb.fused_gather_sdpa_proj_residual_int8(*args),
+                  lambda: kb.fused_gather_sdpa_proj_residual_int8(*kargs),
                   lambda: kb.gather_sdpa_proj_residual_int8_plain(*args), bnd, err, rel)
 
         for n in (577, 356):  # B9
@@ -1226,6 +1234,20 @@ def b11_unrounded_scores(args):
     return kb.pruned_attn_block_int8_plain(x, ln, attn, ls, s, heads, keep, scale, eps, False, act)
 
 
+def attached(qblk, sc):
+    """qblk with the scales ``sc`` (static ``(a_qkv, a_proj, ...)``, or None:
+    dynamic) attached as ``RAJNIViT`` attaches them
+    (``quant.attach_act_scales``): the int8 attention wrappers (B10-B13)
+    then read their operands made once and fold or convert nothing on the
+    call, as on the main path. The plain versions take qblk and fold on the
+    call, so a fold fault planted there is held against the attached
+    operands."""
+    from rajni_tpu_torch.kernels.block import attach_attn_operands
+
+    return {**qblk, "attn": attach_attn_operands(qblk["norm1"], qblk["attn"],
+                                                 None if sc is None else sc[:2])}
+
+
 def check_b11(tag, x, qblk, heads, keep, scale, act, gen, faults):
     """B11 against its plain version, threaded (kept sets and next_scores
     exact, the output under the split-int8 gate, ``faults`` planted in the
@@ -1237,10 +1259,11 @@ def check_b11(tag, x, qblk, heads, keep, scale, act, gen, faults):
     from rajni_tpu_torch.kernels import block as kb
 
     B_, n, _ = x.shape
+    ab = attached(qblk, act)  # the kernel's block: the scales attached
     common = (x, qblk["norm1"], qblk["attn"], None)
     threaded = (*common, torch.rand(B_, n, generator=gen).to(x.device), heads, keep, scale, 1e-6,
                 False, act)
-    got = kb.fused_pruned_attn_block_int8(*threaded)
+    got = kb.fused_pruned_attn_block_int8(x, ab["norm1"], ab["attn"], *threaded[3:])
     want = kb.pruned_attn_block_int8_plain(*threaded)
     check(torch.equal(got[2], want[2]), f"{tag} with_scores=False: kept sets differ")
     check(torch.equal(got[1], want[1]), f"{tag} with_scores=False: next_scores differ")
@@ -1250,7 +1273,8 @@ def check_b11(tag, x, qblk, heads, keep, scale, act, gen, faults):
                    faults=faults, plant=planted_int8, limit=SPLIT_INT8_GATE[2])
 
     rescored = (*common, None, heads, keep, scale, 1e-6, True, act)
-    got = kb.fused_pruned_attn_block_int8(*rescored)
+    krescored = (x, ab["norm1"], ab["attn"], *rescored[3:])
+    got = kb.fused_pruned_attn_block_int8(*krescored)
     s = int8_scores(x, qblk, heads, act)
     e2, r2 = check_rescored(tag, got, kb.pruned_attn_block_int8_plain(*rescored), s, keep, x,
                             SPLIT_INT8_GATE, SCORE_MEDIAN_RTOL)
@@ -1262,7 +1286,7 @@ def check_b11(tag, x, qblk, heads, keep, scale, act, gen, faults):
         print(f"{tag}: planted fault 'scores from the fp32 qkv' rejected: {e}")
     else:
         raise SmokeFailure(f"{tag}: the gate missed the planted fault 'scores from the fp32 qkv'")
-    return (max(err, e2), max(rel, r2), lambda: kb.fused_pruned_attn_block_int8(*rescored),
+    return (max(err, e2), max(rel, r2), lambda: kb.fused_pruned_attn_block_int8(*krescored),
             lambda: kb.pruned_attn_block_int8_plain(*rescored))
 
 
@@ -1318,8 +1342,10 @@ def b11_phases(device, peaks, int8_peak, results):
             sc = block_act_scales(blk, x, heads) if static else None
             args = (x, qblk["norm1"], qblk["attn"], None, heads, scale, 1e-6,
                     None if sc is None else sc[:2])
+            ab = attached(qblk, sc)
+            kargs = (x, ab["norm1"], ab["attn"], *args[3:])
             tag = f"B10 N={n} C={width} {mode}"
-            got = kb.fused_attn_block_int8(*args)
+            got = kb.fused_attn_block_int8(*kargs)
             err, rel = compare(tag, got, kb.attn_block_int8_plain(*args), x, SPLIT_INT8_GATE)
             reject_planted(tag, got, lambda: kb.attn_block_int8_plain(*args), x,
                            faults=("bqkv without V-fold" if static else "row scales shifted",
@@ -1327,7 +1353,8 @@ def b11_phases(device, peaks, int8_peak, results):
                            plant=planted_int8, limit=SPLIT_INT8_GATE[2])
             M = B * n
             timed("fused_attn_block_int8", path, f"B={B} N={n} C={width}",
-                  lambda: kb.fused_attn_block_int8(*args), lambda: kb.attn_block_int8_plain(*args),
+                  lambda: kb.fused_attn_block_int8(*kargs),
+                  lambda: kb.attn_block_int8_plain(*args),
                   bound(4.0 * B * n * n * width, 2 * M * width * 2 + a_bytes, peaks,
                         8.0 * M * width * width, int8_peak), err, rel)
 
@@ -2020,6 +2047,9 @@ GEMM_SOURCES = ("gemm.cu", "mlp.cu", "attn_block.cu", "pruned_attn_block.cu", "g
                 "ln_qkv.cu", "ln_mlp_int8.cu", "block_full_int8.cu", "pruned_block_full_int8.cu",
                 "attn_block_int8.cu", "ln_qkv_int8.cu", "gather_attn_int8.cu",
                 "pruned_attn_block_int8.cu", "train_mlp.cu", "short_attn.cu")
+# the sources that build the row-band GEMM (csrc/band_s8.cuh): its check
+# entry point, B11's (head and proj), B12's (head) and B10's (proj)
+BAND_SOURCES = ("gemm.cu", "ln_qkv_int8.cu", "pruned_attn_block_int8.cu", "attn_block_int8.cu")
 GEMM_REL_L2 = 2.5 * GEMM_SOUND
 # (label, width, hidden) of the bf16 paths whose products the GEMM runs:
 # DeiT-S (P3a: B7's MLP half, B8), ViT-B (K2, K3, B16), ViT-L (P5c)
@@ -2494,24 +2524,34 @@ def tail_call(name, x, qblk, heads, K, scale, sc, qkv=None, keep_idx=None):
     from rajni_tpu_torch.kernels import wholeblock as wb
 
     def call(two_launch):
+        kw = dict(two_launch=two_launch)
         if name == "B10":
             return kb.fused_attn_block_int8(x, qblk["norm1"], qblk["attn"], None, heads, scale,
-                                            1e-6, None if sc is None else sc[:2],
-                                            two_launch=two_launch)
+                                            1e-6, None if sc is None else sc[:2], **kw)
         if name == "B11":
             return kb.fused_pruned_attn_block_int8(x, qblk["norm1"], qblk["attn"], None, None,
                                                    heads, K - 1, scale, 1e-6, True,
-                                                   None if sc is None else sc[:2],
-                                                   two_launch=two_launch)[0]
+                                                   None if sc is None else sc[:2], **kw)[0]
         if name == "B13":
             return kb.fused_gather_sdpa_proj_residual_int8(
                 qkv, keep_idx, x, qblk["attn"]["proj"], None, heads, scale,
-                None if sc is None else sc[1], two_launch=two_launch)
+                None if sc is None else sc[1], **kw)
         if name == "B14":
             return wb.fused_pruned_block_full_int8(x, qblk, None, heads, K - 1, scale, 1e-6, True,
-                                                   sc, two_launch=two_launch)[0]
-        return wb.fused_block_full_int8(x, qblk, heads, scale, 1e-6, sc, two_launch=two_launch)
+                                                   sc, **kw)[0]
+        return wb.fused_block_full_int8(x, qblk, heads, scale, 1e-6, sc, **kw)
     return call
+
+
+def proj_ms(fn) -> tuple[float, str]:
+    """Device time per call of the int8 tail's proj among fn's launches, and
+    which proj that was: the row-band GEMM's proj form ("band") or gemm_s8q
+    (the S8Epi I8_RESIDUAL instantiation whose A is bf16 or fp32, not fc2's
+    int8 one)."""
+    parts = launch_ms(fn)
+    band = sum(v for k, v in parts.items() if "band_s8_kernel<1>" in k)
+    s8q = sum(v for k, v in parts.items() if "S8Epi<2" in k and "signed char" not in k)
+    return band + s8q, "+".join(n for n, v in (("band", band), ("gemm_s8q", s8q)) if v)
 
 
 def tail_faults(tag, o, qblk, x, res_idx, n, K):
@@ -2591,7 +2631,8 @@ def tail_phases(device):
                 if name == "B13" and static:  # B12's qkv with the V-fold, as B13 reads it
                     qkv = kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], heads,
                                                1e-6, False, sc[:2])[0]
-                call = tail_call(name, x, qblk, heads, K or n, scale, sc, qkv, keep_idx)
+                call = tail_call(name, x, attached(qblk, sc), heads, K or n, scale, sc, qkv,
+                                 keep_idx)
                 tag = (f"int8 tail {name} ({paths}) B={Bt} N={n}" + (f" K={K}" if K else "")
                        + f" C={width} {'static' if static else 'dynamic'}")
                 new, two = call(False), call(True)
@@ -2601,6 +2642,14 @@ def tail_phases(device):
                 print(f"{tag}: {diff} of {new.numel()} elements differ from the two-launch route "
                       f"| {ms_new:.3f} ms | two-launch {ms_two:.3f} ms")
                 check(diff == 0, f"{tag}: the tail differs from its two-launch route ({diff})")
+                # the proj the route took: the band for B10's and B11's bf16
+                # output, gemm_s8q for B13-B15's fp32 one; dynamic, by device time
+                if not static:
+                    pt, took_proj = proj_ms(lambda: call(False))
+                    want_proj = "band" if name in ("B10", "B11") else "gemm_s8q"
+                    print(f"{tag}: proj on {took_proj}, {pt:.4f} ms (device time)")
+                    check(took_proj == want_proj,
+                          f"{tag}: the proj ran on {took_proj!r}, not on {want_proj!r}")
                 gathered = name in ("B11", "B13", "B14")
                 ka.SDPA_KERNEL.launches = ka.SHORT_KERNEL.launches = 0
                 call(False)
@@ -2650,6 +2699,218 @@ def tail_phases(device):
         runs = [r for i, r in enumerate(seq) if i == 0 or seq[i - 1] != r]
         check(len(runs) == len(set(runs)),
               f"int8 tails ({kind}): an attention kernel takes more than one range of n")
+
+
+# The row-band GEMM (csrc/band_s8.cuh) beside the route each path takes: B12's
+# head at P4a/P4b's five shapes (B=128, C=768) and B11's head and proj at
+# P5a/P5b's four (B=256, C=1024) and P5d's (B=128, C=384), dynamic and static
+BAND_B12 = (577, 548, 520, 442, 375)
+BAND_B11 = ((C_L, HEADS_L, HIDDEN_L, B, "P5a/P5b", ((197, 138), (138, 96), (96, 67), (67, 47))),
+            (C_S, HEADS_S, HIDDEN_S, B_S384, "P5d", ((577, 519),)))
+# the faults each band gate must reject, planted in the reference it is held to
+BAND_FAULTS = ("LN summed in another order", "proj's A quantized with the neighbouring row's absmax")
+# the two-kernel route's selection (csrc/select.cu) at P4a/P4b's pruned blocks
+SELECT_SHAPES = ((577, 548), (548, 520), (520, 442), (442, 375), (375, 356))
+
+
+def parts_ms(fn) -> tuple[float, str]:
+    """Device time per call of fn's launches (:func:`launch_ms`), summed,
+    and the launches one by one."""
+    parts = {kernel_name(k): v for k, v in launch_ms(fn).items()}
+    return sum(parts.values()), ", ".join(f"{k[:48]} {v:.4f}" for k, v in parts.items())
+
+
+def differ(a, b) -> int:
+    return int((a != b).sum())
+
+
+def band_phases(device, peaks, int8_peak, results):
+    """The row-band GEMM against the routes the paths take, bit for bit,
+    with both routes' launches by device time: B12's band head (qkv, scores
+    and the LN rows' scales) against its route at BAND_B12, B11's band head
+    against its route (proj on the band in both) and its two-launch route
+    at BAND_B11, and the band proj alone against gemm_s8q (gathered). Each
+    gate rejects its BAND_FAULTS entry. Then the two-kernel route's
+    selection against select_tokens_dense, exactly, with planted ties, timed
+    (SELECT_SHAPES); and the static operands folded once when the scales are
+    attached (quant.attach_act_scales) against the per-call fold, bit for
+    bit, with no fold on the wrappers' calls."""
+    import torch
+
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+    from rajni_tpu_torch.quant import ActScales, attach_act_scales
+
+    gen = torch.Generator().manual_seed(21)
+    blk = make_block(gen, device)
+    qblk = quantized_block(blk)
+    for static in (False, True):
+        mode = "static" if static else "dynamic"
+        for n in BAND_B12:
+            x = (X_STD * torch.randn(B384, n, C, generator=gen)).to(device, torch.bfloat16)
+            sc = block_act_scales(blk, x, HEADS)[:2] if static else None
+            for ws in (True, False):
+                ab = attached(qblk, sc)
+                args = (x, ab["norm1"], ab["attn"]["qkv"], HEADS, 1e-6, ws, sc)
+                band, route = kb.launch_ln_qkv_int8(*args, True), kb.launch_ln_qkv_int8(*args, False)
+                torch.cuda.synchronize()
+                d = [differ(band[0], route[0]), differ(band[1], route[1]),
+                     0 if static else differ(band[2], route[2])]
+                tag = f"band B12 (P4a/P4b) B={B384} N={n} C={C} {mode} with_scores={ws}"
+                times = ""
+                if ws or n == BAND_B12[0]:  # without scores: the memset for the score kernel
+                    t_band, p_band = parts_ms(lambda: kb.launch_ln_qkv_int8(*args, True))
+                    t_route, p_route = parts_ms(lambda: kb.launch_ln_qkv_int8(*args, False))
+                    times = (f" | band {t_band:.4f} ms ({p_band}) | route {t_route:.4f} ms "
+                             f"({p_route}) (device time) | events band "
+                             f"{cuda_ms(lambda: kb.launch_ln_qkv_int8(*args, True)):.4f}, route "
+                             f"{cuda_ms(lambda: kb.launch_ln_qkv_int8(*args, False)):.4f} ms")
+                print(f"{tag}: qkv {d[0]}, scores {d[1]}, row scales {d[2]} differ from the "
+                      f"route's{times}")
+                check(d == [0, 0, 0], f"{tag}: the band head differs from the route's")
+            if n == BAND_B12[0]:
+                with ln_float32():
+                    bad = kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], HEADS,
+                                               1e-6, False, sc)[0]
+                missed = torch.equal(band[0], bad)
+                print(f"band B12 N={n} {mode}: planted fault '{BAND_FAULTS[0]}' "
+                      f"{'missed' if missed else 'rejected'} ({differ(band[0], bad)} differ)")
+                check(not missed, f"band B12: the gate missed '{BAND_FAULTS[0]}'")
+
+    for width, heads, hidden, Bt, paths, shapes in BAND_B11:
+        blk = make_block(gen, device, width, hidden)
+        qblk = quantized_block(blk)
+        scale = (width // heads) ** -0.5
+        for n, K in shapes:
+            x = (X_STD * torch.randn(Bt, n, width, generator=gen)).to(device, torch.bfloat16)
+            for static in (False, True):
+                sc = block_act_scales(blk, x, heads)[:2] if static else None
+                ab = attached(qblk, sc)
+
+                def call(band, two_launch=False):
+                    return kb.fused_pruned_attn_block_int8(
+                        x, ab["norm1"], ab["attn"], None, None, heads, K - 1, scale, 1e-6,
+                        True, sc, two_launch=two_launch, band=band)
+                got, route, two = call(True), call(False), call(False, True)
+                torch.cuda.synchronize()
+                d = [differ(got[0], route[0]), differ(got[0], two[0]), differ(got[2], route[2]),
+                     differ(got[1], route[1])]
+                tag = (f"band B11 ({paths}) B={Bt} N={n} K={K} C={width} "
+                       f"{'static' if static else 'dynamic'}")
+                t_band, p_band = parts_ms(lambda: call(True))
+                t_route, p_route = parts_ms(lambda: call(False))
+                print(f"{tag}: out {d[0]} (vs two-launch {d[1]}), kept {d[2]}, next_scores {d[3]} "
+                      f"differ | band {t_band:.4f} ms ({p_band}) | route {t_route:.4f} ms "
+                      f"({p_route}) (device time) | events band {cuda_ms(lambda: call(True)):.4f}"
+                      f", route {cuda_ms(lambda: call(False)):.4f} ms")
+                check(d == [0, 0, 0, 0], f"{tag}: the band route differs from the route's")
+            # the band proj alone against gemm_s8q, gathered; the planted fault
+            # at each width's first shape
+            proj = qblk["attn"]["proj"]
+            w, wsc, bias = (proj["weight"]["int8"], proj["weight"]["scale"].float(),
+                            proj["bias"].float())
+            o = kb._mha(kb.ln_qkv_plain(x, blk["norm1"], blk["attn"]["qkv"], heads, 1e-6,
+                                        False)[0], heads, scale, torch.bfloat16)
+            idx, _ = select_tokens_dense(torch.rand(Bt, n, generator=gen).to(device), K - 1,
+                                         torch.bool)
+            o = torch.take_along_dim(o, idx[..., None], dim=1).reshape(-1, width).contiguous()
+            res_idx = idx.to(torch.int32).reshape(-1).contiguous()
+            amax = kg.row_absmax_plain(o)
+            for a in (amax, None):
+                pa = (o, a, w, wsc, bias, None, x, res_idx, K, n)
+                band, ref = kg.band_proj(*pa), kg.gemm_s8q(*pa)
+                t_band, t_ref = parts_ms(lambda: kg.band_proj(*pa))[0], parts_ms(
+                    lambda: kg.gemm_s8q(*pa))[0]
+                tag = f"band proj B={Bt} K={K} C={width} {'dynamic' if a is not None else 'static'}"
+                print(f"{tag}: {differ(band, ref)} differ from gemm_s8q | band {t_band:.4f} ms | "
+                      f"gemm_s8q {t_ref:.4f} ms (device time)")
+                check(differ(band, ref) == 0, f"{tag}: differs from gemm_s8q")
+                if a is not None and (n, K) == shapes[0]:
+                    bad = kg.gemm_s8q_plain(o, torch.roll(a, 1, dims=0), w, wsc, bias, None, x,
+                                            res_idx, K, n)
+                    missed = torch.equal(band, bad)
+                    print(f"{tag}: planted fault '{BAND_FAULTS[1]}' "
+                          f"{'missed' if missed else 'rejected'} ({differ(band, bad)} differ)")
+                    check(not missed, f"band proj: the gate missed '{BAND_FAULTS[1]}'")
+
+    # the two-kernel route's selection, exact, with planted ties
+    for n, K in SELECT_SHAPES:
+        s = torch.rand(B384, n, generator=gen)
+        order = torch.argsort(s[:, 1:], dim=1, descending=True) + 1
+        edge = order[:, K - 3:K + 1]  # a tie across the keep boundary
+        s.scatter_(1, edge, s.gather(1, order[:, K - 2:K - 1]).expand_as(edge))
+        s[:, 0] = s.min()  # CLS kept by the forcing alone
+        s = s.to(device)
+        got, want = kb.select_kept(s, K - 1), kb.select_kept_plain(s, K - 1)
+        torch.cuda.synchronize()
+        exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        ms, plain_ms = cuda_ms(lambda: kb.select_kept(s, K - 1)), cuda_ms(
+            lambda: kb.select_kept_plain(s, K - 1))
+        print(f"select_kept B={B384} N={n} K={K}: kept indices and next_scores "
+              f"{'exact' if exact else 'DIFFER'} | kernel {ms:.4f} ms | plain (torch) "
+              f"{plain_ms:.4f} ms")
+        check(exact, f"select_kept N={n}: differs from select_tokens_dense")
+        # the bound: the function's bytes (scores in; indices and scores out).
+        # A top-K with ties to the lower index needs O(N log N) work an image,
+        # far under the bytes' time, so the kernel's N² comparisons (its
+        # algorithm, not the function) do not enter it
+        t_bytes = (B384 * n * 4 + B384 * K * (8 + 4)) / (peaks[1] * 1e12) * 1e3
+        record(results, "select_kept", P4A, f"B={B384} N={n} K={K}", ms, plain_ms,
+               (t_bytes, "bytes"), 0.0, 0.0)
+
+    # the static operands, folded once when the scales are attached
+    calls = []
+    sound = {name: getattr(kb, name) for name in ("fold_static_attn", "_int8_proj_operands")}
+
+    def spy(name):
+        def fn(*a):
+            if a[-1] is not None:  # _int8_proj_operands folds only a static a_proj
+                calls.append(name)
+            return sound[name](*a)
+        return fn
+
+    for width, hidden, heads, n in ((C, HIDDEN, HEADS, 577), (C_L, HIDDEN_L, HEADS_L, 67)):
+        blk = make_block(gen, device, width, hidden)
+        qblk = quantized_block(blk)
+        x = (X_STD * torch.randn(8, n, width, generator=gen)).to(device, torch.bfloat16)
+        sc = block_act_scales(blk, x, heads)
+        ablk = attach_act_scales({"blocks": [qblk]}, ActScales((tuple(sc),), 1.0))["blocks"][0]
+        once = kb.attn_operands(ablk["norm1"], ablk["attn"], sc[:2])
+        each = kb.int8_attn_operands(qblk["norm1"], qblk["attn"], sc[:2])
+        pronce = kb.proj_operands(ablk["attn"]["proj"], sc[1])
+        preach = kb._int8_proj_operands(qblk["attn"]["proj"], sc[1])
+        d = sum(differ(once[k], each[k]) for k in each) + sum(
+            differ(pronce[k], preach[k]) for k in preach)
+        scale = (width // heads) ** -0.5
+        idx = torch.arange(n - 10, device=device).expand(8, -1).contiguous()
+        qkv = kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], heads, 1e-6, False,
+                                   sc[:2])[0]
+        runs = {"B10": lambda p: kb.fused_attn_block_int8(x, p["norm1"], p["attn"], None, heads,
+                                                          scale, 1e-6, sc[:2]),
+                "B11": lambda p: kb.fused_pruned_attn_block_int8(
+                    x, p["norm1"], p["attn"], None, None, heads, n - 11, scale, 1e-6, True,
+                    sc[:2])[0],
+                "B12": lambda p: kb.fused_ln_qkv_int8(x, p["norm1"], p["attn"]["qkv"], heads,
+                                                      1e-6, True, sc[:2])[0],
+                "B13": lambda p: kb.fused_gather_sdpa_proj_residual_int8(
+                    qkv, idx, x, p["attn"]["proj"], None, heads, scale, sc[1])}
+        per_call = {name: run(qblk) for name, run in runs.items()}  # folds on each call
+        for name in sound:
+            setattr(kb, name, spy(name))
+        try:
+            got = {name: run(ablk) for name, run in runs.items()}
+        finally:
+            for name, fn in sound.items():
+                setattr(kb, name, fn)
+        torch.cuda.synchronize()
+        d_out = {name: differ(got[name], per_call[name]) for name in runs}
+        print(f"static operands C={width}: attached once, {d} values differ from the per-call "
+              f"fold; folds in the calls of B10, B11, B12, B13 on the attached params: "
+              f"{len(calls)}; outputs differing from the calls that fold: {d_out}")
+        check(d == 0, f"C={width}: the operands attached once differ from the per-call fold")
+        check(not calls, f"C={width}: the static wrappers folded on the call: {calls}")
+        check(not any(d_out.values()), f"C={width}: attached operands change an output: {d_out}")
 
 
 def ragged_phases(device):
@@ -3110,7 +3371,7 @@ COUNTED = ("fused_pruned_attn_block", "fused_attn_block", "fused_ln_mlp_residual
            "fused_ln_mlp_residual_int8", "fused_attn_block_int8", "fused_ln_qkv_int8",
            "fused_gather_sdpa_proj_residual_int8", "fused_pruned_attn_block_int8",
            "fused_ln_qkv_select", "fused_pruned_attn_block_long", "train_attn_block",
-           "train_ln_mlp", "train_sdpa_bwd", "short_attention")
+           "train_ln_mlp", "train_sdpa_bwd", "short_attention", "select_kept")
 # the training path: B16 in every stock block, B4 + B5 in every pruned
 # block, B17 and B18 in every block; no inference kernel. The attention of
 # B16 and B5 (at most 197 tokens) is the short-row kernel
@@ -3142,7 +3403,7 @@ INT8_LAUNCHES = {"pruned": launches(fused_pruned_block_full_int8=5, fused_block_
 INT8_384_LAUNCHES = {
     "pruned": launches(fused_attn_block_int8=3, fused_ln_mlp_residual_int8=8, fused_ln_qkv_int8=5,
                        fused_gather_sdpa_proj_residual=3, fused_gather_sdpa_proj_residual_int8=2,
-                       fused_block_full_int8=4, fused_sdpa=12),
+                       fused_block_full_int8=4, fused_sdpa=12, select_kept=5),
     "identity": launches(fused_attn_block_int8=12, fused_ln_mlp_residual_int8=12, fused_sdpa=12)}
 PATHS = {
     PATH224: dict(
@@ -3159,7 +3420,7 @@ PATHS = {
         counts=VIT_B384_COUNTS,
         launches={
             "pruned": launches(fused_attn_block=7, fused_ln_mlp_residual=12, fused_ln_qkv=5,
-                               fused_gather_sdpa_proj_residual=5, fused_sdpa=12),
+                               fused_gather_sdpa_proj_residual=5, fused_sdpa=12, select_kept=5),
             "identity": launches(fused_attn_block=12, fused_ln_mlp_residual=12, fused_sdpa=12)}),
     # the whole-block paths: no K1, K2 or K3 launch
     P3A: dict(
@@ -3271,7 +3532,8 @@ def kernel_counters() -> dict:
             "train_attn_block": kt.TRAIN_ATTN_KERNEL,
             "train_ln_mlp": kt.TRAIN_MLP_KERNEL,
             "train_sdpa_bwd": kt.SDPA_BWD_KERNEL,
-            "short_attention": ka.SHORT_KERNEL}
+            "short_attention": ka.SHORT_KERNEL,
+            "select_kept": kb.SELECT_KERNEL}
 
 
 def end_to_end(device, device_name, results, path):
@@ -3410,6 +3672,13 @@ def main() -> int:
         if src in GEMM_SOURCES:
             check(not re.search(r"[1-9][0-9]* bytes spill", rep), f"{src}: ptxas reports spills")
             check("C7520" not in rep and "C7515" not in rep, f"{src}: ptxas serialized wgmma")
+    # the row-band GEMM (csrc/band_s8.cuh) is compiled where its forms are used
+    band = [src for src, rep in reports.items() if "band_s8_kernel" in rep]
+    if reports:
+        print(f"  csrc/band_s8.cuh's band_s8_kernel compiled in {band}, each held above to no "
+              "spill and no serialized wgmma")
+        check(set(BAND_SOURCES) <= set(band) and set(band) <= set(GEMM_SOURCES),
+              f"band_s8_kernel compiled in {band}, not in {BAND_SOURCES} within the checked sources")
 
     peaks, int8_peak = device_peaks(device_name), device_int8_peak(device_name)
     results: dict = {}
@@ -3440,6 +3709,8 @@ def main() -> int:
                lambda: gelu_quant_phases(device, peaks, int8_peak)),
               ("the int8 attention tail: the new route and the two-launch route",
                lambda: tail_phases(device)),
+              ("the row-band GEMM, the two-kernel route's selection, the folded static scales",
+               lambda: band_phases(device, peaks, int8_peak, results)),
               ("score kernel", lambda: score_phases(device, peaks)),
               ("attention at and below 256 tokens", lambda: attention_phases(device, peaks)),
               ("training block ops", lambda: train_block_ops(device))]

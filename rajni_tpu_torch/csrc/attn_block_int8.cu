@@ -9,18 +9,19 @@
 // and the attention's 4·B·N²·C bf16 FLOP).
 //
 // Design: four launches on the caller's stream, steps 1-2 and 5-7 of the int8
-// block body (csrc/int8.cuh): LN1 → int8 (which also zeroes the row absmax),
+// block body (csrc/int8_block.cuh): LN1 → int8 (which also zeroes the row absmax),
 // the qkv product (bf16 qkv), the attention (common.cuh:launch_attention_any:
 // the short-row kernel up to 256 tokens, B6's wgmma body past them), which in
 // dynamic mode also takes each row's absmax, and
-// proj, which quantizes the attention output as it loads it, with the
-// residual (int8.cuh:int8_attn_tail says why). Unlike B13, B14 and B15, the
+// proj on the row-band GEMM (csrc/band_s8.cuh), which quantizes each
+// 128-row band of the attention output once in shared memory, with the
+// residual (int8_block.cuh:int8_attn_tail says why). Unlike B13, B14 and B15, the
 // TPU kernel rounds the attention output to the activation dtype before
 // quantizing it (block.py:1255), and a quantizer turns that last bit into
 // whole int8 steps: so the attention writes bf16 here and proj reads bf16.
 // two_launch: the old tail (attention, row quantizer, int8 proj), five
 // launches, the bitwise reference of the new one.
-#include "int8.cuh"
+#include "int8_block.cuh"
 
 using namespace rajni;
 

@@ -10,18 +10,18 @@
 // and read once in fp32 in dynamic mode (csrc/int8.cuh).
 //
 // Design: seven launches in static mode and nine in dynamic mode on the
-// caller's stream (csrc/int8.cuh: int8_block_head/_tail without the
+// caller's stream (csrc/int8_block.cuh: int8_block_head/_tail without the
 // selection): LN1 → int8 (zeroing the attention's row absmax, kept in h's
 // first floats), the qkv product (bf16 qkv: B15 does not round qkv itself,
 // but its attention casts it to bf16, block.py:284, which is the same), the
 // attention with an fp32 output and (dynamic) each row's absmax
 // (common.cuh:launch_attention_any), the proj product quantizing that output
-// as it loads it, with the residual (int8.cuh:int8_attn_tail), LN2 → int8,
+// as it loads it, with the residual (int8_block.cuh:int8_attn_tail), LN2 → int8,
 // fc1 with its GELU quantized per hc group in the epilogue (dynamic: the
 // absmax scratch zeroed, fc1 to fp32 h with the group absmax, then the
 // quantizer), and fc2 with the residual. two_launch: the attention tail's
 // old route, with the row quantizer before proj.
-#include "int8.cuh"
+#include "int8_block.cuh"
 
 using namespace rajni;
 

@@ -12,15 +12,15 @@
 // Bound on the H100: operations (the attention's 4·B·K²·C bf16 FLOP and the
 // int8 proj product, 2·B·K·C²).
 //
-// Design: steps 5-7 of the int8 block body (csrc/int8.cuh) with the kept
+// Design: steps 5-7 of the int8 block body (csrc/int8_block.cuh) with the kept
 // indices, as B14 runs them after its selection: the TPU kernel gathers with
 // a one-hot [K, N] product, which is a gather, so the attention reads q/k/v
 // rows idx[b, t] of qkv (common.cuh:launch_attention_any) into fp32 and
 // (dynamic) each row's absmax, which a memset zeroes first, and proj
 // quantizes that output as it loads it, with the residual read through the
-// same indices (int8.cuh:int8_attn_tail): two launches static, three
+// same indices (int8_block.cuh:int8_attn_tail): two launches static, three
 // dynamic. two_launch: the old tail (attention, row quantizer, int8 proj).
-#include "int8.cuh"
+#include "int8_block.cuh"
 
 using namespace rajni;
 

@@ -20,7 +20,11 @@
 //     I8_RESIDUAL(quant(A) · Wᵀ) with A [M, K] bf16 (a_fp32 = 0) or fp32
 //     quantized per row as it is loaded, by amax [M] (each row's absmax) or,
 //     with amax null, static (int8.cuh:launch_gemm_s8q).
-#include "int8.cuh"
+//   * rajni_band_proj: the row-band GEMM's proj form (band_s8.cuh, B10's and
+//     B11's proj), rajni_gemm_s8q's function on a bf16 A (a residual
+//     required) with A quantized once a 128-row band; its head form is held
+//     through B11's and B12's entry points.
+#include "band_s8.cuh"
 
 using namespace rajni;
 
@@ -104,4 +108,28 @@ extern "C" int rajni_gelu_quant_s8(const void* a, const void* w, void* hq, void*
   e = launch_quant_rows(static_cast<const float*>(h), ep.sinv, Q, S, M, N, hc, sinv != nullptr,
                         st);
   return e == cudaSuccess ? 0 : fail(e, 2);
+}
+
+extern "C" int rajni_band_proj(const void* a, const void* amax, const void* w,
+                               void* out, int M, int N, int C, const void* w_scale,
+                               const void* bias, const void* ls, const void* res,
+                               const void* res_idx, int rows_out, int rows_in, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  BandArgs p{};
+  p.a = static_cast<const bf16*>(a);
+  p.amax_in = static_cast<const float*>(amax);
+  p.w_scale = static_cast<const float*>(w_scale);
+  p.bias = static_cast<const float*>(bias);
+  p.ls = static_cast<const bf16*>(ls);
+  p.res = static_cast<const bf16*>(res);
+  p.res_idx = static_cast<const int*>(res_idx);
+  p.rows_out = rows_out;
+  p.rows_in = rows_in;
+  p.M = M;
+  p.N = N;
+  p.C = C;
+  p.static_act = amax == nullptr;
+  const cudaError_t e =
+      launch_band<BAND_PROJ>(p, static_cast<const int8_t*>(w), static_cast<bf16*>(out), st);
+  return e == cudaSuccess ? 0 : fail(e, 1);
 }

@@ -23,7 +23,7 @@
 // fp32 h taking each row and group's absmax in its epilogue, the quantizer
 // reading h once. hc comes from the port's copy of the JAX rule
 // _hidden_chunk.
-#include "int8.cuh"
+#include "int8_block.cuh"
 
 using namespace rajni;
 

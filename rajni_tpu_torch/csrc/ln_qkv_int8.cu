@@ -10,20 +10,25 @@
 // Bound on the H100: operations (the int8 qkv product, 6·B·N·C²); the
 // scores are ~2·N·C multiply-adds an image on the CUDA cores.
 //
-// Design: three launches on the caller's stream, steps 1-3 of the int8 block
-// body (csrc/int8.cuh): LN1 → int8, the qkv product whose epilogue rounds to
-// bf16 with _rn intrinsics, and the score kernel shared with K1, B4 and B14
-// (common.cuh:score_kernel), which reads that bf16 qkv as the TPU kernel
-// scores its rounded qkv (block.py:1361), or a zero fill of the scores.
-#include "int8.cuh"
+// Design: steps 1-3 of the int8 block body (csrc/int8_block.cuh) on the
+// caller's stream, three launches: LN1 → int8 into q8, the qkv product on
+// gemm_sm90.cuh whose epilogue rounds to bf16 with _rn intrinsics, and the
+// score kernel shared with K1, B4 and B14 (common.cuh:score_kernel), which
+// reads that bf16 qkv as the TPU kernel scores its rounded qkv
+// (block.py:1361), or a zero fill of the scores. band: LN1 and the qkv
+// product as one launch of the row-band GEMM's head form (csrc/band_s8.cuh:
+// LN1 → int8 made once a 128-row band in shared memory), the same bits; it
+// read slower at every path shape on the H100, so no path takes it, and it
+// stays as the bitwise-checked alternative.
+#include "int8_block.cuh"
 
 using namespace rajni;
 
 extern "C" int rajni_ln_qkv_int8(const void* x, const void* ln1s, const void* ln1b,
                                  const void* wqkv, const void* sqkv, const void* bqkv,
-                                 int with_scores, int static_act, void* q8, void* qs,
-                                 void* qkv_out, void* scores_out, int B, int N, int C, int H,
-                                 float eps, void* stream) {
+                                 int with_scores, int static_act, int band, void* q8,
+                                 void* qs, void* qkv_out, void* scores_out, int B, int N, int C,
+                                 int H, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Int8Block p{};
   p.x = static_cast<const bf16*>(x);
@@ -40,7 +45,7 @@ extern "C" int rajni_ln_qkv_int8(const void* x, const void* ln1s, const void* ln
   p.N = N;
   p.C = C;
   p.eps = eps;
-  const int rc = int8_block_head(p, st);
+  const int rc = band ? int8_block_head<true>(p, st) : int8_block_head(p, st);
   if (rc != 0) return rc;
   cudaError_t e;
   if (with_scores)

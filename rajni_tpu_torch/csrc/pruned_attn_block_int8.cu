@@ -15,34 +15,39 @@
 // operations (~0.2 ms at 1,979 TOP/s) and the attention ~2e10 bf16 FLOP;
 // scoring and selection are fp32 CUDA-core work of a few 1e8 operations.
 //
-// Design: six launches on the caller's stream (five with the threaded
-// scores), all of them the int8 block body's (csrc/int8.cuh) and the shared
-// score and selection kernels (csrc/common.cuh), as B14 runs them without its
-// MLP: LN1 → int8 (per-row scale, or the folded static affine; it zeroes the
-// row absmax), the int8 qkv product whose epilogue rounds to bf16 into a [B,
-// N, 3C] scratch (block.py:2548), the score kernel on that rounded qkv
-// (block.py:2550), the selection kernel, the attention reading q/k/v rows
-// through the kept indices (common.cuh:launch_attention_any) with a bf16
-// output and (dynamic) each row's absmax, and the proj product, which
-// quantizes that output as it loads it and whose residual epilogue reads the
-// pre-norm x rows through the same indices (int8.cuh:int8_attn_tail;
-// two_launch: the old tail with the row quantizer between them). The
-// bf16 attention output is B10's instantiation, not B13-B15's fp32 one: the
-// TPU kernel runs _mha_mixed(..., dtype, dtype) (block.py:2566), so it rounds
-// the attention output to the activation dtype before quantizing it. Under
-// static scales the host always folds 1/a_proj into the V columns
-// (block.py:2611-2614), since this kernel's own proj undoes it; the scores
-// then come from the pre-scaled V, as on the TPU.
-#include "int8.cuh"
+// Design: on the caller's stream, the int8 block body's steps (csrc/
+// int8_block.cuh) and the shared score and selection kernels (csrc/
+// common.cuh), as B14 runs them without its MLP, in six launches (five with
+// the threaded scores): LN1 → int8 (per-row scale, or the folded static
+// affine; it zeroes the row absmax), the int8 qkv product whose epilogue
+// rounds to bf16 into a [B, N, 3C] scratch (block.py:2548), the score kernel
+// on that rounded qkv (block.py:2550), the selection kernel, the attention
+// reading q/k/v rows through the kept indices
+// (common.cuh:launch_attention_any) with a bf16 output and (dynamic) each
+// row's absmax, and proj on the row-band GEMM (csrc/band_s8.cuh), which
+// quantizes each 128-row band of that output once in shared memory and whose
+// residual epilogue reads the pre-norm x rows through the same indices
+// (int8_block.cuh:int8_attn_tail). band: LN1 and the qkv product as one
+// launch of the row-band GEMM's head form, the same bits; it read slower at
+// every path shape on the H100, so no path takes it, and it stays as the
+// bitwise-checked alternative. two_launch: the old tail with the row
+// quantizer between attention and proj. Every route gives the same bits.
+// The bf16 attention output is B10's instantiation,
+// not B13-B15's fp32 one: the TPU kernel runs _mha_mixed(..., dtype, dtype)
+// (block.py:2566), so it rounds the attention output to the activation
+// dtype before quantizing it. Under static scales the host always folds
+// 1/a_proj into the V columns (block.py:2611-2614), since this kernel's own
+// proj undoes it; the scores then come from the pre-scaled V, as on the TPU.
+#include "int8_block.cuh"
 
 using namespace rajni;
 
 extern "C" int rajni_pruned_attn_block_int8(
     const void* x, const void* ln1s, const void* ln1b, const void* wqkv, const void* sqkv,
     const void* bqkv, const void* wproj, const void* sproj, const void* bproj, const void* ls1,
-    const void* prev_scores, int with_scores, int static_act, int two_launch, void* q8, void* qs,
-    void* qkv, void* scores, void* attn, void* amax, void* idx_out, void* ns_out, void* out,
-    int B, int N, int K, int C, int H, float scale, float eps, void* stream) {
+    const void* prev_scores, int with_scores, int static_act, int two_launch, int band, void* q8,
+    void* qs, void* qkv, void* scores, void* attn, void* amax, void* idx_out, void* ns_out,
+    void* out, int B, int N, int K, int C, int H, float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Int8Block p{};
   p.x = static_cast<const bf16*>(x);
@@ -67,7 +72,7 @@ extern "C" int rajni_pruned_attn_block_int8(
   p.H = H;
   p.scale = scale;
   p.eps = eps;
-  int rc = int8_block_head(p, st);
+  int rc = band ? int8_block_head<true>(p, st) : int8_block_head(p, st);
   if (rc != 0) return rc;
   const float* s = static_cast<const float*>(prev_scores);
   if (with_scores) {

@@ -15,19 +15,19 @@
 // mode it is written in fp32 once and read once (csrc/int8.cuh).
 //
 // Design: nine launches in static mode and eleven in dynamic mode on the
-// caller's stream (csrc/int8.cuh: int8_block_head/_tail): LN1 → int8
+// caller's stream (csrc/int8_block.cuh: int8_block_head/_tail): LN1 → int8
 // (zeroing the attention's row absmax, kept in h's first floats), the qkv
 // product (bf16 qkv), the score kernel shared with K1 and B4 (skipped when
 // the threaded scores are used), the selection kernel shared with K1, the
 // attention through the kept indices with an fp32 output and (dynamic) each
 // row's absmax (common.cuh:launch_attention_any), the proj product
 // quantizing that output as it loads it, with the gathered residual (bf16
-// x_mid; int8.cuh:int8_attn_tail; two_launch: the old route, with the row
+// x_mid; int8_block.cuh:int8_attn_tail; two_launch: the old route, with the row
 // quantizer before proj), LN2 → int8, fc1 with its GELU quantized per hc group in the epilogue
 // (dynamic: the absmax scratch zeroed, fc1 to fp32 h with the group absmax,
 // then the quantizer), and the fc2 product that adds the groups in fp32 and
 // the x_mid residual.
-#include "int8.cuh"
+#include "int8_block.cuh"
 
 using namespace rajni;
 

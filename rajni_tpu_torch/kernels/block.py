@@ -52,16 +52,34 @@ B11 always folds (``block.py:2611-2614``), since its own proj undoes it; its
 scores then come from the pre-scaled V.
 
 On the card the int8 tails (B10, B11, B13, and B14 and B15 in
-``wholeblock.py``) run ``csrc/int8.cuh:int8_attn_tail``: the attention
-(the short-row kernel up to 256 tokens, B6's kernel past them), which in
-dynamic mode also takes each output row's absmax, and proj, which quantizes the attention output as it loads it
-(:func:`..gemm.gemm_s8q`), with no quantizer launch between them.
-``two_launch=True`` runs the old tail instead (attention, row quantizer,
-int8 proj), the new one's bitwise reference.
+``wholeblock.py``) run ``csrc/int8_block.cuh:int8_attn_tail``: the
+attention (the short-row kernel up to 256 tokens, B6's kernel past them),
+which in dynamic mode also takes each output row's absmax, and proj, which
+quantizes the attention output itself, with no quantizer launch between
+them: B10's and B11's bf16 output on the row-band GEMM's proj form
+(``csrc/band_s8.cuh``: each 128-row band's int8 A made once in shared
+memory; :func:`..gemm.band_proj`), B13-B15's fp32 one as it loads it
+(:func:`..gemm.gemm_s8q`). ``two_launch=True`` runs the old tail instead
+(attention, row quantizer, int8 proj), the new one's bitwise reference.
+
+B11 and B12 take ``band=True``: LN1 → int8 and the qkv product as one
+launch of the row-band GEMM's head form, the same bits. It read slower at
+every path shape on the H100 (PERF.md §6), so no path takes it; it stays as
+the bitwise-checked alternative.
+
+The int8 attention kernels' fp32 operands are made once, static scales
+folded in, when the scales are attached (:func:`..quant.attach_act_scales`,
+which ``RAJNIViT`` runs, dynamic scales too): the int8 attention wrappers
+(B10-B13) read the :class:`AttachedOperands` attached for their scales
+(:func:`attn_operands`, :func:`proj_operands`) and make them on the call
+only where none are (a direct call on params without them); the plain
+versions fold on each call. :func:`select_kept` is the
+two-kernel route's selection (``csrc/select.cu`` on the card).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -95,15 +113,16 @@ ATTN_INT8_KERNEL = CudaKernel(
     "rajni_attn_block_int8", [P] * 10 + [I, I] + [P] * 6 + [I] * 4 + [F, F, P],
 )
 LN_QKV_INT8_KERNEL = CudaKernel(
-    "rajni_ln_qkv_int8", [P] * 6 + [I, I] + [P] * 4 + [I] * 4 + [F, P],
+    "rajni_ln_qkv_int8", [P] * 6 + [I, I, I] + [P] * 4 + [I] * 4 + [F, P],
 )
 GATHER_INT8_KERNEL = CudaKernel(
     "rajni_gather_sdpa_proj_residual_int8", [P] * 7 + [I, I] + [P] * 5 + [I] * 5 + [F, P],
 )
 PRUNED_INT8_KERNEL = CudaKernel(
-    "rajni_pruned_attn_block_int8", [P] * 11 + [I, I, I] + [P] * 9 + [I] * 5 + [F, F, P],
+    "rajni_pruned_attn_block_int8", [P] * 11 + [I, I, I, I] + [P] * 9 + [I] * 5 + [F, F, P],
 )
 LN_QKV_SELECT_KERNEL = CudaKernel("rajni_ln_qkv_select", [P] * 11 + [I] * 5 + [F, P])
+SELECT_KERNEL = CudaKernel("rajni_select", [P, P, P, I, I, I, P])
 
 
 def _mha(qkv: torch.Tensor, num_heads: int, scale: float, out_dtype) -> torch.Tensor:
@@ -259,6 +278,38 @@ def _score_fits(N: int, C: int, H: int) -> bool:
     blocks an image up to 512 tokens, else 4, a block's share of the tokens
     at most its 256 threads; its shared memory, 87 KB at most, always fits)."""
     return C % 64 == 0 and C <= 1024 and C == HEAD_DIM * H and 2 <= N <= 1024
+
+
+def select_kept_plain(scores: torch.Tensor, keep: int):
+    """Plain PyTorch version of :func:`select_kept`: ``select_tokens_dense``'s
+    kept indices and the real scores of the kept tokens."""
+    keep_idx, _ = select_tokens_dense(scores, keep, torch.bool)
+    return keep_idx, torch.take_along_dim(scores, keep_idx, dim=1)
+
+
+def select_kept(scores: torch.Tensor, keep: int):
+    """The two-kernel route's selection: ``(keep_idx [B, K] int64,
+    next_scores [B, K] fp32)`` with ``K = keep + 1`` from fp32 ``scores [B,
+    N]``: CLS forced, the top ``keep`` patches (ties to the lower index) in
+    ascending order, ``next_scores`` the kept tokens' own scores. On a CUDA
+    tensor it launches ``csrc/select.cu`` (``common.cuh:select_kernel``, the
+    selection K1, B11 and B14 run in their calls), exact; on a CPU tensor its
+    plain version. Raises before it dispatches, on any device, unless
+    ``scores`` is fp32 ``[B, N]`` with ``N >= 2`` and ``1 <= keep < N``."""
+    if scores.dtype != torch.float32 or scores.dim() != 2 or scores.shape[1] < 2:
+        raise ValueError(f"select_kept takes fp32 scores [B, N >= 2], got {scores.dtype} "
+                         f"{tuple(scores.shape)}")
+    B, N = scores.shape
+    if not 1 <= keep < N:
+        raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
+    if scores.device.type == "cpu":
+        return select_kept_plain(scores, keep)
+    check_cuda(torch.float32, scores=scores)
+    K = keep + 1
+    idx = torch.empty(B, K, dtype=torch.int32, device=scores.device)
+    next_scores = torch.empty(B, K, dtype=torch.float32, device=scores.device)
+    SELECT_KERNEL(ptr(scores), ptr(idx), ptr(next_scores), B, N, K, stream())
+    return idx.long(), next_scores
 
 
 def fused_attn_block(
@@ -452,6 +503,63 @@ def int8_attn_operands(ln_params, attn_params, act_scales=None) -> dict:
     return {k: (v if v is None else v.contiguous()) for k, v in ops.items()}
 
 
+# The head's operands of the int8 attention kernels (B10-B12)
+HEAD_OPS = ("ln1s", "ln1b", "sqkv", "bqkv")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttachedOperands:
+    """fp32 vector operands of an int8 attention layer's kernels, made once
+    for the ``scales`` they carry (static, or None: dynamic, unfolded).
+    :func:`attach_attn_operands` keeps them under ``"attached"`` in the
+    layer's ``qkv`` record (:data:`HEAD_OPS` for ``(a_qkv, a_proj)``) and
+    ``proj`` record (``sproj, bproj`` for ``(a_proj,)``)."""
+
+    scales: tuple[float, ...] | None
+    ops: dict
+
+
+def attach_attn_operands(ln_params, attn_params, act_scales=None) -> dict:
+    """``attn_params`` with its kernel operands for ``act_scales = (a_qkv,
+    a_proj)`` (static: folded now, as :func:`int8_attn_operands` folds them
+    on a call) or None (dynamic) made once and attached to its qkv and proj
+    records, for the int8 attention wrappers (B10-B13) to read on every
+    call. ``ln_params`` is the layer's LN1. A new dict sharing the tensors;
+    attaching other scales makes them again, and so must a change of the
+    weights in place."""
+    scales = None if act_scales is None else (float(act_scales[0]), float(act_scales[1]))
+    qkv, proj = attn_params["qkv"], attn_params.get("proj")
+    head = int8_attn_operands(ln_params, {"qkv": qkv}, scales)
+    out = {**attn_params,
+           "qkv": {**qkv, "attached": AttachedOperands(scales, {k: head[k] for k in HEAD_OPS})}}
+    if proj is not None:
+        a_proj = None if scales is None else scales[1]
+        out["proj"] = {**proj, "attached": AttachedOperands(
+            None if scales is None else scales[1:], _int8_proj_operands(proj, a_proj))}
+    return out
+
+
+def _attached(record, scales) -> dict | None:
+    """The operands attached to ``record`` for ``scales``, or None."""
+    st = None if record is None else record.get("attached")
+    return st.ops if st is not None and st.scales == scales else None
+
+
+def attn_operands(ln_params, attn_params, act_scales=None) -> dict:
+    """:func:`int8_attn_operands` as the int8 attention wrappers take them:
+    those :func:`attach_attn_operands` attached for these scales, with no
+    fold and no conversion on the call; where none are (a direct call on
+    params without them), made now."""
+    scales = None if act_scales is None else (float(act_scales[0]), float(act_scales[1]))
+    head = _attached(attn_params["qkv"], scales)
+    proj = attn_params.get("proj")
+    tail = ({"sproj": None, "bproj": None} if proj is None
+            else _attached(proj, None if scales is None else scales[1:]))
+    if head is not None and tail is not None:
+        return {**head, **tail}
+    return int8_attn_operands(ln_params, attn_params, act_scales)
+
+
 def _int8_qkv(x, wqkv_q, ops, static: bool, eps: float) -> torch.Tensor:
     """LN1 (fp32) quantized, the int8 qkv product dequantized, + bias,
     rounded to the activation dtype: ``[B, N, out_w]``."""
@@ -506,6 +614,14 @@ def _int8_proj_operands(proj_params, act_scale) -> dict:
     return {"sproj": sproj.contiguous(), "bproj": proj_params["bias"].float().contiguous()}
 
 
+def proj_operands(proj_params, act_scale) -> dict:
+    """:func:`_int8_proj_operands` as B13 takes them: those attached for the
+    static ``a_proj`` or dynamic (None) (:func:`attach_attn_operands`), or
+    made now."""
+    ops = _attached(proj_params, None if act_scale is None else (float(act_scale),))
+    return ops if ops is not None else _int8_proj_operands(proj_params, act_scale)
+
+
 def gather_sdpa_proj_residual_int8_plain(qkv, keep_idx, x, proj_params, ls, num_heads: int,
                                          scale: float, act_scale=None):
     """Plain PyTorch version of B13 (``block.py:1098-1126``): ``gather(x) +
@@ -545,7 +661,7 @@ def fused_attn_block_int8(x, ln_params, attn_params, ls, num_heads: int, scale: 
                                      act_scales)
     B, N, C = x.shape
     wqkv, wproj = attn_params["qkv"]["weight"]["int8"], attn_params["proj"]["weight"]["int8"]
-    ops = int8_attn_operands(ln_params, attn_params, act_scales)
+    ops = attn_operands(ln_params, attn_params, act_scales)
     _check_int8(x, ls, ops, wqkv=wqkv, wproj=wproj)
     _check_attn_shapes("fused_attn_block_int8", N, C, num_heads, SDPA_MAX_N)
     if wqkv.shape != (3 * C, C) or wproj.shape != (C, C):
@@ -567,19 +683,29 @@ def fused_attn_block_int8(x, ln_params, attn_params, ls, num_heads: int, scale: 
 
 
 def fused_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float = 1e-6,
-                      with_scores: bool = True, act_scales=None):
+                      with_scores: bool = True, act_scales=None, band: bool = False):
     """LN1 + int8 QKV projection with RAJNI scores in the same call: ``(qkv
     [B, N, 3C], scores [B, N] fp32)``, ``scores`` zeros when
     ``with_scores=False``. ``act_scales = (a_qkv, a_proj)``: static scales,
     V leaving pre-scaled by ``1/a_proj`` for
     :func:`fused_gather_sdpa_proj_residual_int8`. The CUDA route takes the
-    full width only."""
+    full width only; ``band`` runs LN1 and the qkv product as one launch of
+    the row-band GEMM (module docstring: the same bits, no path takes it)."""
     if x.device.type == "cpu":
         return ln_qkv_int8_plain(x, ln_params, qkv_params, num_heads, eps, with_scores,
                                  act_scales)
+    return launch_ln_qkv_int8(x, ln_params, qkv_params, num_heads, eps, with_scores, act_scales,
+                              band)[:2]
+
+
+def launch_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float, with_scores: bool,
+                       act_scales, band: bool):
+    """B12's entry point (``csrc/ln_qkv_int8.cu``) on the card: ``(qkv,
+    scores, qs)``, ``qs [B·N]`` the LN rows' int8 scales either route writes
+    in dynamic mode (its contents undefined under static scales)."""
     B, N, C = x.shape
     wq = qkv_params["weight"]["int8"]
-    ops = int8_attn_operands(ln_params, {"qkv": qkv_params}, act_scales)
+    ops = attn_operands(ln_params, {"qkv": qkv_params}, act_scales)
     _check_int8(x, None, ops, wqkv=wq)
     if C % 128 or C > 1024 or wq.shape != (3 * C, C) or N < 2:
         raise ValueError("fused_ln_qkv_int8 on the card needs C % 128 == 0, C <= 1024, the "
@@ -588,16 +714,17 @@ def fused_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float = 1e-
     if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_ln_qkv_int8 cannot score N={N}, C={C}, heads={num_heads}")
     dev = x.device
-    q8 = torch.empty(B * N * C, dtype=torch.int8, device=dev)
+    # the LN rows' int8 copy: the route off the band only
+    q8 = torch.empty(0 if band else B * N * C, dtype=torch.int8, device=dev)
     qs = torch.empty(B * N, dtype=torch.float32, device=dev)
     qkv = torch.empty(B, N, 3 * C, dtype=x.dtype, device=dev)
     scores = torch.empty(B, N, dtype=torch.float32, device=dev)
     LN_QKV_INT8_KERNEL(
         ptr(x), ptr(ops["ln1s"]), ptr(ops["ln1b"]), ptr(wq), ptr(ops["sqkv"]), ptr(ops["bqkv"]),
-        int(with_scores), int(act_scales is not None), ptr(q8), ptr(qs), ptr(qkv), ptr(scores),
-        B, N, C, num_heads, float(eps), stream(),
+        int(with_scores), int(act_scales is not None), int(band), ptr(q8), ptr(qs), ptr(qkv),
+        ptr(scores), B, N, C, num_heads, float(eps), stream(),
     )
-    return qkv, scores
+    return qkv, scores, qs
 
 
 def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_heads: int,
@@ -614,7 +741,7 @@ def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_
     B, N, C = x.shape
     K = keep_idx.shape[1]
     wq = proj_params["weight"]["int8"]
-    ops = _int8_proj_operands(proj_params, act_scale)
+    ops = proj_operands(proj_params, act_scale)
     _check_int8(x, ls, ops, wproj=wq)
     check_cuda(torch.bfloat16, qkv=qkv)
     if qkv.shape != (B, N, 3 * C) or wq.shape != (C, C):
@@ -668,13 +795,14 @@ def pruned_attn_block_int8_plain(x, ln_params, attn_params, ls, prev_scores, num
 def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num_heads: int,
                                  keep: int, scale: float, eps: float = 1e-6,
                                  with_scores: bool = True, act_scales=None,
-                                 two_launch: bool = False):
+                                 two_launch: bool = False, band: bool = False):
     """Pruned attention half with int8 qkv and proj weights: ``(x [B, K, C],
     next_scores [B, K] fp32, keep_idx [B, K])`` with ``K = keep + 1``.
     ``with_scores=False`` selects from ``prev_scores [B, N]``;
     ``act_scales = (a_qkv, a_proj)`` selects calibrated static quantization,
     with the V-column fold always applied; ``two_launch`` the old attention
-    tail on the card (module docstring)."""
+    tail on the card; ``band`` LN1 and the qkv product as one launch of the
+    row-band GEMM (module docstring)."""
     if not with_scores and prev_scores is None:
         raise ValueError("with_scores=False needs prev_scores")
     if x.device.type == "cpu":
@@ -683,7 +811,7 @@ def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num
     B, N, C = x.shape
     K = keep + 1
     wqkv, wproj = attn_params["qkv"]["weight"]["int8"], attn_params["proj"]["weight"]["int8"]
-    ops = int8_attn_operands(ln_params, attn_params, act_scales)
+    ops = attn_operands(ln_params, attn_params, act_scales)
     _check_int8(x, ls, ops, wqkv=wqkv, wproj=wproj)
     prev = _check_prev_scores(prev_scores, with_scores, B, N)
     _check_attn_shapes("fused_pruned_attn_block_int8", N, C, num_heads, SDPA_MAX_N)
@@ -696,7 +824,8 @@ def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num
         raise ValueError(f"fused_pruned_attn_block_int8 cannot score N={N}, C={C}, "
                          f"heads={num_heads}")
     dev, static = x.device, act_scales is not None
-    q8 = torch.empty(B * N * C, dtype=torch.int8, device=dev)
+    # the LN rows' int8 copy (the head off the band; the two-launch tail's A)
+    q8 = torch.empty(0 if band and not two_launch else B * N * C, dtype=torch.int8, device=dev)
     qs = torch.empty(B * N, dtype=torch.float32, device=dev)
     qkv = torch.empty(B * N * 3 * C, dtype=x.dtype, device=dev)
     scores = torch.empty(B, N, dtype=torch.float32, device=dev) if with_scores else None
@@ -707,9 +836,9 @@ def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num
     PRUNED_INT8_KERNEL(
         ptr(x), ptr(ops["ln1s"]), ptr(ops["ln1b"]), ptr(wqkv), ptr(ops["sqkv"]),
         ptr(ops["bqkv"]), ptr(wproj), ptr(ops["sproj"]), ptr(ops["bproj"]), ptr(ls), ptr(prev),
-        int(with_scores), int(static), int(two_launch), ptr(q8), ptr(qs), ptr(qkv), ptr(scores),
-        ptr(attn), ptr(amax), ptr(idx), ptr(next_scores), ptr(out), B, N, K, C, num_heads,
-        float(scale), float(eps), stream(),
+        int(with_scores), int(static), int(two_launch), int(band), ptr(q8), ptr(qs), ptr(qkv),
+        ptr(scores), ptr(attn), ptr(amax), ptr(idx), ptr(next_scores), ptr(out), B, N, K, C,
+        num_heads, float(scale), float(eps), stream(),
     )
     return out, next_scores, idx.long()
 

@@ -28,7 +28,7 @@ SOURCES = (
     "sdpa.cu", "pruned_block_full.cu", "attn_mlp_block.cu", "pruned_block_full_int8.cu",
     "block_full_int8.cu", "ln_mlp_int8.cu", "attn_block_int8.cu", "ln_qkv_int8.cu",
     "gather_attn_int8.cu", "pruned_attn_block_int8.cu", "ln_qkv_select.cu", "train_mlp.cu",
-    "sdpa_bwd.cu", "gemm.cu", "short_attn.cu",
+    "sdpa_bwd.cu", "gemm.cu", "short_attn.cu", "select.cu",
 )
 LIBRARY = "librajni.so"
 NVCC_FLAGS = (

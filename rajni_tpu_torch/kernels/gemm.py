@@ -53,6 +53,11 @@ the attention kernels take in their epilogue), dequantized by ``max(amax[r],
 1e-8) · (1/127)``; or static (``amax`` None): ``quantize_static(o)``, no row
 scale. Its plain version :func:`gemm_s8q_plain` is bitwise the two-step
 route.
+
+:func:`band_proj` is the proj form of the row-band GEMM
+(``csrc/band_s8.cuh``, B10's and B11's proj): :func:`gemm_s8q`'s function on
+a bf16 attention output, quantized once a 128-row band, its plain version
+:func:`gemm_s8q_plain`.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ KERNEL = CudaKernel("rajni_gemm_sm90", [P, P, P, I, I, I, I, P, P, P, P, I, I, P
 S8_KERNEL = CudaKernel("rajni_gemm_s8", [P, P, P, I, I, I, I] + [P] * 6 + [I, I, I, P])
 GELU_QUANT_KERNEL = CudaKernel("rajni_gelu_quant_s8", [P] * 5 + [I] * 3 + [P] * 4 + [I, I, P])
 S8Q_KERNEL = CudaKernel("rajni_gemm_s8q", [P, I, P, P, P, I, I, I] + [P] * 5 + [I, I, P])
+BAND_PROJ_KERNEL = CudaKernel("rajni_band_proj", [P, P, P, P, I, I, I] + [P] * 5 + [I, I, P])
 
 
 def gathered_rows(res_idx: torch.Tensor, rows_out: int, rows_in: int) -> torch.Tensor:
@@ -392,4 +398,45 @@ def gemm_s8q(o: torch.Tensor, amax: torch.Tensor | None, w: torch.Tensor,
     S8Q_KERNEL(ptr(o), int(o.dtype == torch.float32), ptr(amax), ptr(w), ptr(out), M, N, K,
                ptr(w_scale), ptr(bias), ptr(ls), ptr(res), ptr(res_idx), rows_out, rows_in,
                stream())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The row-band GEMM's proj (csrc/band_s8.cuh): B10's and B11's proj
+# ---------------------------------------------------------------------------
+
+
+def band_proj(o: torch.Tensor, amax: torch.Tensor | None, w: torch.Tensor,
+              w_scale: torch.Tensor, bias: torch.Tensor, ls: torch.Tensor | None = None,
+              res: torch.Tensor | None = None, res_idx: torch.Tensor | None = None,
+              rows_out: int = 1, rows_in: int = 1) -> torch.Tensor:
+    """The band GEMM's proj form: :func:`gemm_s8q`'s function (its plain
+    version :func:`gemm_s8q_plain`) on a bf16 attention output ``o``,
+    quantized once a 128-row band in shared memory. Raises before it
+    dispatches, on any device, without the residual, on another dtype of
+    ``o``, where ``C % 128``, ``C > 1024`` or ``N % 128``, and as
+    :func:`gemm_s8q` does."""
+    C, N = o.shape[-1], w.shape[0]
+    if res is None or C % 128 or C > 1024 or N % 128:
+        raise ValueError("band_proj needs the residual, C % 128 == 0, C <= 1024 and N % 128 == "
+                         f"0; got res {'given' if res is not None else 'None'}, o "
+                         f"{tuple(o.shape)}, w {tuple(w.shape)}")
+    if o.dtype != torch.bfloat16:
+        raise ValueError(f"band_proj takes a bf16 A, got {o.dtype}")
+    if amax is not None and (tuple(amax.shape) != tuple(o.shape[:-1])
+                             or amax.dtype != torch.float32 or amax.device != o.device):
+        raise ValueError(f"band_proj: amax must be fp32 {tuple(o.shape[:-1])} on {o.device}, "
+                         f"got {amax.dtype} {tuple(amax.shape)} on {amax.device}")
+    _check_s8(o, w, w_scale, bias, I8_RESIDUAL, None, None, ls, res, res_idx, rows_out, rows_in)
+    if o.device.type == "cpu":
+        return gemm_s8q_plain(o, amax, w, w_scale, bias, ls, res, res_idx, rows_out, rows_in)
+    check_cuda(torch.bfloat16, o=o)
+    check_cuda(torch.int8, w=w)
+    check_cuda(torch.float32, amax=amax, w_scale=w_scale, bias=bias)
+    check_cuda(torch.bfloat16, ls=ls, res=res)
+    check_cuda(torch.int32, res_idx=res_idx)
+    M = o.numel() // C
+    out = torch.empty(*o.shape[:-1], N, dtype=torch.bfloat16, device=o.device)
+    BAND_PROJ_KERNEL(ptr(o), ptr(amax), ptr(w), ptr(out), M, N, C, ptr(w_scale), ptr(bias),
+                     ptr(ls), ptr(res), ptr(res_idx), rows_out, rows_in, stream())
     return out

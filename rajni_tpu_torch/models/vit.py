@@ -50,6 +50,7 @@ from ..kernels.block import (
     fused_ln_qkv_int8,
     fused_pruned_attn_block,
     fused_pruned_attn_block_int8,
+    select_kept,
 )
 from ..kernels.attention import HEAD_DIM, SDPA_MAX_N
 from ..kernels.math import quantize_rows, quantize_static
@@ -74,7 +75,7 @@ from ..kernels.wholeblock import (
 )
 from ..quant import ActScales, dequantize_weight, is_quantized
 from ..ops.attention import attention, pruned_attention
-from ..ops.pruning import gather_tokens, keep_count, select_tokens_dense
+from ..ops.pruning import gather_tokens, keep_count
 from ..utils.schedule import Schedule, normalize_schedule, token_count_trace
 
 Params = dict[str, Any]
@@ -463,8 +464,8 @@ def vit_forward(
       under ``VIT_L_AGGRESSIVE``; DeiT-S/16 384 block 3), given the static
       ``(a_qkv, a_proj)`` unconditionally since its own proj undoes the
       V-column fold (``vit.py:810-831``). Elsewhere it
-      runs B12 ``fused_ln_qkv_int8``, the torch ``select_tokens_dense`` and a
-      tail chosen before B12 runs (``vit.py:863-870``): B13
+      runs B12 ``fused_ln_qkv_int8``, the selection (``select_kept``: on the
+      card ``csrc/select.cu``, exact) and a tail chosen before B12 runs (``vit.py:863-870``): B13
       ``fused_gather_sdpa_proj_residual_int8`` where ``_gather_fits_fast``
       holds, with B12 given the static ``(a_qkv, a_proj)`` (the V-column
       fold); else the bf16 B5 on the proj weight dequantized to bf16, with
@@ -477,8 +478,8 @@ def vit_forward(
       same function).
     * Otherwise bf16 attention (MLP-only int8 too): a pruned block through
       K1 up to ``ATTN_MAX_N`` tokens, and past that through the two-kernel
-      route of ``vit.py:867-928`` (B4 ``fused_ln_qkv``, the torch
-      ``select_tokens_dense``, B5 ``fused_gather_sdpa_proj_residual``); a
+      route of ``vit.py:867-928`` (B4 ``fused_ln_qkv``, ``select_kept``, B5
+      ``fused_gather_sdpa_proj_residual``); a
       stock block through K2.
     * Every split MLP half: K3, or B9 ``fused_ln_mlp_residual_int8`` with
       int8 fc1/fc2 (the static ``(a_fc1, a_fc2)``).
@@ -488,6 +489,10 @@ def vit_forward(
     int8 scales, :func:`..quant.calibrate_act_scales`) applies to int8
     params on ``impl="cuda"`` only; ``impl="torch"`` dequantizes the
     weights and quantizes the head dynamically, as JAX's ``"xla"`` route.
+    The int8 attention kernels read their operands made for those scales
+    (or dynamic ones) where ``params`` carry them attached
+    (:func:`..quant.attach_act_scales`, which ``RAJNIViT`` runs), and make
+    them on each call where not.
 
     ``_sel_tap(block_idx, keep_idx)`` receives each pruned block's kept
     token indices (a capture hook for tests and debugging).
@@ -588,8 +593,7 @@ def _pruned_halves(x, block: Params, config: ViTConfig, impl: str, spec, keep: i
     if qkv is not None:  # the two-kernel route: B4 or B12, selection, tail
         if with_scores:
             scores = new_scores
-        keep_idx, _ = select_tokens_dense(scores, keep, torch.bool)
-        scores = torch.take_along_dim(scores, keep_idx, dim=1)
+        keep_idx, scores = select_kept(scores, keep)
         if int8_tail:
             x = fused_gather_sdpa_proj_residual_int8(
                 qkv, keep_idx, x, block["attn"]["proj"], block.get("ls1"), H, scale,

@@ -18,7 +18,7 @@ import torch
 
 from ..utils.schedule import Schedule, normalize_schedule
 from ..utils.timing import require_device
-from ..quant import ActScales
+from ..quant import ActScales, attach_act_scales
 from .vit import (
     ViTConfig,
     get_config,
@@ -39,7 +39,11 @@ class RAJNIViT:
     ``seed``; given params are moved to ``device`` and ``dtype`` (int8
     records of :func:`..quant.quantize_params` keep their int8 weights and
     fp32 scales). ``act_scales`` (:func:`..quant.calibrate_act_scales`)
-    selects static int8 scales for quantized params on the kernel route.
+    selects static int8 scales for quantized params on the kernel route;
+    setting ``params`` or ``act_scales`` attaches the scales again
+    (:func:`..quant.attach_act_scales`: the int8 attention kernels' operands
+    made once, static scales folded in, not on each call), as must a change
+    of the weights in place.
     The device defaults to CUDA and raises without a card. ``route`` is
     the route the forward takes, decided before any launch
     (:func:`.vit.resolve_route`: ``"route: torch (C=192 is not a multiple of
@@ -65,18 +69,39 @@ class RAJNIViT:
             params = init_params(gen, self.config, dtype, self.device)
         else:
             params = tree_to(params, dtype=dtype, device=self.device)
-        self.params = params
+        self._params, self._act_scales = params, act_scales
+        self._attach()
         self.impl = kernels
-        self.act_scales = act_scales
         self.route = route_line(*resolve_route(kernels, self.config, params["cls_token"].dtype,
                                                self.device))
+
+    def _attach(self) -> None:
+        self._forward_params = attach_act_scales(self._params, self._act_scales)
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        self._params = params
+        self._attach()
+
+    @property
+    def act_scales(self) -> ActScales | None:
+        return self._act_scales
+
+    @act_scales.setter
+    def act_scales(self, act_scales: ActScales | None) -> None:
+        self._act_scales = act_scales
+        self._attach()
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         """``[B, H, W, 3] -> [B, num_classes]`` logits."""
         return vit_forward(
-            self.params, images.to(self.device), self.config, self.schedule, self.impl,
-            self.act_scales,
+            self._forward_params, images.to(self.device), self.config, self.schedule, self.impl,
+            self._act_scales,
         )
 
     def get_last_stats(self) -> dict:

@@ -9,7 +9,9 @@
 * **Activations**: symmetric per-row int8 computed on the fly by the
   kernels (:func:`..kernels.math.quantize_rows`), or static per-tensor
   scales from :func:`calibrate_act_scales`, folded into the LayerNorm
-  affines and the weight-scale rows before the launch.
+  affines and the weight-scale rows before the launch: for the int8
+  attention kernels once, when :func:`attach_act_scales` attaches them to
+  the params (``RAJNIViT`` does, dynamic scales too).
 * Accumulation in int32, dequantized as ``acc · a_row · w_col`` before the
   bias.
 
@@ -28,6 +30,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from .kernels.block import attach_attn_operands
 from .ops.attention import _linear, _qkv_projection, _sdpa
 from .ops.importance import compute_importance
 from .ops.pruning import gather_tokens, keep_count, select_tokens
@@ -205,3 +208,22 @@ def calibrate_act_scales(params: Params, batches, config, schedule=None,
 
     return ActScales(blocks=tuple(tuple(scale(m) for m in row) for row in block_amax),
                      head=scale(head_amax))
+
+
+def attach_act_scales(params: Params, act_scales: ActScales | None) -> Params:
+    """``params`` with the scales attached: each int8 attention's kernel
+    operands made once, here (:func:`.kernels.block.attach_attn_operands`),
+    for its static ``(a_qkv, a_proj)`` folded in, or for dynamic scales
+    (``act_scales`` None), so the kernels read them on every call instead of
+    making them again. A new tree sharing the tensors (``params`` is
+    unchanged); attaching other scales makes them again, and so must a
+    change of the weights in place."""
+    if act_scales is not None and len(act_scales.blocks) != len(params["blocks"]):
+        raise ValueError(f"scales for {len(act_scales.blocks)} blocks, params with "
+                         f"{len(params['blocks'])}")
+    rows = [None] * len(params["blocks"]) if act_scales is None else act_scales.blocks
+    blocks = [{**b, "attn": attach_attn_operands(b["norm1"], b["attn"],
+                                                 None if row is None else row[:2])}
+              if is_quantized(b["attn"]["qkv"]["weight"]) else b
+              for b, row in zip(params["blocks"], rows)]
+    return {**params, "blocks": blocks}

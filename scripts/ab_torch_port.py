@@ -2,6 +2,8 @@
 """img/s of the port's paths for several checkouts in turn, on one card.
 
     python3 scripts/ab_torch_port.py PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
+    python3 scripts/ab_torch_port.py --only "vit_base_patch16_384,vit_large_patch16_224 int8" \
+        PARENT_ROOT CHANGE_ROOT CHANGE_ROOT PARENT_ROOT
 
 Each root is a checkout of this repository (for example a parent commit
 unpacked with ``git archive`` into an ignored directory). For each root in
@@ -19,7 +21,10 @@ measured batch for each schedule), and the train img/s of ViT-B/16 224
 bf16 through the kernels (T6, batch 128), as chip_smoke.py measures them. Prints the card's
 name and power limit, then one JSON line per run; a path that a checkout
 does not route yet (``NotImplementedError``) reads null. Compare two versions
-only within one call, in turns. Needs a CUDA card.
+only within one call, in turns. ``--only`` keeps the paths whose name (the
+model, then `` int8 MODE`` for int8 weights) starts with one of its
+comma-separated prefixes, and leaves out T6 unless one of them is ``train``.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -52,9 +57,14 @@ PATHS = (("vit_base_patch16_224", 224, 256, None, None),
 TRAIN_MODEL, TRAIN_BATCH = "vit_base_patch16_224", 128
 
 
-def measure(root: str) -> dict:
-    """The img/s of every path for the checkout at ``root`` (run in a process
-    of its own, with ``root`` first on ``sys.path``)."""
+def path_name(model: str, int8: str | None) -> str:
+    return f"{model}{f' int8 {int8}' if int8 else ''}"
+
+
+def measure(root: str, only: list[str] | None = None) -> dict:
+    """The img/s of every path (or of those ``only`` names, as the
+    ``--only`` prefixes) for the checkout at ``root`` (run in a process of
+    its own, with ``root`` first on ``sys.path``)."""
     sys.path.insert(0, root)
     import torch
 
@@ -69,13 +79,15 @@ def measure(root: str) -> dict:
     dev = torch.device("cuda", 0)
     out = {"root": root}
     for model, side, batch, int8, schedule in PATHS:
+        if only is not None and not any(path_name(model, int8).startswith(o) for o in only):
+            continue
         schedule = schedule or REFERENCE_SCHEDULE
         raw = RAJNIViT(model, schedule, kernels="cuda", seed=0, device=dev)
         params = quantize_params(raw.params, attn=int8 != "mlp") if int8 else raw.params
         gen = torch.Generator().manual_seed(1)
         images = torch.randn(batch, side, side, 3, generator=gen).to(dev)
         for name, sched in (("pruned", schedule), ("identity", None)):
-            key = f"{model}{f' int8 {int8}' if int8 else ''} {name}"
+            key = f"{path_name(model, int8)} {name}"
             scales = (calibrate_act_scales(raw.params, images, raw.config, sched)
                       if int8 == "static" else None)
             m = RAJNIViT(model, sched, params=params, kernels="cuda", device=dev,
@@ -88,6 +100,8 @@ def measure(root: str) -> dict:
                 continue
             out[key] = round(ips, 1)
         del raw, params, images
+    if only is not None and "train" not in only:
+        return out
 
     from rajni_tpu_torch import train as tt
     from rajni_tpu_torch.models import vit as tvit
@@ -109,8 +123,12 @@ def measure(root: str) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    only = None
+    if len(argv) >= 2 and argv[0] == "--only":
+        only, argv = argv[1], argv[2:]
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(str(Path(argv[1]).resolve()))), flush=True)
+        print(json.dumps(measure(str(Path(argv[1]).resolve()),
+                                 None if only is None else only.split(","))), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -119,7 +137,8 @@ def main(argv: list[str]) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     for root in argv:
-        subprocess.run([sys.executable, __file__, "--one", root], check=True)
+        subprocess.run([sys.executable, __file__, *(["--only", only] if only else []), "--one",
+                        root], check=True)
     return 0
 
 

@@ -16,10 +16,9 @@ kernel name and summed by kind (:func:`kind_of`), the wall time per forward
 and the device's busy share.
 ``--quantize`` runs int8 weights (dynamic scales); with ``--calibrate``,
 static scales calibrated on the profiled batch before quantization (at 384
-tokens that is the split int8 route: B9, B10, B12, B13, B5 and B15). Where a
-pruned block takes the two-kernel route (past 256 tokens), it also times that
-block's token selection in torch (``select_tokens_dense`` and the gather of
-the threaded scores), which is no kernel of the port, with CUDA events.
+tokens that is the split int8 route: B9, B10, B12, B13, B5 and B15). The
+two-kernel route's selection (past 256 tokens) is the port's selection
+kernel (``csrc/select.cu``), in the profile with the rest.
 ``--train cuda`` (or ``torch``) profiles a training step instead (forward,
 backward and AdamW on bf16 params, ``rajni_tpu_torch.train.make_train_step``
 on the kernel route, or the plain forward under autograd), per step.
@@ -40,13 +39,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def kind_of(name: str) -> str:
     """A device kernel's kind, by its name: the port's own kernels (the
     wgmma GEMM, ``gemm_sm90_kernel``, bf16 (K1-K3, B4, B5, B17) or int8 (its
-    ``S8Epi`` instantiations, B9-B15); the row quantizer,
+    ``S8Epi`` instantiations, B9-B15), the int8 row-band GEMM
+    (``band_s8_kernel``: B10's and B11's proj); the row quantizer,
     ``quant_rows_kernel``; B18; the forward attention, the short-row kernel
     or B6's body; other), library GEMMs, and PyTorch's elementwise, copy and
     reduction kernels."""
     if "rajni" in name:
         if "gemm_sm90" in name:
             return "port GEMM int8 wgmma" if "S8Epi" in name else "port GEMM wgmma"
+        if "band_s8" in name:
+            return "port band GEMM int8"
         if "quant_rows" in name:
             return "port row quantizer"
         if "sdpa_bwd" in name:
@@ -91,10 +93,8 @@ def main(argv=None) -> int:
         return 2
 
     from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT, calibrate_act_scales, quantize_params
-    from rajni_tpu_torch.kernels.block import ATTN_MAX_N
     from rajni_tpu_torch.models.vit import get_config
     from rajni_tpu_torch.utils.schedule import load_schedule
-    from rajni_tpu_torch.ops.pruning import keep_count, select_tokens_dense
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -164,32 +164,6 @@ def main(argv=None) -> int:
         print("  by kind: " + ", ".join(f"{k} {v:.3f} ms" for k, v in
                                         sorted(by_kind.items(), key=lambda kv: -kv[1])))
 
-    # the torch selection of each two-kernel pruned block, alone
-    counts = pruned.get_last_stats()["token_counts"]
-    total = 0.0
-    for spec, n in zip(pruned.schedule, counts):
-        if spec is None or n <= ATTN_MAX_N:
-            continue
-        scores = torch.rand(args.batch, n, generator=gen).to(device)
-        keep = keep_count(spec.keep_ratio, n, 1)
-
-        def select():
-            keep_idx, _ = select_tokens_dense(scores, keep, torch.bool)
-            return torch.take_along_dim(scores, keep_idx, dim=1)
-
-        for _ in range(3):
-            select()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            select()
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / 20
-        total += ms
-        print(f"torch selection N={n} -> K={keep + 1}: {ms:.3f} ms")
-    if total:
-        print(f"torch selection per pruned forward: {total:.3f} ms")
     return 0
 
 
