@@ -14,16 +14,20 @@ MLP-only int8 at batch 256 (P4c: K1, K2, B9); and the paths of B11:
 ViT-L/16 224 at batch 256 with int8 weights and dynamic (P5a: B11, B10, B9,
 B15) or calibrated static scales (P5b), the same model in bf16 (P5c: K1-K3
 at C=1024), and DeiT-S/16 384 int8 dynamic at batch 128 (P5d: B11, B14, B15
-past 256 tokens); and training: ViT-B/16 224 at batch 128 in bf16 through
-B16, B4, B5, B17 and B18 (T6). Steps, each of which fails the run (non-zero
-exit) when it goes wrong:
+past 256 tokens); ViT-H/14 in bf16 at batch 128 through ``kernels="auto"``
+(``VIT_H_PROBE``: K2, K3, B4 + selection + B5 and K1 at C = 1280 and head_dim
+80); and training: ViT-B/16 224 at batch 128 in bf16 through B16, B4, B5,
+B17 and B18 (T6). Steps, each of which fails the run (non-zero exit) when it
+goes wrong:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rajni_tpu_torch/csrc`` into one library
    (one ``nvcc`` per source, in parallel, then one link), and require of
    the sources of the wgmma GEMM (``GEMM_SOURCES``: ``gemm.cu``, the bf16
    sources of K1-K3, B4 and B5, and the seven int8 sources) that ptxas
-   reports no spill and no serialized wgmma;
+   reports no spill and no serialized wgmma, and of every head_dim-80
+   instantiation (the short-row kernel, B6's body, the score kernel) and
+   the C = 1280 LayerNorm that it was compiled with 0 spill bytes;
 3. hold each kernel against its plain PyTorch version on the card at each
    path's shapes: K1 ``fused_pruned_attn_block``, K2 ``fused_attn_block`` and
    K3 ``fused_ln_mlp_residual`` at B=256 and the 224 path's token counts; B4
@@ -39,7 +43,11 @@ exit) when it goes wrong:
    (dynamic and static) and P5d's shapes; B19 ``fused_ln_qkv_select`` and
    B20 ``fused_pruned_attn_block_long``, which no path runs, at the 384
    path's first pruned block, beside the two-kernel route they stand in
-   for; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
+   for; at ViT-H/14's shapes (B=128, C=1280, head_dim 80) the LayerNorm
+   (B4 through an identity projection), K3 at 257 rows, K2 at 257 and 180
+   tokens, B4 at 257, the score kernel at 257, 180, 126 and 88, B6's body
+   at 257 beside the library's SDPA, the selection and B5 at 257→180 and K1
+   at 180→126; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
    ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens); B6 and B18
    at ragged lengths (batch 16); the GEMM of K1, K2, K3, B4 and B5 on its
    own (``kernels/gemm.py``) at each bf16 path's QKV, proj, fc1 and fc2 (C =
@@ -117,7 +125,10 @@ exit) when it goes wrong:
    on the kernels, 4 steps) and the eval CLI on its checkpoint, the
    training CLI on ``vit_tiny_patch16_224`` in fp32, and ``RAJNIViT`` on
    ``vit_tiny_patch16_224`` in fp32 and bf16: the last three demoted to the
-   plain route before any launch, each printing its ``route:`` line;
+   plain route before any launch, each printing its ``route:`` line; and
+   ViT-H/14 with int8 params through ``RAJNIViT`` and in training through
+   the training CLI, both on the torch route with the reason printed and
+   no kernel launched;
 7. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
@@ -159,6 +170,13 @@ B_S384 = 128
 VIT_L_SCHEDULE = {i: {"keep_ratio": 0.7} for i in (4, 8, 12, 16)}
 P5A, P5B, P5C = f"{PATH_L} int8", f"{PATH_L} int8 static", PATH_L
 P5D = f"{DEIT_S384} int8"
+# ViT-H/14 in bf16 (scripts/bench_suite.py:97 vit_h14_probe, batch 128): C =
+# 1280, 16 heads of 80, hidden 5120, 257 tokens, 32 blocks; VIT_H_PROBE
+# (scripts/bench_suite.py:46-49) keeps 0.7 at blocks 5, 10, 15 and 20
+PATH_H = "vit_huge_patch14_224"
+C_H, HEADS_H, HIDDEN_H = 1280, 16, 5120
+B_H = 128
+VIT_H_SCHEDULE = {i: {"keep_ratio": 0.7} for i in (5, 10, 15, 20)}
 KERNEL_ONLY = "kernel phase only"  # B19 and B20: no path runs them
 TRAIN = f"train {PATH224}"  # the training path: ViT-B/16 224, batch 128
 B_TRAIN = 128
@@ -833,6 +851,237 @@ def long_phases(device, peaks, results):
         bnd = bound(4.0 * M * C * HIDDEN, 2 * M * C * 2 + 2 * C * HIDDEN * 2, peaks)
         record(results, "fused_ln_mlp_residual", PATH384, f"B={Bl} N={n} C={C}", ms, plain_ms,
                bnd, err, rel)
+
+
+def ln_faulty(x, norm, eps=1e-6, cols=1024):
+    """The LayerNorm with its statistics over the first ``cols`` columns only
+    (what a row of 4 vectors a lane would take at C = 1280): a planted fault."""
+    import torch
+
+    x32 = x.float()
+    part = x32[..., :cols]
+    mean = part.mean(dim=-1, keepdim=True)
+    var = (part - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * norm["scale"].float() + norm["bias"].float()).to(x.dtype)
+
+
+def vit_h_phases(device, peaks, results):
+    """ViT-H/14's kernels at its path's shapes (B=128, C=1280, head_dim 80):
+    the bf16 LayerNorm at C=1280 (B4 through an identity projection, so that
+    its qkv is the rounded LN output three times), K3 at 257 rows, K2 at 257
+    and 180 tokens, B4 at 257 (its scores too), the score kernel at 257,
+    180, 126 and 88 tokens against ``_importance_f32`` of its own qkv, B6's
+    body at 257 beside the library's SDPA, the selection at 257→180, B5 at
+    257→180 and K1 at 180→126, each held to its plain version under the
+    bf16 gates with the planted faults rejected, timed beside its bound."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    from rajni_tpu_torch.kernels import attention as ka
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+
+    Bh, Cw, Hh, hid = B_H, C_H, HEADS_H, HIDDEN_H
+    gen = torch.Generator().manual_seed(23)
+    blk = make_block(gen, device, Cw, hid)
+    scale = (Cw // Hh) ** -0.5
+
+    def x_of(n):
+        return (X_STD * torch.randn(Bh, n, Cw, generator=gen)).to(device, torch.bfloat16)
+
+    def qkv_of(x):
+        return kb.ln_qkv_plain(x, blk["norm1"], blk["attn"]["qkv"], Hh, 1e-6, False)[0]
+
+    # the LayerNorm at C=1280 (LN_MAXV_WIDE): B4's qkv through [I; I; I]
+    x = x_of(257)
+    eye = torch.eye(Cw, dtype=torch.bfloat16, device=device)
+    ident = {"weight": torch.cat([eye, eye, eye]),
+             "bias": torch.zeros(3 * Cw, dtype=torch.bfloat16, device=device)}
+    got = kb.fused_ln_qkv(x, blk["norm1"], ident, Hh, 1e-6, False)[0]
+    y = kb._layer_norm_f32(x.float(), blk["norm1"]["scale"], blk["norm1"]["bias"], 1e-6)
+    want = y.to(torch.bfloat16).repeat(1, 1, 3)
+    zero = torch.zeros_like(want)
+    compare(f"LayerNorm C={Cw} (B4, identity projection)", got, want, zero)
+    bad = ln_faulty(x, blk["norm1"]).repeat(1, 1, 3)
+    rel = branch_rel(got, bad, zero)
+    print(f"LayerNorm C={Cw}: planted fault 'statistics of the first 1024 columns': "
+          f"branch rel L2 {rel:.3e}")
+    check(rel > BRANCH_REL_L2, "LayerNorm C=1280: the gate missed the planted fault")
+
+    args = (x, blk["norm2"], blk["mlp"], None, 1e-6)  # K3
+    err, rel = compare(f"K3 N=257 C={Cw}", km.fused_ln_mlp_residual(*args),
+                       km.ln_mlp_residual_plain(*args), x)
+    ms = cuda_ms(lambda: km.fused_ln_mlp_residual(*args))
+    plain_ms = cuda_ms(lambda: km.ln_mlp_residual_plain(*args), iters=5)
+    M = Bh * 257
+    bnd = bound(4.0 * M * Cw * hid, 2 * M * Cw * 2 + 2 * Cw * hid * 2, peaks)
+    record(results, "fused_ln_mlp_residual", PATH_H, f"B={Bh} N=257 C={Cw}", ms, plain_ms,
+           bnd, err, rel)
+
+    for n in (257, 180):  # K2: B6's body at 257, the short-row kernel at 180
+        x = x_of(n)
+        args = (x, blk["norm1"], blk["attn"], None, Hh, scale, 1e-6)
+        got = kb.fused_attn_block(*args)
+        err, rel = compare(f"K2 N={n} C={Cw}", got, kb.attn_block_plain(*args), x)
+        reject_planted(f"K2 N={n} C={Cw}", got, lambda: kb.attn_block_plain(*args), x)
+        ms = cuda_ms(lambda: kb.fused_attn_block(*args))
+        plain_ms = cuda_ms(lambda: kb.attn_block_plain(*args), iters=5)
+        M = Bh * n
+        bnd = bound(2.0 * M * Cw * 4 * Cw + 4.0 * Bh * n * n * Cw,
+                    2 * M * Cw * 2 + 4 * Cw * Cw * 2, peaks)
+        record(results, "fused_attn_block", PATH_H, f"B={Bh} N={n} C={Cw}", ms, plain_ms, bnd,
+               err, rel)
+
+    x = x_of(257)  # B4, at the first pruned block
+    for with_scores in (False, True):
+        args = (x, blk["norm1"], blk["attn"]["qkv"], Hh, 1e-6, with_scores)
+        gq, gs = kb.fused_ln_qkv(*args)
+        wq, ws = kb.ln_qkv_plain(*args)
+        err, rel = compare(f"B4 N=257 C={Cw} with_scores={with_scores}", gq, wq,
+                           torch.zeros_like(wq))
+        if with_scores:
+            srel = ((gs - ws).abs() / ws.abs()).max().item()
+            print(f"B4 N=257 C={Cw}: scores rel err max {srel:.3e} (against the plain "
+                  "version's own qkv)")
+            check(srel <= SCORE_RTOL, f"B4 N=257 C={Cw}: scores rel err {srel} > {SCORE_RTOL}")
+    ms = cuda_ms(lambda: kb.fused_ln_qkv(*args))
+    plain_ms = cuda_ms(lambda: kb.ln_qkv_plain(*args), iters=5)
+    M = Bh * 257
+    bnd = bound(2.0 * M * Cw * 3 * Cw, M * Cw * 2 + 3 * Cw * Cw * 2 + M * 3 * Cw * 2 + M * 4,
+                peaks)
+    record(results, "fused_ln_qkv", PATH_H, f"B={Bh} N=257 C={Cw}", ms, plain_ms, bnd, err, rel)
+
+    for n in (257, 180, 126, 88):  # the score kernel (head_dim 80: two lanes a head)
+        x = x_of(n)
+        qkv, got = kb.fused_ln_qkv(x, blk["norm1"], blk["attn"]["qkv"], Hh, 1e-6, True)
+        check(bool(torch.isfinite(got).all()) and bool((got > 0).all()),
+              f"scores N={n} C={Cw}: not finite and positive")
+        want = kb._importance_f32(qkv.float(), Hh)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        bad = ((got - importance_biased_std(qkv.float(), Hh)).abs() / want.abs()).max().item()
+        times = launch_ms(lambda: kb.fused_ln_qkv(x, blk["norm1"], blk["attn"]["qkv"], Hh, 1e-6,
+                                                  True))
+        ms = sum(v for k, v in times.items() if "score_kernel" in k)
+        bnd = bound(0.0, (Bh * n * 2 * Cw + Bh * Cw) * 2 + Bh * n * 4, peaks)
+        print(f"scores B={Bh} N={n} C={Cw}: rel err max {rel:.3e} against _importance_f32 of "
+              f"the same qkv; planted fault 'biased std' {bad:.3e} | score kernel {ms:.4f} ms "
+              f"of device time | bound {bnd[0]:.4f} ms ({bnd[1]}) | {ms / bnd[0]:.2f}x")
+        check(rel <= SCORE_SUM_RTOL, f"scores N={n} C={Cw}: rel err {rel} > {SCORE_SUM_RTOL}")
+        check(bad > SCORE_SUM_RTOL, f"scores N={n} C={Cw}: the gate missed 'biased std'")
+
+    qkv = qkv_of(x_of(257))  # B6's body at 257: T = 5, one pass (T0 = 3)
+    got = ka.fused_sdpa(qkv, Hh, scale)
+    want = ka.fused_sdpa_plain(qkv, Hh, scale)
+    zero = torch.zeros_like(got)
+    err, rel = compare(f"B6 N=257 C={Cw}", got, want, zero)
+    reject_planted(f"B6 N=257 C={Cw}", got, lambda: ka.fused_sdpa_plain(qkv, Hh, scale), zero)
+    rounding_point(f"B6 N=257 C={Cw}", {"out": got}, {"out": want},
+                   {"out": b6_unnormalized(qkv, Hh, scale)}, {"out": B6_REL_L2})
+    ms = cuda_ms(lambda: ka.fused_sdpa(qkv, Hh, scale))
+    dev = device_ms(lambda: ka.fused_sdpa(qkv, Hh, scale))
+    plain_ms = cuda_ms(lambda: ka.fused_sdpa_plain(qkv, Hh, scale), iters=5)
+    q, k, v = qkv.view(Bh, 257, 3, Hh, Cw // Hh).permute(2, 0, 3, 1, 4).contiguous()
+    lib = device_ms(lambda: Fnn.scaled_dot_product_attention(q, k, v, scale=scale))
+    bnd = bound(4.0 * Bh * 257 * 257 * Cw, Bh * 257 * 3 * Cw * 2 + Bh * 257 * Cw * 2, peaks)
+    record(results, "fused_sdpa", PATH_H, f"B={Bh} N=257 C={Cw}", ms, plain_ms, bnd, err, rel,
+           lib, dev)
+    phased_body_phases(device, gen)
+
+    x = x_of(257)  # the selection and B5 at 257→180: one qkv and one selection for both
+    qkv = qkv_of(x)
+    s = kb._importance_f32(qkv.float(), Hh)
+    got, want = kb.select_kept(s, 179), kb.select_kept_plain(s, 179)
+    exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ms, plain_ms = cuda_ms(lambda: kb.select_kept(s, 179)), cuda_ms(
+        lambda: kb.select_kept_plain(s, 179))
+    print(f"select_kept B={Bh} N=257 K=180: {'exact' if exact else 'DIFFER'} | kernel "
+          f"{ms:.4f} ms | plain (torch) {plain_ms:.4f} ms")
+    check(exact, "select_kept N=257: differs from select_tokens_dense")
+    t_bytes = (Bh * 257 * 4 + Bh * 180 * (8 + 4)) / (peaks[1] * 1e12) * 1e3
+    record(results, "select_kept", PATH_H, f"B={Bh} N=257 K=180", ms, plain_ms,
+           (t_bytes, "bytes"), 0.0, 0.0)
+    keep_idx = want[0]
+    args = (qkv, keep_idx, x, blk["attn"]["proj"], None, Hh, scale)
+    got = kb.fused_gather_sdpa_proj_residual(*args)
+    x_kept = torch.take_along_dim(x, keep_idx[..., None], dim=1)
+    err, rel = compare(f"B5 N=257 K=180 C={Cw}", got, kb.gather_sdpa_proj_residual_plain(*args),
+                       x_kept)
+    reject_planted(f"B5 N=257 K=180 C={Cw}", got,
+                   lambda: kb.gather_sdpa_proj_residual_plain(*args), x_kept)
+    ms = cuda_ms(lambda: kb.fused_gather_sdpa_proj_residual(*args))
+    plain_ms = cuda_ms(lambda: kb.gather_sdpa_proj_residual_plain(*args), iters=5)
+    K = 180
+    flops = 4.0 * Bh * K * K * Cw + 2.0 * Bh * K * Cw * Cw
+    nbytes = Bh * K * 3 * Cw * 2 + Bh * K * Cw * 2 + Bh * K * 8 + Cw * Cw * 2 + Bh * K * Cw * 2
+    record(results, "fused_gather_sdpa_proj_residual", PATH_H, f"B={Bh} N=257 K=180 C={Cw}",
+           ms, plain_ms, bound(flops, nbytes, peaks), err, rel)
+
+    n, keep = 180, 125  # K1 at 180→126
+    K = keep + 1
+    x = x_of(n)
+    tag = f"K1 N={n} C={Cw}"
+    common = (x, blk["norm1"], blk["attn"], None)
+    threaded = (*common, torch.rand(Bh, n, generator=gen).to(device), Hh, keep, scale, 1e-6,
+                False)
+    got = kb.fused_pruned_attn_block(*threaded)
+    want = kb.pruned_attn_block_plain(*threaded)
+    check(torch.equal(got[2], want[2]), f"{tag} with_scores=False: kept sets differ")
+    check(torch.equal(got[1], want[1]), f"{tag} with_scores=False: next_scores differ")
+    x_kept = torch.take_along_dim(x, want[2][..., None], dim=1)
+    err, rel = compare(f"{tag} with_scores=False", got[0], want[0], x_kept)
+    reject_planted(tag, got[0], lambda: kb.pruned_attn_block_plain(*threaded)[0], x_kept)
+    rescored = (*common, None, Hh, keep, scale, 1e-6, True)
+    got = kb.fused_pruned_attn_block(*rescored)
+    want = kb.pruned_attn_block_plain(*rescored)
+    e2, r2 = check_rescored(tag, got, want, bf16_scores(x, blk, Hh), keep, x)
+    ms = cuda_ms(lambda: kb.fused_pruned_attn_block(*rescored))
+    plain_ms = cuda_ms(lambda: kb.pruned_attn_block_plain(*rescored), iters=5)
+    parts = launch_ms(lambda: kb.fused_pruned_attn_block(*rescored))
+    print(f"{tag} K={K}: its launches, device ms a call (sum {sum(parts.values()):.3f}): "
+          + "; ".join(f"{kernel_name(k)} {v:.3f}" for k, v in parts.items()))
+    flops = 2.0 * Bh * n * Cw * 3 * Cw + 2.0 * Bh * K * Cw * Cw + 4.0 * Bh * K * K * Cw
+    nbytes = Bh * n * Cw * 2 + 4 * Cw * Cw * 2 + Bh * K * Cw * 2 + Bh * K * 4
+    record(results, "fused_pruned_attn_block", PATH_H, f"B={Bh} N={n} K={K} C={Cw}", ms,
+           plain_ms, bound(flops, nbytes, peaks), max(err, e2), max(rel, r2))
+
+
+# ptxas's report of the head_dim-80 instantiations (csrc/short_attn.cu,
+# csrc/sdpa.cu, common.cuh:score_kernel<80, ...>) and of the C = 1280
+# LayerNorm (common.cuh:layer_norm_kernel<5>), by mangled name
+HEAD_DIM80_KERNELS = {"short-row attention": "short_attn_kernelILi80E",
+                      "B6's body": "sdpa_wgmma_kernelILi80E",
+                      "score kernel": "score_kernelILi80E",
+                      "LayerNorm C=1280": "layer_norm_kernelILi5E"}
+
+
+def head_dim80_spills(reports: dict) -> None:
+    """Every head_dim-80 instantiation (and the C=1280 LayerNorm) was
+    compiled, with 0 bytes of spill stores and loads and no serialized
+    wgmma; prints each one's registers and spills."""
+    found = {k: 0 for k in HEAD_DIM80_KERNELS}
+    for src, rep in reports.items():
+        fn = None
+        for line in rep.splitlines():
+            if ("C7520" in line or "C7515" in line) and any(t in line for t in
+                                                            HEAD_DIM80_KERNELS.values()):
+                raise SmokeFailure(f"{src}: ptxas serialized wgmma: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            kind = next((k for k, tag in HEAD_DIM80_KERNELS.items() if fn and tag in fn), None)
+            if kind is None:
+                continue
+            spill = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            if spill:
+                found[kind] += 1
+                print(f"  {src}: {kind} {fn}: {line.strip()}")
+                check(all(int(b) == 0 for b in spill), f"{src}: {fn} spills ({line.strip()})")
+    print("head_dim-80 instantiations compiled with 0 spill bytes: "
+          + ", ".join(f"{k} {v}" for k, v in found.items()))
+    check(all(found.values()), f"head_dim-80 instantiations missing from ptxas's report: {found}")
 
 
 def wholeblock_phases(device, peaks, results):
@@ -1626,6 +1875,11 @@ SHORT_SHAPES = (
     (f"{DEIT_S384} B14", C_S, HEADS_S, B_S384, 275, 247, True),
     (f"{DEIT_S384} B15", C_S, HEADS_S, B_S384, 247, 247, False),
     (f"{TRAIN} B5", C, HEADS, B_TRAIN, 197, 187, True),
+    # ViT-H/14 (head_dim 80): K1 (180→126, 126→88, 88→61) and B5 (257→180)
+    # gathered, K2 contiguous
+    *((f"{PATH_H} K1/B5", C_H, HEADS_H, B_H, ns, n, True)
+      for ns, n in ((257, 180), (180, 126), (126, 88), (88, 61))),
+    *((f"{PATH_H} K2", C_H, HEADS_H, B_H, n, n, False) for n in (180, 126, 88, 61)),
 )
 SHORT_FAULTS = ("gather ignored", "keys past n unmasked")
 
@@ -1644,7 +1898,45 @@ def short_faulty(fault, qkv, idx, heads, scale, out_dtype):
     if fault == "gather ignored":
         return ka.attention_route_plain(qkv[:, :n].contiguous(), None, heads, scale, out_dtype)
     padded = torch.nn.functional.pad(kept, (0, 0, 0, -n % 64))
-    return ka._sdpa_perhead(padded, heads, scale, out_dtype)[:, :n]
+    form = ka._sdpa_phased if ka.mha_phased(heads, n, scale) else ka._sdpa_perhead
+    return form(padded, heads, scale, out_dtype)[:, :n]
+
+
+def check_phased_form(tag, got, qkv, idx, heads, scale, rel):
+    """Where ``_mha`` takes its phased form (q·scale rounded first), a kernel
+    held to it at ``rel`` must be nearer it than the per-head form (the
+    planted fault 'per-head form'): else the Q tile was not rescaled."""
+    from rajni_tpu_torch.kernels import attention as ka
+
+    far = rel_l2(got, ka._sdpa_perhead(kept_rows(qkv, idx), heads, scale, got.dtype))
+    print(f"{tag}: planted fault 'per-head form': rel L2 {far:.3e} (phased form {rel:.3e})")
+    check(rel < far, f"{tag}: nearer the per-head form than the phased one")
+
+
+def phased_body_phases(device, gen):
+    """B6's body in ``_mha``'s phased form (``attention_route(..., "body")``
+    where ``mha_phased``), contiguous and gathered: the blocks send it there past
+    256 tokens only at 8 heads of 80 (C = 640, n <= 295 below 4 MiB); held at
+    ViT-H's 16 heads too. Gated as the short-row kernel is (BF16_GATE and
+    B6_REL_L2), and nearer the phased form than the per-head one."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+
+    for width, heads, batch, n_src, n in ((C_H, HEADS_H, B_H, 257, 180),
+                                          (C_H, HEADS_H, B_H, 180, 180),
+                                          (640, 8, 64, 320, 288), (640, 8, 64, 288, 288)):
+        scale = (width // heads) ** -0.5
+        check(ka.mha_phased(heads, n, scale), f"phased body: {heads}x{n} is not phased")
+        qkv = torch.randn(batch, n_src, 3 * width, generator=gen).to(device, torch.bfloat16)
+        idx = kept_indices(gen, batch, n_src, n, device)
+        tag = f"B6 body phased B={batch} C={width} heads={heads} N={n} of {n_src}"
+        got = ka.attention_route(qkv, idx, heads, scale, "body")
+        want = ka.attention_route_plain(qkv, idx, heads, scale)
+        compare(tag, got, want, torch.zeros_like(got))
+        rel = rel_l2(got, want)
+        check(rel <= B6_REL_L2, f"{tag}: rel L2 {rel} > {B6_REL_L2}")
+        check_phased_form(tag, got, qkv, idx, heads, scale, rel)
 
 
 def kept_indices(gen, batch, n_src, n, device):
@@ -1689,12 +1981,13 @@ def short_attn_phases(device, peaks, results):
     """The short-row attention (csrc/short_attn.cu) at every SHORT_SHAPES
     shape, bf16 and fp32 out, with and without the row absmax: held to its
     plain version (attention_route_plain) under BF16_GATE and by relative L2
-    at B6_REL_L2; its absmax equal to that of its own stored output, element
-    for element; the planted faults SHORT_FAULTS rejected (the gather where
-    tokens are gathered, keys past n where n is not a multiple of 64), and
-    "P rounded before normalization" where
-    it separates (at one shape at least). Timed at ViT-B/224's 197→187 and
-    DeiT-S's 197→177, beside its byte bound and the library's device time."""
+    at B6_REL_L2; its absmax (head_dim 64: the int8 tails') equal to that of
+    its own stored output, element for element; the planted faults
+    SHORT_FAULTS rejected (the gather where tokens are gathered, keys past n
+    where n is not a multiple of 64), and "P rounded before normalization"
+    where it separates (at one shape at least). Timed at ViT-B/224's
+    197→187, DeiT-S's 197→177 and ViT-H's 180→126 (head_dim 80), beside its
+    byte bound and the library's device time."""
     import torch
 
     from rajni_tpu_torch.kernels import attention as ka
@@ -1706,11 +1999,13 @@ def short_attn_phases(device, peaks, results):
         qkv = torch.randn(batch, n_src, 3 * width, generator=gen).to(device, torch.bfloat16)
         idx = kept_indices(gen, batch, n_src, n, device)
         kind = f"{n} of {n_src}" if gathered else f"{n} contiguous"
-        tag = f"short attention {label} B={batch} C={width} N={kind}"
+        phased = ka.mha_phased(heads, n, scale)  # the form the blocks launch it in
+        tag = f"short attention {label} B={batch} C={width} N={kind}" + (
+            " phased" if phased else "")
         outs = {}
         for out_dtype in (torch.bfloat16, torch.float32):
             want = ka.attention_route_plain(qkv, idx, heads, scale, out_dtype)
-            for amax in (False, True):
+            for amax in (False, True) if width == heads * 64 else (False,):
                 got, am = ka.short_attention(qkv, idx, heads, scale, out_dtype, amax)
                 name = f"{tag} {str(out_dtype)[6:]}" + (" amax" if amax else "")
                 err, _ = compare(name, got, want, torch.zeros_like(got))
@@ -1722,6 +2017,8 @@ def short_attn_phases(device, peaks, results):
                                      "absmax of its stored output")
                 outs[out_dtype, amax] = (got, want, err, rel)
         got, want, err, rel = outs[torch.bfloat16, False]
+        if phased:
+            check_phased_form(tag, got, qkv, idx, heads, scale, rel)
         for fault in SHORT_FAULTS:
             if (fault == "keys past n unmasked" and n % 64 == 0) or (
                     fault == "gather ignored" and not gathered):
@@ -1734,13 +2031,14 @@ def short_attn_phases(device, peaks, results):
         unnorm = b6_unnormalized(kept_rows(qkv, idx), heads, scale)
         separated += rel_or_zero(unnorm, want) >= B6_REL_L2
         rounding_point(tag, {"out": got}, {"out": want}, {"out": unnorm}, {"out": B6_REL_L2})
-        if (width, n_src, n, batch) in ((C, 197, 187, B), (C_S, 197, 177, B)):
+        if (width, n_src, n, batch) in ((C, 197, 187, B), (C_S, 197, 177, B),
+                                        (C_H, 180, 126, B_H)):
             ms = cuda_ms(lambda: ka.short_attention(qkv, idx, heads, scale))
             dev = device_ms(lambda: ka.short_attention(qkv, idx, heads, scale))
             plain_ms = cuda_ms(lambda: ka.attention_route_plain(qkv, idx, heads, scale), iters=5)
             bnd = bound(4.0 * batch * n * n * width,
                         attention_bytes(batch, n, width, 2, gathered), peaks)
-            record(results, "short_attention", PATH224 if width == C else P3A,
+            record(results, "short_attention", {C: PATH224, C_S: P3A, C_H: PATH_H}[width],
                    f"B={batch} N={n_src} K={n} C={width}", ms, plain_ms, bnd, max(
                        e for _, _, e, _ in outs.values()), max(r for _, _, _, r in outs.values()),
                    library=library_sdpa_ms(qkv, idx, heads), device=dev)
@@ -2664,6 +2962,14 @@ def tail_phases(device):
                     for route, fn in (("new", lambda: call(False)),
                                       ("two-launch", lambda: call(True))):
                         parts = {kernel_name(k): v for k, v in launch_ms(fn).items()}
+                        if (any("sdpa_wgmma" in k for k in parts) != bool(body)
+                                or any("short_attn" in k for k in parts) != bool(short)):
+                            # a trace can drop a kernel's records (one kept only
+                            # ln_quant_kernel's of B11's seven kernels at 67→47):
+                            # trace again; a disagreement that repeats fails below
+                            print(f"{tag} {route}: the trace disagrees with the counts "
+                                  f"({sorted(parts)}); traced again")
+                            parts = {kernel_name(k): v for k, v in launch_ms(fn).items()}
                         print(f"{tag} {route} route: {sum(parts.values()):.3f} ms ("
                               + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
                               + ") (device time)")
@@ -3385,6 +3691,7 @@ VIT_B_COUNTS = [197, 197, 197, 197, 187, 177, 150, 127, 120, 120, 120, 120]
 DEIT_S_COUNTS = [197, 197, 197, 197, 177, 159, 143, 128, 115, 103, 92, 82]
 VIT_L_COUNTS = [197] * 5 + [138] * 4 + [96] * 4 + [67] * 4 + [47] * 7
 DEIT_S384_COUNTS = [577, 577, 577, 577, 519, 467, 420, 378, 340, 306, 275, 247]
+VIT_H_COUNTS = [257] * 6 + [180] * 5 + [126] * 5 + [88] * 5 + [61] * 11
 # ViT-L/16 int8: the pruned blocks 4, 8, 12, 16 take B11 + B9; the stock
 # blocks at 197, 138 and 96 tokens B10 + B9 (no whole-block plan), at 67 and
 # 47 tokens B15. Every attention up to 256 tokens (csrc/common.cuh:
@@ -3474,6 +3781,18 @@ PATHS = {
                                      fused_pruned_block_full_int8=7, fused_block_full_int8=4,
                                      fused_sdpa=10, short_attention=2),
                   "identity": launches(fused_block_full_int8=12, fused_sdpa=12)}),
+    # ViT-H/14 bf16 through kernels="auto" (head_dim 80): the stock blocks K2
+    # + K3 (B6's body at 257 tokens, blocks 0-4; the short-row kernel at 180
+    # to 61), block 5 (257→180) B4 + selection + B5, blocks 10, 15, 20 K1
+    PATH_H: dict(
+        model=PATH_H, quant=None, batch=B_H, img=224, schedule="vit_h", counts=VIT_H_COUNTS,
+        kernels="auto",
+        launches={"pruned": launches(fused_pruned_attn_block=3, fused_attn_block=28,
+                                     fused_ln_mlp_residual=32, fused_ln_qkv=1,
+                                     fused_gather_sdpa_proj_residual=1, select_kept=1,
+                                     fused_sdpa=5, short_attention=27),
+                  "identity": launches(fused_attn_block=32, fused_ln_mlp_residual=32,
+                                       fused_sdpa=32)}),
 }
 
 
@@ -3548,9 +3867,10 @@ def end_to_end(device, device_name, results, path):
     spec = PATHS[path]
     batch, model_name = spec["batch"], spec["model"]
     schedule = {"reference": REFERENCE_SCHEDULE, "deit": DEIT_S_SCHEDULE,
-                "vit_l": VIT_L_SCHEDULE}[spec["schedule"]]
+                "vit_l": VIT_L_SCHEDULE, "vit_h": VIT_H_SCHEDULE}[spec["schedule"]]
     scheds = {"pruned": schedule, "identity": None}
-    raw = RAJNIViT(model_name, schedule, kernels="cuda", seed=0, device=device)
+    kernels = spec.get("kernels", "cuda")
+    raw = RAJNIViT(model_name, schedule, kernels=kernels, seed=0, device=device)
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(batch, spec["img"], spec["img"], 3, generator=gen).to(device)
     params, scales = raw.params, {"pruned": None, "identity": None}
@@ -3559,9 +3879,13 @@ def end_to_end(device, device_name, results, path):
         if spec["quant"] == "static":  # calibrated on this batch, before quantization
             scales = {k: calibrate_act_scales(raw.params, images, raw.config, v)
                       for k, v in scheds.items()}
-    models = {(k, impl): RAJNIViT(model_name, v, params=params, kernels=impl, device=device,
+    models = {(k, impl): RAJNIViT(model_name, v, params=params,
+                                  kernels=kernels if impl == "cuda" else impl, device=device,
                                   act_scales=scales[k])
               for k, v in scheds.items() for impl in ("cuda", "torch")}
+    route = models[("pruned", "cuda")].route
+    print(f"{path}: RAJNIViT(kernels={kernels!r}) {route}")
+    check(route == "route: cuda", f"{path}: {route}, not the kernels")
     counts = models[("pruned", "cuda")].get_last_stats()["token_counts"]
     check(counts == spec["counts"], f"{path}: token counts {counts} != {spec['counts']}")
     print(f"{path}: token_counts {counts}")
@@ -3609,6 +3933,51 @@ def end_to_end(device, device_name, results, path):
         trace = model.get_last_stats()["token_counts"]
         print(f"{path} img/s {sched} kernels={impl}: {ips:.1f} | "
               f"MFU {mfu(model.config, trace, ips, device_name):.4f}")
+
+
+def vit_h_demoted(device):
+    """ViT-H/14 where its kernels do not go yet: int8 params through
+    ``RAJNIViT(kernels="auto")`` (batch 8) and training through the training
+    CLI (bf16, ``--kernels cuda``, 2 steps of batch 2) run on the card's
+    torch route, print the reason and launch no kernel."""
+    import torch
+
+    from rajni_tpu_torch import RAJNIViT
+    from rajni_tpu_torch.quant import quantize_params
+
+    want = ("route: torch (int8 weights at C=1280, head_dim 80: its kernels take C <= 1024 and "
+            "head_dim 64)")
+    counters = kernel_counters()
+    raw = RAJNIViT(PATH_H, VIT_H_SCHEDULE, kernels="auto", seed=0, device=device)
+    model = RAJNIViT(PATH_H, VIT_H_SCHEDULE, params=quantize_params(raw.params), kernels="auto",
+                     device=device)
+    for k in counters.values():
+        k.launches = 0
+    images = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(3)).to(device)
+    out = model(images)
+    torch.cuda.synchronize()
+    launched = {n: k.launches for n, k in counters.items() if k.launches}
+    print(f"RAJNIViT {PATH_H} int8: {model.route}; logits {tuple(out.shape)}, launches {launched}")
+    check(model.route == want, f"{PATH_H} int8: {model.route} != {want}")
+    check(bool(torch.isfinite(out).all()) and not launched,
+          f"{PATH_H} int8: logits not finite or kernels launched ({launched})")
+    del raw, model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        sched = Path(tmp) / "schedule.json"
+        sched.write_text(json.dumps({str(k): v for k, v in VIT_H_SCHEDULE.items()}))
+        argv = ["rajni_tpu_torch.train", "--synthetic", "--model", PATH_H, "--schedule",
+                str(sched), "--steps", "2", "--batch_size", "2", "--dtype", "bfloat16",
+                "--kernels", "cuda", "--log_every", "1"]
+        p = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        tail = [l for l in p.stdout.splitlines() if l.startswith(("route:", "step"))]
+        print(f"CLI rajni_tpu_torch.train {PATH_H}: " + " | ".join(tail))
+        check(p.returncode == 0, f"train CLI {PATH_H} exited {p.returncode}:\n"
+                                 f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        route = ("route: torch (training at C=1280, head_dim 80: its kernels take C <= 1024 and "
+                 "head_dim 64)")
+        check(route in p.stdout.splitlines(), f"train CLI {PATH_H}: no '{route}' line")
 
 
 def eval_cli():
@@ -3675,6 +4044,7 @@ def main() -> int:
     # the row-band GEMM (csrc/band_s8.cuh) is compiled where its forms are used
     band = [src for src, rep in reports.items() if "band_s8_kernel" in rep]
     if reports:
+        head_dim80_spills(reports)
         print(f"  csrc/band_s8.cuh's band_s8_kernel compiled in {band}, each held above to no "
               "spill and no serialized wgmma")
         check(set(BAND_SOURCES) <= set(band) and set(band) <= set(GEMM_SOURCES),
@@ -3687,6 +4057,8 @@ def main() -> int:
                lambda: short_attn_phases(device, peaks, results)),
               ("kernel phases 224", lambda: kernel_phases(device, peaks, results)),
               ("kernel phases 384", lambda: long_phases(device, peaks, results)),
+              ("kernel phases ViT-H/14 (C=1280, head_dim 80)",
+               lambda: vit_h_phases(device, peaks, results)),
               ("kernel phases B7/B8", lambda: wholeblock_phases(device, peaks, results)),
               ("kernel phases B14/B15", lambda: int8_phases(device, peaks, int8_peak, results)),
               ("kernel phases B9/B10/B12/B13",
@@ -3718,7 +4090,8 @@ def main() -> int:
                for path in PATHS]
     phases += [("training end to end",
                 lambda: train_end_to_end(device, device_name, results, kernel_counters())),
-               ("eval CLI", eval_cli), ("training and eval CLIs", lambda: train_cli(device))]
+               ("eval CLI", eval_cli), ("training and eval CLIs", lambda: train_cli(device)),
+               (f"{PATH_H} int8 and training on the torch route", lambda: vit_h_demoted(device))]
     for label, phase in phases:
         t0 = time.perf_counter()
         phase()

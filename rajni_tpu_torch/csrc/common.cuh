@@ -27,6 +27,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -34,16 +35,17 @@
 // B6's attention body (sdpa.cu): qkv [B, n_src, 3C] bf16, token t of image b
 // being row idx[b, t] when idx is given, into out [B, n, C] (fp32 when
 // out_fp32, else bf16); with amax, each output row's absmax over its C
-// columns too (row_absmax). Returns a cudaError_t.
+// columns too (row_absmax); with phased, q·scale rounded to bf16 before q·kᵀ
+// (mha_phased). Returns a cudaError_t.
 extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float* amax,
                                int out_fp32, int B, int n_src, int n, int C, int H, float scale,
-                               void* stream);
+                               int phased, void* stream);
 // The short-row attention (short_attn.cu): the same function for n <=
 // ATTN_MAX_N, qkv [B, n_src, 3C] with n == n_src when idx is null. Returns a
 // cudaError_t.
 extern "C" int rajni_short_attn_body(const void* qkv, const int* idx, void* out, float* amax,
                                      int out_fp32, int B, int n_src, int n, int C, int H,
-                                     float scale, void* stream);
+                                     float scale, int phased, void* stream);
 
 // Everything here has internal linkage: the .cu files are separate
 // translation units of one library, and each includes its own copy.
@@ -134,11 +136,15 @@ __device__ __forceinline__ void row_absmax(float* amax, size_t row, float m) {
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm: one warp per row, the row cached in registers (C <= 32*8*LN_MAXV)
+// LayerNorm: one warp per row, the row cached in registers (C <= 32*8*NV)
 // ---------------------------------------------------------------------------
 
-constexpr int LN_MAXV = 4;  // uint4 (8 x bf16) vectors per lane: C <= 1024
+constexpr int LN_MAXV = 4;  // uint4 (8 x bf16) vectors per lane: C <= 1024 (int8.cuh's too)
+constexpr int LN_MAXV_WIDE = 5;  // the bf16 LayerNorm's at C <= 1280 (ViT-H/14)
 
+// NV: the vectors a lane holds, LN_MAXV up to C = 1024 (the sums in the order
+// they always had), LN_MAXV_WIDE past it.
+template <int NV>
 __global__ void __launch_bounds__(256) layer_norm_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ scale,
     const bf16* __restrict__ bias, bf16* __restrict__ y, int M, int C, float eps) {
@@ -147,10 +153,10 @@ __global__ void __launch_bounds__(256) layer_norm_kernel(
   if (row >= M) return;
   const int nvec = C / 8;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
-  float v[LN_MAXV][8];
+  float v[NV][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
+  for (int i = 0; i < NV; ++i) {
     int c = lane + 32 * i;
     if (c < nvec) {
       unpack8(xr[c], v[i]);
@@ -161,7 +167,7 @@ __global__ void __launch_bounds__(256) layer_norm_kernel(
   const float mean = warp_sum(s) / (float)C;
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
+  for (int i = 0; i < NV; ++i) {
     int c = lane + 32 * i;
     if (c < nvec) {
 #pragma unroll
@@ -176,7 +182,7 @@ __global__ void __launch_bounds__(256) layer_norm_kernel(
   const uint4* br = reinterpret_cast<const uint4*>(bias);
   uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * C);
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
+  for (int i = 0; i < NV; ++i) {
     int c = lane + 32 * i;
     if (c < nvec) {
       float sc[8], bi[8], o[8];
@@ -191,7 +197,11 @@ __global__ void __launch_bounds__(256) layer_norm_kernel(
 
 inline cudaError_t launch_layer_norm(const bf16* x, const bf16* scale, const bf16* bias,
                                      bf16* y, int M, int C, float eps, cudaStream_t st) {
-  layer_norm_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, y, M, C, eps);
+  if (C % 8 || C > 256 * LN_MAXV_WIDE) return cudaErrorInvalidValue;
+  if (C <= 256 * LN_MAXV)
+    layer_norm_kernel<LN_MAXV><<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, y, M, C, eps);
+  else
+    layer_norm_kernel<LN_MAXV_WIDE><<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, y, M, C, eps);
   return cudaGetLastError();
 }
 
@@ -226,31 +236,52 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // ---------------------------------------------------------------------------
-// Attention, head_dim 64. Up to ATTN_MAX_N tokens every caller's attention is
-// the short-row kernel of short_attn.cu (its header has the design), past it
-// B6's body (sdpa.cu); both are compiled once there and reached from the
-// other translation units through their C entry points.
+// Attention, head_dim 64 or 80 (ViT-H/14; the bf16 kernels only). Up to
+// ATTN_MAX_N tokens every caller's attention is the short-row kernel of
+// short_attn.cu (its header has the design), past it B6's body (sdpa.cu);
+// both are compiled once there, each instantiated for both head widths, and
+// reached from the other translation units through their C entry points.
 // ---------------------------------------------------------------------------
 
-constexpr int ATTN_D = 64, ATTN_MAX_N = 256;
+constexpr int ATTN_D = 64, ATTN_D80 = 80, ATTN_MAX_N = 256;
 
 // Long-sequence attention: B6 fused_sdpa's formula, also the attention of
-// K2, B5, K1/B20 and the int8 tails past ATTN_MAX_N tokens.
-constexpr int SDPA_MAX_N = 848;
+// K2, B5, K1/B20 and the int8 tails past ATTN_MAX_N tokens. At head_dim 80
+// B6's body runs one pass of at most 3 key tiles a consumer (sdpa.cu), so at
+// most 384 tokens.
+constexpr int SDPA_MAX_N = 848, SDPA_MAX_N_D80 = 384;
+
+__host__ __device__ inline bool attn_head_dim_ok(int D) { return D == ATTN_D || D == ATTN_D80; }
+// The longest row B6's body takes at head_dim D (0: none).
+inline int sdpa_max_n(int D) {
+  return D == ATTN_D ? SDPA_MAX_N : D == ATTN_D80 ? SDPA_MAX_N_D80 : 0;
+}
 
 template <typename OutT>
 inline cudaError_t launch_sdpa(const bf16* qkv, const int* idx, OutT* out, float* amax, int B,
-                               int n_src, int n, int C, int H, float scale, cudaStream_t st) {
+                               int n_src, int n, int C, int H, float scale, bool phased,
+                               cudaStream_t st) {
   return static_cast<cudaError_t>(rajni_sdpa_body(qkv, idx, out, amax, sizeof(OutT) == 4, B,
-                                                  n_src, n, C, H, scale, st));
+                                                  n_src, n, C, H, scale, phased, st));
 }
 
 template <typename OutT>
 inline cudaError_t launch_short_attention(const bf16* qkv, const int* idx, OutT* out,
                                           float* amax, int B, int n_src, int n, int C, int H,
-                                          float scale, cudaStream_t st) {
+                                          float scale, bool phased, cudaStream_t st) {
   return static_cast<cudaError_t>(rajni_short_attn_body(qkv, idx, out, amax, sizeof(OutT) == 4,
-                                                        B, n_src, n, C, H, scale, st));
+                                                        B, n_src, n, C, H, scale, phased, st));
+}
+
+// Whether the TPU kernels' _mha (rajni_tpu/kernels/block.py:136) takes its
+// phased form on n tokens: q·scale in fp32 rounded to bf16 before q·kᵀ, while
+// H·n²·6 <= 4 MiB; else the per-head form, the scale on the fp32 logits. At
+// a power-of-two scale (head_dim 64's 1/8) both forms give the same bits, so
+// the kernels take the phased one only where the scale is not a power of two
+// (head_dim 80's 80^-0.5). kernels/attention.py:mha_phased is the same test.
+inline bool mha_phased(int H, int n, float scale) {
+  int e;
+  return (long long)H * n * n * 6 <= 4ll * 1024 * 1024 && frexpf(scale, &e) != 0.5f;
 }
 
 // Every caller's attention (K1/B20, K2 so B8 and B16, B5, and with the row
@@ -262,21 +293,24 @@ inline cudaError_t launch_short_attention(const bf16* qkv, const int* idx, OutT*
 // body contiguous and 0.20-0.43x gathered; in its first (ex2) form, in
 // another call, 0.25-0.61x the register kernel (mma.sync, one block a
 // 64-query tile) that it replaced. So no n up to 256 keeps another kernel,
-// and the register kernel was deleted. At head_dim 64 the scale is 1/8, and
-// the logits scaled or q scaled give the same bits.
+// and the register kernel was deleted. Both take _mha's form (mha_phased):
+// the phased one rounds q·scale in the Q tile, the per-head one scales the
+// fp32 logits.
 constexpr int SHORT_ATTN_MAX_N = ATTN_MAX_N;
 
 template <typename OutT>
 inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* out, float* amax,
                                         int B, int n_src, int n, int C, int H, float scale,
                                         cudaStream_t st) {
+  const bool phased = mha_phased(H, n, scale);
   if (n <= SHORT_ATTN_MAX_N)
-    return launch_short_attention(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
-  return launch_sdpa(qkv, idx, out, amax, B, n_src, n, C, H, scale, st);
+    return launch_short_attention(qkv, idx, out, amax, B, n_src, n, C, H, scale, phased, st);
+  return launch_sdpa(qkv, idx, out, amax, B, n_src, n, C, H, scale, phased, st);
 }
 
 // ---------------------------------------------------------------------------
-// RAJNI scores (K1, B4, B19, B20 and the int8 B11, B12, B14): scores[b, 0..N)
+// RAJNI scores (K1, B4, B19, B20 and the int8 B11, B12, B14; head_dim 64, and
+// 80 for the bf16 K1 and B4 at ViT-H/14): scores[b, 0..N)
 // in fp32, following _importance_f32 (rajni_tpu/kernels/block.py:340) from
 // the bf16 (rounded) qkv [B, N, 3C]: CLS-row softmax over all heads with
 // 1/sqrt(D), the head mean of the probabilities; head-mean V centred over
@@ -291,15 +325,27 @@ inline cudaError_t launch_attention_any(const bf16* qkv, const int* idx, OutT* o
 // 4), block r taking the tokens [r·T, min(N, (r+1)·T)), T = ceil(N / CL), so
 // that CL·B blocks of 8 warps (two an SM) keep the memory busy where one
 // block an image left 128 blocks at batch 128 for 132 SMs. A warp streams a
-// token's whole k and v rows in 16-byte pieces (lane l holds pieces l + 32j,
-// head l/8 + 4j at head_dim 64); the CLS q's pieces sit in its registers. A
-// head's logit is the lanes' products summed over its 8 lanes (shuffles
-// within the 8); the head mean of v is each lane's heads summed and then
-// across the 4 lanes of the same 8 dims. A warp takes two tokens at a time,
-// both rows' loads in flight together (one at C > 768, where the registers
-// would not hold two). The block keeps its tokens' logits and head-mean
-// values (fp32) in shared memory and each warp a running max a head and ΣV
-// a dim. The statistics over the whole image are two-phase: each block
+// token's whole k and v rows in 16-byte pieces; the CLS q's pieces sit in
+// its registers.
+//   * Head_dim 64: lane l holds pieces l + 32j, of head l/8 + 4j. A head's
+//     logit is the lanes' products summed over its 8 lanes (shuffles within
+//     the 8); the head mean of v is each lane's heads summed and then across
+//     the 4 lanes of the same 8 dims. A warp takes two tokens at a time,
+//     both rows' loads in flight together (one at C > 768, where the
+//     registers would not hold two). Each warp keeps a running ΣV a dim.
+//   * Head_dim 80 (a head is 10 pieces, which fall in no aligned group of 8
+//     lanes): lane l holds the 5 pieces 10·(l/2) + 5·(l%2) + j of head l/2
+//     (H <= 16, C <= 1280), its dims 40·(l%2) + 8j..+7. A head's logit is
+//     the lane's 5 pieces summed and one shuffle across the pair; the head
+//     mean of v is summed across the 16 lanes of the same parity (4
+//     shuffles a value). One token at a time, its 10 pieces a lane in
+//     flight; the CLS q is read from shared memory (in registers beside
+//     them it spilled under the 128 that two blocks an SM leave). The
+//     block's ΣV a dim is summed over its tokens' head-mean values in
+//     shared memory.
+// The block keeps its tokens' logits and head-mean values (fp32) in shared
+// memory and each warp a running max a head. The statistics over the whole
+// image are two-phase: each block
 // stores its partials (max and Σe a head, ΣV a dim, Σ vn, Σ (vn − mu)²) into
 // its slot of every block of the cluster (distributed shared memory), and
 // after a cluster barrier each block reduces the CL slots in rank order, so
@@ -319,13 +365,15 @@ __host__ __device__ inline int score_cluster(int N) { return N <= 512 ? 2 : SCOR
 __host__ __device__ inline int score_tokens(int N) {
   return (N + score_cluster(N) - 1) / score_cluster(N);
 }
-// Shared memory of a block; the kernel takes head_dim 64, C % 64 == 0, C <=
-// 1024 and 2 <= N <= 1024 (score_tokens(N) <= SCORE_THREADS).
-__host__ __device__ inline int score_smem(int N, int C, int H) {
+// Shared memory of a block; the kernel takes head_dim 64 (C % 64 == 0, C <=
+// 1024) or 80 (H <= 16, C <= 1280), and 2 <= N <= 1024 (score_tokens(N) <=
+// SCORE_THREADS).
+__host__ __device__ inline int score_smem(int N, int C, int H, bool pair) {
   const int T = score_tokens(N), D = C / H;
   return (T * (D + H + 1) + (SCORE_WARPS + 2 * SCORE_CL_MAX + 2) * H +
           (SCORE_WARPS + SCORE_CL_MAX + 1) * D + 2 * SCORE_CL_MAX + SCORE_WARPS) *
-         4;
+             4 +
+         (pair ? 2 * C : 0);  // two lanes a head: the CLS q row, bf16
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -335,9 +383,10 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// NV: the 16-byte pieces of a q, k or v row a lane holds, ceil(C / 256); CL:
-// the cluster's blocks.
-template <int NV, int CL>
+// D: the head_dim (64 or 80); NV: the 16-byte pieces of a q, k or v row a
+// lane holds, ceil(C / 256) at head_dim 64, or 0 for two lanes a head (D/16
+// pieces a lane: head_dim 80); CL: the cluster's blocks.
+template <int D_, int NV, int CL>
 __global__ void __launch_bounds__(SCORE_THREADS, 2)
     score_kernel(const bf16* __restrict__ qkv, float* __restrict__ scores, int N, int C, int H,
                  float eps) {
@@ -345,8 +394,12 @@ __global__ void __launch_bounds__(SCORE_THREADS, 2)
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive();  // waited on before the first store into another block
   extern __shared__ __align__(16) float sm[];
+  constexpr bool PAIR = NV == 0;  // two lanes a head
+  constexpr int PL = D_ / 16;     // then the pieces of a lane
   const int D = C / H, T = score_tokens(N);
-  float* s_V = sm;                              // [T][D] head-mean values of the block's tokens
+  // two lanes a head: the CLS q row (C bf16, a multiple of 16 bytes) first
+  const int q_floats = PAIR ? C / 2 : 0;
+  float* s_V = sm + q_floats;                   // [T][D] head-mean values of the block's tokens
   float* s_e = s_V + T * D;                     // [H][T] CLS logits, then e^(l - max)
   float* s_vn = s_e + H * T;                    // [T] value norms
   float* s_wmax = s_vn + T;                     // [warp][H] each warp's running max
@@ -375,82 +428,145 @@ __global__ void __launch_bounds__(SCORE_THREADS, 2)
     for (int r = 0; r < CL; ++r) *cluster.map_shared_rank(slot, r) = v;
   };
 
-  uint4 qv[NV];  // the CLS q's pieces of this lane
-  float hmax[NV], vsum[8];
+  if constexpr (PAIR) {
+    // lane: head hh's pieces p0..p0+PL-1 (dims (D/2)·half + 8j..+7); lanes
+    // past 2H hold zeros
+    const int hh = lane >> 1, half = lane & 1, p0 = (D_ / 8) * hh + PL * half;
+    const bool live = hh < H;
+    uint4* s_q = reinterpret_cast<uint4*>(sm);
+    for (int i = tid; i < pieces; i += SCORE_THREADS)
+      s_q[i] = __ldg(reinterpret_cast<const uint4*>(base) + i);
+    __syncthreads();
+    const uint4* qv = s_q + (live ? p0 : 0);
+    float hm = -INFINITY;
+    for (int t = warp; t < cnt; t += SCORE_WARPS) {
+      const uint4* row = reinterpret_cast<const uint4*>(base + (size_t)(n0 + t) * row3);
+      uint4 kp[PL], vp[PL];
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int ci = lane + 32 * j;
-    qv[j] = ci < pieces ? __ldg(reinterpret_cast<const uint4*>(base) + ci) : zero;
-    hmax[j] = -INFINITY;
-  }
+      for (int j = 0; j < PL; ++j) {
+        kp[j] = live ? __ldg(row + pieces + p0 + j) : zero;
+        vp[j] = live ? __ldg(row + 2 * pieces + p0 + j) : zero;
+      }
+      float dot = 0.f;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) vsum[e] = 0.f;
-
-  // a token's k and v pieces of this lane
-  auto load = [&](int t, uint4 (&kp)[NV], uint4 (&vp)[NV]) {
-    const uint4* row = reinterpret_cast<const uint4*>(base + (size_t)(n0 + t) * row3);
+      for (int j = 0; j < PL; ++j) {
+        float qf[8], kf[8];
+        unpack8(qv[j], qf);
+        unpack8(kp[j], kf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot += qf[e] * kf[e];
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);  // the head's two lanes
+      const float l = dot * inv_sqrt_d;
+      if (live) {
+        if (half == 0) s_e[hh * T + t] = l;
+        hm = fmaxf(hm, l);
+      }
+#pragma unroll
+      for (int j = 0; j < PL; ++j) {
+        float v[8];
+        unpack8(vp[j], v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {  // over the heads: the lanes of the same parity
+          v[e] *= inv_h;
+          v[e] += __shfl_xor_sync(0xffffffffu, v[e], 2);
+          v[e] += __shfl_xor_sync(0xffffffffu, v[e], 4);
+          v[e] += __shfl_xor_sync(0xffffffffu, v[e], 8);
+          v[e] += __shfl_xor_sync(0xffffffffu, v[e], 16);
+        }
+        if (lane < 2) {
+          float4* dst = reinterpret_cast<float4*>(s_V + t * D + (D_ / 2) * lane + 8 * j);
+          dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+          dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+      }
+    }
+    if (live && half == 0) s_wmax[warp * H + hh] = hm;
+    __syncthreads();
+    if (tid >= 64 && tid < 64 + D) {  // the block's ΣV a dim, over its tokens
+      float a = 0.f;
+      for (int t = 0; t < cnt; ++t) a += s_V[t * D + tid - 64];
+      s_wv[tid - 64] = a;  // the block's sum, in warp 0's slot
+    }
+  } else {
+    uint4 qv[NV];  // the CLS q's pieces of this lane
+    float hmax[NV], vsum[8];
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int ci = lane + 32 * j;
-      kp[j] = ci < pieces ? __ldg(row + pieces + ci) : zero;
-      vp[j] = ci < pieces ? __ldg(row + 2 * pieces + ci) : zero;
+      qv[j] = ci < pieces ? __ldg(reinterpret_cast<const uint4*>(base) + ci) : zero;
+      hmax[j] = -INFINITY;
     }
-  };
-  // its logits (one a head, into s_e and the running max) and head-mean V
-  // (into s_V and the running ΣV)
-  auto token = [&](int t, const uint4 (&kp)[NV], const uint4 (&vp)[NV]) {
-    float v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    for (int e = 0; e < 8; ++e) vsum[e] = 0.f;
+
+    // a token's k and v pieces of this lane
+    auto load = [&](int t, uint4 (&kp)[NV], uint4 (&vp)[NV]) {
+      const uint4* row = reinterpret_cast<const uint4*>(base + (size_t)(n0 + t) * row3);
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      float qf[8], kf[8], vf[8];
-      unpack8(qv[j], qf);
-      unpack8(kp[j], kf);
-      unpack8(vp[j], vf);
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dot += qf[e] * kf[e];
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);  // the head's 8 lanes
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-      if (lane + 32 * j < pieces) {
-        const float l = dot * inv_sqrt_d;
-        if ((lane & 7) == 0) s_e[((lane >> 3) + 4 * j) * T + t] = l;
-        hmax[j] = fmaxf(hmax[j], l);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] += vf[e] * inv_h;
+      for (int j = 0; j < NV; ++j) {
+        const int ci = lane + 32 * j;
+        kp[j] = ci < pieces ? __ldg(row + pieces + ci) : zero;
+        vp[j] = ci < pieces ? __ldg(row + 2 * pieces + ci) : zero;
       }
+    };
+    // its logits (one a head, into s_e and the running max) and head-mean V
+    // (into s_V and the running ΣV)
+    auto token = [&](int t, const uint4 (&kp)[NV], const uint4 (&vp)[NV]) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float qf[8], kf[8], vf[8];
+        unpack8(qv[j], qf);
+        unpack8(kp[j], kf);
+        unpack8(vp[j], vf);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot += qf[e] * kf[e];
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);  // the head's 8 lanes
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+        if (lane + 32 * j < pieces) {
+          const float l = dot * inv_sqrt_d;
+          if ((lane & 7) == 0) s_e[((lane >> 3) + 4 * j) * T + t] = l;
+          hmax[j] = fmaxf(hmax[j], l);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] += vf[e] * inv_h;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {  // over the lanes of the same 8 dims
+        v[e] += __shfl_xor_sync(0xffffffffu, v[e], 8);
+        v[e] += __shfl_xor_sync(0xffffffffu, v[e], 16);
+        vsum[e] += v[e];
+      }
+      if (lane < 8) {
+        float4* dst = reinterpret_cast<float4*>(s_V + t * D + 8 * lane);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    };
+    // two tokens a warp at a time (t and t + 8), both rows' loads in flight,
+    // where the registers hold them (NV <= 3: C <= 768)
+    constexpr int STEP = NV <= 3 ? 2 : 1;
+    for (int t = warp; t < cnt; t += STEP * SCORE_WARPS) {
+      const bool two = STEP == 2 && t + SCORE_WARPS < cnt;
+      uint4 kp[NV], vp[NV], kp2[NV], vp2[NV];
+      load(t, kp, vp);
+      if (two) load(t + SCORE_WARPS, kp2, vp2);
+      token(t, kp, vp);
+      if (two) token(t + SCORE_WARPS, kp2, vp2);
     }
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {  // over the lanes of the same 8 dims
-      v[e] += __shfl_xor_sync(0xffffffffu, v[e], 8);
-      v[e] += __shfl_xor_sync(0xffffffffu, v[e], 16);
-      vsum[e] += v[e];
-    }
+    for (int j = 0; j < NV; ++j)
+      if ((lane & 7) == 0 && lane + 32 * j < pieces)
+        s_wmax[warp * H + (lane >> 3) + 4 * j] = hmax[j];
     if (lane < 8) {
-      float4* dst = reinterpret_cast<float4*>(s_V + t * D + 8 * lane);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s_wv[warp * D + 8 * lane + e] = vsum[e];
     }
-  };
-  // two tokens a warp at a time (t and t + 8), both rows' loads in flight,
-  // where the registers hold them (NV <= 3: C <= 768)
-  constexpr int STEP = NV <= 3 ? 2 : 1;
-  for (int t = warp; t < cnt; t += STEP * SCORE_WARPS) {
-    const bool two = STEP == 2 && t + SCORE_WARPS < cnt;
-    uint4 kp[NV], vp[NV], kp2[NV], vp2[NV];
-    load(t, kp, vp);
-    if (two) load(t + SCORE_WARPS, kp2, vp2);
-    token(t, kp, vp);
-    if (two) token(t + SCORE_WARPS, kp2, vp2);
-  }
-#pragma unroll
-  for (int j = 0; j < NV; ++j)
-    if ((lane & 7) == 0 && lane + 32 * j < pieces) s_wmax[warp * H + (lane >> 3) + 4 * j] = hmax[j];
-  if (lane < 8) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s_wv[warp * D + 8 * lane + e] = vsum[e];
   }
   __syncthreads();
   cluster_wait();  // every block of the cluster has started
@@ -460,7 +576,11 @@ __global__ void __launch_bounds__(SCORE_THREADS, 2)
     push(s_max + rank * H + tid, m);
   } else if (tid >= 64 && tid < 64 + D) {
     float a = 0.f;
-    for (int w = 0; w < SCORE_WARPS; ++w) a += s_wv[w * D + tid - 64];
+    if constexpr (PAIR) {
+      a = s_wv[tid - 64];
+    } else {
+      for (int w = 0; w < SCORE_WARPS; ++w) a += s_wv[w * D + tid - 64];
+    }
     push(s_v + rank * D + tid - 64, a);
   }
   cluster.sync();  // 1: every block's max a head and ΣV a dim
@@ -542,11 +662,11 @@ __global__ void __launch_bounds__(SCORE_THREADS, 2)
   if (tid < cnt) scores[(size_t)b * N + n0 + tid] = a_cls * sigmoidf_((vn - mu) / sd);
 }
 
-template <int NV>
+template <int D, int NV>
 inline cudaError_t launch_score_nv(const bf16* qkv, float* scores, int B, int N, int C, int H,
                                    float eps, cudaStream_t st) {
-  const int cl = score_cluster(N), smem = score_smem(N, C, H);
-  auto kernel = cl == 2 ? score_kernel<NV, 2> : score_kernel<NV, SCORE_CL_MAX>;
+  const int cl = score_cluster(N), smem = score_smem(N, C, H, NV == 0);
+  auto kernel = cl == 2 ? score_kernel<D, NV, 2> : score_kernel<D, NV, SCORE_CL_MAX>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
@@ -567,13 +687,15 @@ inline cudaError_t launch_score_nv(const bf16* qkv, float* scores, int B, int N,
 
 inline cudaError_t launch_score(const bf16* qkv, float* scores, int B, int N, int C, int H,
                                 float eps, cudaStream_t st) {
-  if (N < 2 || score_tokens(N) > SCORE_THREADS || C % 64 || C > 1024 || C != 64 * H)
-    return cudaErrorInvalidValue;
+  if (N < 2 || score_tokens(N) > SCORE_THREADS || H < 1) return cudaErrorInvalidValue;
+  if (C == ATTN_D80 * H && H <= 16)  // head_dim 80: two lanes a head
+    return launch_score_nv<ATTN_D80, 0>(qkv, scores, B, N, C, H, eps, st);
+  if (C % 64 || C > 1024 || C != ATTN_D * H) return cudaErrorInvalidValue;
   switch ((C / 8 + 31) / 32) {
-    case 1: return launch_score_nv<1>(qkv, scores, B, N, C, H, eps, st);
-    case 2: return launch_score_nv<2>(qkv, scores, B, N, C, H, eps, st);
-    case 3: return launch_score_nv<3>(qkv, scores, B, N, C, H, eps, st);
-    default: return launch_score_nv<4>(qkv, scores, B, N, C, H, eps, st);
+    case 1: return launch_score_nv<ATTN_D, 1>(qkv, scores, B, N, C, H, eps, st);
+    case 2: return launch_score_nv<ATTN_D, 2>(qkv, scores, B, N, C, H, eps, st);
+    case 3: return launch_score_nv<ATTN_D, 3>(qkv, scores, B, N, C, H, eps, st);
+    default: return launch_score_nv<ATTN_D, 4>(qkv, scores, B, N, C, H, eps, st);
   }
 }
 

@@ -17,7 +17,18 @@
 //     scalar stores.
 // Accumulator layout of m64n64 (128 threads, 32 fp32 each): warp w of the
 // warpgroup holds rows 16w + g and 16w + g + 8 (g = lane / 4); element e is
-// row + 8·((e >> 1) & 1), column 8·(e >> 2) + 2·(lane % 4) + (e & 1).
+// row + 8·((e >> 1) & 1), column 8·(e >> 2) + 2·(lane % 4) + (e & 1); m64n16
+// is the same with 8 elements (columns 0-15).
+//
+// Head_dim 80 (ViT-H/14): a 64-token tile of a head's 80 columns is the
+// 64-column tile above (dims 0-63, 8 KB, 128-byte swizzle) and a 16-column
+// part (dims 64-79, 2 KB: rows of 32 bytes in the 32-byte swizzle, TMA's
+// CU_TENSOR_MAP_SWIZZLE_32B), since a 128-byte-swizzled operand is built of
+// 64-element atoms and a 160-byte row fits no swizzle span. q·kᵀ takes a
+// fifth k16 step on the 16-column parts (K-major, one descriptor of the
+// 32-byte layout), P·V an m64n16k16 product beside the m64n64k16 one (V's
+// part read MN-major). Padding the head to 128 columns would cost 1.6x the
+// bytes and products.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
@@ -32,6 +43,15 @@ namespace {
 
 constexpr int TILE = 64;                     // tokens a tile (and head_dim)
 constexpr int TILE_BYTES = TILE * TILE * 2;  // 8 KB, 1024-byte aligned in shared memory
+constexpr int XCOLS = 16;                    // head_dim 80: the columns past the 64-column tile
+constexpr int XTILE_BYTES = TILE * XCOLS * 2;  // 2 KB, 256-byte aligned in shared memory
+
+// The 16-column parts a 64-token tile has at head_dim D (64 or 80).
+template <int D>
+__host__ __device__ constexpr int xparts() {
+  static_assert(D == 64 || D == 80, "the attention kernels take head_dim 64 and 80");
+  return D == 80 ? 1 : 0;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -96,6 +116,16 @@ __device__ __forceinline__ void regs_producer() {
 __device__ __forceinline__ void regs_consumer() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 }
+// Other splits of the same block, (168 − P)·128 >= (Q − 168)·256: the
+// producer warpgroup gives back all but P, the consumers take Q.
+template <int P>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(P) : "memory");
+}
+template <int Q>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Q) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // Tile loads
@@ -105,6 +135,12 @@ __device__ __forceinline__ void regs_consumer() {
 // the 128-byte swizzle (the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes).
 __device__ __forceinline__ uint32_t sw128(int r, int ch) {
   return static_cast<uint32_t>(r * 128 + ((ch ^ (r & 7)) << 4));
+}
+
+// Byte offset of 16-byte chunk `ch` (0..1) of row `r` in a 64x16 bf16 part in
+// the 32-byte swizzle (CU_TENSOR_MAP_SWIZZLE_32B: address bit 4 ^= bit 7).
+__device__ __forceinline__ uint32_t sw32(int r, int ch) {
+  return static_cast<uint32_t>(r * 32 + ((ch ^ ((r >> 2) & 1)) << 4));
 }
 
 // TMA: box {64 columns, 64 rows, 1} of a 3-D tensor map at (c0, c1, c2),
@@ -133,10 +169,44 @@ __device__ __forceinline__ void gather_tile(uint8_t* dst, const bf16* src, const
   cp_async_commit();
 }
 
+// The same for the 16 columns [col, col + 16) into a 32-byte-swizzled part
+// (head_dim 80); committed with the tile's own group (no commit here).
+__device__ __forceinline__ void gather_xpart(uint8_t* dst, const bf16* src, const int* idx,
+                                             size_t ld, int col, int t0, int n, int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = lane + 32 * i, r = c >> 1, ch = c & 1, t = t0 + r;
+    const bool valid = t < n;
+    const bf16* g = src + (valid ? (size_t)idx[t] * ld + col + ch * 8 : 0);
+    cp_async16(dst + sw32(r, ch), g, valid);
+  }
+}
+
 // Make this thread's completed generic-proxy writes to shared memory (cp.async)
 // visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The phased form of the TPU kernels' _mha (rajni_tpu/kernels/block.py:136):
+// q·scale in fp32, rounded to bf16, before q·kᵀ. Thread tid of nthreads
+// rescales its 16-byte pieces of a Q tile (or part) of `bytes` in shared
+// memory in place (elementwise, so the swizzle does not matter) and fences
+// them for wgmma; the caller then passes a barrier of those threads before
+// any of them issues a product on the tile.
+__device__ __forceinline__ void scale_q_tile(uint8_t* tile, int bytes, float scale, int tid,
+                                             int nthreads) {
+  for (int o = tid * 16; o < bytes; o += nthreads * 16) {
+    uint4 v = *reinterpret_cast<const uint4*>(tile + o);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      h[i] = __floats2bfloat162_rn(__fmul_rn(f.x, scale), __fmul_rn(f.y, scale));
+    }
+    *reinterpret_cast<uint4*>(tile + o) = v;
+  }
+  fence_proxy_async();
 }
 
 // TMA store: the box of a 3-D tensor map at (c0, c1, c2) from shared memory
@@ -167,10 +237,12 @@ __device__ __forceinline__ void bulk_wait_all() {
 // Host: a tensor map over [batch][rows][inner] (row-major) of bf16 (or of
 // `type`: UINT8 for int8, FLOAT32), box 128 bytes x box_rows x 1 (64 bf16,
 // 128 int8 or 32 fp32 columns; box_rows <= 256), 128-byte swizzle, zero
-// fill past every edge.
+// fill past every edge; with box_bytes 32, a box 32 bytes wide (16 bf16
+// columns) in the 32-byte swizzle (head_dim 80's 16-column parts).
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, int rows,
                                  int batch, int box_rows = TILE,
-                                 CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+                                 CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                 int box_bytes = 128) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -194,11 +266,13 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, 
                                                                      : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)inner * esize, (cuuint64_t)rows * inner * esize};
-  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows, 1},
+  const cuuint32_t box[3] = {(cuuint32_t)(box_bytes / esize), (cuuint32_t)box_rows, 1},
                    estr[3] = {1, 1, 1};
   const CUresult r = encode(map, type, 3, const_cast<void*>(base),
                             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            box_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                            : CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -242,6 +316,14 @@ __device__ __forceinline__ uint64_t desc_k(const void* tile) { return desc_sw128
 // the MN stride is unused and set like the 1024-byte K-group stride); k-step
 // kk of 16 rows: + 128·kk.
 __device__ __forceinline__ uint64_t desc_mn(const void* tile) { return desc_sw128(tile, 64, 64); }
+// A 64x16 part in the 32-byte swizzle (layout type 3), 8-row groups 256 bytes
+// apart. K-major: a row is one k16 step (q·kᵀ's fifth at head_dim 80).
+// MN-major: the 16 columns are one swizzle span (the MN stride unused);
+// k-step kk of 16 rows: + 32·kk.
+__device__ __forceinline__ uint64_t desc_x(const void* part) {
+  const uint64_t a = smem_u32(part);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (16ull << 32) | (3ull << 62);
+}
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
@@ -273,9 +355,10 @@ __device__ __forceinline__ void wg_wait_pending(int n) {
 // ptxas serializes them), and after the wait, so that nothing reads an
 // accumulator early or reuses an A fragment's register while the product may
 // still read it.
-__device__ __forceinline__ void keep(float (&d)[32]) {
+template <int NE>
+__device__ __forceinline__ void keep(float (&d)[NE]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < NE; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 // A fragments are only read by the product: pinned by a use, not a
 // redefinition (which ptxas would count as a write inside the wgmma stage).
@@ -330,6 +413,19 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d0)[32], float (&d1)[32], 
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// D += A·B with N = 16 (head_dim 80's last 16 columns of P·V), A bf16
+// fragments in registers, B from shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs_t_n16(float (&d)[8], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 #undef RJ_ACC32
 #undef RJ_D32
 
@@ -349,6 +445,16 @@ __device__ __forceinline__ void mma_abt2(float (&d0)[32], float (&d1)[32], const
   for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128(d0, d1, da + 2 * kk, db + 2 * kk, kk);
 }
 
+// d += the fifth k16 step of a·bᵀ at head_dim 80 (dims 64-79), a and b the
+// 16-column parts (b two adjacent parts for d0 | d1) (not committed).
+__device__ __forceinline__ void mma_abt_x(float (&d)[32], const void* ax, const void* bx) {
+  wgmma_ss(d, desc_x(ax), desc_x(bx), 1);
+}
+__device__ __forceinline__ void mma_abt2_x(float (&d0)[32], float (&d1)[32], const void* ax,
+                                           const void* bx) {
+  wgmma_ss_n128(d0, d1, desc_x(ax), desc_x(bx), 1);
+}
+
 // d += p·z over the 64 tokens of tile z [token][dim]; p the bf16 A fragments
 // of a 64x64 accumulator (to_frag) (not committed).
 __device__ __forceinline__ void mma_pz(float (&d)[32], const uint32_t (&p)[16], const void* z) {
@@ -356,6 +462,13 @@ __device__ __forceinline__ void mma_pz(float (&d)[32], const uint32_t (&p)[16], 
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
     wgmma_rs_t(d, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3], dz + 128 * kk);
+}
+// The same over a 16-column part zx (head_dim 80's dims 64-79).
+__device__ __forceinline__ void mma_pz_x(float (&d)[8], const uint32_t (&p)[16], const void* zx) {
+  const uint64_t dz = desc_x(zx);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_t_n16(d, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3], dz + 32 * kk);
 }
 
 // A fragments of the k16 steps of a 64x64 fp32 accumulator, rounded to bf16:
@@ -437,12 +550,12 @@ __device__ __forceinline__ void online_row(float& c, float& l, const float (&s)[
     if (acc_row8(e) == half) l += exp_row(s[e], sl2, c);
 }
 
-// A warpgroup's 64x64 fp32 accumulator stored to rows r0 / r0 + 8 (null: skip)
-// of a [token][dim] output, 64 columns from `a` / `b`.
-template <typename OutT>
-__device__ __forceinline__ void store_acc(OutT* a, OutT* b, const float (&d)[32], int t4) {
+// A warpgroup's 64x64 (NE = 32) or 64x16 (NE = 8) fp32 accumulator stored to
+// rows r0 / r0 + 8 (null: skip) of a [token][dim] output, from `a` / `b`.
+template <typename OutT, int NE>
+__device__ __forceinline__ void store_acc(OutT* a, OutT* b, const float (&d)[NE], int t4) {
 #pragma unroll
-  for (int e = 0; e < 32; e += 2) {
+  for (int e = 0; e < NE; e += 2) {
     OutT* p = acc_row8(e) ? b : a;
     if (p != nullptr) store_pair(p + acc_col(e, t4), d[e], d[e + 1]);
   }

@@ -3,8 +3,9 @@
 Port of ``rajni_tpu/kernels/attention.py:fused_sdpa``. On a CUDA tensor the
 wrapper launches the hand-written Hopper kernel (``csrc/sdpa.cu``: wgmma,
 TMA or cp.async tiles on mbarriers, one pass with the softmax row in
-registers up to 640 tokens, two passes past that); on a CPU tensor it runs
-:func:`fused_sdpa_plain`, the same function in plain PyTorch.
+registers up to 640 tokens, two passes past that; at head_dim 80, ViT-H/14's,
+one pass up to 384 tokens); on a CPU tensor it runs :func:`fused_sdpa_plain`,
+the same function in plain PyTorch.
 
 Numeric contract (the "per-head" form of the TPU kernel, ``attention.py:
 53-67``): ``logits = (q·kᵀ) * scale`` in fp32 from the unscaled operands,
@@ -22,18 +23,30 @@ and ``SHORT_KERNEL.launches`` read those counts.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 
-HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
+HEAD_DIM = 64  # csrc/common.cuh: ATTN_D, the int8 and training kernels' head_dim
+# csrc/common.cuh: ATTN_D and ATTN_D80, the head_dims the bf16 attention
+# kernels (the short-row kernel and B6's body) take
+HEAD_DIMS = (64, 80)
 # csrc/common.cuh: SDPA_MAX_N, the longest sequence a path sends to the
-# kernels (the config demotes past it, models/vit.py:cuda_kernels_take).
+# kernels (the config demotes past it, models/vit.py:cuda_kernels_take);
+# SDPA_MAX_N_D80 at head_dim 80, where B6's body runs one pass only
 SDPA_MAX_N = 848
+SDPA_MAX_N_D80 = 384
+
+
+def sdpa_max_n(head_dim: int) -> int:
+    """The longest sequence B6's body takes at ``head_dim`` (0: none)."""
+    return {64: SDPA_MAX_N, 80: SDPA_MAX_N_D80}.get(head_dim, 0)
 
 # its launches are the body's, counted in csrc/sdpa.cu wherever an entry
 # point launches it (K2, B5, K1/B20 and the int8 tails run it inside theirs)
-SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, P, I, I, I, I, I, F, P],
+SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, P, I, I, I, I, I, F, I, P],
                          counter="rajni_sdpa_launches")
 ATTN_MAX_N = 256  # csrc/common.cuh: the short-row kernel's longest row (4 key tiles)
 
@@ -62,6 +75,35 @@ def _sdpa_perhead(qkv: torch.Tensor, num_heads: int, scale: float, out_dtype) ->
     return out.permute(0, 2, 1, 3).reshape(B, N, C).to(out_dtype)
 
 
+_PHASED_MAX_BYTES = 4 * 1024 * 1024  # rajni_tpu/kernels/block.py:136
+
+
+def mha_phased(num_heads: int, n: int, scale: float) -> bool:
+    """Whether the kernels take the TPU kernels' phased form on ``n`` tokens
+    (``csrc/common.cuh:mha_phased``): ``H·n²·6 <= 4 MiB``, as JAX's ``_mha``,
+    and a scale that is not a power of two (at a power of two both forms
+    give the same bits, so the kernels keep the per-head one)."""
+    return num_heads * n * n * 6 <= _PHASED_MAX_BYTES and math.frexp(scale)[0] != 0.5
+
+
+def _sdpa_phased(qkv: torch.Tensor, num_heads: int, scale: float, out_dtype) -> torch.Tensor:
+    """The phased form of the TPU kernels' ``_mha`` on packed ``[B, N, 3C]``:
+    ``q * scale`` in fp32 rounded to ``qkv``'s dtype, then unscaled fp32
+    logits; the rest as :func:`_sdpa_perhead`."""
+    B, N, three_c = qkv.shape
+    C = three_c // 3
+    D = C // num_heads
+    q5 = qkv.reshape(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)  # [3,B,H,N,D]
+    q, k, v = q5[0], q5[1], q5[2]
+    qs = (q.float() * scale).to(qkv.dtype)
+    logits = qs.float() @ k.float().transpose(-1, -2)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    p = (p * (1.0 / p.sum(dim=-1, keepdim=True))).to(qkv.dtype)
+    out = p.float() @ v.float()  # [B, H, N, D]
+    return out.permute(0, 2, 1, 3).reshape(B, N, C).to(out_dtype)
+
+
 def fused_sdpa_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """Plain PyTorch version of B6: ``[B, N, 3C]`` or ``[B, N, 3, C]`` →
     ``[B, N, C]``."""
@@ -80,49 +122,57 @@ def fused_sdpa(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     check_cuda(torch.bfloat16, qkv=qkv)
     B, N, three_c = qkv.shape
     C = three_c // 3
-    if three_c % 3 or C != num_heads * HEAD_DIM:
+    D = C // num_heads
+    if three_c % 3 or C % num_heads or D not in HEAD_DIMS:
         raise ValueError(
-            f"fused_sdpa needs head_dim {HEAD_DIM}; got C={C}, heads={num_heads}"
+            f"fused_sdpa needs head_dim 64 or 80; got C={C}, heads={num_heads}"
         )
-    if not 1 <= N <= SDPA_MAX_N:
-        raise ValueError(f"fused_sdpa supports 1 <= N <= {SDPA_MAX_N}, got N={N}")
+    if not 1 <= N <= sdpa_max_n(D):
+        raise ValueError(f"fused_sdpa supports 1 <= N <= {sdpa_max_n(D)} at head_dim {D}, "
+                         f"got N={N}")
     out = torch.empty(B, N, C, dtype=qkv.dtype, device=qkv.device)
-    SDPA_KERNEL(ptr(qkv), None, ptr(out), B, N, N, C, num_heads, float(scale), stream())
+    SDPA_KERNEL(ptr(qkv), None, ptr(out), B, N, N, C, num_heads, float(scale), 0, stream())
     return out
 
 
 def attention_route_plain(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
                           scale: float, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`attention_route` and
-    :func:`short_attention`: B6's function on the tokens ``idx [B, n]`` of
-    ``qkv [B, n_src, 3C]`` (all of them when None), its output in
-    ``out_dtype`` (``qkv``'s by default)."""
+    :func:`short_attention`: the blocks' attention on the tokens ``idx [B,
+    n]`` of ``qkv [B, n_src, 3C]`` (all of them when None), its output in
+    ``out_dtype`` (``qkv``'s by default): ``_mha``'s phased form
+    (:func:`_sdpa_phased`) where :func:`mha_phased` says the kernels take it,
+    else B6's per-head form."""
     qkv = _packed(qkv)
     if idx is not None:
         qkv = torch.take_along_dim(qkv, idx.long()[..., None], dim=1)
     if qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % num_heads:
         raise ValueError(f"C={qkv.shape[-1] // 3} not divisible by num_heads={num_heads}")
-    return _sdpa_perhead(qkv, num_heads, scale, out_dtype or qkv.dtype)
+    form = _sdpa_phased if mha_phased(num_heads, qkv.shape[1], scale) else _sdpa_perhead
+    return form(qkv, num_heads, scale, out_dtype or qkv.dtype)
 
 
-# the longest sequence each of attention_route's kernels takes
+# the longest sequence each of attention_route's kernels takes (head_dim 64)
 ROUTES = {"body": SDPA_MAX_N, "short": ATTN_MAX_N}
 
 
 def _check_route_shapes(name: str, qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
                         max_n: int) -> tuple[int, int, int, int]:
     """``(B, n_src, n, C)`` of a packed qkv and its kept indices; raises on what
-    the kernels do not take (head_dim 64, 1 <= n <= max_n, n_src <= SDPA_MAX_N,
-    idx int32 ``[B, n]``)."""
+    the kernels do not take (head_dim 64 or 80, 1 <= n <= max_n, n_src <=
+    SDPA_MAX_N, at head_dim 80 n and n_src <= SDPA_MAX_N_D80 too, idx int32
+    ``[B, n]``)."""
     B, n_src, three_c = qkv.shape
     C = three_c // 3
-    if three_c % 3 or C != num_heads * HEAD_DIM:
-        raise ValueError(f"{name} needs head_dim {HEAD_DIM}; got C={C}, heads={num_heads}")
+    D = C // num_heads
+    if three_c % 3 or C % num_heads or D not in HEAD_DIMS:
+        raise ValueError(f"{name} needs head_dim 64 or 80; got C={C}, heads={num_heads}")
+    max_n = min(max_n, sdpa_max_n(D))
     if idx is not None and (idx.ndim != 2 or idx.shape[0] != B or idx.dtype != torch.int32):
         raise ValueError(f"{name}: idx must be int32 [{B}, n], got {idx.dtype} "
                          f"{tuple(idx.shape)}")
     n = n_src if idx is None else idx.shape[1]
-    if not 1 <= n <= max_n or n_src > SDPA_MAX_N:
+    if not 1 <= n <= max_n or n_src > sdpa_max_n(D):
         raise ValueError(f"{name}: n={n} of n_src={n_src} out of range (n <= {max_n})")
     return B, n_src, n, C
 
@@ -132,7 +182,8 @@ def attention_route(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
     """The attention by the kernel named: ``"body"``, B6's wgmma body (its
     entry point ``csrc/sdpa.cu:rajni_sdpa``); ``"short"``, the short-row
     kernel (:func:`short_attention`, n <= 256); on contiguous tokens or
-    through ``idx`` (int32 ``[B, n]``), into bf16. No path calls it;
+    through ``idx`` (int32 ``[B, n]``), into bf16, in the form the blocks
+    take (:func:`mha_phased`). No path calls it;
     ``chip_smoke.py`` times the routes with it for the routing of
     ``csrc/common.cuh:launch_attention_any``. Raises on an unknown route and
     on shapes the kernel does not take before it dispatches."""
@@ -147,13 +198,14 @@ def attention_route(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
     check_cuda(torch.bfloat16, qkv=qkv)
     check_cuda(torch.int32, idx=idx)
     out = torch.empty(B, n, C, dtype=qkv.dtype, device=qkv.device)
-    SDPA_KERNEL(ptr(qkv), ptr(idx), ptr(out), B, n_src, n, C, num_heads, float(scale), stream())
+    SDPA_KERNEL(ptr(qkv), ptr(idx), ptr(out), B, n_src, n, C, num_heads, float(scale),
+                int(mha_phased(num_heads, n, scale)), stream())
     return out
 
 
 # its launches are counted in csrc/short_attn.cu wherever an entry point
 # launches it (K1, K2, B5, B7, B8, B10, B11, B13-B16 run it inside theirs)
-SHORT_KERNEL = CudaKernel("rajni_short_attn", [P, P, P, P, I, I, I, I, I, I, F, P],
+SHORT_KERNEL = CudaKernel("rajni_short_attn", [P, P, P, P, I, I, I, I, I, I, F, I, P],
                           counter="rajni_short_attn_launches")
 
 
@@ -169,15 +221,19 @@ def short_attention_plain(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads
 def short_attention(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int, scale: float,
                     out_dtype: torch.dtype = torch.bfloat16,
                     amax: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The short-row attention (``csrc/short_attn.cu``) on its own: B6's
-    function on ``n <= 256`` tokens of ``qkv [B, n_src, 3C]`` (through ``idx``
+    """The short-row attention (``csrc/short_attn.cu``) on its own: the
+    blocks' attention (in the form :func:`mha_phased` picks, as they launch
+    it) on ``n <= 256`` tokens of ``qkv [B, n_src, 3C]`` (through ``idx``
     int32 ``[B, n]``, or all ``n_src``), into ``out_dtype`` (bf16 or fp32);
-    with ``amax``, each output row's absmax too, as the int8 tails take it.
-    Raises on shapes the kernel does not take before it dispatches."""
+    with ``amax``, each output row's absmax too, as the int8 tails take it
+    (head_dim 64 only: no int8 tail takes 80). Raises on shapes the kernel
+    does not take before it dispatches."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"short_attention: out_dtype must be bf16 or fp32, got {out_dtype}")
     qkv = _packed(qkv)
     B, n_src, n, C = _check_route_shapes("short_attention", qkv, idx, num_heads, ATTN_MAX_N)
+    if amax and C != num_heads * HEAD_DIM:
+        raise ValueError(f"short_attention: the row absmax is taken at head_dim {HEAD_DIM} only")
     if qkv.device.type == "cpu":
         return short_attention_plain(qkv, idx, num_heads, scale, out_dtype, amax)
     check_cuda(torch.bfloat16, qkv=qkv)
@@ -185,5 +241,6 @@ def short_attention(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
     out = torch.empty(B, n, C, dtype=out_dtype, device=qkv.device)
     am = torch.zeros(B * n, dtype=torch.float32, device=qkv.device) if amax else None
     SHORT_KERNEL(ptr(qkv), ptr(idx), ptr(out), ptr(am), int(out_dtype == torch.float32), B,
-                 n_src, n, C, num_heads, float(scale), stream())
+                 n_src, n, C, num_heads, float(scale), int(mha_phased(num_heads, n, scale)),
+                 stream())
     return out, am

@@ -29,12 +29,14 @@ Numeric contract (shared with the TPU kernels, ``block.py:30-31``):
 
 The SDPA has two forms, switched as the TPU kernels switch them
 (``block.py:136``): the "phased" form (``q * scale`` in fp32, rounded, then
-the logits) while ``H·N²·6 <= 4 MiB``, else the per-head form (scale on the
-fp32 logits, :func:`..attention.fused_sdpa_plain`). On the card the
-short-row kernel (``N <= ATTN_MAX_N``, ``csrc/short_attn.cu``) and B6's
-kernel (``N > ATTN_MAX_N``) scale the fp32 logits. At head_dim 64 the scale
-is 1/8, so both forms give the same bits and the switch points need not
-agree.
+the logits, :func:`..attention._sdpa_phased`) while ``H·N²·6 <= 4 MiB``, else
+the per-head form (scale on the fp32 logits,
+:func:`..attention.fused_sdpa_plain`). On the card the short-row kernel
+(``N <= ATTN_MAX_N``, ``csrc/short_attn.cu``) and B6's body (``N >
+ATTN_MAX_N``) take the same switch (``csrc/common.cuh:mha_phased``): in the
+phased form they round ``q * scale`` in the Q tile. At head_dim 64 the scale
+is 1/8, a power of two, so both forms give the same bits and the kernels
+keep the per-head one there; at head_dim 80 (ViT-H/14) they do not.
 
 The int8 kernels (``block.py:1098-1440``) quantize the LN output straight
 from fp32 (its statistics summed in the kernel's order,
@@ -85,13 +87,15 @@ import math
 import torch
 
 from ..ops.pruning import select_tokens_dense
-from .attention import ATTN_MAX_N, SDPA_MAX_N, _sdpa_perhead
+from .attention import (
+    _PHASED_MAX_BYTES, ATTN_MAX_N, HEAD_DIMS, SDPA_MAX_N, _sdpa_perhead, _sdpa_phased, sdpa_max_n,
+)
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 from .math import fold_static_attn
 from .mlp import _int8_matmul, _layer_norm_f32, _layer_norm_int8, _mm
 
-HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
-_PHASED_MAX_BYTES = 4 * 1024 * 1024  # rajni_tpu/kernels/block.py:136
+HEAD_DIM = 64  # csrc/common.cuh: ATTN_D, the int8 kernels' head_dim
+C_MAX, C_MAX_BF16 = 1024, 1280  # the widest C of the int8 kernels and of the bf16 ones
 
 PRUNED_KERNEL = CudaKernel(
     "rajni_pruned_attn_block",
@@ -131,17 +135,7 @@ def _mha(qkv: torch.Tensor, num_heads: int, scale: float, out_dtype) -> torch.Te
     B, N, three_c = qkv.shape
     if num_heads * N * N * 6 > _PHASED_MAX_BYTES:
         return _sdpa_perhead(qkv, num_heads, scale, out_dtype)
-    C = three_c // 3
-    D = C // num_heads
-    q5 = qkv.reshape(B, N, 3, num_heads, D).permute(2, 0, 3, 1, 4)  # [3,B,H,N,D]
-    q, k, v = q5[0], q5[1], q5[2]
-    qs = (q.float() * scale).to(qkv.dtype)
-    logits = qs.float() @ k.float().transpose(-1, -2)
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - m)
-    p = (p * (1.0 / p.sum(dim=-1, keepdim=True))).to(qkv.dtype)
-    out = p.float() @ v.float()  # [B, H, N, D]
-    return out.permute(0, 2, 1, 3).reshape(B, N, C).to(out_dtype)
+    return _sdpa_phased(qkv, num_heads, scale, out_dtype)
 
 
 def _importance_f32(qkv32: torch.Tensor, num_heads: int, eps: float = 1e-6):
@@ -242,12 +236,20 @@ def pruned_attn_block_plain(
     return out, next_scores, keep_idx
 
 
-def _check_attn_shapes(name: str, N: int, C: int, num_heads: int, max_n: int) -> None:
-    if C % 128 or C > 1024 or C // num_heads != HEAD_DIM or C % num_heads:
+def _check_attn_shapes(name: str, N: int, C: int, num_heads: int, max_n: int,
+                       bf16: bool = False) -> None:
+    """Raise unless the kernel takes these shapes: C % 128 == 0 and head_dim
+    64 with C <= 1024 (the int8 kernels), or with ``bf16`` (K1, K2, B5)
+    head_dim 64 or 80 with C <= 1280, at most ``SDPA_MAX_N_D80`` tokens at
+    80; and 2 <= N <= max_n."""
+    dims, c_max = (HEAD_DIMS, C_MAX_BF16) if bf16 else ((HEAD_DIM,), C_MAX)
+    D = C // num_heads
+    if C % 128 or C > c_max or C % num_heads or D not in dims:
         raise ValueError(
-            f"{name} needs C % 128 == 0, C <= 1024 and head_dim {HEAD_DIM}; "
-            f"got C={C}, heads={num_heads}"
+            f"{name} needs C % 128 == 0, C <= {c_max} and head_dim "
+            f"{' or '.join(map(str, dims))}; got C={C}, heads={num_heads}"
         )
+    max_n = min(max_n, sdpa_max_n(D))
     if not 2 <= N <= max_n:
         raise ValueError(f"{name} supports 2 <= N <= {max_n}, got N={N}")
 
@@ -274,10 +276,13 @@ def _check_prev_scores(prev_scores, with_scores: bool, B: int, N: int):
 
 def _score_fits(N: int, C: int, H: int) -> bool:
     """Whether ``csrc/common.cuh:score_kernel`` takes these shapes: head_dim
-    64, ``C % 64 == 0``, ``C <= 1024`` and ``2 <= N <= 1024`` (a cluster of 2
-    blocks an image up to 512 tokens, else 4, a block's share of the tokens
-    at most its 256 threads; its shared memory, 87 KB at most, always fits)."""
-    return C % 64 == 0 and C <= 1024 and C == HEAD_DIM * H and 2 <= N <= 1024
+    64 with ``C % 64 == 0`` and ``C <= 1024``, or head_dim 80 with at most 16
+    heads (``C <= 1280``, two lanes a head), and ``2 <= N <= 1024`` (a
+    cluster of 2 blocks an image up to 512 tokens, else 4, a block's share
+    of the tokens at most its 256 threads; its shared memory, 99 KB at most,
+    always fits)."""
+    fits = (C % 64 == 0 and C <= 1024 and C == HEAD_DIM * H) or (C == 80 * H and H <= 16)
+    return fits and 2 <= N <= 1024
 
 
 def select_kept_plain(scores: torch.Tensor, keep: int):
@@ -324,10 +329,12 @@ def fused_attn_block(
 
 
 def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params, attn_params,
-                      ls, num_heads: int, scale: float, eps: float):
+                      ls, num_heads: int, scale: float, eps: float, bf16: bool = True):
     """K2's entry point (``csrc/attn_block.cu``) through ``kernel``'s
     counter: ``(out [B, N, C], qkv [B, N, 3C])``, the qkv being the
-    post-bias, rounded buffer the launches leave in device memory."""
+    post-bias, rounded buffer the launches leave in device memory. ``bf16``:
+    the shapes of the bf16 kernels (:func:`_check_attn_shapes`); B16 passes
+    False, since its backward, B18, takes head_dim 64 only."""
     B, N, C = x.shape
     qkv_p, proj_p = attn_params["qkv"], attn_params["proj"]
     check_cuda(
@@ -335,7 +342,7 @@ def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params,
         wqkv=qkv_p["weight"], bqkv=qkv_p["bias"], wproj=proj_p["weight"],
         bproj=proj_p["bias"], ls=ls,
     )
-    _check_attn_shapes(name, N, C, num_heads, SDPA_MAX_N)
+    _check_attn_shapes(name, N, C, num_heads, SDPA_MAX_N, bf16)
     rows = B * N
     y = torch.empty(rows, C, dtype=x.dtype, device=x.device)
     qkv = torch.empty(B, N, 3 * C, dtype=x.dtype, device=x.device)
@@ -373,7 +380,7 @@ def fused_pruned_attn_block(
         bproj=proj_p["bias"], ls=ls,
     )
     prev = _check_prev_scores(prev_scores, with_scores, B, N)
-    _check_attn_shapes("fused_pruned_attn_block", N, C, num_heads, ATTN_MAX_N)
+    _check_attn_shapes("fused_pruned_attn_block", N, C, num_heads, ATTN_MAX_N, bf16=True)
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
     dev = x.device
@@ -417,9 +424,9 @@ def fused_ln_qkv(
         wqkv=w, bqkv=b,
     )
     _check_ln_qkv(x, qkv_params, with_scores)
-    if C % 64 or C > 1024 or out_w % 8 or w.shape[1] != C or N < 2:
+    if C % 64 or C > C_MAX_BF16 or out_w % 8 or w.shape[1] != C or N < 2:
         raise ValueError(
-            f"fused_ln_qkv needs C % 64 == 0, C <= 1024, out_w % 8 == 0 and N >= 2; "
+            f"fused_ln_qkv needs C % 64 == 0, C <= {C_MAX_BF16}, out_w % 8 == 0 and N >= 2; "
             f"got C={C}, wqkv {tuple(w.shape)}, N={N}"
         )
     if with_scores and not _score_fits(N, C, num_heads):
@@ -469,7 +476,8 @@ def fused_gather_sdpa_proj_residual(
             "fused_gather_sdpa_proj_residual on the card takes the full width "
             f"only: qkv {tuple(qkv.shape)}, proj {tuple(w.shape)}, x {tuple(x.shape)}"
         )
-    _check_attn_shapes("fused_gather_sdpa_proj_residual", K, C, num_heads, SDPA_MAX_N)
+    _check_attn_shapes("fused_gather_sdpa_proj_residual", K, C, num_heads, SDPA_MAX_N,
+                       bf16=True)
     if keep_idx.shape != (B, K) or K > N:
         raise ValueError(f"keep_idx must be [{B}, K <= {N}], got {tuple(keep_idx.shape)}")
     idx = keep_idx.to(torch.int32).contiguous()

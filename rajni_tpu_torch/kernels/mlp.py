@@ -145,10 +145,10 @@ def fused_ln_mlp_residual(
         torch.bfloat16, x=x, ln_scale=ln_params["scale"], ln_bias=ln_params["bias"],
         w1=w1, b1=b1, w2=w2, b2=b2, ls=ls,
     )
-    if C % 128 or hidden % 128 or C > 1024:
+    if C % 128 or hidden % 128 or C > 1280:
         raise ValueError(
             f"fused_ln_mlp_residual needs C and hidden multiples of 128 and "
-            f"C <= 1024, got C={C}, hidden={hidden}"
+            f"C <= 1280, got C={C}, hidden={hidden}"
         )
     if w1.shape != (hidden, C) or w2.shape != (C, hidden):
         raise ValueError(f"bad MLP weight shapes {w1.shape}, {w2.shape}")

@@ -268,7 +268,8 @@ def vit_forward_train(
         raise NotImplementedError("drop_path and remat on the kernel training path are not "
                                   "ported yet (ROADMAP A3)")
     _require_classic(config)
-    if resolve_route("cuda", config, params["cls_token"].dtype, images.device)[0] == "torch":
+    if resolve_route("cuda", config, params["cls_token"].dtype, images.device,
+                     training=True)[0] == "torch":
         return vit_forward(params, images, config, schedule, "torch", _sel_tap=_sel_tap)
     schedule = normalize_schedule(schedule, config.depth)
     H, scale, eps = config.num_heads, config.attn_scale, config.layer_norm_eps

@@ -42,6 +42,8 @@ import torch.nn.functional as F
 
 from ..kernels.block import (
     ATTN_MAX_N,
+    C_MAX,
+    C_MAX_BF16,
     fused_attn_block,
     fused_attn_block_int8,
     fused_gather_sdpa_proj_residual,
@@ -52,7 +54,7 @@ from ..kernels.block import (
     fused_pruned_attn_block_int8,
     select_kept,
 )
-from ..kernels.attention import HEAD_DIM, SDPA_MAX_N
+from ..kernels.attention import HEAD_DIM, HEAD_DIMS, sdpa_max_n
 from ..kernels.math import quantize_rows, quantize_static
 from ..kernels.mlp import (
     _int8_mm,
@@ -377,49 +379,68 @@ def _dequantized(block: Params, dtype) -> Params:
             "mlp": {k: lin(v) for k, v in block["mlp"].items()}}
 
 
-def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype) -> tuple[bool, str]:
-    """Whether the CUDA kernels take this (config, activation dtype):
-    ``(ok, reason)``, the reason naming the first constraint that fails.
+def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = False,
+                      training: bool = False) -> tuple[bool, str]:
+    """Whether the CUDA kernels take this (config, activation dtype), for
+    int8 params (``quantized``) or the training path (``training``): ``(ok,
+    reason)``, the reason naming the first constraint that fails.
 
     The port's counterpart of ``rajni_tpu/models/vit.py:pallas_compilable``
     (with ``kernel_path_supported``): the kernels are written for bf16
-    activations, head_dim 64, C a multiple of 128 up to 1024 (hidden a
-    multiple of 128) and at most ``SDPA_MAX_N`` tokens, and for the classic
-    configurations. As JAX's rule holds only on the TPU, this one holds only
-    on the card: the plain versions that the wrappers run on CPU tensors take
-    any shape and dtype.
+    activations, C a multiple of 128 (hidden a multiple of 128), and for the
+    classic configurations. The bf16 inference kernels take head_dim 64 up to
+    C = 1024 and ``SDPA_MAX_N`` tokens, and head_dim 80 up to C = 1280
+    (ViT-H/14) and ``SDPA_MAX_N_D80`` tokens; the int8 kernels and the
+    training kernels head_dim 64 and C <= 1024 only. As JAX's rule holds only
+    on the TPU, this one holds only on the card: the plain versions that the
+    wrappers run on CPU tensors take any shape and dtype.
     """
     C, H = config.embed_dim, config.num_heads
+    D = C / H
     if not config.is_classic:
         return False, "an extended timm variant"
     if dtype != torch.bfloat16:
         return False, f"{str(dtype).removeprefix('torch.')} activations (the kernels take bfloat16)"
     if C % 128:
         return False, f"C={C} is not a multiple of 128"
-    if C > 1024:
-        return False, f"C={C} > 1024"
-    if C % H or C // H != HEAD_DIM:
-        return False, f"head_dim {C / H:g} is not {HEAD_DIM}"
+    if C > C_MAX_BF16:
+        return False, f"C={C} > {C_MAX_BF16}"
+    if D not in HEAD_DIMS:
+        return False, f"head_dim {D:g} is not 64 or 80"
     if config.mlp_hidden % 128:
         return False, f"MLP hidden {config.mlp_hidden} is not a multiple of 128"
-    if config.num_tokens > SDPA_MAX_N:
-        return False, f"{config.num_tokens} tokens > {SDPA_MAX_N}"
+    if config.num_tokens > sdpa_max_n(int(D)):
+        return False, f"{config.num_tokens} tokens > {sdpa_max_n(int(D))} at head_dim {D:g}"
+    for asked, what in ((quantized, "int8 weights"), (training, "training")):
+        if asked and (C > C_MAX or D != HEAD_DIM):
+            return False, (f"{what} at C={C}, head_dim {D:g}: its kernels take C <= {C_MAX} and "
+                           f"head_dim {HEAD_DIM}")
     return True, ""
 
 
-def resolve_route(impl: str, config: ViTConfig, dtype: torch.dtype, device) -> tuple[str, str]:
+def params_quantized(params: Params) -> bool:
+    """Whether any block of ``params`` carries int8 weights
+    (:func:`..quant.quantize_params`)."""
+    return any(is_quantized(b[group][layer]["weight"]) for b in params["blocks"]
+               for group, layer in (("attn", "qkv"), ("mlp", "fc1")))
+
+
+def resolve_route(impl: str, config: ViTConfig, dtype: torch.dtype, device,
+                  quantized: bool = False, training: bool = False) -> tuple[str, str]:
     """``(impl, reason)``: ``"auto"`` → ``"cuda"`` on a CUDA device,
     ``"torch"`` otherwise; then ``"cuda"`` on a CUDA device demotes to
-    ``"torch"`` where :func:`cuda_kernels_take` fails, before any launch (the
-    run stays on the same device, as JAX demotes to XLA, ``vit.py:684-692``).
-    ``reason`` says why a demoted route was taken ("" otherwise)."""
+    ``"torch"`` where :func:`cuda_kernels_take` fails for int8 params
+    (``quantized``) or the training path (``training``), before any launch
+    (the run stays on the same device, as JAX demotes to XLA,
+    ``vit.py:684-692``). ``reason`` says why a demoted route was taken (""
+    otherwise)."""
     if impl not in ("torch", "cuda", "auto"):
         raise ValueError(f"unknown impl {impl!r}; use 'torch', 'cuda' or 'auto'")
     on_card = torch.device(device).type == "cuda"
     if impl == "auto":
         impl = "cuda" if on_card else "torch"
     if impl == "cuda" and on_card:
-        ok, why = cuda_kernels_take(config, dtype)
+        ok, why = cuda_kernels_take(config, dtype, quantized, training)
         if not ok:
             return "torch", why
     return impl, ""
@@ -499,7 +520,8 @@ def vit_forward(
     """
     _require_classic(config)
     schedule = normalize_schedule(schedule, config.depth)
-    impl, _ = resolve_route(impl, config, params["cls_token"].dtype, images.device)
+    impl, _ = resolve_route(impl, config, params["cls_token"].dtype, images.device,
+                            params_quantized(params))
     eps = config.layer_norm_eps
     C, H, scale = config.embed_dim, config.num_heads, config.attn_scale
     x = embed_tokens(params, images, config)

@@ -24,6 +24,7 @@ from .vit import (
     get_config,
     init_params,
     model_stats,
+    params_quantized,
     resolve_route,
     route_line,
     tree_to,
@@ -73,7 +74,7 @@ class RAJNIViT:
         self._attach()
         self.impl = kernels
         self.route = route_line(*resolve_route(kernels, self.config, params["cls_token"].dtype,
-                                               self.device))
+                                               self.device, params_quantized(params)))
 
     def _attach(self) -> None:
         self._forward_params = attach_act_scales(self._params, self._act_scales)

@@ -24,6 +24,7 @@ import torch
 
 from .data.pipeline import SyntheticLoader
 from .eval import evaluate_model
+from .models.vit import params_quantized, resolve_route, route_line
 from .models.wrapper import RAJNIViT
 from .params.io import load_params
 from .quant import ActScales, calibrate_act_scales, quantize_params
@@ -100,7 +101,6 @@ def main(argv=None):
     base = RAJNIViT(args.model, None, params=params, dtype=dtype, kernels=args.kernels,
                     seed=args.seed, device=device)
     config = base.config
-    print(base.route)
     loader = SyntheticLoader(
         num_batches=args.synthetic, batch_size=args.batch_size,
         img_size=config.img_size, num_classes=config.num_classes, seed=args.seed,
@@ -120,6 +120,8 @@ def main(argv=None):
     if args.quantize:
         params = quantize_params(raw_params)
         print("Quantized qkv, proj, fc1, fc2 and head weights to int8")
+    # the route of the params evaluated (int8 ones demote where the int8 kernels do not go)
+    print(route_line(*resolve_route(args.kernels, config, dtype, device, params_quantized(params))))
     loaded = None
     if args.load_scales:
         loaded = ActScales.load(args.load_scales)

@@ -289,7 +289,7 @@ def main(argv=None) -> TrainState:
         params = load_params(args.checkpoint, dtype=dtype, device=device)
     else:
         params = init_params(gen, config, dtype, device)
-    impl, why = resolve_route(args.kernels, config, dtype, device)
+    impl, why = resolve_route(args.kernels, config, dtype, device, training=True)
     print(route_line(impl, why))
 
     tx = build_optimizer(args.lr, args.steps, args.weight_decay, args.lr_schedule,

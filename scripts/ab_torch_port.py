@@ -23,7 +23,9 @@ name and power limit, then one JSON line per run; a path that a checkout
 does not route yet (``NotImplementedError``) reads null. Compare two versions
 only within one call, in turns. ``--only`` keeps the paths whose name (the
 model, then `` int8 MODE`` for int8 weights) starts with one of its
-comma-separated prefixes, and leaves out T6 unless one of them is ``train``.
+comma-separated prefixes (or, for a prefix ending in ``$``, is that name:
+``vit_base_patch16_224$`` is the bf16 path alone), and leaves out T6 unless
+one of them is ``train``.
 Needs a CUDA card.
 """
 
@@ -61,6 +63,11 @@ def path_name(model: str, int8: str | None) -> str:
     return f"{model}{f' int8 {int8}' if int8 else ''}"
 
 
+def selected(name: str, only: list[str]) -> bool:
+    """Whether ``--only``'s entries take the path ``name``."""
+    return any(name == o[:-1] if o.endswith("$") else name.startswith(o) for o in only)
+
+
 def measure(root: str, only: list[str] | None = None) -> dict:
     """The img/s of every path (or of those ``only`` names, as the
     ``--only`` prefixes) for the checkout at ``root`` (run in a process of
@@ -79,7 +86,7 @@ def measure(root: str, only: list[str] | None = None) -> dict:
     dev = torch.device("cuda", 0)
     out = {"root": root}
     for model, side, batch, int8, schedule in PATHS:
-        if only is not None and not any(path_name(model, int8).startswith(o) for o in only):
+        if only is not None and not selected(path_name(model, int8), only):
             continue
         schedule = schedule or REFERENCE_SCHEDULE
         raw = RAJNIViT(model, schedule, kernels="cuda", seed=0, device=dev)

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_port.py [--model vit_base_patch16_224] [--batch 256] [--iters 3]
     python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128
+    python3 scripts/profile_torch_port.py --model vit_huge_patch14_224 --batch 128 --schedule h.json
     python3 scripts/profile_torch_port.py --quantize [--calibrate]
     python3 scripts/profile_torch_port.py --model vit_base_patch16_384 --batch 128 --quantize [--calibrate]
     python3 scripts/profile_torch_port.py --model vit_large_patch16_224 --schedule s.json --quantize
@@ -10,7 +11,9 @@
 
 Runs the model in bf16 through ``RAJNIViT(kernels="cuda")`` with
 ``REFERENCE_SCHEDULE`` (or the schedule JSON file ``--schedule``, in the eval
-CLI's format) and with the identity schedule, under
+CLI's format: ViT-H/14's ``VIT_H_PROBE``, ``scripts/bench_suite.py:46-49``, is
+``{"5": {"keep_ratio": 0.7}, "10": ..., "15": ..., "20": ...}``) and with the
+identity schedule, under
 ``torch.profiler``, and prints for each: the device time per forward by
 kernel name and summed by kind (:func:`kind_of`), the wall time per forward
 and the device's busy share.

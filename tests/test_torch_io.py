@@ -100,7 +100,7 @@ def test_fixture_replay_matches_the_reference():
     ("vit_tiny_patch16_224", torch.bfloat16, "route: torch (C=192 is not a multiple of 128)"),
     ("vit_base_patch16_224", torch.bfloat16, "route: cuda"),
     ("vit_base_patch16_384", torch.bfloat16, "route: cuda"),
-    ("vit_huge_patch14_224", torch.bfloat16, "route: torch (C=1280 > 1024)"),
+    ("vit_huge_patch14_224", torch.bfloat16, "route: cuda"),
     ("vit_base_patch16_224", torch.float32,
      "route: torch (float32 activations (the kernels take bfloat16))"),
 ])
