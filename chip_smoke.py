@@ -16,7 +16,8 @@ B15) or calibrated static scales (P5b), the same model in bf16 (P5c: K1-K3
 at C=1024), and DeiT-S/16 384 int8 dynamic at batch 128 (P5d: B11, B14, B15
 past 256 tokens); ViT-H/14 in bf16 at batch 128 through ``kernels="auto"``
 (``VIT_H_PROBE``: K2, K3, B4 + selection + B5 and K1 at C = 1280 and head_dim
-80); and training: ViT-B/16 224 at batch 128 in bf16 through B16, B4, B5,
+80), and with int8 weights, dynamic (P14i) and static (B10, B9, B12 +
+selection + B13 at C = 1280, head_dim 80); and training: ViT-B/16 224 at batch 128 in bf16 through B16, B4, B5,
 B17 and B18 (T6). Steps, each of which fails the run (non-zero exit) when it
 goes wrong:
 
@@ -27,7 +28,8 @@ goes wrong:
    sources of K1-K3, B4 and B5, and the seven int8 sources) that ptxas
    reports no spill and no serialized wgmma, and of every head_dim-80
    instantiation (the short-row kernel, B6's body, the score kernel) and
-   the C = 1280 LayerNorm that it was compiled with 0 spill bytes;
+   the C = 1280 LayerNorms (bf16, and to int8) that it was compiled with 0
+   spill bytes;
 3. hold each kernel against its plain PyTorch version on the card at each
    path's shapes: K1 ``fused_pruned_attn_block``, K2 ``fused_attn_block`` and
    K3 ``fused_ln_mlp_residual`` at B=256 and the 224 path's token counts; B4
@@ -47,7 +49,12 @@ goes wrong:
    (B4 through an identity projection), K3 at 257 rows, K2 at 257 and 180
    tokens, B4 at 257, the score kernel at 257, 180, 126 and 88, B6's body
    at 257 beside the library's SDPA, the selection and B5 at 257→180 and K1
-   at 180→126; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
+   at 180→126; at ViT-H/14's int8 shapes (B=128, dynamic and static) the
+   int8 tails' attention with its row absmax at head_dim 80 (61 and 180
+   tokens phased, 257 per-head), LN1 → int8 at C=1280 (0 int8 elements
+   apart), B12 at 257 and 180, B13 at 257→180, 88→61 and 257→257, B10 at
+   257, 180 and 61, B9 at 257 and 61 rows, B11 at 30→21, and B10's proj on
+   the row-band GEMM beside ``gemm_s8q`` at its five shapes; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
    ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens); B6 and B18
    at ragged lengths (batch 16); the GEMM of K1, K2, K3, B4 and B5 on its
    own (``kernels/gemm.py``) at each bf16 path's QKV, proj, fc1 and fc2 (C =
@@ -121,14 +128,14 @@ goes wrong:
    count set to 0 first), a falling loss over 20 steps on one batch, and
    train img/s with ``train_mfu`` on both routes, pruned and identity;
 6. run the eval CLI in a subprocess: at 224 and at 384, and at 224 and 384
-   with ``--quantize --calibrate 1``; then the training CLI (ViT-B/16 bf16
+   with ``--quantize --calibrate 1``, and ViT-H/14 with ``--quantize`` and
+   ``--quantize --calibrate 1``, each on the kernels; then the training CLI (ViT-B/16 bf16
    on the kernels, 4 steps) and the eval CLI on its checkpoint, the
    training CLI on ``vit_tiny_patch16_224`` in fp32, and ``RAJNIViT`` on
    ``vit_tiny_patch16_224`` in fp32 and bf16: the last three demoted to the
    plain route before any launch, each printing its ``route:`` line; and
-   ViT-H/14 with int8 params through ``RAJNIViT`` and in training through
-   the training CLI, both on the torch route with the reason printed and
-   no kernel launched;
+   ViT-H/14 in training through the training CLI, on the torch route with
+   the reason printed;
 7. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
@@ -1047,13 +1054,247 @@ def vit_h_phases(device, peaks, results):
            plain_ms, bound(flops, nbytes, peaks), max(err, e2), max(rel, r2))
 
 
+# ViT-H/14 with int8 weights (scripts/bench_suite.py INT8_ROWS
+# vit_h14_probe_int8 and vit_h14_probe_int8_static: batch 128, VIT_H_PROBE),
+# dynamic (P14i) and calibrated static scales
+P14I, P14S = f"{PATH_H} int8", f"{PATH_H} int8 static"
+# the proj B10 and B11 take at C = 1280 (csrc/int8_block.cuh:TAIL_BAND_MAX_C,
+# whose comment has the measurement): "band" or "gemm_s8q"
+VIT_H_PROJ = "gemm_s8q"
+# B10's attention rows at ViT-H's token counts: the band proj and gemm_s8q
+# timed side by side at M = 128·n, N = K = 1280
+VIT_H_PROJ_N = (257, 180, 126, 88, 61)
+
+
+def vit_h_int8_phases(device, peaks, int8_peak, results):
+    """The int8 kernels at ViT-H/14's shapes (B=128, C=1280, 16 heads of 80,
+    hidden 5120, hc 1280), dynamic (P14i) and static: the int8 tails'
+    attention with the row absmax at head_dim 80 (the short-row kernel at 61
+    and 180 tokens, phased; B6's body at 257, per-head; bf16 and fp32 out,
+    contiguous and gathered) against its plain version, its absmax equal to
+    that of its own output; LN1 → int8 (ln_quant_kernel's 5 vectors a lane)
+    with 0 int8 elements and 0 row scales apart from its plain version; B12
+    at 257 and 180, B13 at 257→180, 88→61 and 257→257 (more than 256 kept:
+    B6's body with an fp32 output), B10 at 257, 180 and 61 with its proj on
+    VIT_H_PROJ, B9 at 257 and 61 rows an image, B11 at 30→21, each under the
+    split-int8 gate with its planted faults rejected, timed beside its plain
+    version and bound; and B10's proj on the band and on gemm_s8q, bit for
+    bit, both timed, at VIT_H_PROJ_N."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.kernels.math import quantize_rows, quantize_static
+    from rajni_tpu_torch.ops.pruning import select_tokens_dense
+
+    Bh, Cw, Hh, hid = B_H, C_H, HEADS_H, HIDDEN_H
+    gen = torch.Generator().manual_seed(24)
+    blk = make_block(gen, device, Cw, hid)
+    qblk = quantized_block(blk)
+    scale = (Cw // Hh) ** -0.5
+    hc = km._hidden_chunk(Cw, hid, 1)
+    check(hc == Cw, f"ViT-H int8: hc {hc}, not {Cw}")
+    a_bytes = 4 * Cw * Cw + 9 * Cw * 4  # int8 qkv + proj weights, fp32 vectors
+
+    def x_of(n):
+        return (X_STD * torch.randn(Bh, n, Cw, generator=gen)).to(device, torch.bfloat16)
+
+    def gate(tag, got, plain, x, faults):
+        err, rel = compare(tag, got, plain(), x, SPLIT_INT8_GATE)
+        reject_planted(tag, got, plain, x, faults=faults, plant=planted_int8,
+                       limit=SPLIT_INT8_GATE[2])
+        return err, rel
+
+    def timed(name, path, shape, kernel, plain, bnd, err, rel):
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        record(results, name, path, shape, ms, plain_ms, bnd, err, rel, device=device_ms(kernel))
+
+    # the int8 tails' attention with the row absmax at head_dim 80
+    qkv = torch.randn(Bh, 257, 3 * Cw, generator=gen).to(device, torch.bfloat16)
+    perm = torch.stack([torch.cat([torch.zeros(1, dtype=torch.long),
+                                   1 + torch.randperm(256, generator=gen)]) for _ in range(Bh)])
+    perm = perm.to(device, torch.int32)
+    for n, attend in ((61, ka.short_attention), (180, ka.short_attention),
+                      (257, ka.body_attention)):
+        form = "phased" if ka.mha_phased(Hh, n, scale) else "per-head"
+        for idx in (None, perm if n == 257 else kept_indices(gen, Bh, 257, n, device)):
+            src = qkv if idx is not None or n == 257 else qkv[:, :n].contiguous()
+            for out_dtype in (torch.bfloat16, torch.float32):
+                tag = (f"int8 tail attention B={Bh} C={Cw} N={n} {form} "
+                       f"{'gathered' if idx is not None else 'contiguous'} {str(out_dtype)[6:]}")
+                got, am = attend(src, idx, Hh, scale, out_dtype, True)
+                want = ka.attention_route_plain(src, idx, Hh, scale, out_dtype)
+                compare(tag, got, want, torch.zeros_like(got))
+                rel = rel_l2(got, want)
+                check(rel <= B6_REL_L2, f"{tag}: rel L2 {rel} > {B6_REL_L2}")
+                rows = got.float().abs().reshape(Bh * n, Hh, Cw // Hh)
+                diff = differ(am, rows.amax(dim=(1, 2)))
+                short = differ(am, rows[..., :64].amax(dim=(1, 2)))
+                print(f"{tag}: row absmax {diff} of {am.numel()} apart from its output's; planted "
+                      f"fault 'the 16-column parts left out' {short} apart")
+                check(diff == 0, f"{tag}: the row absmax differs from its output's ({diff})")
+                check(short > 0, f"{tag}: the gate missed 'the 16-column parts left out'")
+                if out_dtype == torch.float32:  # B13's static tail: fp32 out, no absmax
+                    got = attend(src, idx, Hh, scale, out_dtype, False)[0]
+                    check(torch.equal(got, attend(src, idx, Hh, scale, out_dtype, True)[0]),
+                          f"{tag}: the output without the absmax differs from the one with it")
+
+    for static in (False, True):
+        path, mode = (P14S, "static") if static else (P14I, "dynamic")
+
+        x = x_of(257)  # LN1 → int8 at C = 1280, B12's first launch
+        sc = block_act_scales(blk, x, Hh)[:2] if static else None
+        ab = attached(qblk, sc)
+        _, _, qs, q8 = kb.launch_ln_qkv_int8(x, ab["norm1"], ab["attn"]["qkv"], Hh, 1e-6, False,
+                                             sc, False)
+        ops = kb.int8_attn_operands(qblk["norm1"], qblk["attn"], sc)
+
+        def ln_int8(ln):
+            y = ln(x.float(), ops["ln1s"], ops["ln1b"], 1e-6).reshape(-1, Cw)
+            return (quantize_static(y), None) if static else quantize_rows(y)
+
+        q, a = ln_int8(km._layer_norm_int8)
+        dq, ds = differ(q8.view(-1, Cw), q), 0 if static else differ(qs, a.reshape(-1))
+        # a reading: how many int8 steps PyTorch's summation order flips
+        order = differ(q8.view(-1, Cw), ln_int8(km._layer_norm_f32)[0])
+        fault = differ(q8.view(-1, Cw), ln_int8(
+            lambda x32, s_, b_, eps: ln_faulty(x32, {"scale": s_, "bias": b_}, eps))[0])
+        tag = f"LN1 → int8 B={Bh} N=257 C={Cw} {mode}"
+        print(f"{tag}: {dq} int8 elements and {ds} row scales apart from the plain version; "
+              f"{order} apart from the LN summed in PyTorch's order; planted fault 'statistics "
+              f"of the first 1024 columns' {fault} apart")
+        check(dq == 0 and ds == 0, f"{tag}: the kernel differs from its plain version")
+        check(fault > 0, f"{tag}: the gate missed 'statistics of the first 1024 columns'")
+
+        for n in (257, 180):  # B12, scoring as on the path
+            x = x_of(n)
+            sc = block_act_scales(blk, x, Hh)[:2] if static else None
+            args = (x, qblk["norm1"], qblk["attn"]["qkv"], Hh, 1e-6, True, sc)
+            ab = attached(qblk, sc)
+            kargs = (x, ab["norm1"], ab["attn"]["qkv"], *args[3:])
+            tag = f"B12 N={n} C={Cw} {mode}"
+            gq, gs = kb.fused_ln_qkv_int8(*kargs)
+            col = torch.ones(3 * Cw, device=device)  # V in its own units (static: 1/a_proj)
+            if static:
+                col[2 * Cw:] = sc[1]
+            err, rel = gate(tag, gq.float() * col,
+                            lambda: kb.ln_qkv_int8_plain(*args)[0].float() * col,
+                            torch.zeros_like(gq), ("no V-fold" if static else "row scales shifted",))
+            own = kb._importance_f32(gq.float(), Hh)
+            srel = ((gs - own).abs() / own.abs()).max().item()
+            print(f"{tag}: scores rel err max {srel:.3e} against its own qkv's")
+            check(srel <= SCORE_RTOL, f"{tag}: scores rel err {srel} > {SCORE_RTOL}")
+            M = Bh * n
+            bnd = bound(0.0, M * Cw * 2 + 3 * Cw * Cw + 6 * Cw * 4 + M * 3 * Cw * 2 + M * 4, peaks,
+                        6.0 * M * Cw * Cw, int8_peak)
+            timed("fused_ln_qkv_int8", path, f"B={Bh} N={n} C={Cw} scores=True",
+                  lambda: kb.fused_ln_qkv_int8(*kargs), lambda: kb.ln_qkv_int8_plain(*args), bnd,
+                  err, rel)
+
+        for n, K in ((257, 180), (88, 61), (257, 257)):  # B13 on B12's (folded) qkv
+            x = x_of(n)
+            sc = block_act_scales(blk, x, Hh)[:2] if static else None
+            qkv = kb.ln_qkv_int8_plain(x, qblk["norm1"], qblk["attn"]["qkv"], Hh, 1e-6, False,
+                                       sc)[0]
+            keep_idx, _ = select_tokens_dense(torch.rand(Bh, n, generator=gen).to(device), K - 1,
+                                              torch.bool)
+            args = (qkv, keep_idx, x, qblk["attn"]["proj"], None, Hh, scale,
+                    None if sc is None else sc[1])
+            kargs = (*args[:3], attached(qblk, sc)["attn"]["proj"], *args[4:])
+            tag = f"B13 N={n} K={K} C={Cw} {mode}"
+            x_kept = torch.take_along_dim(x, keep_idx[..., None], dim=1)
+            got = kb.fused_gather_sdpa_proj_residual_int8(*kargs)
+            err, rel = gate(tag, got, lambda: kb.gather_sdpa_proj_residual_int8_plain(*args),
+                            x_kept, ("sproj without a_proj" if static else "row scales shifted",))
+            if K > ka.ATTN_MAX_N:  # a keep ratio near 1: held, not on the probe path
+                continue
+            bnd = bound(4.0 * Bh * K * K * Cw,
+                        Bh * K * (3 * Cw * 2 + Cw * 2 + 8 + Cw * 2) + Cw * Cw + 2 * Cw * 4, peaks,
+                        2.0 * Bh * K * Cw * Cw, int8_peak)
+            timed("fused_gather_sdpa_proj_residual_int8", path, f"B={Bh} N={n} K={K} C={Cw}",
+                  lambda: kb.fused_gather_sdpa_proj_residual_int8(*kargs),
+                  lambda: kb.gather_sdpa_proj_residual_int8_plain(*args), bnd, err, rel)
+
+        for n in (257, 180, 61):  # B10
+            x = x_of(n)
+            sc = block_act_scales(blk, x, Hh)[:2] if static else None
+            args = (x, qblk["norm1"], qblk["attn"], None, Hh, scale, 1e-6, sc)
+            ab = attached(qblk, sc)
+            kargs = (x, ab["norm1"], ab["attn"], *args[3:])
+            tag = f"B10 N={n} C={Cw} {mode}"
+            got = kb.fused_attn_block_int8(*kargs)
+            err, rel = gate(tag, got, lambda: kb.attn_block_int8_plain(*args), x,
+                            ("bqkv without V-fold" if static else "row scales shifted",
+                             "attention output fp32"))
+            pt, took = proj_ms(lambda: kb.fused_attn_block_int8(*kargs))
+            print(f"{tag}: proj on {took}, {pt:.4f} ms (device time)")
+            check(took == VIT_H_PROJ, f"{tag}: the proj ran on {took!r}, not on {VIT_H_PROJ!r}")
+            M = Bh * n
+            bnd = bound(4.0 * Bh * n * n * Cw, 2 * M * Cw * 2 + a_bytes, peaks, 8.0 * M * Cw * Cw,
+                        int8_peak)
+            timed("fused_attn_block_int8", path, f"B={Bh} N={n} C={Cw}",
+                  lambda: kb.fused_attn_block_int8(*kargs),
+                  lambda: kb.attn_block_int8_plain(*args), bnd, err, rel)
+
+        for n in (257, 61):  # B9
+            x = x_of(n)
+            mas = mlp_act_scales(blk, x) if static else None
+            args = (x, qblk["norm2"], qblk["mlp"], None, 1e-6, True, mas)
+            tag = f"B9 rows={Bh}x{n} hc={hc} C={Cw} {mode}"
+            got = km.fused_ln_mlp_residual_int8(*args)
+            faults = ("h without 1/a_fc2",) if static else ("row scales shifted",
+                                                             "h over whole rows")
+            err, rel = gate(tag, got, lambda: km.ln_mlp_residual_int8_plain(*args), x, faults)
+            M = Bh * n
+            bnd = bound(0.0, 2 * M * Cw * 2 + 2 * Cw * hid + (5 * Cw + 2 * hid) * 4, peaks,
+                        4.0 * M * Cw * hid, int8_peak)
+            timed("fused_ln_mlp_residual_int8", path, f"B={Bh} N={n} C={Cw} hc={hc}",
+                  lambda: km.fused_ln_mlp_residual_int8(*args),
+                  lambda: km.ln_mlp_residual_int8_plain(*args), bnd, err, rel)
+
+        n, keep = 30, 20  # B11: JAX's one-kernel route, taken at ViT-H's width by n <= ~30
+        K = keep + 1
+        x = x_of(n)
+        sc = block_act_scales(blk, x, Hh)[:2] if static else None
+        tag = f"B11 N={n} K={K} C={Cw} {mode}"
+        faults = ("attention output fp32",) + (("no V-fold",) if static else ())
+        err, rel, kern, plain = check_b11(tag, x, qblk, Hh, keep, scale, sc, gen, faults)
+        bnd = bound(4.0 * Bh * K * K * Cw,
+                    Bh * n * Cw * 2 + a_bytes + Bh * K * (Cw * 2 + 8), peaks,
+                    2.0 * Bh * (n * 3 * Cw * Cw + K * Cw * Cw), int8_peak)
+        timed("fused_pruned_attn_block_int8", path, f"B={Bh} N={n} K={K} C={Cw}", kern, plain,
+              bnd, err, rel)
+
+    # B10's proj: the band's proj form and gemm_s8q, bit for bit, side by side
+    proj = qblk["attn"]["proj"]
+    w, ws, bias = proj["weight"]["int8"], proj["weight"]["scale"].float(), proj["bias"].float()
+    for n in VIT_H_PROJ_N:
+        x = x_of(n)
+        o = kb._mha(kb.ln_qkv_plain(x, blk["norm1"], blk["attn"]["qkv"], Hh, 1e-6, False)[0],
+                    Hh, scale, torch.bfloat16).reshape(-1, Cw).contiguous()
+        res = x.reshape(-1, Cw)
+        for amax in (kg.row_absmax_plain(o), None):
+            band = kg.band_proj(o, amax, w, ws, bias, None, res)
+            s8q = kg.gemm_s8q(o, amax, w, ws, bias, None, res)
+            t_band = device_ms(lambda: kg.band_proj(o, amax, w, ws, bias, None, res))[0]
+            t_s8q = device_ms(lambda: kg.gemm_s8q(o, amax, w, ws, bias, None, res))[0]
+            tag = (f"B10 proj B={Bh} N={n} C={Cw} {'static' if amax is None else 'dynamic'}")
+            print(f"{tag}: band {t_band:.4f} ms | gemm_s8q {t_s8q:.4f} ms (device time) | "
+                  f"band/gemm_s8q {t_band / t_s8q:.3f} | {differ(band, s8q)} elements differ")
+            check(torch.equal(band, s8q), f"{tag}: the band proj differs from gemm_s8q")
+
+
 # ptxas's report of the head_dim-80 instantiations (csrc/short_attn.cu,
 # csrc/sdpa.cu, common.cuh:score_kernel<80, ...>) and of the C = 1280
 # LayerNorm (common.cuh:layer_norm_kernel<5>), by mangled name
 HEAD_DIM80_KERNELS = {"short-row attention": "short_attn_kernelILi80E",
                       "B6's body": "sdpa_wgmma_kernelILi80E",
                       "score kernel": "score_kernelILi80E",
-                      "LayerNorm C=1280": "layer_norm_kernelILi5E"}
+                      "LayerNorm C=1280": "layer_norm_kernelILi5E",
+                      "LayerNorm → int8 C=1280": "ln_quant_kernelILi5E"}
 
 
 def head_dim80_spills(reports: dict) -> None:
@@ -3712,6 +3953,11 @@ INT8_384_LAUNCHES = {
                        fused_gather_sdpa_proj_residual=3, fused_gather_sdpa_proj_residual_int8=2,
                        fused_block_full_int8=4, fused_sdpa=12, select_kept=5),
     "identity": launches(fused_attn_block_int8=12, fused_ln_mlp_residual_int8=12, fused_sdpa=12)}
+VIT_H_INT8_LAUNCHES = {
+    "pruned": launches(fused_attn_block_int8=28, fused_ln_mlp_residual_int8=32,
+                       fused_ln_qkv_int8=4, select_kept=4, fused_gather_sdpa_proj_residual_int8=4,
+                       fused_sdpa=5, short_attention=27),
+    "identity": launches(fused_attn_block_int8=32, fused_ln_mlp_residual_int8=32, fused_sdpa=32)}
 PATHS = {
     PATH224: dict(
         model=PATH224, quant=None, batch=B, img=224, schedule="reference", counts=VIT_B_COUNTS,
@@ -3793,6 +4039,15 @@ PATHS = {
                                      fused_sdpa=5, short_attention=27),
                   "identity": launches(fused_attn_block=32, fused_ln_mlp_residual=32,
                                        fused_sdpa=32)}),
+    # ViT-H/14 int8 through kernels="auto": no whole-block plan fits at C =
+    # 1280, nor B11's one-kernel route at these token counts, so the stock
+    # blocks take B10 + B9 (B6's body inside B10 at 257 tokens, blocks 0-4;
+    # the short-row kernel at 180 to 61) and the pruned blocks 5, 10, 15, 20
+    # B12 + selection + B13 (the short-row kernel, 180 to 61 kept) + B9
+    P14I: dict(model=PATH_H, quant="dynamic", batch=B_H, img=224, schedule="vit_h",
+               counts=VIT_H_COUNTS, kernels="auto", launches=VIT_H_INT8_LAUNCHES),
+    P14S: dict(model=PATH_H, quant="static", batch=B_H, img=224, schedule="vit_h",
+               counts=VIT_H_COUNTS, kernels="auto", launches=VIT_H_INT8_LAUNCHES),
 }
 
 
@@ -3936,33 +4191,9 @@ def end_to_end(device, device_name, results, path):
 
 
 def vit_h_demoted(device):
-    """ViT-H/14 where its kernels do not go yet: int8 params through
-    ``RAJNIViT(kernels="auto")`` (batch 8) and training through the training
-    CLI (bf16, ``--kernels cuda``, 2 steps of batch 2) run on the card's
-    torch route, print the reason and launch no kernel."""
-    import torch
-
-    from rajni_tpu_torch import RAJNIViT
-    from rajni_tpu_torch.quant import quantize_params
-
-    want = ("route: torch (int8 weights at C=1280, head_dim 80: its kernels take C <= 1024 and "
-            "head_dim 64)")
-    counters = kernel_counters()
-    raw = RAJNIViT(PATH_H, VIT_H_SCHEDULE, kernels="auto", seed=0, device=device)
-    model = RAJNIViT(PATH_H, VIT_H_SCHEDULE, params=quantize_params(raw.params), kernels="auto",
-                     device=device)
-    for k in counters.values():
-        k.launches = 0
-    images = torch.randn(8, 224, 224, 3, generator=torch.Generator().manual_seed(3)).to(device)
-    out = model(images)
-    torch.cuda.synchronize()
-    launched = {n: k.launches for n, k in counters.items() if k.launches}
-    print(f"RAJNIViT {PATH_H} int8: {model.route}; logits {tuple(out.shape)}, launches {launched}")
-    check(model.route == want, f"{PATH_H} int8: {model.route} != {want}")
-    check(bool(torch.isfinite(out).all()) and not launched,
-          f"{PATH_H} int8: logits not finite or kernels launched ({launched})")
-    del raw, model
-    torch.cuda.empty_cache()
+    """ViT-H/14 where its kernels do not go yet: training through the
+    training CLI (bf16, ``--kernels cuda``, 2 steps of batch 2) runs on the
+    card's torch route and prints the reason."""
     with tempfile.TemporaryDirectory() as tmp:
         sched = Path(tmp) / "schedule.json"
         sched.write_text(json.dumps({str(k): v for k, v in VIT_H_SCHEDULE.items()}))
@@ -3981,23 +4212,35 @@ def vit_h_demoted(device):
 
 
 def eval_cli():
+    """The eval CLI at 224 and 384, each in bf16 and with ``--quantize
+    --calibrate 1``, and on ViT-H/14 (VIT_H_PROBE) with ``--quantize`` and
+    ``--quantize --calibrate 1``, each on the kernels (``route: cuda``)."""
     from rajni_tpu_torch import REFERENCE_SCHEDULE
 
     with tempfile.TemporaryDirectory() as tmp:
-        sched = Path(tmp) / "schedule.json"
-        sched.write_text(json.dumps({str(k): v for k, v in REFERENCE_SCHEDULE.items()}))
-        for model, batch, extra in ((PATH224, 64, []), (PATH384, 32, []),
-                                    (PATH224, 64, ["--quantize", "--calibrate", "1"]),
-                                    (PATH384, 32, ["--quantize", "--calibrate", "1"])):
+        files = {}
+        for name, schedule in (("reference", REFERENCE_SCHEDULE), ("vit_h", VIT_H_SCHEDULE)):
+            files[name] = Path(tmp) / f"{name}.json"
+            files[name].write_text(json.dumps({str(k): v for k, v in schedule.items()}))
+        quantize = ["--quantize", "--calibrate", "1"]
+        for model, batch, extra, sched in ((PATH224, 64, [], "reference"),
+                                           (PATH384, 32, [], "reference"),
+                                           (PATH224, 64, quantize, "reference"),
+                                           (PATH384, 32, quantize, "reference"),
+                                           (PATH_H, 32, quantize[:1], "vit_h"),
+                                           (PATH_H, 32, quantize, "vit_h")):
             cmd = [sys.executable, "-m", "rajni_tpu_torch.run", "--synthetic", "3",
-                   "--batch_size", str(batch), "--model", model, "--schedule", str(sched), *extra]
+                   "--batch_size", str(batch), "--model", model, "--schedule",
+                   str(files[sched]), *extra]
             p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-            tail = [l for l in p.stdout.splitlines() if "RAJNI -" in l or "Token counts" in l]
+            tail = [l for l in p.stdout.splitlines()
+                    if "RAJNI -" in l or "Token counts" in l or l.startswith("route:")]
             print(f"eval CLI {model} batch {batch} {' '.join(extra)}: " + " | ".join(tail))
             check(p.returncode == 0,
                   f"eval CLI exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+            check("route: cuda" in p.stdout.splitlines(), f"eval CLI {model}: not on the kernels")
             want = f"Token counts per block: {PATHS[model]['counts']}"
-            if extra:
+            if "--calibrate" in extra:
                 check("Calibrated static int8 activation scales" in p.stdout,
                       "eval CLI --calibrate: no calibration line")
             check(want in p.stdout, f"eval CLI {model}: no '{want}' line")
@@ -4059,6 +4302,8 @@ def main() -> int:
               ("kernel phases 384", lambda: long_phases(device, peaks, results)),
               ("kernel phases ViT-H/14 (C=1280, head_dim 80)",
                lambda: vit_h_phases(device, peaks, results)),
+              ("int8 kernels at ViT-H/14 (C=1280, head_dim 80)",
+               lambda: vit_h_int8_phases(device, peaks, int8_peak, results)),
               ("kernel phases B7/B8", lambda: wholeblock_phases(device, peaks, results)),
               ("kernel phases B14/B15", lambda: int8_phases(device, peaks, int8_peak, results)),
               ("kernel phases B9/B10/B12/B13",
@@ -4091,7 +4336,7 @@ def main() -> int:
     phases += [("training end to end",
                 lambda: train_end_to_end(device, device_name, results, kernel_counters())),
                ("eval CLI", eval_cli), ("training and eval CLIs", lambda: train_cli(device)),
-               (f"{PATH_H} int8 and training on the torch route", lambda: vit_h_demoted(device))]
+               (f"{PATH_H} training on the torch route", lambda: vit_h_demoted(device))]
     for label, phase in phases:
         t0 = time.perf_counter()
         phase()

@@ -15,7 +15,8 @@
 // dynamic mode also takes each row's absmax, and
 // proj on the row-band GEMM (csrc/band_s8.cuh), which quantizes each
 // 128-row band of the attention output once in shared memory, with the
-// residual (int8_block.cuh:int8_attn_tail says why). Unlike B13, B14 and B15, the
+// residual (int8_block.cuh:int8_attn_tail says why; at ViT-H/14's C = 1280
+// proj quantizes as it loads, launch_gemm_s8q: TAIL_BAND_MAX_C). Unlike B13, B14 and B15, the
 // TPU kernel rounds the attention output to the activation dtype before
 // quantizing it (block.py:1255), and a quantizer turns that last bit into
 // whole int8 steps: so the attention writes bf16 here and proj reads bf16.

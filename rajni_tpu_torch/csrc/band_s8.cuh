@@ -47,10 +47,12 @@
 //     multiplier first, then the band's 16-element pieces, four loads a
 //     thread in flight. (Prefetching the next band's raw rows into the L2
 //     from the producer thread was tried and read no faster.)
-//   * Shared memory (227 KB a block): the band, 128·C bytes (48, 96, 128 KB
-//     at C = 384, 768, 1024), four 8 KB output chunk buffers (two a
-//     consumer), and a ring of W stages of 128 columns × 128 bytes of k (16
-//     KB) on full/empty mbarriers, as many as fit, at most 8 (8, 6, 4).
+//   * Shared memory (227 KB a block): the band, 128·C bytes (48, 96, 128,
+//     160 KB at C = 384, 768, 1024, 1280), four 8 KB output chunk buffers
+//     (two a consumer), and a ring of W stages of 128 columns × 128 bytes of
+//     k (16 KB) on full/empty mbarriers, as many as fit, at most 8 (8, 6, 4,
+//     and 2 at C = 1280, where the PROJ form alone goes: ViT-H/14's B10
+//     and B11).
 //   * Ping-pong: consumer warpgroup c takes the band's column tiles j ≡ c
 //     (mod 2), each tile all 128 rows × 128 columns (two m64n128k32 products
 //     a k32 step, 128 int32 accumulators a thread). Their mainloops take
@@ -84,8 +86,8 @@
 //   but one, within 2% there. (A form for the
 //   fp32 A of B13-B15 read slower at 9 of their 31 shapes and slowed the
 //   DeiT-S paths end to end; it was removed.)
-// Requires C % 128 == 0, C <= 1024 and N % 128 == 0; anything else returns
-// cudaErrorInvalidValue.
+// Requires C % 128 == 0, C <= 1024 (HEAD) or C <= 1280 (PROJ), and N % 128
+// == 0; anything else returns cudaErrorInvalidValue.
 #pragma once
 
 #include "int8.cuh"
@@ -99,6 +101,9 @@ constexpr int BAND_KB = 128;                 // bytes of k of a band tile and a 
 constexpr int BAND_TILE = BAND_BM * BAND_KB;  // 16 KB
 constexpr int BAND_SMEM_MAX = 232448;        // 227 KB, a block's most
 constexpr int BAND_MAX_STAGES = 8;
+// the widest C of each form: HEAD's rows are LN1 → int8 at ln_quant_kernel's
+// LN_MAXV (no path takes it); PROJ's band of 160 KB leaves 2 W stages
+constexpr int BAND_HEAD_MAX_C = 32 * 8 * LN_MAXV, BAND_PROJ_MAX_C = 1280;
 // the chunk buffers, the rows' scales, multipliers and residual rows, the
 // alignment slack
 constexpr int BAND_FIXED = 4 * G9_OUT + 3 * BAND_BM * 4 + 1024;
@@ -490,12 +495,14 @@ __global__ void __launch_bounds__(G9_THREADS, 1)
 }
 
 // out[M, N] (bf16) of the band GEMM of FORM with W [N, C] int8. Returns
-// cudaErrorInvalidValue for shapes it does not take (C % 128, C > 1024, N %
-// 128, a PROJ without a residual, res_idx with rows_out not dividing M) and
+// cudaErrorInvalidValue for shapes it does not take (C % 128, C past the
+// form's widest, N % 128, a PROJ without a residual, res_idx with rows_out
+// not dividing M) and
 // cudaErrorMisalignedAddress for operands not 16-byte aligned.
 template <int FORM>
 inline cudaError_t launch_band(BandArgs p, const int8_t* W, bf16* out, cudaStream_t st) {
-  if (p.M < 1 || p.C < BAND_KB || p.C % BAND_KB || p.C > 32 * 8 * LN_MAXV || p.N < BAND_BN ||
+  if (p.M < 1 || p.C < BAND_KB || p.C % BAND_KB ||
+      p.C > (FORM == BAND_HEAD ? BAND_HEAD_MAX_C : BAND_PROJ_MAX_C) || p.N < BAND_BN ||
       p.N % BAND_BN || p.w_scale == nullptr || p.bias == nullptr)
     return cudaErrorInvalidValue;
   if (FORM == BAND_HEAD ? (p.ln_s == nullptr || p.ln_b == nullptr)

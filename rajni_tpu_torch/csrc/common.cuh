@@ -139,8 +139,8 @@ __device__ __forceinline__ void row_absmax(float* amax, size_t row, float m) {
 // LayerNorm: one warp per row, the row cached in registers (C <= 32*8*NV)
 // ---------------------------------------------------------------------------
 
-constexpr int LN_MAXV = 4;  // uint4 (8 x bf16) vectors per lane: C <= 1024 (int8.cuh's too)
-constexpr int LN_MAXV_WIDE = 5;  // the bf16 LayerNorm's at C <= 1280 (ViT-H/14)
+constexpr int LN_MAXV = 4;  // uint4 (8 x bf16) vectors per lane: C <= 1024
+constexpr int LN_MAXV_WIDE = 5;  // at C <= 1280 (ViT-H/14); int8.cuh's LN → int8 takes both
 
 // NV: the vectors a lane holds, LN_MAXV up to C = 1024 (the sums in the order
 // they always had), LN_MAXV_WIDE past it.
@@ -236,7 +236,7 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // ---------------------------------------------------------------------------
-// Attention, head_dim 64 or 80 (ViT-H/14; the bf16 kernels only). Up to
+// Attention, head_dim 64 or 80 (ViT-H/14's; bf16 and the int8 tails). Up to
 // ATTN_MAX_N tokens every caller's attention is the short-row kernel of
 // short_attn.cu (its header has the design), past it B6's body (sdpa.cu);
 // both are compiled once there, each instantiated for both head widths, and

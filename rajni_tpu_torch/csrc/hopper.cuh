@@ -483,6 +483,18 @@ __device__ __forceinline__ void to_frag(uint32_t (&p)[16], const float (&d)[32])
 __device__ __forceinline__ int acc_col(int e, int t4) { return 8 * (e >> 2) + 2 * t4 + (e & 1); }
 __device__ __forceinline__ int acc_row8(int e) { return (e & 2) ? 8 : 0; }
 
+// The int8 tails' row absmax: this thread's |stored value| maxima over the
+// accumulator d (a 64-column tile, or head_dim 80's 16-column part), row r0
+// into ma and r0 + 8 into mb.
+template <typename OutT, int NE>
+__device__ __forceinline__ void acc_absmax(float& ma, float& mb, const float (&d)[NE]) {
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    float& m = acc_row8(e) ? mb : ma;
+    m = fmaxf(m, fabsf(stored<OutT>(d[e])));
+  }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));

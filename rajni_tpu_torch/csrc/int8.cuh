@@ -68,8 +68,10 @@ __device__ __forceinline__ uint32_t pack4_s8(int a, int b, int c, int d) {
 constexpr float INV127 = (float)(1.0 / 127.0);
 
 // ---------------------------------------------------------------------------
-// LayerNorm → int8: one warp per row, the row in registers (C <= 1024). The
-// fp32 LN output is quantized where it is computed and never stored.
+// LayerNorm → int8: one warp per row, the row in registers, NV vectors of 8
+// elements a lane: LN_MAXV up to C = 1024, LN_MAXV_WIDE past it, to C = 1280
+// (ViT-H/14), as common.cuh's bf16 layer_norm_kernel. The fp32 LN output is
+// quantized where it is computed and never stored.
 // Dynamic: per-row scale to a_out[row]; static (static_act): the affine
 // carries the 1/a fold, so the kernel only rounds and clips.
 //   The statistics are fp32 sums in a fixed order, each operation an
@@ -79,11 +81,13 @@ constexpr float INV127 = (float)(1.0 / 127.0);
 // (kernels/mlp.py:_layer_norm_int8) adds in the same order, so both give the
 // same LN output bit for bit, and no quantizer step flips between them on a
 // summation order (a flipped k or v element moves a RAJNI score by up to
-// ~1%).
+// ~1%). A lane's chunks past the row's end add nothing, so the order is the
+// same at either NV: up to C = 1024 it is the one it always had.
 // ---------------------------------------------------------------------------
 
 // zero: null, or a [M] buffer this launch zeroes (the int8 tails' attention
 // absmax, int8_attn_tail), so that no launch of its own does.
+template <int NV>
 __global__ void __launch_bounds__(256) ln_quant_kernel(
     const bf16* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
     int8_t* __restrict__ q, float* __restrict__ a_out, float* __restrict__ zero, int M, int C,
@@ -94,10 +98,10 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
   if (zero != nullptr && lane == 0) zero[row] = 0.f;
   const int nvec = C / 8;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * C);
-  float v[LN_MAXV][8];
+  float v[NV][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
+  for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
     if (c < nvec) {
       unpack8(xr[c], v[i]);
@@ -108,7 +112,7 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
   const float mean = __fdiv_rn(warp_sum(s), (float)C);
   float sq = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
+  for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
     if (c < nvec) {
 #pragma unroll
@@ -122,7 +126,7 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
       __frcp_rn(__fsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)C), eps)));
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
+  for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
     if (c < nvec) {
       const float4* sc = reinterpret_cast<const float4*>(scale + 8 * c);
@@ -148,7 +152,7 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
   }
   uint2* qr = reinterpret_cast<uint2*>(q + (size_t)row * C);
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
+  for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
     if (c < nvec) {
       int t[8];
@@ -162,8 +166,13 @@ __global__ void __launch_bounds__(256) ln_quant_kernel(
 inline cudaError_t launch_ln_quant(const bf16* x, const float* scale, const float* bias,
                                    int8_t* q, float* a_out, int M, int C, float eps,
                                    int static_act, cudaStream_t st, float* zero = nullptr) {
-  ln_quant_kernel<<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, q, a_out, zero, M, C, eps,
-                                               static_act);
+  if (C < 8 || C % 8 || C > 256 * LN_MAXV_WIDE) return cudaErrorInvalidValue;
+  if (C <= 256 * LN_MAXV)
+    ln_quant_kernel<LN_MAXV><<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, q, a_out, zero, M, C,
+                                                          eps, static_act);
+  else
+    ln_quant_kernel<LN_MAXV_WIDE><<<(M + 7) / 8, 256, 0, st>>>(x, scale, bias, q, a_out, zero,
+                                                               M, C, eps, static_act);
   return cudaGetLastError();
 }
 

@@ -26,8 +26,8 @@ namespace {
 //     (B10, B11: bf16), and (dynamic) each row's absmax → amax [B·n]
 //   7 proj: A = attn quantized as it is loaded (by amax), dequant + bproj,
 //     · ls1, + x (gathered) → bf16 x_mid [B·n, C]
-//   (bf16 attn, B10 and B11: 7 on the band GEMM's proj form, A quantized
-//   once a band in shared memory; two_launch: 5 without amax, 6 quantize
+//   (bf16 attn, B10 and B11: 7 on the band GEMM's proj form up to C =
+//   TAIL_BAND_MAX_C, A quantized once a band in shared memory; two_launch: 5 without amax, 6 quantize
 //   attn per row → q8, qs, 7 proj of q8 by qs: the old route, kept as the
 //   new ones' bitwise reference)
 //   8 LN2 → int8 q8, qs
@@ -141,6 +141,20 @@ inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
 // (no proj change at all) was tried; B6's body then read 13% slower (ptxas
 // serialized its wgmma in those instantiations), more than the quantizer it
 // saved.
+//
+// The widest C whose bf16 proj (B10, B11) runs on the band's PROJ form;
+// past it, launch_gemm_s8q. Both are bitwise the two-launch route. Measured
+// on the H100 80GB HBM3, 700 W (chip_smoke's "B10 proj" lines, device time,
+// dynamic / static): at C <= 1024 the band read 0.70-1.02x gemm_s8q's time
+// at B10's and B11's path shapes. At C = 1280 its 160 KB band leaves
+// 2 W stages, and a band is one block, so 128·n rows make n bands on 132
+// SMs: at B10's ViT-H shapes (B = 128, n = 257, 180, 126, 88, 61) it read
+// 0.965 / 0.983, 1.217 / 1.193, 0.882 / 0.901, 0.995 / 1.020 and 1.262 /
+// 1.265x gemm_s8q's time (0.2405, 0.1749, 0.1319, 0.1059, 0.0787 ms
+// dynamic): over a pruned ViT-H forward's 28 launches 3.991 ms against
+// 3.719, so C = 1280 takes gemm_s8q.
+constexpr int TAIL_BAND_MAX_C = 1024;
+
 template <typename AttnT>
 inline int int8_attn_tail(const Int8Block& p, const int* sel, int n, AttnT* attn, bf16* out,
                           cudaStream_t st) {
@@ -153,7 +167,7 @@ inline int int8_attn_tail(const Int8Block& p, const int* sel, int n, AttnT* attn
       launch_attention_any(p.qkv, sel, attn, amax, p.B, p.N, n, p.C, p.H, p.scale, st);
   if (e != cudaSuccess) return fail(e, 5);
   if constexpr (std::is_same_v<AttnT, bf16>) {
-    if (!p.two_launch) {
+    if (!p.two_launch && p.C <= TAIL_BAND_MAX_C) {
       BandArgs a{};
       a.a = attn;
       a.amax_in = amax;

@@ -27,7 +27,8 @@
 // row's absmax, and proj on the row-band GEMM (csrc/band_s8.cuh), which
 // quantizes each 128-row band of that output once in shared memory and whose
 // residual epilogue reads the pre-norm x rows through the same indices
-// (int8_block.cuh:int8_attn_tail). band: LN1 and the qkv product as one
+// (int8_block.cuh:int8_attn_tail; at C = 1280 launch_gemm_s8q:
+// TAIL_BAND_MAX_C). band: LN1 and the qkv product as one
 // launch of the row-band GEMM's head form, the same bits; it read slower at
 // every path shape on the H100, so no path takes it, and it stays as the
 // bitwise-checked alternative. two_launch: the old tail with the row

@@ -9,7 +9,9 @@
 // half of it, then both synced):
 // with idx (token t is row idx[b, t] of qkv [B, n_src, 3C]) and with an fp32
 // output (the int8 blocks), for every 1 <= n <= SDPA_MAX_N = 848 at head_dim
-// 64; at head_dim 80 (ViT-H/14) in bf16, one pass, n <= SDPA_MAX_N_D80 = 384.
+// 64; at head_dim 80 (ViT-H/14) one pass, n <= SDPA_MAX_N_D80 = 384, in bf16,
+// and for the int8 tails (fp32 output or the row absmax) past ATTN_MAX_N
+// tokens only, where common.cuh:launch_attention_any sends them.
 //
 // Replaces the TPU kernel rajni_tpu/kernels/attention.py:71 fused_sdpa
 // (pallas_call at attention.py:88; body _mha_kernel, 45-67), which holds one
@@ -120,7 +122,7 @@ struct SdpaArgs {
 // D: the head_dim (64 or 80). NT: the key tiles each consumer holds in
 // registers (one pass, NT = T0), or 0 for the two-pass form (head_dim 64).
 // AMAX: take each output row's absmax into a.amax (the int8 tails' dynamic
-// route, head_dim 64), an instantiation of its own, since its code in the
+// route, head_dim 64 and 80), an instantiation of its own, since its code in the
 // epilogue slowed the others down by ~10% (H100, chip_smoke). qkv_map: the
 // 64-column boxes; x_map (head_dim 80): the 16-column parts' boxes.
 template <int D, int NT, typename OutT, bool AMAX>
@@ -130,8 +132,7 @@ __global__ void __launch_bounds__(SD_THREADS, 1)
   using L = SdpaSmem<D>;
   constexpr bool X = L::X > 0;
   constexpr bool ONEPASS = NT > 0;
-  static_assert(NT <= L::NTM && (D == 64 || (ONEPASS && !AMAX)),
-                "head_dim 80: one pass, no row absmax");
+  static_assert(NT <= L::NTM && (D == 64 || ONEPASS), "head_dim 80: one pass");
   constexpr int SD_RING = L::RING, SD_XO_LD = L::XO_LD, NTM = L::NTM;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_aligned(smem_raw);
@@ -518,11 +519,8 @@ __global__ void __launch_bounds__(SD_THREADS, 1)
         if constexpr (X) store_acc(ra ? ra + TILE : nullptr, rb ? rb + TILE : nullptr, ox, t4);
         if constexpr (AMAX) {  // |stored value|'s maximum over the head's columns
           float ma = 0.f, mb = 0.f;
-#pragma unroll
-          for (int e = 0; e < 32; ++e) {
-            float& m = acc_row8(e) ? mb : ma;
-            m = fmaxf(m, fabsf(stored<OutT>(o[e])));
-          }
+          acc_absmax<OutT>(ma, mb, o);
+          if constexpr (X) acc_absmax<OutT>(ma, mb, ox);
           ma = quad_max(ma);
           mb = quad_max(mb);
           if (t4 == 0 && q0 + r0 < n) row_absmax(a.amax, (size_t)b * n + q0 + r0, ma);
@@ -558,12 +556,14 @@ cudaError_t sdpa_body(const SdpaArgs& a, int B, cudaStream_t st) {
   }
   const int t0 = (a.n + 2 * TILE - 1) / (2 * TILE);  // T0 = ceil(T / 2)
   if constexpr (D == ATTN_D80) {
-    switch (t0) {
-      case 1: return launch_sdpa_wgmma<D, 1, OutT, AMAX>(map, xmap, a, st);
-      case 2: return launch_sdpa_wgmma<D, 2, OutT, AMAX>(map, xmap, a, st);
-      case SD_NT80: return launch_sdpa_wgmma<D, SD_NT80, OutT, AMAX>(map, xmap, a, st);
-      default: return cudaErrorInvalidValue;
+    if (t0 == SD_NT80) return launch_sdpa_wgmma<D, SD_NT80, OutT, AMAX>(map, xmap, a, st);
+    // the int8 tails' instantiations (fp32 output, AMAX) take only T0 = 3,
+    // 257-384 tokens: below, every caller's attention is the short-row kernel
+    if constexpr (std::is_same_v<OutT, bf16> && !AMAX) {
+      if (t0 == 1) return launch_sdpa_wgmma<D, 1, OutT, AMAX>(map, xmap, a, st);
+      if (t0 == 2) return launch_sdpa_wgmma<D, 2, OutT, AMAX>(map, xmap, a, st);
     }
+    return cudaErrorInvalidValue;
   } else {
     switch (t0) {
       case 1: return launch_sdpa_wgmma<D, 1, OutT, AMAX>(map, xmap, a, st);
@@ -587,22 +587,27 @@ using namespace rajni;
 static long long body_launches = 0;
 
 // The body behind common.cuh:launch_sdpa (every caller's attention past
-// ATTN_MAX_N tokens): returns a cudaError_t. Head_dim 64, or 80 with a bf16
-// output and no row absmax (no int8 tail takes head_dim 80) up to
-// SDPA_MAX_N_D80 tokens.
+// ATTN_MAX_N tokens): returns a cudaError_t. Head_dim 64, or 80 up to
+// SDPA_MAX_N_D80 tokens, there with an fp32 output or the row absmax (the
+// int8 tails') only past ATTN_MAX_N.
 extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float* amax,
                                int out_fp32, int B, int n_src, int n, int C, int H, float scale,
                                int phased, void* stream) {
   const int D = H > 0 && C % H == 0 ? C / H : 0;
-  if (n < 1 || n > sdpa_max_n(D) || (D == ATTN_D80 && (out_fp32 || amax != nullptr)))
+  if (n < 1 || n > sdpa_max_n(D) ||
+      (D == ATTN_D80 && (out_fp32 || amax != nullptr) && n <= ATTN_MAX_N))
     return (int)cudaErrorInvalidValue;
   const int T = (n + TILE - 1) / TILE;
   const SdpaArgs a{static_cast<const bf16*>(qkv), idx, out, amax, n_src, n, C, H,
                    B * H * (T <= 2 * SD_NT ? 1 : T), scale, phased};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (D == ATTN_D80)
-    e = sdpa_body<ATTN_D80, bf16, false>(a, B, st);
+  if (D == ATTN_D80 && amax != nullptr)
+    e = out_fp32 ? sdpa_body<ATTN_D80, float, true>(a, B, st)
+                 : sdpa_body<ATTN_D80, bf16, true>(a, B, st);
+  else if (D == ATTN_D80)
+    e = out_fp32 ? sdpa_body<ATTN_D80, float, false>(a, B, st)
+                 : sdpa_body<ATTN_D80, bf16, false>(a, B, st);
   else if (amax != nullptr)
     e = out_fp32 ? sdpa_body<ATTN_D, float, true>(a, B, st)
                  : sdpa_body<ATTN_D, bf16, true>(a, B, st);
@@ -615,14 +620,17 @@ extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float
 
 extern "C" long long rajni_sdpa_launches() { return body_launches; }
 
-// B6 fused_sdpa (idx null, phased 0): the attention of qkv [B, n_src, 3C]
-// into bf16 out [B, n, C] by this body, token t being row idx[b, t] when idx
-// is given, q·scale rounded first with phased (kernels/attention.py:
-// attention_route, which chip_smoke.py times against the short-row kernel,
-// contiguous and gathered, and holds to _mha's phased form).
-extern "C" int rajni_sdpa(const void* qkv, const void* idx, void* out, int B, int n_src, int n,
-                          int C, int H, float scale, int phased, void* stream) {
-  const int e = rajni_sdpa_body(qkv, static_cast<const int*>(idx), out, nullptr, 0, B, n_src, n,
-                                C, H, scale, phased, stream);
+// B6 fused_sdpa (idx and amax null, out_fp32 and phased 0): the attention of
+// qkv [B, n_src, 3C] into out [B, n, C] (fp32 when out_fp32, else bf16) by
+// this body, token t being row idx[b, t] when idx is given, q·scale rounded
+// first with phased, each row's absmax into amax [B·n] (zeroed) when given
+// (kernels/attention.py:body_attention and attention_route, which
+// chip_smoke.py times against the short-row kernel, contiguous and gathered,
+// and holds to _mha's phased form and to the int8 tails' row absmax).
+extern "C" int rajni_sdpa(const void* qkv, const void* idx, void* out, void* amax, int out_fp32,
+                          int B, int n_src, int n, int C, int H, float scale, int phased,
+                          void* stream) {
+  const int e = rajni_sdpa_body(qkv, static_cast<const int*>(idx), out, static_cast<float*>(amax),
+                                out_fp32, B, n_src, n, C, H, scale, phased, stream);
   return e == 0 ? 0 : fail(static_cast<cudaError_t>(e), 1);
 }

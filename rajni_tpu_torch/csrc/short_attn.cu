@@ -78,7 +78,7 @@
 //     C]). AMAX is an instantiation of its own (the absmax's code slowed the
 //     other callers of B6's body when it was not).
 // The kernel is instantiated for each head_dim D, T (1..4), output type and
-// AMAX (head_dim 64 only: the int8 tails').
+// AMAX (the int8 tails': head_dim 64, and 80 for ViT-H/14's int8 blocks).
 #include "hopper.cuh"
 
 namespace rajni {
@@ -118,7 +118,6 @@ template <int D, int T, typename OutT, bool AMAX>
 __global__ void __launch_bounds__(SA_THREADS, 1)
     short_attn_kernel(const __grid_constant__ CUtensorMap qkv_map,
                       const __grid_constant__ CUtensorMap x_map, ShortArgs a) {
-  static_assert(!(AMAX && D != 64), "the row absmax is the int8 tails', at head_dim 64");
   constexpr bool X = xparts<D>() > 0;
   constexpr int S = sa_stages<D>(T);
   // q tiles [0, T), k tiles [T, 2T), v tiles [2T, 3T); at head_dim 80 their
@@ -337,11 +336,8 @@ __global__ void __launch_bounds__(SA_THREADS, 1)
     if constexpr (X) store_acc(ra ? ra + TILE : nullptr, rb ? rb + TILE : nullptr, ox, t4);
     if constexpr (AMAX) {  // |stored value|'s maximum over the head's columns
       float ma = 0.f, mb = 0.f;
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        float& m = acc_row8(e) ? mb : ma;
-        m = fmaxf(m, fabsf(stored<OutT>(o[e])));
-      }
+      acc_absmax<OutT>(ma, mb, o);
+      if constexpr (X) acc_absmax<OutT>(ma, mb, ox);
       ma = quad_max(ma);
       mb = quad_max(mb);
       if (t4 == 0 && q0 + r0 < n) row_absmax(a.amax, (size_t)b * n + q0 + r0, ma);
@@ -393,20 +389,22 @@ using namespace rajni;
 static long long short_launches = 0;
 
 // The body behind common.cuh:launch_short_attention (every caller's attention
-// at n <= ATTN_MAX_N): returns a cudaError_t. Head_dim 64, or 80 without the
-// row absmax (no int8 tail takes head_dim 80).
+// at n <= ATTN_MAX_N): returns a cudaError_t. Head_dim 64 or 80, each with
+// or without the row absmax (the int8 tails').
 extern "C" int rajni_short_attn_body(const void* qkv, const int* idx, void* out, float* amax,
                                      int out_fp32, int B, int n_src, int n, int C, int H,
                                      float scale, int phased, void* stream) {
   const int D = H > 0 && C % H == 0 ? C / H : 0;
-  if (n < 1 || n > ATTN_MAX_N || B < 1 || !attn_head_dim_ok(D) || (idx == nullptr && n != n_src) ||
-      (D != ATTN_D && amax != nullptr))
+  if (n < 1 || n > ATTN_MAX_N || B < 1 || !attn_head_dim_ok(D) || (idx == nullptr && n != n_src))
     return (int)cudaErrorInvalidValue;
   const ShortArgs a{static_cast<const bf16*>(qkv), idx, out, amax, n_src, n, C, H, B * H, scale,
                     phased};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (D == ATTN_D80)
+  if (D == ATTN_D80 && amax != nullptr)
+    e = out_fp32 ? short_body<ATTN_D80, float, true>(a, B, st)
+                 : short_body<ATTN_D80, bf16, true>(a, B, st);
+  else if (D == ATTN_D80)
     e = out_fp32 ? short_body<ATTN_D80, float, false>(a, B, st)
                  : short_body<ATTN_D80, bf16, false>(a, B, st);
   else if (amax != nullptr)

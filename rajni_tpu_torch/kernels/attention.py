@@ -29,7 +29,7 @@ import torch
 
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 
-HEAD_DIM = 64  # csrc/common.cuh: ATTN_D, the int8 and training kernels' head_dim
+HEAD_DIM = 64  # csrc/common.cuh: ATTN_D, the training and whole-block kernels' head_dim
 # csrc/common.cuh: ATTN_D and ATTN_D80, the head_dims the bf16 attention
 # kernels (the short-row kernel and B6's body) take
 HEAD_DIMS = (64, 80)
@@ -46,7 +46,7 @@ def sdpa_max_n(head_dim: int) -> int:
 
 # its launches are the body's, counted in csrc/sdpa.cu wherever an entry
 # point launches it (K2, B5, K1/B20 and the int8 tails run it inside theirs)
-SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, P, I, I, I, I, I, F, I, P],
+SDPA_KERNEL = CudaKernel("rajni_sdpa", [P, P, P, P, I, I, I, I, I, I, F, I, P],
                          counter="rajni_sdpa_launches")
 ATTN_MAX_N = 256  # csrc/common.cuh: the short-row kernel's longest row (4 key tiles)
 
@@ -131,7 +131,8 @@ def fused_sdpa(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
         raise ValueError(f"fused_sdpa supports 1 <= N <= {sdpa_max_n(D)} at head_dim {D}, "
                          f"got N={N}")
     out = torch.empty(B, N, C, dtype=qkv.dtype, device=qkv.device)
-    SDPA_KERNEL(ptr(qkv), None, ptr(out), B, N, N, C, num_heads, float(scale), 0, stream())
+    SDPA_KERNEL(ptr(qkv), None, ptr(out), None, 0, B, N, N, C, num_heads, float(scale), 0,
+                stream())
     return out
 
 
@@ -190,17 +191,11 @@ def attention_route(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
     if route not in ROUTES:
         raise ValueError(f"attention_route: unknown route {route!r} (one of {sorted(ROUTES)})")
     qkv = _packed(qkv)
-    B, n_src, n, C = _check_route_shapes("attention_route", qkv, idx, num_heads, ROUTES[route])
+    _check_route_shapes("attention_route", qkv, idx, num_heads, ROUTES[route])
     if qkv.device.type == "cpu":
         return attention_route_plain(qkv, idx, num_heads, scale)
-    if route == "short":
-        return short_attention(qkv, idx, num_heads, scale)[0]
-    check_cuda(torch.bfloat16, qkv=qkv)
-    check_cuda(torch.int32, idx=idx)
-    out = torch.empty(B, n, C, dtype=qkv.dtype, device=qkv.device)
-    SDPA_KERNEL(ptr(qkv), ptr(idx), ptr(out), B, n_src, n, C, num_heads, float(scale),
-                int(mha_phased(num_heads, n, scale)), stream())
-    return out
+    kernel = SHORT_KERNEL if route == "short" else SDPA_KERNEL
+    return _launch_attention(kernel, qkv, idx, num_heads, scale, torch.bfloat16, False)[0]
 
 
 # its launches are counted in csrc/short_attn.cu wherever an entry point
@@ -226,21 +221,50 @@ def short_attention(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int,
     it) on ``n <= 256`` tokens of ``qkv [B, n_src, 3C]`` (through ``idx``
     int32 ``[B, n]``, or all ``n_src``), into ``out_dtype`` (bf16 or fp32);
     with ``amax``, each output row's absmax too, as the int8 tails take it
-    (head_dim 64 only: no int8 tail takes 80). Raises on shapes the kernel
-    does not take before it dispatches."""
+    (head_dim 64 or 80). Raises on shapes the kernel does not take before it
+    dispatches."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"short_attention: out_dtype must be bf16 or fp32, got {out_dtype}")
     qkv = _packed(qkv)
-    B, n_src, n, C = _check_route_shapes("short_attention", qkv, idx, num_heads, ATTN_MAX_N)
-    if amax and C != num_heads * HEAD_DIM:
-        raise ValueError(f"short_attention: the row absmax is taken at head_dim {HEAD_DIM} only")
+    _check_route_shapes("short_attention", qkv, idx, num_heads, ATTN_MAX_N)
     if qkv.device.type == "cpu":
         return short_attention_plain(qkv, idx, num_heads, scale, out_dtype, amax)
+    return _launch_attention(SHORT_KERNEL, qkv, idx, num_heads, scale, out_dtype, amax)
+
+
+def body_attention(qkv: torch.Tensor, idx: torch.Tensor | None, num_heads: int, scale: float,
+                   out_dtype: torch.dtype = torch.bfloat16,
+                   amax: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """B6's body (``csrc/sdpa.cu``) on its own, as the blocks launch it past
+    256 tokens: :func:`short_attention`'s function and arguments (its plain
+    version :func:`short_attention_plain`) on ``n <= SDPA_MAX_N`` tokens (at
+    head_dim 80 ``n <= SDPA_MAX_N_D80``, and with an fp32 output or the row
+    absmax, the int8 tails', ``n > 256`` only). Raises on shapes the kernel
+    does not take before it dispatches."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"body_attention: out_dtype must be bf16 or fp32, got {out_dtype}")
+    qkv = _packed(qkv)
+    _, _, n, C = _check_route_shapes("body_attention", qkv, idx, num_heads, SDPA_MAX_N)
+    if (C // num_heads != HEAD_DIM and (amax or out_dtype == torch.float32)
+            and n <= ATTN_MAX_N):
+        raise ValueError(f"body_attention: at head_dim {C // num_heads} an fp32 output or the row "
+                         f"absmax needs n > {ATTN_MAX_N}, got n={n}")
+    if qkv.device.type == "cpu":
+        return short_attention_plain(qkv, idx, num_heads, scale, out_dtype, amax)
+    return _launch_attention(SDPA_KERNEL, qkv, idx, num_heads, scale, out_dtype, amax)
+
+
+def _launch_attention(kernel: CudaKernel, qkv, idx, num_heads: int, scale: float, out_dtype,
+                      amax: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One launch of the short-row kernel or B6's body (their entry points
+    take the same arguments) in the form :func:`mha_phased` picks."""
     check_cuda(torch.bfloat16, qkv=qkv)
     check_cuda(torch.int32, idx=idx)
+    B, n_src, three_c = qkv.shape
+    C = three_c // 3
+    n = n_src if idx is None else idx.shape[1]
     out = torch.empty(B, n, C, dtype=out_dtype, device=qkv.device)
     am = torch.zeros(B * n, dtype=torch.float32, device=qkv.device) if amax else None
-    SHORT_KERNEL(ptr(qkv), ptr(idx), ptr(out), ptr(am), int(out_dtype == torch.float32), B,
-                 n_src, n, C, num_heads, float(scale), int(mha_phased(num_heads, n, scale)),
-                 stream())
+    kernel(ptr(qkv), ptr(idx), ptr(out), ptr(am), int(out_dtype == torch.float32), B, n_src, n,
+           C, num_heads, float(scale), int(mha_phased(num_heads, n, scale)), stream())
     return out, am

@@ -58,11 +58,13 @@ On the card the int8 tails (B10, B11, B13, and B14 and B15 in
 attention (the short-row kernel up to 256 tokens, B6's kernel past them),
 which in dynamic mode also takes each output row's absmax, and proj, which
 quantizes the attention output itself, with no quantizer launch between
-them: B10's and B11's bf16 output on the row-band GEMM's proj form
-(``csrc/band_s8.cuh``: each 128-row band's int8 A made once in shared
-memory; :func:`..gemm.band_proj`), B13-B15's fp32 one as it loads it
-(:func:`..gemm.gemm_s8q`). ``two_launch=True`` runs the old tail instead
-(attention, row quantizer, int8 proj), the new one's bitwise reference.
+them: B10's and B11's bf16 output on the row-band GEMM's proj form up to C =
+1024 (``csrc/band_s8.cuh``: each 128-row band's int8 A made once in shared
+memory; :func:`..gemm.band_proj`), B13-B15's fp32 one, and B10's and B11's
+at ViT-H/14's C = 1280 (``int8_block.cuh:TAIL_BAND_MAX_C`` has the
+measurement), as it loads it (:func:`..gemm.gemm_s8q`). ``two_launch=True``
+runs the old tail instead (attention, row quantizer, int8 proj), the new
+one's bitwise reference.
 
 B11 and B12 take ``band=True``: LN1 → int8 and the qkv product as one
 launch of the row-band GEMM's head form, the same bits. It read slower at
@@ -94,8 +96,10 @@ from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 from .math import fold_static_attn
 from .mlp import _int8_matmul, _layer_norm_f32, _layer_norm_int8, _mm
 
-HEAD_DIM = 64  # csrc/common.cuh: ATTN_D, the int8 kernels' head_dim
-C_MAX, C_MAX_BF16 = 1024, 1280  # the widest C of the int8 kernels and of the bf16 ones
+HEAD_DIM = 64  # csrc/common.cuh: ATTN_D
+# the widest C of the head_dim-64 int8, whole-block and training kernels, and
+# of the bf16 ones (ViT-H/14's, which the int8 kernels take at head_dim 80)
+C_MAX, C_MAX_BF16 = 1024, 1280
 
 PRUNED_KERNEL = CudaKernel(
     "rajni_pruned_attn_block",
@@ -236,19 +240,36 @@ def pruned_attn_block_plain(
     return out, next_scores, keep_idx
 
 
+def int8_width_ok(C: int, head_dim: int) -> bool:
+    """Whether the int8 attention kernels (B10-B13) take this width:
+    head_dim 64 with C <= 1024, or head_dim 80 at ViT-H/14's C = 1280 (the
+    int8 LayerNorm's 5 vectors a lane, the tails' row absmax at head_dim 80,
+    the band proj's 2 W stages)."""
+    return (head_dim == HEAD_DIM and C <= C_MAX) or (head_dim == 80 and C == C_MAX_BF16)
+
+
+# The widths each family of attention kernels takes, C % 128 == 0 given:
+# (rule on (C, head_dim), what it says)
+ATTN_WIDTHS = {
+    # K1, K2, B5: the bf16 kernels, ViT-H/14 included
+    "bf16": (lambda C, D: D in HEAD_DIMS and C <= C_MAX_BF16,
+             f"head_dim 64 or 80 with C <= {C_MAX_BF16}"),
+    # B10, B11, B13
+    "int8": (int8_width_ok, f"head_dim 64 with C <= {C_MAX} or head_dim 80 with C = {C_MAX_BF16}"),
+    # the whole blocks B7, B8, B14, B15, and B16 and B20
+    "head_dim64": (lambda C, D: D == HEAD_DIM and C <= C_MAX, f"head_dim 64 with C <= {C_MAX}"),
+}
+
+
 def _check_attn_shapes(name: str, N: int, C: int, num_heads: int, max_n: int,
-                       bf16: bool = False) -> None:
-    """Raise unless the kernel takes these shapes: C % 128 == 0 and head_dim
-    64 with C <= 1024 (the int8 kernels), or with ``bf16`` (K1, K2, B5)
-    head_dim 64 or 80 with C <= 1280, at most ``SDPA_MAX_N_D80`` tokens at
-    80; and 2 <= N <= max_n."""
-    dims, c_max = (HEAD_DIMS, C_MAX_BF16) if bf16 else ((HEAD_DIM,), C_MAX)
+                       widths: str = "head_dim64") -> None:
+    """Raise unless the kernel takes these shapes: C % 128 == 0 and the
+    head_dim and C that ``ATTN_WIDTHS[widths]`` allows, at most
+    ``SDPA_MAX_N_D80`` tokens at head_dim 80; and 2 <= N <= max_n."""
+    fits, what = ATTN_WIDTHS[widths]
     D = C // num_heads
-    if C % 128 or C > c_max or C % num_heads or D not in dims:
-        raise ValueError(
-            f"{name} needs C % 128 == 0, C <= {c_max} and head_dim "
-            f"{' or '.join(map(str, dims))}; got C={C}, heads={num_heads}"
-        )
+    if C % 128 or C % num_heads or not fits(C, D):
+        raise ValueError(f"{name} needs C % 128 == 0 and {what}; got C={C}, heads={num_heads}")
     max_n = min(max_n, sdpa_max_n(D))
     if not 2 <= N <= max_n:
         raise ValueError(f"{name} supports 2 <= N <= {max_n}, got N={N}")
@@ -329,12 +350,12 @@ def fused_attn_block(
 
 
 def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params, attn_params,
-                      ls, num_heads: int, scale: float, eps: float, bf16: bool = True):
+                      ls, num_heads: int, scale: float, eps: float, widths: str = "bf16"):
     """K2's entry point (``csrc/attn_block.cu``) through ``kernel``'s
     counter: ``(out [B, N, C], qkv [B, N, 3C])``, the qkv being the
-    post-bias, rounded buffer the launches leave in device memory. ``bf16``:
-    the shapes of the bf16 kernels (:func:`_check_attn_shapes`); B16 passes
-    False, since its backward, B18, takes head_dim 64 only."""
+    post-bias, rounded buffer the launches leave in device memory.
+    ``widths``: those of the bf16 kernels (:func:`_check_attn_shapes`); B16
+    passes ``"head_dim64"``, since its backward, B18, takes head_dim 64 only."""
     B, N, C = x.shape
     qkv_p, proj_p = attn_params["qkv"], attn_params["proj"]
     check_cuda(
@@ -342,7 +363,7 @@ def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params,
         wqkv=qkv_p["weight"], bqkv=qkv_p["bias"], wproj=proj_p["weight"],
         bproj=proj_p["bias"], ls=ls,
     )
-    _check_attn_shapes(name, N, C, num_heads, SDPA_MAX_N, bf16)
+    _check_attn_shapes(name, N, C, num_heads, SDPA_MAX_N, widths)
     rows = B * N
     y = torch.empty(rows, C, dtype=x.dtype, device=x.device)
     qkv = torch.empty(B, N, 3 * C, dtype=x.dtype, device=x.device)
@@ -380,7 +401,7 @@ def fused_pruned_attn_block(
         bproj=proj_p["bias"], ls=ls,
     )
     prev = _check_prev_scores(prev_scores, with_scores, B, N)
-    _check_attn_shapes("fused_pruned_attn_block", N, C, num_heads, ATTN_MAX_N, bf16=True)
+    _check_attn_shapes("fused_pruned_attn_block", N, C, num_heads, ATTN_MAX_N, "bf16")
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
     dev = x.device
@@ -476,8 +497,7 @@ def fused_gather_sdpa_proj_residual(
             "fused_gather_sdpa_proj_residual on the card takes the full width "
             f"only: qkv {tuple(qkv.shape)}, proj {tuple(w.shape)}, x {tuple(x.shape)}"
         )
-    _check_attn_shapes("fused_gather_sdpa_proj_residual", K, C, num_heads, SDPA_MAX_N,
-                       bf16=True)
+    _check_attn_shapes("fused_gather_sdpa_proj_residual", K, C, num_heads, SDPA_MAX_N, "bf16")
     if keep_idx.shape != (B, K) or K > N:
         raise ValueError(f"keep_idx must be [{B}, K <= {N}], got {tuple(keep_idx.shape)}")
     idx = keep_idx.to(torch.int32).contiguous()
@@ -671,7 +691,7 @@ def fused_attn_block_int8(x, ln_params, attn_params, ls, num_heads: int, scale: 
     wqkv, wproj = attn_params["qkv"]["weight"]["int8"], attn_params["proj"]["weight"]["int8"]
     ops = attn_operands(ln_params, attn_params, act_scales)
     _check_int8(x, ls, ops, wqkv=wqkv, wproj=wproj)
-    _check_attn_shapes("fused_attn_block_int8", N, C, num_heads, SDPA_MAX_N)
+    _check_attn_shapes("fused_attn_block_int8", N, C, num_heads, SDPA_MAX_N, "int8")
     if wqkv.shape != (3 * C, C) or wproj.shape != (C, C):
         raise ValueError(f"fused_attn_block_int8: bad int8 weight shapes {tuple(wqkv.shape)}, "
                          f"{tuple(wproj.shape)}")
@@ -709,16 +729,21 @@ def fused_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float = 1e-
 def launch_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float, with_scores: bool,
                        act_scales, band: bool):
     """B12's entry point (``csrc/ln_qkv_int8.cu``) on the card: ``(qkv,
-    scores, qs)``, ``qs [B·N]`` the LN rows' int8 scales either route writes
-    in dynamic mode (its contents undefined under static scales)."""
+    scores, qs, q8)``, ``qs [B·N]`` the LN rows' int8 scales either route
+    writes in dynamic mode (its contents undefined under static scales) and
+    ``q8 [B·N·C]`` the LN rows in int8 (LN1's launch, ``ln_quant_kernel``;
+    empty on the band)."""
     B, N, C = x.shape
     wq = qkv_params["weight"]["int8"]
     ops = attn_operands(ln_params, {"qkv": qkv_params}, act_scales)
     _check_int8(x, None, ops, wqkv=wq)
-    if C % 128 or C > 1024 or wq.shape != (3 * C, C) or N < 2:
-        raise ValueError("fused_ln_qkv_int8 on the card needs C % 128 == 0, C <= 1024, the "
-                         f"full [3C, C] weight and N >= 2; got C={C}, wqkv {tuple(wq.shape)}, "
-                         f"N={N}")
+    D = C // num_heads if C % num_heads == 0 else 0
+    if C % 128 or not int8_width_ok(C, D) or wq.shape != (3 * C, C) or N < 2:
+        raise ValueError("fused_ln_qkv_int8 on the card needs C % 128 == 0, "
+                         f"{ATTN_WIDTHS['int8'][1]}, the full [3C, C] weight and N >= 2; got "
+                         f"C={C}, heads={num_heads}, wqkv {tuple(wq.shape)}, N={N}")
+    if band and C > C_MAX:
+        raise ValueError(f"fused_ln_qkv_int8: the band head takes C <= {C_MAX}, got C={C}")
     if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_ln_qkv_int8 cannot score N={N}, C={C}, heads={num_heads}")
     dev = x.device
@@ -732,7 +757,7 @@ def launch_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float, wit
         int(with_scores), int(act_scales is not None), int(band), ptr(q8), ptr(qs), ptr(qkv),
         ptr(scores), B, N, C, num_heads, float(eps), stream(),
     )
-    return qkv, scores, qs
+    return qkv, scores, qs, q8
 
 
 def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_heads: int,
@@ -757,7 +782,8 @@ def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_
             "fused_gather_sdpa_proj_residual_int8 on the card takes the full width only: "
             f"qkv {tuple(qkv.shape)}, proj {tuple(wq.shape)}, x {tuple(x.shape)}"
         )
-    _check_attn_shapes("fused_gather_sdpa_proj_residual_int8", K, C, num_heads, SDPA_MAX_N)
+    _check_attn_shapes("fused_gather_sdpa_proj_residual_int8", K, C, num_heads, SDPA_MAX_N,
+                       "int8")
     if keep_idx.shape != (B, K) or K > N:
         raise ValueError(f"keep_idx must be [{B}, K <= {N}], got {tuple(keep_idx.shape)}")
     idx = keep_idx.to(torch.int32).contiguous()
@@ -822,12 +848,15 @@ def fused_pruned_attn_block_int8(x, ln_params, attn_params, ls, prev_scores, num
     ops = attn_operands(ln_params, attn_params, act_scales)
     _check_int8(x, ls, ops, wqkv=wqkv, wproj=wproj)
     prev = _check_prev_scores(prev_scores, with_scores, B, N)
-    _check_attn_shapes("fused_pruned_attn_block_int8", N, C, num_heads, SDPA_MAX_N)
+    _check_attn_shapes("fused_pruned_attn_block_int8", N, C, num_heads, SDPA_MAX_N, "int8")
     if wqkv.shape != (3 * C, C) or wproj.shape != (C, C):
         raise ValueError(f"fused_pruned_attn_block_int8: bad int8 weight shapes "
                          f"{tuple(wqkv.shape)}, {tuple(wproj.shape)}")
     if not 1 <= keep < N:
         raise ValueError(f"keep must be in [1, {N - 1}], got {keep}")
+    if band and C > C_MAX:
+        raise ValueError(f"fused_pruned_attn_block_int8: the band head takes C <= {C_MAX}, "
+                         f"got C={C}")
     if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_pruned_attn_block_int8 cannot score N={N}, C={C}, "
                          f"heads={num_heads}")

@@ -405,6 +405,8 @@ def gemm_s8q(o: torch.Tensor, amax: torch.Tensor | None, w: torch.Tensor,
 # The row-band GEMM's proj (csrc/band_s8.cuh): B10's and B11's proj
 # ---------------------------------------------------------------------------
 
+BAND_PROJ_MAX_C = 1280  # csrc/band_s8.cuh: the widest band of the proj form (2 W stages)
+
 
 def band_proj(o: torch.Tensor, amax: torch.Tensor | None, w: torch.Tensor,
               w_scale: torch.Tensor, bias: torch.Tensor, ls: torch.Tensor | None = None,
@@ -414,12 +416,12 @@ def band_proj(o: torch.Tensor, amax: torch.Tensor | None, w: torch.Tensor,
     version :func:`gemm_s8q_plain`) on a bf16 attention output ``o``,
     quantized once a 128-row band in shared memory. Raises before it
     dispatches, on any device, without the residual, on another dtype of
-    ``o``, where ``C % 128``, ``C > 1024`` or ``N % 128``, and as
+    ``o``, where ``C % 128``, ``C > BAND_PROJ_MAX_C`` or ``N % 128``, and as
     :func:`gemm_s8q` does."""
     C, N = o.shape[-1], w.shape[0]
-    if res is None or C % 128 or C > 1024 or N % 128:
-        raise ValueError("band_proj needs the residual, C % 128 == 0, C <= 1024 and N % 128 == "
-                         f"0; got res {'given' if res is not None else 'None'}, o "
+    if res is None or C % 128 or C > BAND_PROJ_MAX_C or N % 128:
+        raise ValueError(f"band_proj needs the residual, C % 128 == 0, C <= {BAND_PROJ_MAX_C} "
+                         f"and N % 128 == 0; got res {'given' if res is not None else 'None'}, o "
                          f"{tuple(o.shape)}, w {tuple(w.shape)}")
     if o.dtype != torch.bfloat16:
         raise ValueError(f"band_proj takes a bf16 A, got {o.dtype}")

@@ -42,6 +42,9 @@ INT8_KERNEL = CudaKernel(
 # tile, kept because hc is the numerics of B9's dynamic mode and the port
 # must chunk where JAX chunks.
 _WEIGHT_BUDGET = 10 * 1024 * 1024
+# B9's widest C: its LayerNorm → int8 (csrc/int8.cuh:ln_quant_kernel) holds
+# 5 vectors a lane at most; its products take any C % 128 == 0
+_INT8_C_MAX = 1280
 
 
 def _hidden_chunk(C: int, hidden: int, itemsize: int) -> int:
@@ -68,16 +71,26 @@ def _layer_norm_f32(x32, scale, bias, eps: float) -> torch.Tensor:
     return y * scale.float() + bias.float()
 
 
-# csrc/common.cuh: a warp a row, LN_MAXV 8-element chunks a lane
-_LN_LANES, _LN_MAXV = 32, 4
+# csrc/common.cuh: a warp a row, LN_MAXV 8-element chunks a lane up to C =
+# 1024, LN_MAXV_WIDE past it
+_LN_LANES, _LN_MAXV, _LN_MAXV_WIDE = 32, 4, 5
+
+
+def _ln_vectors(C: int) -> int:
+    """The 8-element chunks a lane of ``csrc/int8.cuh:ln_quant_kernel``
+    holds at width C (its template argument, chosen by C as
+    ``launch_ln_quant`` chooses it), or 0 where no kernel takes C."""
+    if C % 8 or C > _LN_MAXV_WIDE * _LN_LANES * 8:
+        return 0
+    return _LN_MAXV if C <= _LN_MAXV * _LN_LANES * 8 else _LN_MAXV_WIDE
 
 
 def _lane_sum(parts: torch.Tensor) -> torch.Tensor:
-    """``parts [..., LN_MAXV, 32, 8]`` summed as the kernel's warp sums
-    them: each lane its chunks in turn, then the lanes by the xor butterfly
+    """``parts [..., NV, 32, 8]`` summed as the kernel's warp sums them:
+    each lane its NV chunks in turn, then the lanes by the xor butterfly
     (``common.cuh:warp_sum``), every step one fp32 addition: ``[..., 1]``."""
     s = torch.zeros(parts.shape[:-3] + (_LN_LANES,), dtype=torch.float32, device=parts.device)
-    for i in range(_LN_MAXV):
+    for i in range(parts.shape[-3]):
         for j in range(8):
             s = s + parts[..., i, :, j]
     lanes = torch.arange(_LN_LANES, device=parts.device)
@@ -93,18 +106,21 @@ def _layer_norm_int8(x32, scale, bias, eps: float) -> torch.Tensor:
     the warp's xor butterfly; ``mean = sum / C``, ``rstd = 1 / sqrt(var / C +
     eps)``, each correctly rounded), so that kernel and plain version give the
     same LN output bit for bit and no quantization step flips between them
-    on a summation order. The kernel takes C % 8 == 0, C <= 1024; at any
-    other width (which only the plain route runs) it is
+    on a summation order. The kernel takes C % 8 == 0, C <= 1280, with the
+    chunks a lane holds that :func:`_ln_vectors` gives (the order is the
+    same at either count: a lane's chunks past the row's end add nothing);
+    at any other width (which only the plain route runs) it is
     :func:`_layer_norm_f32`."""
     lead, C = x32.shape[:-1], x32.shape[-1]
-    if C % 8 or C > _LN_MAXV * _LN_LANES * 8:
+    vectors = _ln_vectors(C)
+    if not vectors:
         return _layer_norm_f32(x32, scale, bias, eps)
     nv = C // 8
-    slots = _LN_MAXV * _LN_LANES
+    slots = vectors * _LN_LANES
     chunks = torch.zeros(*lead, slots, 8, dtype=torch.float32, device=x32.device)
     chunks[..., :nv, :] = x32.reshape(*lead, nv, 8)
-    valid = (torch.arange(slots, device=x32.device) < nv).reshape(_LN_MAXV, _LN_LANES, 1)
-    chunks = chunks.reshape(*lead, _LN_MAXV, _LN_LANES, 8)
+    valid = (torch.arange(slots, device=x32.device) < nv).reshape(vectors, _LN_LANES, 1)
+    chunks = chunks.reshape(*lead, vectors, _LN_LANES, 8)
     count = torch.full(lead + (1,), float(C), dtype=torch.float32, device=x32.device)
     mean = _lane_sum(chunks) / count
     d = chunks - mean[..., None, None]
@@ -262,10 +278,10 @@ def fused_ln_mlp_residual_int8(x, ln_params, mlp_params, ls=None, eps: float = 1
     check_cuda(torch.bfloat16, x=x, ls=ls)
     check_cuda(torch.int8, w1=w1q, w2=w2q)
     check_cuda(torch.float32, **{k: v for k, v in ops.items() if v is not None})
-    if C % 128 or C > 1024 or hidden % 128 or hc % 128 or hidden % hc:
+    if C % 128 or C > _INT8_C_MAX or hidden % 128 or hc % 128 or hidden % hc:
         raise ValueError(
-            "fused_ln_mlp_residual_int8 needs C and hidden multiples of 128, C <= 1024 and "
-            f"hc % 128 == 0 dividing hidden; got C={C}, hidden={hidden}, hc={hc}"
+            f"fused_ln_mlp_residual_int8 needs C and hidden multiples of 128, C <= {_INT8_C_MAX} "
+            f"and hc % 128 == 0 dividing hidden; got C={C}, hidden={hidden}, hc={hc}"
         )
     if w1q.shape != (hidden, C) or w2q.shape != (C, hidden):
         raise ValueError(f"bad int8 MLP weight shapes {tuple(w1q.shape)}, {tuple(w2q.shape)}")

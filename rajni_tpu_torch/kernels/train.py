@@ -57,7 +57,7 @@ def train_attn_block(x: torch.Tensor, ln_params, attn_params, ls, num_heads: int
     if x.device.type == "cpu":
         return attn_block_qkv_plain(x, ln_params, attn_params, ls, num_heads, scale, eps)
     return launch_attn_block(TRAIN_ATTN_KERNEL, "train_attn_block", x, ln_params, attn_params,
-                             ls, num_heads, scale, eps, bf16=False)
+                             ls, num_heads, scale, eps, "head_dim64")
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,7 @@ from ..kernels.block import (
     fused_ln_qkv_int8,
     fused_pruned_attn_block,
     fused_pruned_attn_block_int8,
+    int8_width_ok,
     select_kept,
 )
 from ..kernels.attention import HEAD_DIM, HEAD_DIMS, sdpa_max_n
@@ -390,8 +391,10 @@ def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = F
     activations, C a multiple of 128 (hidden a multiple of 128), and for the
     classic configurations. The bf16 inference kernels take head_dim 64 up to
     C = 1024 and ``SDPA_MAX_N`` tokens, and head_dim 80 up to C = 1280
-    (ViT-H/14) and ``SDPA_MAX_N_D80`` tokens; the int8 kernels and the
-    training kernels head_dim 64 and C <= 1024 only. As JAX's rule holds only
+    (ViT-H/14) and ``SDPA_MAX_N_D80`` tokens; the int8 kernels head_dim 64
+    with C <= 1024 or head_dim 80 at C = 1280 (ViT-H/14,
+    :func:`..kernels.block.int8_width_ok`); the training kernels head_dim 64
+    and C <= 1024 only. As JAX's rule holds only
     on the TPU, this one holds only on the card: the plain versions that the
     wrappers run on CPU tensors take any shape and dtype.
     """
@@ -411,10 +414,12 @@ def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = F
         return False, f"MLP hidden {config.mlp_hidden} is not a multiple of 128"
     if config.num_tokens > sdpa_max_n(int(D)):
         return False, f"{config.num_tokens} tokens > {sdpa_max_n(int(D))} at head_dim {D:g}"
-    for asked, what in ((quantized, "int8 weights"), (training, "training")):
-        if asked and (C > C_MAX or D != HEAD_DIM):
-            return False, (f"{what} at C={C}, head_dim {D:g}: its kernels take C <= {C_MAX} and "
-                           f"head_dim {HEAD_DIM}")
+    if quantized and not int8_width_ok(C, int(D)):
+        return False, (f"int8 weights at C={C}, head_dim {D:g}: its kernels take head_dim "
+                       f"{HEAD_DIM} with C <= {C_MAX} or head_dim 80 with C = {C_MAX_BF16}")
+    if training and (C > C_MAX or D != HEAD_DIM):
+        return False, (f"training at C={C}, head_dim {D:g}: its kernels take C <= {C_MAX} and "
+                       f"head_dim {HEAD_DIM}")
     return True, ""
 
 
@@ -491,7 +496,9 @@ def vit_forward(
       holds, with B12 given the static ``(a_qkv, a_proj)`` (the V-column
       fold); else the bf16 B5 on the proj weight dequantized to bf16, with
       B12 given no scales, since B5 does not undo the fold (ViT-B/384
-      blocks 3-5 take B5, 6-7 B13).
+      blocks 3-5 take B5, 6-7 B13; ViT-H/14 under ``VIT_H_PROBE``: B10 in
+      the 28 stock blocks, B12 + selection + B13 in the 4 pruned ones, no
+      whole-block plan fitting at C = 1280).
     * bf16 attention and MLP: B7 ``fused_pruned_block_full`` / B8
       ``fused_attn_mlp_block`` where ``_bf16_full_plan`` fits (DeiT-S
       class) and the CUDA kernels take the shape (C % 128 == 0, head_dim

@@ -6,7 +6,8 @@ The same numpy-made params and images go through both packages in fp32 on
 the CPU: ``impl="torch"`` against JAX ``"xla"``, ``impl="cuda"`` (the kernels'
 plain versions on CPU tensors) against JAX ``"pallas"`` in interpret mode.
 Then B6, the gathered attention, the RAJNI scores, K3 and the LayerNorm at
-ViT-H's head_dim 80 and C = 1280 on their own, and the card's route gate.
+ViT-H's head_dim 80 and C = 1280 on their own, and the card's route gate
+(tests/test_torch_int8_vit_h.py holds the int8 kernels at these widths).
 Tolerances as tests/test_torch_forward.py: rtol 1e-4 / atol 1e-5 on
 activations and logits; selections and token counts exactly. In bf16, where
 the blocks' SDPA forms differ (q·scale rounded first, or the scale on the
@@ -195,23 +196,32 @@ def test_c1280_mlp_and_layer_norm_match_jax(rng):
 GIANT = "vit_giant_patch14_224"  # C = 1408
 
 
+INT8_WIDTHS = "its kernels take head_dim 64 with C <= 1024 or head_dim 80 with C = 1280"
+TRAIN_WIDTHS = "its kernels take C <= 1024 and head_dim 64"
+
+
 @pytest.mark.parametrize("model,kw,route", [
     ("vit_huge_patch14_224", {}, "route: cuda"),
-    ("vit_huge_patch14_224", {"quantized": True},
-     "route: torch (int8 weights at C=1280, head_dim 80: its kernels take C <= 1024 and "
-     "head_dim 64)"),
+    ("vit_huge_patch14_224", {"quantized": True}, "route: cuda"),
     ("vit_huge_patch14_224", {"training": True},
-     "route: torch (training at C=1280, head_dim 80: its kernels take C <= 1024 and "
-     "head_dim 64)"),
+     f"route: torch (training at C=1280, head_dim 80: {TRAIN_WIDTHS})"),
+    ("vit_huge_patch14_224", {"quantized": True, "training": True},
+     f"route: torch (training at C=1280, head_dim 80: {TRAIN_WIDTHS})"),
     ("vit_large_patch16_224", {"quantized": True, "training": True}, "route: cuda"),
+    (dict(embed_dim=640, num_heads=8), {"quantized": True},
+     f"route: torch (int8 weights at C=640, head_dim 80: {INT8_WIDTHS})"),
+    (dict(embed_dim=1280, num_heads=20), {"quantized": True},
+     f"route: torch (int8 weights at C=1280, head_dim 64: {INT8_WIDTHS})"),
     (GIANT, {}, "route: torch (C=1408 > 1280)"),
     (dict(embed_dim=768, num_heads=8), {}, "route: torch (head_dim 96 is not 64 or 80)"),
-], ids=["vit_h bf16", "vit_h int8", "vit_h training", "vit_l int8 training", "C=1408",
+], ids=["vit_h bf16", "vit_h int8", "vit_h training", "vit_h int8 training",
+        "vit_l int8 training", "head_dim 80 C=640 int8", "head_dim 64 C=1280 int8", "C=1408",
         "head_dim 96"])
-def test_card_route_takes_vit_h_in_bf16_only(model, kw, route):
-    """On a CUDA device bf16 ViT-H takes the kernels; int8 params and
-    training at its width demote before any launch, naming why; on the CPU
-    nothing demotes."""
+def test_card_route_takes_vit_h_in_bf16_and_int8(model, kw, route):
+    """On a CUDA device ViT-H takes the kernels in bf16 and with int8 params;
+    int8 params at another head_dim-80 width or past C = 1024 at head_dim 64,
+    and training at ViT-H's width, demote before any launch, naming why; on
+    the CPU nothing demotes."""
     config = tvit.get_config(model) if isinstance(model, str) else tvit.ViTConfig(**model)
     for impl in ("auto", "cuda"):
         assert tvit.route_line(*tvit.resolve_route(impl, config, torch.bfloat16, "cuda",

@@ -253,12 +253,12 @@ def test_select_kept_refuses(case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["C % 128", "C > 1024", "N % 128", "int8 A", "fp32 A",
+@pytest.mark.parametrize("case", ["C % 128", "C > 1280", "N % 128", "int8 A", "fp32 A",
                                   "without residual"])
 def test_band_proj_refuses(case):
     """The band proj refuses, on the CPU too, what the kernel does not take;
     a shape it takes runs its plain version, gemm_s8q_plain."""
-    C = {"C % 128": 192, "C > 1024": 1152}.get(case, 128)
+    C = {"C % 128": 192, "C > 1280": 1408}.get(case, 128)
     N = C + (16 if case == "N % 128" else 0)
     rng = np.random.default_rng(1)
     o = torch.from_numpy(rng.standard_normal((4, C)).astype(np.float32)).bfloat16()

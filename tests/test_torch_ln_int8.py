@@ -7,8 +7,9 @@ bit; JAX's ``_layer_norm_f32`` (``rajni_tpu/kernels/block.py:105``) takes
 ``jnp.mean``. Two fp32 sums of the same terms in other orders differ by a
 few ulp, so the outputs, of magnitude up to ~5 here, must agree within
 rtol 1e-6 / atol 1e-6 (about 2 ulp at 4; measured: at most 9.5e-7). At the
-widths no kernel takes (C > 1024, C % 8 != 0) the plain version is
-``_layer_norm_f32``, whatever the shape.
+widths no kernel takes (C > 1280, C % 8 != 0) the plain version is
+``_layer_norm_f32``, whatever the shape; at C = 1280 (ViT-H/14) it is the
+kernel's order with 5 chunks a lane.
 
 Where the order does show: an LN output one ulp apart can flip an int8
 quantization step, and a flipped k or v element moves a RAJNI score. B14
@@ -38,7 +39,7 @@ from tests.test_torch_wholeblock import INT8_FLIP, _block
 SCORE_RTOL = 1e-2  # chip_smoke.py: rescored next_scores, each relative
 
 
-@pytest.mark.parametrize("C", [64, 384, 1024, 1280, 100])
+@pytest.mark.parametrize("C", [64, 384, 1024, 1280, 1408, 100])
 def test_layer_norm_int8_matches_jax(C):
     rng = np.random.default_rng(C)
     x = (3 * rng.standard_normal((256, C)) + rng.standard_normal((256, 1))).astype(np.float32)
@@ -48,7 +49,7 @@ def test_layer_norm_int8_matches_jax(C):
     got = _layer_norm_int8(*t, 1e-6)
     want = jblock._layer_norm_f32(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), 1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
-    if C % 8 or C > 1024:
+    if C % 8 or C > 1280:
         assert torch.equal(got, _layer_norm_f32(*t, 1e-6))
 
 
