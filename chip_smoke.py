@@ -18,8 +18,9 @@ past 256 tokens); ViT-H/14 in bf16 at batch 128 through ``kernels="auto"``
 (``VIT_H_PROBE``: K2, K3, B4 + selection + B5 and K1 at C = 1280 and head_dim
 80), and with int8 weights, dynamic (P14i) and static (B10, B9, B12 +
 selection + B13 at C = 1280, head_dim 80); and training: ViT-B/16 224 at batch 128 in bf16 through B16, B4, B5,
-B17 and B18 (T6). Steps, each of which fails the run (non-zero exit) when it
-goes wrong:
+B17 and B18 (T6), and ViT-H/14 at batch 64 through VIT_H_PROBE on the same
+kernels at C = 1280 and head_dim 80 (T14). Steps, each of which fails the
+run (non-zero exit) when it goes wrong:
 
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``rajni_tpu_torch/csrc`` into one library
@@ -27,7 +28,8 @@ goes wrong:
    the sources of the wgmma GEMM (``GEMM_SOURCES``: ``gemm.cu``, the bf16
    sources of K1-K3, B4 and B5, and the seven int8 sources) that ptxas
    reports no spill and no serialized wgmma, and of every head_dim-80
-   instantiation (the short-row kernel, B6's body, the score kernel) and
+   instantiation (the short-row kernel, B6's body, B18's three kernels,
+   the score kernel) and
    the C = 1280 LayerNorms (bf16, and to int8) that it was compiled with 0
    spill bytes;
 3. hold each kernel against its plain PyTorch version on the card at each
@@ -55,7 +57,9 @@ goes wrong:
    apart), B12 at 257 and 180, B13 at 257→180, 88→61 and 257→257, B10 at
    257, 180 and 61, B9 at 257 and 61 rows, B11 at 30→21, and B10's proj on
    the row-band GEMM beside ``gemm_s8q`` at its five shapes; B16 ``train_attn_block``, B17 ``train_ln_mlp`` and B18
-   ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens); B6 and B18
+   ``train_sdpa_bwd`` at T6's shapes (B18 also at 577 tokens) and at T14's
+   (B=64, C=1280: B16 at 257 and 180 tokens, B17 at 257 and 61, B18 at 257,
+   180, 126, 88 and 61, head_dim 80); B6 and B18
    at ragged lengths (batch 16); the GEMM of K1, K2, K3, B4 and B5 on its
    own (``kernels/gemm.py``) at each bf16 path's QKV, proj, fc1 and fc2 (C =
    384, 768, 1024; M = 256·197, 256·120), at K1's and B5's proj with the
@@ -95,7 +99,8 @@ goes wrong:
    faults planted in the plain versions (the attention for K1-B8, B16 and
    B20, the quantization, the attention's rounding and the scores' source
    for the int8 kernels, B17's GELU of the unrounded h, B18's row term from
-   the rounded P and its dV from the unrounded P; for B6 and B18, P rounded
+   the rounded P and its dV from the unrounded P, and at head_dim 80 its
+   phased form and its 16-column parts left out; for B6 and B18, P rounded
    before it is normalized, where it separates; for the GEMM, the GELU of
    the rounded sum, a K-tile skipped, the residual added ungathered and its
    index shifted by one row, and for B17's fc1 the GELU of the unrounded
@@ -118,15 +123,16 @@ goes wrong:
    logits, distance to a reference forward (the ``kernels="torch"`` one;
    for int8, the same forward with the kernels' plain versions on the card,
    and the dequantized ``kernels="torch"`` one loosely), img/s and MFU;
-5. train T6 through ``rajni_tpu_torch.train``: the first step's loss and
+5. train T6 and T14 through ``rajni_tpu_torch.train``: the first step's loss and
    every gradient through the kernels against the same path on the kernels'
    plain versions and against the torch-autograd route on the card (through
    the same selections; each kept set that either would choose otherwise
    must lie within what its score discrepancy explains, and the share of
    images that the torch route would select otherwise is bounded), the
-   launches of one step (every
-   count set to 0 first), a falling loss over 20 steps on one batch, and
-   train img/s with ``train_mfu`` on both routes, pruned and identity;
+   launches and selections of one step (every
+   count set to 0 first), a falling loss over 20 steps (T14: 8) on one
+   batch, and train img/s with ``train_mfu`` on both routes, pruned and
+   identity;
 6. run the eval CLI in a subprocess: at 224 and at 384, and at 224 and 384
    with ``--quantize --calibrate 1``, and ViT-H/14 with ``--quantize`` and
    ``--quantize --calibrate 1``, each on the kernels; then the training CLI (ViT-B/16 bf16
@@ -134,8 +140,7 @@ goes wrong:
    training CLI on ``vit_tiny_patch16_224`` in fp32, and ``RAJNIViT`` on
    ``vit_tiny_patch16_224`` in fp32 and bf16: the last three demoted to the
    plain route before any launch, each printing its ``route:`` line; and
-   ViT-H/14 in training through the training CLI, on the torch route with
-   the reason printed;
+   ViT-H/14 in training through the training CLI on the kernels;
 7. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
@@ -184,9 +189,13 @@ PATH_H = "vit_huge_patch14_224"
 C_H, HEADS_H, HIDDEN_H = 1280, 16, 5120
 B_H = 128
 VIT_H_SCHEDULE = {i: {"keep_ratio": 0.7} for i in (5, 10, 15, 20)}
+VIT_H_TRAIN_K = (257, 180, 126, 88, 61)  # B18's lengths on T14: 257 stock, then each kept count
 KERNEL_ONLY = "kernel phase only"  # B19 and B20: no path runs them
 TRAIN = f"train {PATH224}"  # the training path: ViT-B/16 224, batch 128
 B_TRAIN = 128
+# T14, ViT-H/14 training (C = 1280, head_dim 80) through VIT_H_PROBE, batch 64
+TRAIN_H = f"train {PATH_H}"
+B_TRAIN_H = 64
 # Kernel vs its plain version. Both round the same intermediates to bf16 and
 # differ only in fp32 summation order, so they disagree where a value lies
 # within that order's error of a rounding edge: single-ulp flips, most of
@@ -268,6 +277,15 @@ TRAIN_SEL_DIFF = 0.5
 TRAIN_PLAIN_LOSS_ATOL = 3e-4
 TRAIN_PLAIN_GRAD_REL_L2 = 3.7e-2
 TRAIN_SCORE_REL = 1.9e-2
+# T14 (32 blocks, the pruned blocks 5 to 20 deep) against the plain versions
+# on an H100 SXM: the losses differed by 6.77e-4 and a selection's score
+# discrepancy grew with depth, 6.5e-3 (block 5), 1.05e-2, 1.38e-2, 1.94e-2
+# (block 20), over T6's limits; limits 2.5x those readings. Its gradients
+# (1.87e-2 against the plain versions, 1.94e-2 against torch autograd), its
+# loss against torch autograd (2.3e-4) and its share of images selecting
+# otherwise (30 of 64) read within T6's limits, which hold them.
+TRAIN_H_PLAIN_LOSS_ATOL = 1.7e-3
+TRAIN_H_SCORE_REL = 4.9e-2
 # One block op at T6's shapes with one kernel swapped for its plain
 # version, against the op through the kernels: relative L2 of the op's
 # output y, of the input's gradient d_x and of the worst leaf gradient.
@@ -1288,10 +1306,13 @@ def vit_h_int8_phases(device, peaks, int8_peak, results):
 
 
 # ptxas's report of the head_dim-80 instantiations (csrc/short_attn.cu,
-# csrc/sdpa.cu, common.cuh:score_kernel<80, ...>) and of the C = 1280
+# csrc/sdpa.cu, csrc/sdpa_bwd.cu, common.cuh:score_kernel<80, ...>) and of the C = 1280
 # LayerNorm (common.cuh:layer_norm_kernel<5>), by mangled name
 HEAD_DIM80_KERNELS = {"short-row attention": "short_attn_kernelILi80E",
                       "B6's body": "sdpa_wgmma_kernelILi80E",
+                      "B18 one launch": "sdpa_bwd_fused_kernelILi80E",
+                      "B18 query launch": "sdpa_bwd_query_kernelILi80E",
+                      "B18 key launch": "sdpa_bwd_key_kernelILi80E",
                       "score kernel": "score_kernelILi80E",
                       "LayerNorm C=1280": "layer_norm_kernelILi5E",
                       "LayerNorm → int8 C=1280": "ln_quant_kernelILi5E"}
@@ -2361,9 +2382,11 @@ def rel_l2(got, want) -> float:
 
 def b18_faulty(fault: str):
     """B18's plain version with one planted fault: the row term taken from
-    the rounded pb instead of p32, dV from p32 instead of pb, or P rounded
+    the rounded pb instead of p32, dV from p32 instead of pb, P rounded
     before normalization (attn_out and dV from bf16(e), scaled by 1/Σe
-    after the product)."""
+    after the product); at head_dim 80 the phased form (the logits from
+    q·scale rounded to bf16, the forward kernels' ``_mha``) and dQ, dK and
+    dV without each head's 16 columns past 64."""
     import torch
 
     from rajni_tpu_torch.kernels import train as kt
@@ -2372,7 +2395,10 @@ def b18_faulty(fault: str):
         C = qkv.shape[-1] // 3
         q, k, v = (kt._heads(qkv[..., i * C:(i + 1) * C], num_heads).float() for i in range(3))
         do = kt._heads(dout, num_heads).float()
-        logits = (q @ k.transpose(-1, -2)) * scale
+        if fault == PHASED:
+            logits = (q * scale).to(qkv.dtype).float() @ k.transpose(-1, -2)
+        else:
+            logits = (q @ k.transpose(-1, -2)) * scale
         e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
         inv = 1.0 / e.sum(dim=-1, keepdim=True)
         p32 = e * inv
@@ -2384,8 +2410,11 @@ def b18_faulty(fault: str):
         row = pb if fault == "row term from pb" else p32
         ds = p32 * (dp - (dp * row).sum(dim=-1, keepdim=True))
         dsb = (ds * scale).to(qkv.dtype).float()
-        d_qkv = torch.cat([kt._merge(dsb @ k), kt._merge(dsb.transpose(-1, -2) @ q),
-                           kt._merge(dv)], dim=-1)
+        grads = [dsb @ k, dsb.transpose(-1, -2) @ q, dv]
+        if fault == PARTS_LEFT_OUT:
+            for g in grads:
+                g[..., 64:] = 0.0
+        d_qkv = torch.cat([kt._merge(g) for g in grads], dim=-1)
         out = (e.to(qkv.dtype).float() @ v) * inv if fault == ROUNDED_FIRST else pb @ v
         return kt._merge(out).to(qkv.dtype), d_qkv.to(qkv.dtype)
 
@@ -2394,6 +2423,12 @@ def b18_faulty(fault: str):
 
 B18_FAULTS = ("row term from pb", "dV from p32")
 ROUNDED_FIRST = "P rounded before normalization"
+# head_dim 80: B18 takes the per-head form (the TPU backward's), not the
+# forward kernels' phased one, which reads ~3.4e-3 from it at 80^-0.5; and
+# every output column of a head comes from the 64-column products plus the
+# 16-column parts
+PHASED, PARTS_LEFT_OUT = "phased form", "16-column parts left out of dQ, dK and dV"
+B18_FAULTS_D80 = B18_FAULTS + (PHASED, PARTS_LEFT_OUT)
 # The online-softmax rounding point (P rounded, then scaled by 1/Σ after
 # P·V) reads about 2e-3 from the sound plain version: under the branch gate
 # that B6's output shares with every bf16 kernel (BRANCH_REL_L2), so B6's
@@ -2440,15 +2475,20 @@ def rounding_point(tag, got: dict, sound: dict, fault: dict, limits: dict) -> No
         check(s <= limits[key], f"{tag} {key}: rel L2 {s} > {limits[key]}")
 
 
-def train_kernel_phases(device, peaks, results):
-    """B16, B17 and B18 at the ViT-B/16 224 training path's shapes (B=128):
-    B16 at 197 tokens, B17 at 197 and 120, B18 at K = 197, 187 and 120, and
-    B18 at K=577 (B=32), past the JAX package's fit rule. Each output is held
-    to the plain version separately, and the planted faults must be
-    rejected: B17's GELU on the unrounded h (K3's plain version, which
-    computes exactly that), and B18's two above; B18's rounding-point fault
-    is gated where it separates (``rounding_point``), and two calls of B18
-    on the same input must be bitwise equal."""
+def train_kernel_phases(device, peaks, results, path=TRAIN, C=C, HEADS=HEADS, HIDDEN=HIDDEN,
+                        batch=B_TRAIN, b16_n=(197,), b17_n=(197, 120),
+                        b18_shapes=((B_TRAIN, 197), (B_TRAIN, 187), (B_TRAIN, 120), (32, 577)),
+                        seed=11):
+    """B16, B17 and B18 at a training path's shapes: T6's (ViT-B/16 224,
+    B=128) by default, B16 at 197 tokens, B17 at 197 and 120, B18 at K =
+    197, 187 and 120, and B18 at K=577 (B=32), past the JAX package's fit
+    rule; T14's (ViT-H/14, C = 1280, head_dim 80, B=64) with its arguments.
+    Each output is held to the plain version separately, and the planted
+    faults must be rejected: B17's GELU on the unrounded h (K3's plain
+    version, which computes exactly that), and B18's above (at head_dim 80
+    also the phased form and the 16-column parts left out); B18's
+    rounding-point fault is gated where it separates (``rounding_point``),
+    and two calls of B18 on the same input must be bitwise equal."""
     import torch
     import torch.nn.functional as Fn
 
@@ -2456,35 +2496,35 @@ def train_kernel_phases(device, peaks, results):
     from rajni_tpu_torch.kernels import train as kt
     from rajni_tpu_torch.kernels.block import attn_block_qkv_plain
 
-    gen = torch.Generator().manual_seed(11)
-    blk = make_block(gen, device)
-    scale = (C // HEADS) ** -0.5
+    gen = torch.Generator().manual_seed(seed)
+    blk = make_block(gen, device, C, HIDDEN)
+    D = C // HEADS
+    scale = D ** -0.5
 
     def x_of(b, n):
         return (X_STD * torch.randn(b, n, C, generator=gen)).to(device, torch.bfloat16)
 
-    x = x_of(B_TRAIN, 197)  # B16
-    args = (x, blk["norm1"], blk["attn"], None, HEADS, scale, 1e-6)
-    x1, qkv = kt.train_attn_block(*args)
-    px1, pqkv = attn_block_qkv_plain(*args)
-    err, rel = compare("B16 x1 N=197", x1, px1, x)
-    qrel = rel_l2(qkv, pqkv)
-    print(f"B16 qkv N=197: rel L2 {qrel:.3e}")
-    check(qrel <= TRAIN_GATES["qkv"], f"B16 qkv rel L2 {qrel} > {TRAIN_GATES['qkv']}")
-    reject_planted("B16 x1 N=197", x1, lambda: attn_block_qkv_plain(*args)[0], x)
-    M = B_TRAIN * 197
-    bnd = bound(2.0 * M * C * 4 * C + 4.0 * B_TRAIN * 197 * 197 * C,
-                M * C * 2 * 2 + M * 3 * C * 2 + 4 * C * C * 2, peaks)
-    record(results, "train_attn_block", TRAIN, f"B={B_TRAIN} N=197 C={C}",
-           cuda_ms(lambda: kt.train_attn_block(*args)),
-           cuda_ms(lambda: attn_block_qkv_plain(*args), iters=5), bnd, err, max(rel, qrel))
-
-    from rajni_tpu_torch.kernels import gemm as kg
+    for n in b16_n:  # B16
+        x = x_of(batch, n)
+        args = (x, blk["norm1"], blk["attn"], None, HEADS, scale, 1e-6)
+        x1, qkv = kt.train_attn_block(*args)
+        px1, pqkv = attn_block_qkv_plain(*args)
+        err, rel = compare(f"B16 x1 N={n}", x1, px1, x)
+        qrel = rel_l2(qkv, pqkv)
+        print(f"B16 qkv N={n}: rel L2 {qrel:.3e}")
+        check(qrel <= TRAIN_GATES["qkv"], f"B16 qkv rel L2 {qrel} > {TRAIN_GATES['qkv']}")
+        reject_planted(f"B16 x1 N={n}", x1, lambda: attn_block_qkv_plain(*args)[0], x)
+        M = batch * n
+        bnd = bound(2.0 * M * C * 4 * C + 4.0 * batch * n * n * C,
+                    M * C * 2 * 2 + M * 3 * C * 2 + 4 * C * C * 2, peaks)
+        record(results, "train_attn_block", path, f"B={batch} N={n} C={C}",
+               cuda_ms(lambda: kt.train_attn_block(*args)),
+               cuda_ms(lambda: attn_block_qkv_plain(*args), iters=5), bnd, err, max(rel, qrel))
 
     w1, b1 = blk["mlp"]["fc1"]["weight"], blk["mlp"]["fc1"]["bias"]
     w2, b2 = blk["mlp"]["fc2"]["weight"], blk["mlp"]["fc2"]["bias"]
-    for n in (197, 120):  # B17
-        x = x_of(B_TRAIN, n)
+    for n in b17_n:  # B17
+        x = x_of(batch, n)
         args = (x, blk["norm2"], blk["mlp"], None, 1e-6)
         y, h = kt.train_ln_mlp(*args)
         py, ph = kt.train_ln_mlp_plain(*args)
@@ -2495,7 +2535,7 @@ def train_kernel_phases(device, peaks, results):
         bad = branch_rel(y, km.ln_mlp_residual_plain(*args), x)
         print(f"B17 y N={n}: planted fault 'GELU on the unrounded h': branch rel L2 {bad:.3e}")
         check(bad > B17_GATE[2], f"B17 N={n}: the gate missed the GELU on the unrounded h")
-        M = B_TRAIN * n
+        M = batch * n
         # fc1's epilogue on B17's own LN output, bit for bit
         yln = km._layer_norm_f32(x.float(), blk["norm2"]["scale"], blk["norm2"]["bias"],
                                  1e-6).to(x.dtype).reshape(M, C)
@@ -2509,17 +2549,18 @@ def train_kernel_phases(device, peaks, results):
               for k, v in launch_ms(lambda: km.fused_ln_mlp_residual(*args)).items()}
         lib = (device_ms(lambda: Fn.linear(yln, w1, b1), iters=10)[0]
                + device_ms(lambda: Fn.linear(hg, w2, b2), iters=10)[0])
-        print(f"B17 N={n} B={B_TRAIN}: {sum(parts.values()):.3f} ms ("
+        print(f"B17 N={n} B={batch} C={C}: {sum(parts.values()):.3f} ms ("
               + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
               + f") | K3 {sum(k3.values()):.3f} ms ("
               + ", ".join(f"{k} {v:.3f}" for k, v in k3.items())
               + f") | cuBLAS fc1 + fc2 {lib:.3f} ms | bound {bnd[0]:.3f} ms ({bnd[1]}) "
               "(device time)")
-        record(results, "train_ln_mlp", TRAIN, f"B={B_TRAIN} N={n} C={C}",
+        record(results, "train_ln_mlp", path, f"B={batch} N={n} C={C}",
                cuda_ms(lambda: kt.train_ln_mlp(*args)),
                cuda_ms(lambda: kt.train_ln_mlp_plain(*args), iters=5), bnd, err, max(rel, hrel))
 
-    for b, n in ((B_TRAIN, 197), (B_TRAIN, 187), (B_TRAIN, 120), (32, 577)):  # B18
+    faults = B18_FAULTS_D80 if D == 80 else B18_FAULTS
+    for b, n in b18_shapes:  # B18
         qkv = torch.randn(b, n, 3 * C, generator=gen).to(device, torch.bfloat16)
         dout = torch.randn(b, n, C, generator=gen).to(device, torch.bfloat16)
         got = kt.train_sdpa_bwd(qkv, dout, HEADS, scale)
@@ -2532,11 +2573,11 @@ def train_kernel_phases(device, peaks, results):
         g, w = parts(got), parts(want)
         rels = {k: rel_l2(g[k], w[k]) for k in g}
         err = max((g[k].float() - w[k].float()).abs().max().item() for k in g)
-        print(f"B18 B={b} K={n}: max_abs_err {err:.3e}, rel L2 "
+        print(f"B18 head_dim {D} B={b} K={n}: max_abs_err {err:.3e}, rel L2 "
               + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()))
         for k, v in rels.items():
             check(v <= TRAIN_GATES[k], f"B18 K={n} {k} rel L2 {v} > {TRAIN_GATES[k]}")
-        for fault in B18_FAULTS:
+        for fault in faults:
             bad = parts(b18_faulty(fault)(qkv, dout, HEADS, scale))
             brels = {k: rel_l2(g[k], bad[k]) for k in g}
             print(f"B18 K={n}: planted fault '{fault}': rel L2 "
@@ -2561,7 +2602,7 @@ def train_kernel_phases(device, peaks, results):
 
         lib = device_ms(library)  # under CUDA events its host side is timed
         bnd = bound(12.0 * b * n * n * C, 8 * b * n * C * 2, peaks)
-        record(results, "train_sdpa_bwd", TRAIN, f"B={b} K={n} C={C}", ms, plain_ms, bnd, err,
+        record(results, "train_sdpa_bwd", path, f"B={b} K={n} C={C}", ms, plain_ms, bnd, err,
                max(rels.values()), library=lib, device=dev)
 
 
@@ -3710,28 +3751,29 @@ def train_block_ops(device):
         t.requires_grad_(False)
 
 
-def first_step(device) -> dict:
-    """The training path's first step at ViT-B/16 224, batch 128, bf16
-    params, ``REFERENCE_SCHEDULE``: loss and gradients through the kernels
+def first_step(device, path=TRAIN) -> dict:
+    """A training path's first step (``TRAIN_PATHS[path]``: T6, ViT-B/16 224
+    at batch 128 through ``REFERENCE_SCHEDULE``; T14, ViT-H/14 at batch 64
+    through VIT_H_PROBE), bf16 params: loss and gradients through the kernels
     against (1) the same path with the kernels' plain versions on the card,
     (2) the torch-autograd route (``vit_forward(..., "torch")``, its own
-    rounding points), and (3) the plain route with each planted fault of
-    ``TRAIN_FAULTS``, which is printed only: over twelve bf16 blocks the
+    rounding points), and (3) at T6, the plain route with each planted fault
+    of ``TRAIN_FAULTS``, which is printed only: over twelve bf16 blocks the
     sound reading is as large as a fault's (:func:`train_block_ops` holds
     them). (1)-(3) take the kernel route's kept sets; each reports how its own
     selection departs from them. Returns the readings; prints them."""
     import torch
 
-    from rajni_tpu_torch import REFERENCE_SCHEDULE
     from rajni_tpu_torch import train as tt
     from rajni_tpu_torch.models import train_path as tp
     from rajni_tpu_torch.models import vit as tvit
     from rajni_tpu_torch.ops import attention as oa
 
-    config = tvit.get_config(PATH224)
+    spec = TRAIN_PATHS[path]
+    config, schedule, batch = tvit.get_config(spec["model"]), train_schedule(path), spec["batch"]
     gen = torch.Generator().manual_seed(1)
-    images = torch.randn(B_TRAIN, config.img_size, config.img_size, 3, generator=gen).to(device)
-    labels = torch.randint(0, config.num_classes, (B_TRAIN,), generator=gen).to(device)
+    images = torch.randn(batch, config.img_size, config.img_size, 3, generator=gen).to(device)
+    labels = torch.randint(0, config.num_classes, (batch,), generator=gen).to(device)
     params = tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
     leaves = tt.param_leaves(params)
     for p in leaves:
@@ -3745,7 +3787,7 @@ def first_step(device) -> dict:
             return loss.item(), torch.autograd.grad(loss, leaves)
 
     def train_forward():
-        return tp.vit_forward_train(params, images, config, REFERENCE_SCHEDULE,
+        return tp.vit_forward_train(params, images, config, schedule,
                                     _sel_tap=lambda i, k: blocks.setdefault(i))
 
     loss_k, grads_k = run(train_forward, sel.record())
@@ -3754,17 +3796,17 @@ def first_step(device) -> dict:
         loss, grads = run(forward, subs)
         rels = [rel_l2(a, b) for a, b in zip(grads_k, grads)]
         worst = max(range(len(rels)), key=rels.__getitem__)
-        print(f"{TRAIN}: first step, kernels against {tag}: loss {loss_k:.6f} vs {loss:.6f}; "
+        print(f"{path}: first step, kernels against {tag}: loss {loss_k:.6f} vs {loss:.6f}; "
               f"gradient rel L2 median {statistics.median(rels):.3e}, worst {rels[worst]:.3e} "
               f"(leaf {worst} of {len(rels)})")
-        print(f"{TRAIN}: {tag}, {GAP_HEAD}, by block: {gap_line(report, list(blocks))}")
+        print(f"{path}: {tag}, {GAP_HEAD}, by block: {gap_line(report, list(blocks))}")
         return {"loss": abs(loss - loss_k), "worst": rels[worst], "sel": report}
 
     def torch_forward():
         sound = oa.select_tokens
         oa.select_tokens = sel.forced(torch_report)
         try:
-            return tvit.vit_forward(params, images, config, REFERENCE_SCHEDULE, "torch")
+            return tvit.vit_forward(params, images, config, schedule, "torch")
         finally:
             oa.select_tokens = sound
 
@@ -3774,7 +3816,7 @@ def first_step(device) -> dict:
                                {**plain_train_kernels(), **sel.forced_dense(report)}, report)
     torch_report: dict = {}
     readings["torch"] = versus("the torch-autograd route", torch_forward, {}, torch_report)
-    for fault, subs in TRAIN_FAULTS.items():
+    for fault, subs in (TRAIN_FAULTS.items() if spec["faults"] else ()):
         report = {}
         versus(f"the plain versions with '{fault}' (printed only)", train_forward,
                {**plain_train_kernels(), **subs(), **sel.forced_dense(report)}, report)
@@ -3783,80 +3825,112 @@ def first_step(device) -> dict:
     return readings
 
 
-def train_end_to_end(device, device_name, results, counters):
-    """The training path at ViT-B/16 224, batch 128, bf16 params, pruned
-    (``REFERENCE_SCHEDULE``) and identity: the first step's loss and
-    gradients through the kernels against their plain versions and against
-    the torch-autograd route on the card (:func:`first_step`), the planted
-    faults rejected, the launches of one step, the loss over 20 steps on one fixed
+def train_schedule(path):
+    """The pruned schedule of ``TRAIN_PATHS[path]``."""
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+
+    schedules = {"reference": REFERENCE_SCHEDULE, "vit_h": VIT_H_SCHEDULE}
+    return schedules[TRAIN_PATHS[path]["schedule"]]
+
+
+@contextlib.contextmanager
+def selection_calls(counter: dict):
+    """Count the training path's selections (``select_tokens_dense``, torch's:
+    no kernel of its own, as JAX selects outside Pallas) in ``counter["n"]``."""
+    from rajni_tpu_torch.models import train_path as tp
+
+    dense = tp.select_tokens_dense
+
+    def select(*args, **kw):
+        counter["n"] += 1
+        return dense(*args, **kw)
+
+    with train_path_swapped({"select_tokens_dense": select}):
+        yield
+
+
+def train_end_to_end(device, device_name, results, counters, path=TRAIN):
+    """A training path (``TRAIN_PATHS[path]``), bf16 params, pruned and
+    identity: the first step's loss and gradients through the kernels
+    against their plain versions and against the torch-autograd route on the
+    card (:func:`first_step`), the launches of one step and its selections
+    (every count set to 0 first), the loss over a few steps on one fixed
     batch, and train img/s with ``train_mfu`` for both routes."""
     import torch
 
-    from rajni_tpu_torch import REFERENCE_SCHEDULE
     from rajni_tpu_torch import train as tt
     from rajni_tpu_torch.models import vit as tvit
     from rajni_tpu_torch.utils.flops import train_mfu
     from rajni_tpu_torch.utils.timing import measure_throughput
 
-    config = tvit.get_config(PATH224)
+    spec = TRAIN_PATHS[path]
+    config, batch = tvit.get_config(spec["model"]), spec["batch"]
     gen = torch.Generator().manual_seed(1)
-    images = torch.randn(B_TRAIN, config.img_size, config.img_size, 3, generator=gen).to(device)
-    labels = torch.randint(0, config.num_classes, (B_TRAIN,), generator=gen).to(device)
-    scheds = {"pruned": REFERENCE_SCHEDULE, "identity": None}
+    images = torch.randn(batch, config.img_size, config.img_size, 3, generator=gen).to(device)
+    labels = torch.randint(0, config.num_classes, (batch,), generator=gen).to(device)
+    scheds = {"pruned": train_schedule(path), "identity": None}
 
     def fresh_params():
         return tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
 
-    r = first_step(device)
+    r = first_step(device, path)
     for tag in ("plain", "torch"):
-        check_gaps(f"first step, {tag}", r[tag]["sel"], r["calls"])
+        check_gaps(f"{path} first step, {tag}", r[tag]["sel"], r["calls"])
     for i, g in r["plain"]["sel"].items():
-        check(g["delta_rel"] <= TRAIN_SCORE_REL,
-              f"selection {i}: scores vs their plain versions' {g['delta_rel']} > "
-              f"{TRAIN_SCORE_REL}")
-    worst_sel = max(g["images"] for g in r["torch"]["sel"].values()) / B_TRAIN
+        check(g["delta_rel"] <= spec["score_rel"],
+              f"{path} selection {i}: scores vs their plain versions' {g['delta_rel']} > "
+              f"{spec['score_rel']}")
+    worst_sel = max(g["images"] for g in r["torch"]["sel"].values()) / batch
     check(worst_sel <= TRAIN_SEL_DIFF,
-          f"{worst_sel:.3f} of the images select otherwise than the torch route (> "
+          f"{path}: {worst_sel:.3f} of the images select otherwise than the torch route (> "
           f"{TRAIN_SEL_DIFF})")
-    for tag, (loss_atol, grad_gate) in (("plain", (TRAIN_PLAIN_LOSS_ATOL, TRAIN_PLAIN_GRAD_REL_L2)),
+    for tag, (loss_atol, grad_gate) in (("plain", (spec["plain_loss"], TRAIN_PLAIN_GRAD_REL_L2)),
                                         ("torch", (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2))):
-        check(r[tag]["loss"] <= loss_atol, f"first-step loss vs {tag}: {r[tag]['loss']} > "
-              f"{loss_atol}")
-        check(r[tag]["worst"] <= grad_gate, f"gradient rel L2 vs {tag}: {r[tag]['worst']} > "
-              f"{grad_gate}")
+        check(r[tag]["loss"] <= loss_atol, f"{path} first-step loss vs {tag}: "
+              f"{r[tag]['loss']} > {loss_atol}")
+        check(r[tag]["worst"] <= grad_gate, f"{path} gradient rel L2 vs {tag}: "
+              f"{r[tag]['worst']} > {grad_gate}")
 
-    for sched, expected in TRAIN_LAUNCHES.items():  # launches of one train step
-        tx = tt.build_optimizer(1e-4, 20, 0.05)
+    steps = spec["steps"]
+    for sched, expected in spec["launches"].items():  # launches of one train step
+        tx = tt.build_optimizer(1e-4, steps, 0.05)
         state = tt.create_train_state(fresh_params(), tx)
         step = tt.make_train_step(config, scheds[sched], tx, impl="cuda")
         for k in counters.values():
             k.launches = 0
-        losses = [step(state, images, labels)["loss"]]
+        selections = {"n": 0}
+        with selection_calls(selections):
+            losses = [step(state, images, labels)["loss"]]
         torch.cuda.synchronize()
         got = {n: k.launches for n, k in counters.items()}
-        print(f"{TRAIN}: launches per {sched} train step: { {n: v for n, v in got.items() if v} }")
-        check(got == expected, f"{TRAIN} {sched} launches {got} != {expected}")
+        print(f"{path}: launches per {sched} train step: { {n: v for n, v in got.items() if v} }; "
+              f"selections {selections['n']}")
+        check(got == expected, f"{path} {sched} launches {got} != {expected}")
+        want_sel = sum(1 for s in (scheds[sched] or {}).values() if s)
+        check(selections["n"] == want_sel,
+              f"{path} {sched}: {selections['n']} selections, not {want_sel}")
         if sched == "pruned":
             for n, v in got.items():
-                if (n, TRAIN) in results:
-                    results[(n, TRAIN)]["launches"] = v
-        losses += [step(state, images, labels)["loss"] for _ in range(19)]
+                if (n, path) in results:
+                    results[(n, path)]["launches"] = v
+        losses += [step(state, images, labels)["loss"] for _ in range(steps - 1)]
         losses = [float(l) for l in losses]
-        print(f"{TRAIN} {sched}: loss over 20 steps on one batch {losses[0]:.4f} -> "
+        print(f"{path} {sched}: loss over {steps} steps on one batch {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}")
         check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0],
-              f"{TRAIN} {sched}: the loss did not fall: {losses}")
+              f"{path} {sched}: the loss did not fall: {losses}")
         del state, step
 
+    iters, repeats = spec["timing"]
     for sched, schedule in scheds.items():  # scripts/bench_train.py's protocol
         trace = tvit.model_stats(config, schedule)["token_counts"]
         for impl in ("cuda", "torch"):
             tx = tt.build_optimizer(1e-4, 100, 0.05)
             state = tt.create_train_state(fresh_params(), tx)
             step = tt.make_train_step(config, schedule, tx, impl=impl)
-            ips = measure_throughput(step, state, images, labels, batch=B_TRAIN, device=device,
-                                     iters=10, warmup=2, repeats=3)
-            print(f"{TRAIN} train img/s {sched} kernels={impl}: {ips:.1f} | "
+            ips = measure_throughput(step, state, images, labels, batch=batch, device=device,
+                                     iters=iters, warmup=2, repeats=repeats)
+            print(f"{path} train img/s {sched} kernels={impl}: {ips:.1f} | "
                   f"train MFU {train_mfu(config, trace, ips, device_name):.4f}")
             del state, step
 
@@ -3927,6 +4001,26 @@ TRAIN_LAUNCHES = {
                        train_ln_mlp=12, train_sdpa_bwd=12, short_attention=12),
     "identity": launches(train_attn_block=12, train_ln_mlp=12, train_sdpa_bwd=12,
                          short_attention=12)}
+# T14: B16 in the 28 stock blocks (B6's body inside it at 257 tokens, blocks
+# 0-4; the short-row kernel at 180 to 61), B4 + selection + B5 in blocks 5,
+# 10, 15 and 20 (the short-row kernel, 180 to 61 kept), B17 and B18 in all 32
+# (B18 two launches a call at 257 tokens: five calls pruned, 32 identity)
+TRAIN_H_LAUNCHES = {
+    "pruned": launches(train_attn_block=28, fused_ln_qkv=4, fused_gather_sdpa_proj_residual=4,
+                       train_ln_mlp=32, train_sdpa_bwd=32, fused_sdpa=5, short_attention=27),
+    "identity": launches(train_attn_block=32, train_ln_mlp=32, train_sdpa_bwd=32, fused_sdpa=32)}
+# The training paths: model, batch, schedule, launches per step, steps of the
+# falling-loss check, (iters, repeats) of the img/s timing, whether the first
+# step also runs the printed-only planted faults, and its limits on the loss
+# against the plain versions and on the selections' score discrepancy
+TRAIN_PATHS = {
+    TRAIN: dict(model=PATH224, batch=B_TRAIN, schedule="reference", launches=TRAIN_LAUNCHES,
+                steps=20, timing=(10, 3), faults=True, plain_loss=TRAIN_PLAIN_LOSS_ATOL,
+                score_rel=TRAIN_SCORE_REL),
+    TRAIN_H: dict(model=PATH_H, batch=B_TRAIN_H, schedule="vit_h", launches=TRAIN_H_LAUNCHES,
+                  steps=8, timing=(5, 2), faults=False, plain_loss=TRAIN_H_PLAIN_LOSS_ATOL,
+                  score_rel=TRAIN_H_SCORE_REL),
+}
 VIT_B384_COUNTS = [577, 577, 577, 577, 548, 520, 442, 375, 356, 356, 356, 356]
 VIT_B_COUNTS = [197, 197, 197, 197, 187, 177, 150, 127, 120, 120, 120, 120]
 DEIT_S_COUNTS = [197, 197, 197, 197, 177, 159, 143, 128, 115, 103, 92, 82]
@@ -4190,25 +4284,25 @@ def end_to_end(device, device_name, results, path):
               f"MFU {mfu(model.config, trace, ips, device_name):.4f}")
 
 
-def vit_h_demoted(device):
-    """ViT-H/14 where its kernels do not go yet: training through the
-    training CLI (bf16, ``--kernels cuda``, 2 steps of batch 2) runs on the
-    card's torch route and prints the reason."""
+def vit_h_train_cli(device):
+    """ViT-H/14 training through the training CLI (bf16, ``--kernels cuda``,
+    VIT_H_PROBE, 2 steps of batch 2) on the kernels: ``route: cuda``."""
     with tempfile.TemporaryDirectory() as tmp:
         sched = Path(tmp) / "schedule.json"
         sched.write_text(json.dumps({str(k): v for k, v in VIT_H_SCHEDULE.items()}))
         argv = ["rajni_tpu_torch.train", "--synthetic", "--model", PATH_H, "--schedule",
                 str(sched), "--steps", "2", "--batch_size", "2", "--dtype", "bfloat16",
-                "--kernels", "cuda", "--log_every", "1"]
+                "--kernels", "cuda", "--log_every", "1", "--output", str(Path(tmp) / "h.msgpack")]
         p = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, capture_output=True,
                            text=True, timeout=600)
         tail = [l for l in p.stdout.splitlines() if l.startswith(("route:", "step"))]
         print(f"CLI rajni_tpu_torch.train {PATH_H}: " + " | ".join(tail))
         check(p.returncode == 0, f"train CLI {PATH_H} exited {p.returncode}:\n"
                                  f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
-        route = ("route: torch (training at C=1280, head_dim 80: its kernels take C <= 1024 and "
-                 "head_dim 64)")
-        check(route in p.stdout.splitlines(), f"train CLI {PATH_H}: no '{route}' line")
+        check("route: cuda" in p.stdout.splitlines(), f"train CLI {PATH_H}: no 'route: cuda' line")
+        losses = [float(l.split()[3]) for l in p.stdout.splitlines() if l.startswith("step")]
+        check(len(losses) == 2 and all(math.isfinite(l) for l in losses),
+              f"train CLI {PATH_H}: losses {losses}")
 
 
 def eval_cli():
@@ -4318,6 +4412,11 @@ def main() -> int:
               ("kernel phases B19/B20", lambda: alternative_phases(device, peaks, results)),
               ("kernel phases B16/B17/B18 (training)",
                lambda: train_kernel_phases(device, peaks, results)),
+              ("kernel phases B16/B17/B18 at T14 (ViT-H/14 training, C=1280, head_dim 80)",
+               lambda: train_kernel_phases(device, peaks, results, TRAIN_H, C_H, HEADS_H,
+                                           HIDDEN_H, B_TRAIN_H, (257, 180), (257, 61),
+                                           tuple((B_TRAIN_H, n) for n in VIT_H_TRAIN_K),
+                                           seed=16)),
               ("kernel phases B6/B18 at ragged lengths", lambda: ragged_phases(device)),
               ("GEMM (csrc/gemm_sm90.cuh) beside cuBLAS", lambda: gemm_phases(device, peaks)),
               ("int8 GEMM (csrc/gemm_sm90.cuh, S8Epi) beside torch._int_mm",
@@ -4335,8 +4434,11 @@ def main() -> int:
                for path in PATHS]
     phases += [("training end to end",
                 lambda: train_end_to_end(device, device_name, results, kernel_counters())),
+               ("T14 training end to end (ViT-H/14)",
+                lambda: train_end_to_end(device, device_name, results, kernel_counters(),
+                                         TRAIN_H)),
                ("eval CLI", eval_cli), ("training and eval CLIs", lambda: train_cli(device)),
-               (f"{PATH_H} training on the torch route", lambda: vit_h_demoted(device))]
+               (f"{PATH_H} training through the training CLI", lambda: vit_h_train_cli(device))]
     for label, phase in phases:
         t0 = time.perf_counter()
         phase()

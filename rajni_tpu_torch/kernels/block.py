@@ -256,7 +256,7 @@ ATTN_WIDTHS = {
              f"head_dim 64 or 80 with C <= {C_MAX_BF16}"),
     # B10, B11, B13
     "int8": (int8_width_ok, f"head_dim 64 with C <= {C_MAX} or head_dim 80 with C = {C_MAX_BF16}"),
-    # the whole blocks B7, B8, B14, B15, and B16 and B20
+    # the whole blocks B7, B8, B14, B15, and B20
     "head_dim64": (lambda C, D: D == HEAD_DIM and C <= C_MAX, f"head_dim 64 with C <= {C_MAX}"),
 }
 
@@ -350,12 +350,12 @@ def fused_attn_block(
 
 
 def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params, attn_params,
-                      ls, num_heads: int, scale: float, eps: float, widths: str = "bf16"):
+                      ls, num_heads: int, scale: float, eps: float):
     """K2's entry point (``csrc/attn_block.cu``) through ``kernel``'s
     counter: ``(out [B, N, C], qkv [B, N, 3C])``, the qkv being the
-    post-bias, rounded buffer the launches leave in device memory.
-    ``widths``: those of the bf16 kernels (:func:`_check_attn_shapes`); B16
-    passes ``"head_dim64"``, since its backward, B18, takes head_dim 64 only."""
+    post-bias, rounded buffer the launches leave in device memory. K2 and B16
+    take the bf16 kernels' widths (:func:`_check_attn_shapes`), ViT-H/14's
+    included: B16's backward, B18, takes head_dim 64 and 80."""
     B, N, C = x.shape
     qkv_p, proj_p = attn_params["qkv"], attn_params["proj"]
     check_cuda(
@@ -363,7 +363,7 @@ def launch_attn_block(kernel: CudaKernel, name: str, x: torch.Tensor, ln_params,
         wqkv=qkv_p["weight"], bqkv=qkv_p["bias"], wproj=proj_p["weight"],
         bproj=proj_p["bias"], ls=ls,
     )
-    _check_attn_shapes(name, N, C, num_heads, SDPA_MAX_N, widths)
+    _check_attn_shapes(name, N, C, num_heads, SDPA_MAX_N, "bf16")
     rows = B * N
     y = torch.empty(rows, C, dtype=x.dtype, device=x.device)
     qkv = torch.empty(B, N, 3 * C, dtype=x.dtype, device=x.device)

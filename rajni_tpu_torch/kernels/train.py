@@ -24,16 +24,18 @@ Numeric contract (the TPU kernels'):
 
 The JAX fit rules (``_train_attn_fits``, ``train_mlp_fits``,
 ``train_sdpa_bwd_fits``) are VMEM facts and have no counterpart: the Hopper
-kernels stream their weights and tile their tokens, and B18 takes any K up to
-``SDPA_MAX_N``.
+kernels stream their weights and tile their tokens. They take the bf16
+inference kernels' widths, ViT-H/14's included: B16 K2's (head_dim 64 or 80,
+C <= 1280), B17 C <= 1280, B18 head_dim 64 up to ``SDPA_MAX_N`` tokens and
+80 up to ``SDPA_MAX_N_D80`` (the route gate's ``sdpa_max_n``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .attention import HEAD_DIM, SDPA_MAX_N
-from .block import ATTN_KERNEL, attn_block_qkv_plain, launch_attn_block
+from .attention import HEAD_DIMS, sdpa_max_n
+from .block import ATTN_KERNEL, C_MAX_BF16, attn_block_qkv_plain, launch_attn_block
 from .build import F, I, P, CudaKernel, check_cuda, ptr, stream
 from .math import gelu_fast
 from .mlp import _layer_norm_f32, _mm
@@ -57,7 +59,7 @@ def train_attn_block(x: torch.Tensor, ln_params, attn_params, ls, num_heads: int
     if x.device.type == "cpu":
         return attn_block_qkv_plain(x, ln_params, attn_params, ls, num_heads, scale, eps)
     return launch_attn_block(TRAIN_ATTN_KERNEL, "train_attn_block", x, ln_params, attn_params,
-                             ls, num_heads, scale, eps, "head_dim64")
+                             ls, num_heads, scale, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -93,9 +95,9 @@ def train_ln_mlp(x: torch.Tensor, ln_params, mlp_params, ls=None, eps: float = 1
     hidden = w1.shape[0]
     check_cuda(torch.bfloat16, x=x, ln_scale=ln_params["scale"], ln_bias=ln_params["bias"],
                w1=w1, b1=b1, w2=w2, b2=b2, ls=ls)
-    if C % 128 or hidden % 128 or C > 1024:
-        raise ValueError(f"train_ln_mlp needs C and hidden multiples of 128 and C <= 1024, "
-                         f"got C={C}, hidden={hidden}")
+    if C % 128 or hidden % 128 or C > C_MAX_BF16:
+        raise ValueError(f"train_ln_mlp needs C and hidden multiples of 128 and C <= "
+                         f"{C_MAX_BF16}, got C={C}, hidden={hidden}")
     if w1.shape != (hidden, C) or w2.shape != (C, hidden):
         raise ValueError(f"bad MLP weight shapes {tuple(w1.shape)}, {tuple(w2.shape)}")
     rows, dev = B * N, x.device
@@ -155,18 +157,23 @@ def train_sdpa_bwd(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
                    scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """``(qkv [B, K, 3C], d_out [B, K, C]) -> (attn_out [B, K, C], d_qkv [B,
     K, 3C])``: ``d_out`` is the cotangent at the SDPA output, ``attn_out``
-    the recomputed forward output (the proj weight-gradient reads it)."""
+    the recomputed forward output (the proj weight-gradient reads it). On the
+    card: head_dim 64 with ``K <= SDPA_MAX_N``, or 80 with ``K <=
+    SDPA_MAX_N_D80``, in the per-head form at both (the scale on the fp32
+    logits; not the forward kernels' phased form)."""
     if qkv.device.type == "cpu":
         return train_sdpa_bwd_plain(qkv, dout, num_heads, scale)
     B, K, three_c = qkv.shape
     C = three_c // 3
     check_cuda(torch.bfloat16, qkv=qkv, dout=dout)
-    if three_c % 3 or C != num_heads * HEAD_DIM:
-        raise ValueError(f"train_sdpa_bwd needs head_dim {HEAD_DIM}; got C={C}, heads={num_heads}")
+    if three_c % 3 or C % num_heads or C // num_heads not in HEAD_DIMS:
+        raise ValueError(f"train_sdpa_bwd needs head_dim 64 or 80; got C={C}, heads={num_heads}")
     if dout.shape != (B, K, C):
         raise ValueError(f"d_out must be [{B}, {K}, {C}], got {tuple(dout.shape)}")
-    if not 1 <= K <= SDPA_MAX_N:
-        raise ValueError(f"train_sdpa_bwd supports 1 <= K <= {SDPA_MAX_N}, got K={K}")
+    max_k = sdpa_max_n(C // num_heads)
+    if not 1 <= K <= max_k:
+        raise ValueError(f"train_sdpa_bwd supports 1 <= K <= {max_k} at head_dim "
+                         f"{C // num_heads}, got K={K}")
     dev = qkv.device
     out = torch.empty(B, K, C, dtype=qkv.dtype, device=dev)
     d_qkv = torch.empty_like(qkv)

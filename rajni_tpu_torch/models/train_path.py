@@ -31,8 +31,12 @@ are VMEM facts. The counterpart of ``train_kernels_supported`` is
 :func:`.vit.cuda_kernels_take`: on the card, :func:`vit_forward_train`
 demotes a (config, dtype) the kernels do not take to the differentiable
 plain forward, before any launch, so every kept count the kernel route meets
-is one B18 takes (at most ``SDPA_MAX_N``). Drop-path and remat are not ported yet
-(ROADMAP A3).
+is one B18 takes (at most ``sdpa_max_n`` of the head_dim: 848 tokens at 64,
+384 at 80). The kernel route takes head_dim 64 and 80 (ViT-H/14) alike: B4
+and B5 at their bf16 widths, B16 at K2's, B17 at C <= 1280, and B18's
+head_dim-80 form, which keeps JAX's per-head numerics (the scale on the fp32
+logits) where the forward kernels take ``_mha``'s phased form, as JAX's
+training path does. Drop-path and remat are not ported yet (ROADMAP A3).
 """
 
 from __future__ import annotations

@@ -389,14 +389,18 @@ def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = F
     The port's counterpart of ``rajni_tpu/models/vit.py:pallas_compilable``
     (with ``kernel_path_supported``): the kernels are written for bf16
     activations, C a multiple of 128 (hidden a multiple of 128), and for the
-    classic configurations. The bf16 inference kernels take head_dim 64 up to
-    C = 1024 and ``SDPA_MAX_N`` tokens, and head_dim 80 up to C = 1280
-    (ViT-H/14) and ``SDPA_MAX_N_D80`` tokens; the int8 kernels head_dim 64
-    with C <= 1024 or head_dim 80 at C = 1280 (ViT-H/14,
-    :func:`..kernels.block.int8_width_ok`); the training kernels head_dim 64
-    and C <= 1024 only. As JAX's rule holds only
-    on the TPU, this one holds only on the card: the plain versions that the
-    wrappers run on CPU tensors take any shape and dtype.
+    classic configurations. The bf16 kernels take C <= 1280, head_dim 64 up
+    to ``SDPA_MAX_N`` tokens and head_dim 80 (ViT-H/14) up to
+    ``SDPA_MAX_N_D80`` (the score kernel takes head_dim 64 only up to C =
+    1024, which this gate does not check: ROADMAP C5); the int8 kernels
+    head_dim 64 with C <= 1024 or head_dim 80 at C = 1280 (ViT-H/14,
+    :func:`..kernels.block.int8_width_ok`).
+    The training kernels (B16 on K2's launches, B17, B18) take every width the
+    bf16 inference kernels take, so ``training`` narrows nothing: JAX's
+    training rules are VMEM fits (``train_kernels_supported``), which the
+    port's kernels do not have. As JAX's rule holds only on the TPU, this one
+    holds only on the card: the plain versions that the wrappers run on CPU
+    tensors take any shape and dtype.
     """
     C, H = config.embed_dim, config.num_heads
     D = C / H
@@ -417,9 +421,6 @@ def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = F
     if quantized and not int8_width_ok(C, int(D)):
         return False, (f"int8 weights at C={C}, head_dim {D:g}: its kernels take head_dim "
                        f"{HEAD_DIM} with C <= {C_MAX} or head_dim 80 with C = {C_MAX_BF16}")
-    if training and (C > C_MAX or D != HEAD_DIM):
-        return False, (f"training at C={C}, head_dim {D:g}: its kernels take C <= {C_MAX} and "
-                       f"head_dim {HEAD_DIM}")
     return True, ""
 
 

@@ -18,7 +18,9 @@ bf16 and int8 dynamic and static (P5c, P5a, P5b, batch 256,
 ``DEIT_S_DYNAMIC``) and ViT-B/16 224 with MLP-only int8 (P4c, batch 256),
 pruned and with the identity schedule (static scales calibrated on the
 measured batch for each schedule), and the train img/s of ViT-B/16 224
-bf16 through the kernels (T6, batch 128), as chip_smoke.py measures them. Prints the card's
+bf16 through the kernels (T6, batch 128), as chip_smoke.py measures them,
+with T6's training kernels by CUDA events (B16 at 197 tokens, B17 at 197, B18
+at K = 197 and, at batch 32, 577). Prints the card's
 name and power limit, then one JSON line per run; a path that a checkout
 does not route yet (``NotImplementedError``) reads null. Compare two versions
 only within one call, in turns. ``--only`` keeps the paths whose name (the
@@ -126,6 +128,48 @@ def measure(root: str, only: list[str] | None = None) -> dict:
                                  iters=10, warmup=2, repeats=3)
         out[f"{TRAIN_MODEL} train {name}"] = round(ips, 1)
         del state, step
+    out.update(train_kernel_ms(dev))
+    return out
+
+
+def train_kernel_ms(dev) -> dict:
+    """T6's training kernels by CUDA events (median of 20 calls, ms), on
+    random inputs made from a seed at ViT-B/16's widths."""
+    import torch
+
+    from rajni_tpu_torch.kernels import train as kt
+
+    def ms(fn, iters=20):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(iters):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return round(sorted(times)[iters // 2], 4)
+
+    gen = torch.Generator().manual_seed(11)
+    C, H, hidden = 768, 12, 3072
+
+    def rnd(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=gen)).to(dev, torch.bfloat16)
+
+    def lin(o, i):
+        return {"weight": rnd(o, i, s=i ** -0.5), "bias": rnd(o, s=0.1)}
+
+    norm = {"scale": 1 + rnd(C, s=0.1), "bias": rnd(C, s=0.1)}
+    x = rnd(TRAIN_BATCH, 197, C, s=0.1)
+    attn = {"qkv": lin(3 * C, C), "proj": lin(C, C)}
+    mlp = {"fc1": lin(hidden, C), "fc2": lin(C, hidden)}
+    out = {"B16 N=197 ms": ms(lambda: kt.train_attn_block(x, norm, attn, None, H, 0.125)),
+           "B17 N=197 ms": ms(lambda: kt.train_ln_mlp(x, norm, mlp))}
+    for b, n in ((TRAIN_BATCH, 197), (32, 577)):
+        qkv, dout = rnd(b, n, 3 * C), rnd(b, n, C)
+        out[f"B18 B={b} K={n} ms"] = ms(lambda: kt.train_sdpa_bwd(qkv, dout, H, 0.125))
     return out
 
 

@@ -197,16 +197,14 @@ GIANT = "vit_giant_patch14_224"  # C = 1408
 
 
 INT8_WIDTHS = "its kernels take head_dim 64 with C <= 1024 or head_dim 80 with C = 1280"
-TRAIN_WIDTHS = "its kernels take C <= 1024 and head_dim 64"
 
 
 @pytest.mark.parametrize("model,kw,route", [
     ("vit_huge_patch14_224", {}, "route: cuda"),
     ("vit_huge_patch14_224", {"quantized": True}, "route: cuda"),
-    ("vit_huge_patch14_224", {"training": True},
-     f"route: torch (training at C=1280, head_dim 80: {TRAIN_WIDTHS})"),
-    ("vit_huge_patch14_224", {"quantized": True, "training": True},
-     f"route: torch (training at C=1280, head_dim 80: {TRAIN_WIDTHS})"),
+    ("vit_huge_patch14_224", {"training": True}, "route: cuda"),
+    ("vit_huge_patch14_224", {"quantized": True, "training": True}, "route: cuda"),
+    (dict(embed_dim=1280, num_heads=20), {"training": True}, "route: cuda"),
     ("vit_large_patch16_224", {"quantized": True, "training": True}, "route: cuda"),
     (dict(embed_dim=640, num_heads=8), {"quantized": True},
      f"route: torch (int8 weights at C=640, head_dim 80: {INT8_WIDTHS})"),
@@ -215,13 +213,13 @@ TRAIN_WIDTHS = "its kernels take C <= 1024 and head_dim 64"
     (GIANT, {}, "route: torch (C=1408 > 1280)"),
     (dict(embed_dim=768, num_heads=8), {}, "route: torch (head_dim 96 is not 64 or 80)"),
 ], ids=["vit_h bf16", "vit_h int8", "vit_h training", "vit_h int8 training",
-        "vit_l int8 training", "head_dim 80 C=640 int8", "head_dim 64 C=1280 int8", "C=1408",
-        "head_dim 96"])
+        "head_dim 64 C=1280 training", "vit_l int8 training", "head_dim 80 C=640 int8",
+        "head_dim 64 C=1280 int8", "C=1408", "head_dim 96"])
 def test_card_route_takes_vit_h_in_bf16_and_int8(model, kw, route):
-    """On a CUDA device ViT-H takes the kernels in bf16 and with int8 params;
-    int8 params at another head_dim-80 width or past C = 1024 at head_dim 64,
-    and training at ViT-H's width, demote before any launch, naming why; on
-    the CPU nothing demotes."""
+    """On a CUDA device ViT-H takes the kernels in bf16 and with int8 params,
+    and so does its training (B16-B18 take the bf16 kernels' widths); int8
+    params at another head_dim-80 width or past C = 1024 at head_dim 64
+    demote before any launch, naming why; on the CPU nothing demotes."""
     config = tvit.get_config(model) if isinstance(model, str) else tvit.ViTConfig(**model)
     for impl in ("auto", "cuda"):
         assert tvit.route_line(*tvit.resolve_route(impl, config, torch.bfloat16, "cuda",
