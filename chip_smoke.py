@@ -29,7 +29,7 @@ run (non-zero exit) when it goes wrong:
    sources of K1-K3, B4 and B5, and the seven int8 sources) that ptxas
    reports no spill and no serialized wgmma, and of every head_dim-80
    instantiation (the short-row kernel, B6's body, B18's three kernels,
-   the score kernel) and
+   the score kernel), the score kernel at head_dim 64 and C = 1280 (C5) and
    the C = 1280 LayerNorms (bf16, and to int8) that it was compiled with 0
    spill bytes;
 3. hold each kernel against its plain PyTorch version on the card at each
@@ -89,7 +89,8 @@ run (non-zero exit) when it goes wrong:
    row absmax exact; the score
    kernel (B4's scores at 197 and 577 tokens) against ``_importance_f32`` of
    the same qkv, and its device time at ViT-B/16 224's five pruned blocks
-   against its byte bound; K1's six launches, B7's nine and B14's eleven (nine
+   against its byte bound, and (C5) at C = 1280 with 20 heads of 64 (B =
+   128, 197 and 257 tokens); K1's six launches, B7's nine and B14's eleven (nine
    static), each by device time; B6's wgmma body beside K2's attention at 197,
    187 and 120 tokens and, for the crossover, the short-row kernel beside B6's
    body, the byte bound and ``scaled_dot_product_attention`` (which the port
@@ -132,7 +133,10 @@ run (non-zero exit) when it goes wrong:
    launches and selections of one step (every
    count set to 0 first), a falling loss over 20 steps (T14: 8) on one
    batch, and train img/s with ``train_mfu`` on both routes, pruned and
-   identity;
+   identity; and (C5) C5's config (20 heads of 64 at C = 1280, depth 8, keep 0.9 at blocks
+   3-5, batch 128) through K1-K3 against its plain route, its launches and
+   token counts, and one training step of it through B16, B4 + selection +
+   B5, B17 and B18, held as T6's first step is;
 6. run the eval CLI in a subprocess: at 224 and at 384, and at 224 and 384
    with ``--quantize --calibrate 1``, and ViT-H/14 with ``--quantize`` and
    ``--quantize --calibrate 1``, each on the kernels; then the training CLI (ViT-B/16 bf16
@@ -140,7 +144,21 @@ run (non-zero exit) when it goes wrong:
    training CLI on ``vit_tiny_patch16_224`` in fp32, and ``RAJNIViT`` on
    ``vit_tiny_patch16_224`` in fp32 and bf16: the last three demoted to the
    plain route before any launch, each printing its ``route:`` line; and
-   ViT-H/14 in training through the training CLI on the kernels;
+   ViT-H/14 in training through the training CLI on the kernels; and
+   ``rajni_tpu_torch.run.main`` on a folder of 1000 procedural JPEG images
+   in 10 classes of ImageNet-val's sizes at ViT-B/16 224, batch 256 (the
+   last batch 232), ``--compare_base``, once a preprocessing tier (host with
+   the C++ library, host with PIL, device, device-full): ``route: cuda``,
+   the tier's ``preprocess:`` line, the token counts and every launch
+   through K1-K3, each tier's img/s, the host (PIL) and device tiers'
+   logits equal; the device tier's normalized batch bitwise the host PIL
+   tier's, device-full within a uint8 level a pass of host PIL on images
+   that fit the canvas (larger ones reported), ``preprocess_on_device`` on
+   the card against the CPU, the C++ tier against PIL; then a timm-layout
+   ViT-B/16 224 ``.pth`` (``{"model": ...}``, ``module.`` keys) through the
+   eval CLI's ``--checkpoint``, its patch embedding against ``F.conv2d``,
+   and its logits through the kernels at 224 and (pos-embed resampled to
+   577 tokens) at 384 against the plain route;
 7. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
@@ -196,6 +214,15 @@ B_TRAIN = 128
 # T14, ViT-H/14 training (C = 1280, head_dim 80) through VIT_H_PROBE, batch 64
 TRAIN_H = f"train {PATH_H}"
 B_TRAIN_H = 64
+# C5: 20 heads of 64 at C = 1280 (ViT-B/16 224's tokens, hidden 5120), depth
+# cut to 8, keep 0.9 at blocks 3-5: the score kernel's fifth 16-byte piece a
+# lane, through K1-K3 in inference and B16, B4 + selection + B5, B17, B18 in
+# one training step
+C5_MODEL = dict(embed_dim=1280, num_heads=20, depth=8)
+C5_SCHEDULE = {i: {"keep_ratio": 0.9} for i in (3, 4, 5)}
+C5 = "C=1280 head_dim 64"
+B_C5 = 128
+TRAIN_C5 = f"train {C5}"
 # Kernel vs its plain version. Both round the same intermediates to bf16 and
 # differ only in fp32 summation order, so they disagree where a value lies
 # within that order's error of a rounding edge: single-ulp flips, most of
@@ -1306,14 +1333,17 @@ def vit_h_int8_phases(device, peaks, int8_peak, results):
 
 
 # ptxas's report of the head_dim-80 instantiations (csrc/short_attn.cu,
-# csrc/sdpa.cu, csrc/sdpa_bwd.cu, common.cuh:score_kernel<80, ...>) and of the C = 1280
-# LayerNorm (common.cuh:layer_norm_kernel<5>), by mangled name
+# csrc/sdpa.cu, csrc/sdpa_bwd.cu, common.cuh:score_kernel<80, ...>), of the C = 1280
+# LayerNorm (common.cuh:layer_norm_kernel<5>) and of the head_dim-64 score kernel at
+# C = 1280 (score_kernel<64, 5, ...>), by mangled name
 HEAD_DIM80_KERNELS = {"short-row attention": "short_attn_kernelILi80E",
                       "B6's body": "sdpa_wgmma_kernelILi80E",
                       "B18 one launch": "sdpa_bwd_fused_kernelILi80E",
                       "B18 query launch": "sdpa_bwd_query_kernelILi80E",
                       "B18 key launch": "sdpa_bwd_key_kernelILi80E",
                       "score kernel": "score_kernelILi80E",
+                      # C5: head_dim 64 at C = 1280, five 16-byte pieces a lane
+                      "score kernel head_dim 64 C=1280": "score_kernelILi64ELi5E",
                       "LayerNorm C=1280": "layer_norm_kernelILi5E",
                       "LayerNorm → int8 C=1280": "ln_quant_kernelILi5E"}
 
@@ -3770,7 +3800,7 @@ def first_step(device, path=TRAIN) -> dict:
     from rajni_tpu_torch.ops import attention as oa
 
     spec = TRAIN_PATHS[path]
-    config, schedule, batch = tvit.get_config(spec["model"]), train_schedule(path), spec["batch"]
+    config, schedule, batch = path_config(spec["model"]), train_schedule(path), spec["batch"]
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(batch, config.img_size, config.img_size, 3, generator=gen).to(device)
     labels = torch.randint(0, config.num_classes, (batch,), generator=gen).to(device)
@@ -3829,8 +3859,15 @@ def train_schedule(path):
     """The pruned schedule of ``TRAIN_PATHS[path]``."""
     from rajni_tpu_torch import REFERENCE_SCHEDULE
 
-    schedules = {"reference": REFERENCE_SCHEDULE, "vit_h": VIT_H_SCHEDULE}
+    schedules = {"reference": REFERENCE_SCHEDULE, "vit_h": VIT_H_SCHEDULE, "c5": C5_SCHEDULE}
     return schedules[TRAIN_PATHS[path]["schedule"]]
+
+
+def path_config(model):
+    """A path's config: a model name, or the fields of a ``ViTConfig``."""
+    from rajni_tpu_torch.models import vit as tvit
+
+    return tvit.get_config(model) if isinstance(model, str) else tvit.ViTConfig(**model)
 
 
 @contextlib.contextmanager
@@ -3849,6 +3886,72 @@ def selection_calls(counter: dict):
         yield
 
 
+def checked_first_step(device, path) -> None:
+    """:func:`first_step` of ``path``, held to its gates: each selection
+    either route would make otherwise within its score discrepancy, the
+    selections' score discrepancy, the share of images the torch route would
+    select otherwise, and the loss and worst gradient against the plain
+    versions and the torch-autograd route."""
+    spec = TRAIN_PATHS[path]
+    r = first_step(device, path)
+    for tag in ("plain", "torch"):
+        check_gaps(f"{path} first step, {tag}", r[tag]["sel"], r["calls"])
+    for i, g in r["plain"]["sel"].items():
+        check(g["delta_rel"] <= spec["score_rel"],
+              f"{path} selection {i}: scores vs their plain versions' {g['delta_rel']} > "
+              f"{spec['score_rel']}")
+    worst_sel = max(g["images"] for g in r["torch"]["sel"].values()) / spec["batch"]
+    check(worst_sel <= TRAIN_SEL_DIFF,
+          f"{path}: {worst_sel:.3f} of the images select otherwise than the torch route (> "
+          f"{TRAIN_SEL_DIFF})")
+    for tag, (loss_atol, grad_gate) in (("plain", (spec["plain_loss"], TRAIN_PLAIN_GRAD_REL_L2)),
+                                        ("torch", (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2))):
+        check(r[tag]["loss"] <= loss_atol, f"{path} first-step loss vs {tag}: "
+              f"{r[tag]['loss']} > {loss_atol}")
+        check(r[tag]["worst"] <= grad_gate, f"{path} gradient rel L2 vs {tag}: "
+              f"{r[tag]['worst']} > {grad_gate}")
+
+
+def step_launches(device, results, counters, path, fresh_params, images, labels) -> dict:
+    """Each schedule of ``path`` (``TRAIN_PATHS[path]["launches"]``): the
+    launches and selections of one train step on fresh params (every count
+    set to 0 first), held to the expected ones, then ``steps - 1`` more
+    steps; returns each schedule's losses."""
+    import torch
+
+    from rajni_tpu_torch import train as tt
+
+    spec = TRAIN_PATHS[path]
+    config, steps = path_config(spec["model"]), spec["steps"]
+    scheds = {"pruned": train_schedule(path), "identity": None}
+    losses = {}
+    for sched, expected in spec["launches"].items():
+        tx = tt.build_optimizer(1e-4, steps, 0.05)
+        state = tt.create_train_state(fresh_params(), tx)
+        step = tt.make_train_step(config, scheds[sched], tx, impl="cuda")
+        for k in counters.values():
+            k.launches = 0
+        selections = {"n": 0}
+        with selection_calls(selections):
+            run = [step(state, images, labels)["loss"]]
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in counters.items()}
+        print(f"{path}: launches per {sched} train step: { {n: v for n, v in got.items() if v} }; "
+              f"selections {selections['n']}")
+        check(got == expected, f"{path} {sched} launches {got} != {expected}")
+        want_sel = sum(1 for s in (scheds[sched] or {}).values() if s)
+        check(selections["n"] == want_sel,
+              f"{path} {sched}: {selections['n']} selections, not {want_sel}")
+        if sched == "pruned":
+            for n, v in got.items():
+                if (n, path) in results:
+                    results[(n, path)]["launches"] = v
+        run += [step(state, images, labels)["loss"] for _ in range(steps - 1)]
+        losses[sched] = [float(l) for l in run]
+        del state, step
+    return losses
+
+
 def train_end_to_end(device, device_name, results, counters, path=TRAIN):
     """A training path (``TRAIN_PATHS[path]``), bf16 params, pruned and
     identity: the first step's loss and gradients through the kernels
@@ -3864,7 +3967,7 @@ def train_end_to_end(device, device_name, results, counters, path=TRAIN):
     from rajni_tpu_torch.utils.timing import measure_throughput
 
     spec = TRAIN_PATHS[path]
-    config, batch = tvit.get_config(spec["model"]), spec["batch"]
+    config, batch = path_config(spec["model"]), spec["batch"]
     gen = torch.Generator().manual_seed(1)
     images = torch.randn(batch, config.img_size, config.img_size, 3, generator=gen).to(device)
     labels = torch.randint(0, config.num_classes, (batch,), generator=gen).to(device)
@@ -3873,53 +3976,13 @@ def train_end_to_end(device, device_name, results, counters, path=TRAIN):
     def fresh_params():
         return tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
 
-    r = first_step(device, path)
-    for tag in ("plain", "torch"):
-        check_gaps(f"{path} first step, {tag}", r[tag]["sel"], r["calls"])
-    for i, g in r["plain"]["sel"].items():
-        check(g["delta_rel"] <= spec["score_rel"],
-              f"{path} selection {i}: scores vs their plain versions' {g['delta_rel']} > "
-              f"{spec['score_rel']}")
-    worst_sel = max(g["images"] for g in r["torch"]["sel"].values()) / batch
-    check(worst_sel <= TRAIN_SEL_DIFF,
-          f"{path}: {worst_sel:.3f} of the images select otherwise than the torch route (> "
-          f"{TRAIN_SEL_DIFF})")
-    for tag, (loss_atol, grad_gate) in (("plain", (spec["plain_loss"], TRAIN_PLAIN_GRAD_REL_L2)),
-                                        ("torch", (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2))):
-        check(r[tag]["loss"] <= loss_atol, f"{path} first-step loss vs {tag}: "
-              f"{r[tag]['loss']} > {loss_atol}")
-        check(r[tag]["worst"] <= grad_gate, f"{path} gradient rel L2 vs {tag}: "
-              f"{r[tag]['worst']} > {grad_gate}")
-
-    steps = spec["steps"]
-    for sched, expected in spec["launches"].items():  # launches of one train step
-        tx = tt.build_optimizer(1e-4, steps, 0.05)
-        state = tt.create_train_state(fresh_params(), tx)
-        step = tt.make_train_step(config, scheds[sched], tx, impl="cuda")
-        for k in counters.values():
-            k.launches = 0
-        selections = {"n": 0}
-        with selection_calls(selections):
-            losses = [step(state, images, labels)["loss"]]
-        torch.cuda.synchronize()
-        got = {n: k.launches for n, k in counters.items()}
-        print(f"{path}: launches per {sched} train step: { {n: v for n, v in got.items() if v} }; "
-              f"selections {selections['n']}")
-        check(got == expected, f"{path} {sched} launches {got} != {expected}")
-        want_sel = sum(1 for s in (scheds[sched] or {}).values() if s)
-        check(selections["n"] == want_sel,
-              f"{path} {sched}: {selections['n']} selections, not {want_sel}")
-        if sched == "pruned":
-            for n, v in got.items():
-                if (n, path) in results:
-                    results[(n, path)]["launches"] = v
-        losses += [step(state, images, labels)["loss"] for _ in range(steps - 1)]
-        losses = [float(l) for l in losses]
-        print(f"{path} {sched}: loss over {steps} steps on one batch {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f}")
-        check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0],
-              f"{path} {sched}: the loss did not fall: {losses}")
-        del state, step
+    checked_first_step(device, path)
+    losses = step_launches(device, results, counters, path, fresh_params, images, labels)
+    for sched in scheds:  # the loss over a few steps on one batch
+        print(f"{path} {sched}: loss over {len(losses[sched])} steps on one batch "
+              f"{losses[sched][0]:.4f} -> {losses[sched][-1]:.4f}")
+        check(all(math.isfinite(l) for l in losses[sched]) and losses[sched][-1] < losses[sched][0],
+              f"{path} {sched}: the loss did not fall: {losses[sched]}")
 
     iters, repeats = spec["timing"]
     for sched, schedule in scheds.items():  # scripts/bench_train.py's protocol
@@ -4020,7 +4083,23 @@ TRAIN_PATHS = {
     TRAIN_H: dict(model=PATH_H, batch=B_TRAIN_H, schedule="vit_h", launches=TRAIN_H_LAUNCHES,
                   steps=8, timing=(5, 2), faults=False, plain_loss=TRAIN_H_PLAIN_LOSS_ATOL,
                   score_rel=TRAIN_H_SCORE_REL),
+    # one pruned step: B16 in the five stock blocks, B4 + selection + B5 in
+    # blocks 3-5, B17 and B18 in all 8, the short-row kernel in B16 and B5
+    TRAIN_C5: dict(model=C5_MODEL, batch=B_C5, schedule="c5",
+                   launches={"pruned": launches(train_attn_block=5, fused_ln_qkv=3,
+                                                fused_gather_sdpa_proj_residual=3,
+                                                train_ln_mlp=8, train_sdpa_bwd=8,
+                                                short_attention=8)},
+                   steps=1, faults=False, plain_loss=TRAIN_PLAIN_LOSS_ATOL,
+                   score_rel=TRAIN_SCORE_REL),
 }
+C5_COUNTS = [197] * 4 + [177, 159, 143, 143]
+# K1 in the pruned blocks 3-5, K2 + K3 in the stock ones, the short-row
+# kernel in every attention (at most 197 tokens)
+C5_LAUNCHES = {"pruned": launches(fused_pruned_attn_block=3, fused_attn_block=5,
+                                  fused_ln_mlp_residual=8, short_attention=8),
+               "identity": launches(fused_attn_block=8, fused_ln_mlp_residual=8,
+                                    short_attention=8)}
 VIT_B384_COUNTS = [577, 577, 577, 577, 548, 520, 442, 375, 356, 356, 356, 356]
 VIT_B_COUNTS = [197, 197, 197, 197, 187, 177, 150, 127, 120, 120, 120, 120]
 DEIT_S_COUNTS = [197, 197, 197, 197, 177, 159, 143, 128, 115, 103, 92, 82]
@@ -4340,6 +4419,438 @@ def eval_cli():
             check(want in p.stdout, f"eval CLI {model}: no '{want}' line")
 
 
+def c5_phases(device, peaks, results, counters):
+    """C5: the score kernel at C = 1280 with 20 heads of 64 (B = 128, N =
+    197 and 257) against ``_importance_f32`` of B4's own qkv at the score
+    gate of the other widths, with the planted biased-std fault, and its
+    device time against its byte bound; a pruned forward of ``C5_MODEL``
+    (``kernels="auto"``: ``route: cuda``) through K1, K2 and K3, its launches
+    and token counts, against its plain route's logits at the bf16 gate; one
+    training step (``TRAIN_C5``) held as T6's first step is, and its
+    launches."""
+    import torch
+
+    from rajni_tpu_torch import RAJNIViT
+    from rajni_tpu_torch.kernels import block as kb
+
+    C5_C, C5_H = C5_MODEL["embed_dim"], C5_MODEL["num_heads"]
+    gen = torch.Generator().manual_seed(17)
+    blk = make_block(gen, device, C5_C, 4 * C5_C)
+    ln, wqkv = blk["norm1"], blk["attn"]["qkv"]
+    check(kb._score_fits(197, C5_C, C5_H), "C5: _score_fits refuses C=1280, 20 heads")
+    for n in (197, 257):
+        x = (X_STD * torch.randn(B_C5, n, C5_C, generator=gen)).to(device, torch.bfloat16)
+        qkv, got = kb.fused_ln_qkv(x, ln, wqkv, C5_H, 1e-6, True)
+        want = kb._importance_f32(qkv.float(), C5_H)
+        rel = ((got - want).abs() / want.abs()).max().item()
+        bad = ((got - importance_biased_std(qkv.float(), C5_H)).abs() / want.abs()).max().item()
+        times = launch_ms(lambda: kb.fused_ln_qkv(x, ln, wqkv, C5_H, 1e-6, True))
+        ms = sum(v for k, v in times.items() if "score_kernel" in k)
+        bnd = bound(0.0, (B_C5 * n * 2 * C5_C + B_C5 * C5_C) * 2 + B_C5 * n * 4, peaks)
+        print(f"{C5} scores B={B_C5} N={n}: rel err max {rel:.3e} against _importance_f32 of the "
+              f"same qkv; planted fault 'biased std' {bad:.3e}; score kernel {ms:.4f} ms of "
+              f"device time | bound {bnd[0]:.4f} ms ({bnd[1]}) | {ms / bnd[0]:.2f}x")
+        check(bool(torch.isfinite(got).all()) and bool((got > 0).all()),
+              f"{C5} scores N={n}: not finite and positive")
+        check(rel <= SCORE_SUM_RTOL, f"{C5} scores N={n}: rel err {rel} > {SCORE_SUM_RTOL}")
+        check(bad > SCORE_SUM_RTOL, f"{C5} scores N={n}: the gate missed 'biased std'")
+
+    config = path_config(C5_MODEL)
+    models = {(k, impl): RAJNIViT(config, v, kernels=impl, seed=0, device=device)
+              for k, v in (("pruned", C5_SCHEDULE), ("identity", None))
+              for impl in ("auto", "torch")}
+    route = models[("pruned", "auto")].route
+    print(f"{C5}: RAJNIViT(kernels='auto') {route}")
+    check(route == "route: cuda", f"{C5}: {route}, not the kernels")
+    counts = models[("pruned", "auto")].get_last_stats()["token_counts"]
+    check(counts == C5_COUNTS, f"{C5}: token counts {counts} != {C5_COUNTS}")
+    images = torch.randn(B_C5, 224, 224, 3, generator=gen).to(device)
+    for sched, expected in C5_LAUNCHES.items():
+        for k in counters.values():
+            k.launches = 0
+        out = models[(sched, "auto")](images)
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in counters.items()}
+        print(f"{C5}: launches per {sched} forward: { {n: v for n, v in got.items() if v} }")
+        check(got == expected, f"{C5} {sched} launches {got} != {expected}")
+        check(tuple(out.shape) == (B_C5, 1000) and bool(torch.isfinite(out).all()),
+              f"{C5} {sched}: logits {tuple(out.shape)} not finite")
+        rel = rel_l2(out, models[(sched, "torch")](images))
+        print(f"{C5} {sched}: logits rel L2 (cuda vs torch on the card) {rel:.3e}")
+        check(rel <= LOGITS_REL_L2, f"{C5} {sched} logits rel L2 {rel} > {LOGITS_REL_L2}")
+    del models
+
+    spec = TRAIN_PATHS[TRAIN_C5]
+    checked_first_step(device, TRAIN_C5)
+    from rajni_tpu_torch.models import vit as tvit
+
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(spec["batch"], 224, 224, 3, generator=gen).to(device)
+    labels = torch.randint(0, 1000, (spec["batch"],), generator=gen).to(device)
+    loss = step_launches(device, results, counters, TRAIN_C5,
+                         lambda: tvit.init_params(torch.Generator().manual_seed(0), config,
+                                                  torch.bfloat16, device), images, labels)
+    check(all(math.isfinite(l) for l in loss["pruned"]), f"{TRAIN_C5}: loss {loss}")
+    print(f"{TRAIN_C5}: one pruned step on the kernels, loss {loss['pruned'][0]:.4f}")
+
+
+# The evaluation from images: IMAGE_COUNT procedural images in IMAGE_CLASSES
+# classes, sized as ImageNet-val's commonly are (w, h): landscape, portrait,
+# 3:2, 4:3 past the 512 canvas, small (upscaled), 4:3 larger still
+IMAGE_COUNT, IMAGE_CLASSES, IMAGE_WARMUP = 1000, 10, 2
+IMAGE_SIZES = ((500, 375), (375, 500), (500, 333), (640, 480), (200, 150), (800, 600))
+CANVAS = 512
+# the host tiers of the eval CLI: its --preprocess, RAJNI_NATIVE, the
+# preprocess: line it must print
+IMAGE_TIERS = {"host (native)": ("host", "1"), "host (PIL)": ("host", "0"),
+               "device": ("device", "1"), "device-full": ("device-full", "1")}
+# tests/test_native.py's tolerance: ±1.5/255 before the normalize
+NATIVE_TOL_LEVELS = 1.5
+# device-full against host PIL on images that fit the canvas: one uint8 level
+# a resample pass (two passes), and at most this share of pixels apart
+FULL_MAX_LEVELS, FULL_SHARE = 2.0, 1e-2
+# preprocess_on_device on the card against its own run on the CPU: the
+# products' summation orders differ (cuBLAS and the CPU's), which moves a
+# value across a rounding edge between the passes by one level at most, at
+# few pixels; elsewhere fp32 rounding of the normalize
+CARD_CPU_MAX_LEVELS, CARD_CPU_SHARE = 1.0, 1e-3
+
+
+def procedural_image(index: int):
+    """Image ``index`` as uint8 HWC: a class-coloured gradient with stripes
+    and noise (JPEG-friendly, not constant), and its class."""
+    import numpy as np
+
+    label = index % IMAGE_CLASSES
+    w, h = IMAGE_SIZES[index % len(IMAGE_SIZES)]
+    rng = np.random.default_rng(index)
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :, None]
+    hue = np.array([(label * 37) % 256, (label * 91) % 256, (label * 53) % 256], np.float32)
+    stripes = 40.0 * np.sin((x * (3 + label) + y * (2 + index % 5)) * np.pi * 2)
+    arr = hue * (0.5 + 0.5 * y) + 60.0 * x + stripes
+    arr = arr + rng.normal(0.0, 12.0, (h, w, 3)).astype(np.float32)
+    return np.clip(arr, 0, 255).astype(np.uint8), label
+
+
+def write_images(root: Path, jpeg: bool) -> None:
+    """The image folder: ``root/class_XX/img_XXXX.(jpg|png)``."""
+    import concurrent.futures
+
+    from PIL import Image
+
+    def one(i):
+        arr, label = procedural_image(i)
+        d = root / f"class_{label:02d}"
+        Image.fromarray(arr, "RGB").save(d / f"img_{i:04d}.{'jpg' if jpeg else 'png'}",
+                                         **({"quality": 90} if jpeg else {}))
+
+    for c in range(IMAGE_CLASSES):
+        (root / f"class_{c:02d}").mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(IMAGE_COUNT)))
+
+
+@contextlib.contextmanager
+def recorded_logits(run_module, store: list):
+    """Record every forward's logits (a device copy) of ``run_module``'s
+    evaluations, a list an evaluation, into ``store``."""
+    real = run_module.evaluate_model
+
+    def evaluate(model, *args, **kw):
+        outs = []
+        store.append(outs)
+
+        def recorded(x):
+            out = model(x)
+            outs.append(out.detach().clone())
+            return out
+
+        return real(recorded, *args, **kw)
+
+    run_module.evaluate_model = evaluate
+    try:
+        yield
+    finally:
+        run_module.evaluate_model = real
+
+
+@contextlib.contextmanager
+def native_env(value: str):
+    import os
+
+    old = os.environ.get("RAJNI_NATIVE")
+    os.environ["RAJNI_NATIVE"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RAJNI_NATIVE"]
+        else:
+            os.environ["RAJNI_NATIVE"] = old
+
+
+def cli_lines(out: str, keep=("route:", "preprocess:", "Token counts", "Base  -", "RAJNI -",
+                              "Speedup", "Loaded", "NOTE")) -> list[str]:
+    return [l for l in out.splitlines() if l.startswith(keep)]
+
+
+def image_eval_phases(device, counters, tmp: Path) -> dict:
+    """The eval CLI (``rajni_tpu_torch.run.main``) on an image folder at
+    ViT-B/16 224 bf16, ``REFERENCE_SCHEDULE``, batch 256 (four batches, the
+    last 232), ``--compare_base``, once a host tier: ``route: cuda``, the
+    tier's ``preprocess:`` line, the token counts, every launch of the two
+    evaluations (two warmup and four timed batches each) through K1, K2 and K3, the
+    host (PIL) and device tiers' logits equal; then the tiers' batches on
+    their own: the device tier's normalized batch bitwise the host PIL
+    tier's, device-full against host PIL (images that fit the canvas gated,
+    the larger ones reported), ``preprocess_on_device`` on the card against
+    its run on the CPU, and the C++ tier against PIL. Returns the image
+    folder and the schedule file for the ``.pth`` phase."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, run
+    from rajni_tpu_torch.data import native
+    from rajni_tpu_torch.data import pipeline as dp
+    from rajni_tpu_torch.data.device import normalize_images, preprocess_on_device
+
+    t0 = time.perf_counter()
+    try:
+        import PIL
+
+        jpeg = True
+        print(f"Pillow {PIL.__version__}: JPEG image files")
+    except ImportError:
+        raise SmokeFailure("Pillow is missing: the image phases need it to decode")
+    root = tmp / "images"
+    write_images(root, jpeg)
+    sched = tmp / "reference.json"
+    sched.write_text(json.dumps({str(k): v for k, v in REFERENCE_SCHEDULE.items()}))
+    print(f"wrote {IMAGE_COUNT} images in {IMAGE_CLASSES} classes ({time.perf_counter() - t0:.1f} s)")
+    check(native.available(), f"the C++ preprocessing did not build on this machine: {native.error()}")
+    print(f"C++ preprocessing library: {native.library_path()}")
+
+    per_forward = PATHS[PATH224]["launches"]
+    batches = -(-IMAGE_COUNT // B)  # the last one partial
+    # the warmup and the timed batches, base (identity) and RAJNI (pruned)
+    want = {n: (batches + IMAGE_WARMUP) * (per_forward["pruned"][n] + per_forward["identity"][n])
+            for n in per_forward["pruned"]}
+    logits = {}
+    for line, (tier, env) in IMAGE_TIERS.items():
+        argv = ["--data_path", str(root), "--model", PATH224, "--schedule", str(sched),
+                "--batch_size", str(B), "--compare_base", "--warmup", str(IMAGE_WARMUP),
+                "--num_workers", "8",
+                "--no-progress",
+                "--preprocess", tier, "--canvas", str(CANVAS)]
+        store: list = []
+        for k in counters.values():
+            k.launches = 0
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with native_env(env), recorded_logits(run, store), contextlib.redirect_stdout(buf):
+            result = run.main(argv)
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in counters.items()}
+        out = buf.getvalue()
+        lines = cli_lines(out)
+        print(f"eval CLI from images, --preprocess {tier} (RAJNI_NATIVE={env}): "
+              f"{time.perf_counter() - t1:.1f} s | " + " | ".join(lines))
+        check("route: cuda" in out.splitlines(), f"images {line}: not on the kernels")
+        check(f"preprocess: {line}" in out.splitlines(), f"images {line}: no 'preprocess: {line}'")
+        check(f"Token counts per block: {VIT_B_COUNTS}" in out, f"images {line}: token counts")
+        check(got == want, f"images {line}: launches {got} != {want}")
+        rajni = store[-1][-batches:]
+        check([t.shape[0] for t in rajni] == [B] * (batches - 1) + [IMAGE_COUNT - B * (batches - 1)],
+              f"images {line}: batches {[t.shape for t in rajni]}")
+        logits[line] = torch.cat(rajni).float()
+        check(bool(torch.isfinite(logits[line]).all()), f"images {line}: logits not finite")
+        print(f"images {line}: img/s base {result['base'][1]:.1f}, RAJNI {result['rajni'][1]:.1f} "
+              f"(speedup {result['rajni'][1] / result['base'][1]:.2f}x; eval-protocol readings, "
+              "not a benchmark)")
+    same = torch.equal(logits["host (PIL)"], logits["device"])
+    rel = rel_l2(logits["device"], logits["host (PIL)"])
+    print(f"images: RAJNI logits of the host (PIL) and device tiers (identical inputs) "
+          f"{'equal' if same else 'differ'}, rel L2 {rel:.3e}")
+    if not same:
+        forward_determinism(device)
+        check(rel <= 1e-2, f"images: host (PIL) and device logits rel L2 {rel}")
+
+    # the tiers' batches on their own: the first batch of the folder
+    def first(**kw):
+        return next(iter(dp.DataLoader(dp.ImageFolder(str(root), **kw), batch_size=B,
+                                       num_workers=8)))[0]
+
+    pil = first(use_native=False)
+    u8 = first(output="uint8")
+    canvas, sizes = first(output="canvas", canvas=CANVAS)
+    nat = first()
+    dev = normalize_images(torch.from_numpy(u8).to(device), torch.float32)
+    check(torch.equal(dev.cpu(), torch.from_numpy(pil)),
+          "device tier: the normalized batch made on the card differs from the host PIL tier's")
+    print(f"device tier: the normalized batch made on the card ({B} images) is bitwise the host "
+          "PIL tier's")
+    std = torch.from_numpy(dp.IMAGENET_STD)
+    full = preprocess_on_device(torch.from_numpy(canvas).to(device), torch.from_numpy(sizes).to(device),
+                                dtype=torch.float32).cpu()
+    # the first batch's images, in the folder's order (by class, then name)
+    index = [int(Path(f).stem.split("_")[1]) for f, _ in dp.ImageFolder(str(root)).samples[:B]]
+    fits = np.array([max(IMAGE_SIZES[i % len(IMAGE_SIZES)]) <= CANVAS for i in index])
+    lev = (full - torch.from_numpy(pil)).abs() * std * 255
+    for tag, sel in (("fit the canvas", fits), ("are larger than the canvas", ~fits)):
+        d = lev[torch.from_numpy(sel)]
+        print(f"device-full vs host PIL, {int(sel.sum())} images that {tag}: largest difference "
+              f"{d.max().item():.4f} uint8 levels, {(d > 1e-3).float().mean().item():.3e} of the "
+              f"values differ, {(d > 1 + 1e-3).float().mean().item():.3e} by more than one level")
+    d = lev[torch.from_numpy(fits)]
+    check(d.max().item() <= FULL_MAX_LEVELS + 1e-3,
+          f"device-full vs host PIL: {d.max().item()} levels > {FULL_MAX_LEVELS}")
+    check((d > 1e-3).float().mean().item() <= FULL_SHARE,
+          f"device-full vs host PIL: {(d > 1e-3).float().mean().item()} of the values differ")
+    n = 64
+    cpu = preprocess_on_device(torch.from_numpy(canvas[:n]), torch.from_numpy(sizes[:n]),
+                               dtype=torch.float32)
+    d = (full[:n] - cpu).abs() * std * 255
+    print(f"preprocess_on_device on the card vs the CPU ({n} images): largest difference "
+          f"{d.max().item():.3e} uint8 levels, {(d > 1e-3).float().mean().item():.3e} of the "
+          f"values past 1e-3 of a level")
+    check(d.max().item() <= CARD_CPU_MAX_LEVELS + 1e-3,
+          f"preprocess_on_device card vs CPU: {d.max().item()} levels > {CARD_CPU_MAX_LEVELS}")
+    check((d > 1e-3).float().mean().item() <= CARD_CPU_SHARE,
+          f"preprocess_on_device card vs CPU: {(d > 1e-3).float().mean().item()} of the values")
+    d = (torch.from_numpy(nat) - torch.from_numpy(pil)).abs() * std * 255
+    print(f"host C++ tier vs PIL ({B} images): largest difference {d.max().item():.4f} uint8 "
+          f"levels (tolerance {NATIVE_TOL_LEVELS}), {(d < 1e-3).float().mean().item():.3f} of the "
+          "values equal")
+    check(d.max().item() <= NATIVE_TOL_LEVELS, f"C++ tier vs PIL: {d.max().item()} levels")
+    return {"root": root, "schedule": sched}
+
+
+def forward_determinism(device) -> None:
+    """Whether two runs of the ViT-B/16 224 pruned forward on one batch give
+    the same bits; printed."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+
+    model = RAJNIViT(PATH224, REFERENCE_SCHEDULE, kernels="cuda", seed=0, device=device)
+    x = torch.randn(B, 224, 224, 3, generator=torch.Generator().manual_seed(5)).to(device)
+    same = torch.equal(model(x), model(x))
+    print(f"the pruned forward on one batch twice: {'bitwise equal' if same else 'not deterministic'}")
+
+
+def timm_state_dict(seed: int = 0) -> dict:
+    """A timm-layout ViT-B/16 224 state_dict from a seeded generator: timm's
+    names and shapes, weights ~ N(0, 1/fan_in), norms near 1, small biases."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    c, P, hidden = C, 16, HIDDEN
+
+    def w(*shape, fan_in):
+        return torch.randn(*shape, generator=gen) / math.sqrt(fan_in)
+
+    def b(n, scale=0.1):
+        return scale * torch.randn(n, generator=gen)
+
+    sd = {"cls_token": 0.1 * torch.randn(1, 1, c, generator=gen),
+          "pos_embed": 0.1 * torch.randn(1, 197, c, generator=gen),
+          "patch_embed.proj.weight": w(c, 3, P, P, fan_in=3 * P * P),
+          "patch_embed.proj.bias": b(c),
+          "norm.weight": 1 + b(c), "norm.bias": b(c),
+          "head.weight": w(1000, c, fan_in=c), "head.bias": b(1000)}
+    for i in range(12):
+        p = f"blocks.{i}"
+        for n in ("norm1", "norm2"):
+            sd[f"{p}.{n}.weight"], sd[f"{p}.{n}.bias"] = 1 + b(c), b(c)
+        for n, (o, k) in (("attn.qkv", (3 * c, c)), ("attn.proj", (c, c)),
+                          ("mlp.fc1", (hidden, c)), ("mlp.fc2", (c, hidden))):
+            sd[f"{p}.{n}.weight"], sd[f"{p}.{n}.bias"] = w(o, k, fan_in=k), b(o)
+    return sd
+
+
+def timm_pth_phases(device, counters, images: dict, tmp: Path) -> None:
+    """A timm ViT-B/16 224 ``.pth`` (``{"model": ...}`` with ``module.``
+    keys): the eval CLI on it (``--checkpoint``, the image folder, two
+    batches of 256) through the kernels; the converted patch embedding
+    against ``F.conv2d`` with the timm weight on the card (the layout checked
+    apart from the converter); the kernels' logits against the plain route's
+    at 224; and the same checkpoint in ``vit_base_patch16_384``, its pos-embed
+    resampled from 197 to 577 tokens (against ``F.interpolate``, timm's
+    resampler), through B4, B5, B6, K2 and K3 against the plain route."""
+    import io
+
+    import torch
+    import torch.nn.functional as F
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT, run
+    from rajni_tpu_torch.models.vit import get_config, patch_embed
+    from rajni_tpu_torch.params.io import load_checkpoint_auto
+
+    sd = timm_state_dict()
+    path = tmp / "vit_base_patch16_224.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()}, "epoch": 300}, path)
+    argv = ["--checkpoint", str(path), "--data_path", str(images["root"]), "--model", PATH224,
+            "--schedule", str(images["schedule"]), "--batch_size", str(B), "--max_batches", "2",
+            "--warmup", "1", "--preprocess", "device", "--no-progress"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run.main(argv)
+    out = buf.getvalue()
+    print("eval CLI --checkpoint .pth: " + " | ".join(cli_lines(out)))
+    check(f"Loaded params from {path}" in out, "eval CLI: the .pth was not loaded")
+    check("route: cuda" in out.splitlines(), "eval CLI --checkpoint .pth: not on the kernels")
+    check(f"Token counts per block: {VIT_B_COUNTS}" in out, "eval CLI .pth: token counts")
+
+    gen = torch.Generator().manual_seed(9)
+    p224 = load_checkpoint_auto(str(path), PATH224, device=device)
+    x = torch.randn(8, 224, 224, 3, generator=gen).to(device)
+    got = patch_embed(x, p224["patch_embed"], get_config(PATH224))
+    want = F.conv2d(x.permute(0, 3, 1, 2), sd["patch_embed.proj.weight"].to(device),
+                    sd["patch_embed.proj.bias"].to(device), stride=16).flatten(2).transpose(1, 2)
+    rel = rel_l2(got, want)
+    print(f".pth patch embedding against F.conv2d with the timm weight (fp32): rel L2 {rel:.3e}")
+    check(rel <= 1e-6, f".pth patch embedding vs F.conv2d: rel L2 {rel}")
+
+    for model, batch in ((PATH224, 64), (PATH384, 32)):
+        params = load_checkpoint_auto(str(path), model, torch.bfloat16, device)
+        if model == PATH384:
+            grid = sd["pos_embed"][:, 1:].reshape(1, 14, 14, C).permute(0, 3, 1, 2)
+            ref = F.interpolate(grid, size=(24, 24), mode="bicubic", align_corners=False,
+                                antialias=True).permute(0, 2, 3, 1).reshape(1, 576, C)
+            pe = load_checkpoint_auto(str(path), model)["pos_embed"]
+            err = (pe[:, 1:] - ref).abs().max().item()
+            print(f".pth in {model}: pos-embed 197 -> {pe.shape[1]} tokens, max abs diff "
+                  f"{err:.3e} from F.interpolate(bicubic, antialias)")
+            check(pe.shape[1] == 577 and err <= 1e-5, f".pth 384 pos-embed: {err}")
+        kernels = RAJNIViT(model, REFERENCE_SCHEDULE, params=params, kernels="cuda", device=device)
+        plain = RAJNIViT(model, REFERENCE_SCHEDULE, params=params, kernels="torch", device=device)
+        check(kernels.route == "route: cuda", f".pth {model}: {kernels.route}")
+        img = PATHS[model]["img"]
+        x = torch.randn(batch, img, img, 3, generator=gen).to(device)
+        for k in counters.values():
+            k.launches = 0
+        out = kernels(x)
+        torch.cuda.synchronize()
+        got = {n: k.launches for n, k in counters.items()}
+        check(got == PATHS[model]["launches"]["pruned"], f".pth {model}: launches {got}")
+        rel = rel_l2(out, plain(x))
+        print(f".pth in {model} (batch {batch}): launches { {n: v for n, v in got.items() if v} }; "
+              f"logits rel L2 kernels vs plain route {rel:.3e}")
+        check(bool(torch.isfinite(out).all()) and rel <= LOGITS_REL_L2,
+              f".pth {model}: logits rel L2 {rel} > {LOGITS_REL_L2}")
+
+
+def data_phases(device, counters) -> None:
+    """The evaluation from images and the timm ``.pth``, in one temporary
+    directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        images = image_eval_phases(device, counters, Path(tmp))
+        timm_pth_phases(device, counters, images, Path(tmp))
+
+
 def main() -> int:
     import torch
 
@@ -4428,6 +4939,8 @@ def main() -> int:
               ("the row-band GEMM, the two-kernel route's selection, the folded static scales",
                lambda: band_phases(device, peaks, int8_peak, results)),
               ("score kernel", lambda: score_phases(device, peaks)),
+              ("C5: head_dim 64 at C=1280 (score kernel, pruned forward, training step)",
+               lambda: c5_phases(device, peaks, results, kernel_counters())),
               ("attention at and below 256 tokens", lambda: attention_phases(device, peaks)),
               ("training block ops", lambda: train_block_ops(device))]
     phases += [(f"end to end {path}", lambda path=path: end_to_end(device, device_name, results, path))
@@ -4437,7 +4950,10 @@ def main() -> int:
                ("T14 training end to end (ViT-H/14)",
                 lambda: train_end_to_end(device, device_name, results, kernel_counters(),
                                          TRAIN_H)),
-               ("eval CLI", eval_cli), ("training and eval CLIs", lambda: train_cli(device)),
+               ("eval CLI", eval_cli),
+               ("the evaluation from images and a timm .pth",
+                lambda: data_phases(device, kernel_counters())),
+               ("training and eval CLIs", lambda: train_cli(device)),
                (f"{PATH_H} training through the training CLI", lambda: vit_h_train_cli(device))]
     for label, phase in phases:
         t0 = time.perf_counter()

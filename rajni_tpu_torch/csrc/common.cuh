@@ -366,7 +366,7 @@ __host__ __device__ inline int score_tokens(int N) {
   return (N + score_cluster(N) - 1) / score_cluster(N);
 }
 // Shared memory of a block; the kernel takes head_dim 64 (C % 64 == 0, C <=
-// 1024) or 80 (H <= 16, C <= 1280), and 2 <= N <= 1024 (score_tokens(N) <=
+// 1280) or 80 (H <= 16, C <= 1280), and 2 <= N <= 1024 (score_tokens(N) <=
 // SCORE_THREADS).
 __host__ __device__ inline int score_smem(int N, int C, int H, bool pair) {
   const int T = score_tokens(N), D = C / H;
@@ -500,28 +500,22 @@ __global__ void __launch_bounds__(SCORE_THREADS, 2)
 #pragma unroll
     for (int e = 0; e < 8; ++e) vsum[e] = 0.f;
 
-    // a token's k and v pieces of this lane
-    auto load = [&](int t, uint4 (&kp)[NV], uint4 (&vp)[NV]) {
+    // a token's k (or v) pieces of this lane
+    auto load = [&](int t, int part, uint4 (&p)[NV]) {
       const uint4* row = reinterpret_cast<const uint4*>(base + (size_t)(n0 + t) * row3);
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         const int ci = lane + 32 * j;
-        kp[j] = ci < pieces ? __ldg(row + pieces + ci) : zero;
-        vp[j] = ci < pieces ? __ldg(row + 2 * pieces + ci) : zero;
+        p[j] = ci < pieces ? __ldg(row + part * pieces + ci) : zero;
       }
     };
-    // its logits (one a head, into s_e and the running max) and head-mean V
-    // (into s_V and the running ΣV)
-    auto token = [&](int t, const uint4 (&kp)[NV], const uint4 (&vp)[NV]) {
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+    // its logits: one a head, into s_e and the running max
+    auto keys = [&](int t, const uint4 (&kp)[NV]) {
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
-        float qf[8], kf[8], vf[8];
+        float qf[8], kf[8];
         unpack8(qv[j], qf);
         unpack8(kp[j], kf);
-        unpack8(vp[j], vf);
         float dot = 0.f;
 #pragma unroll
         for (int e = 0; e < 8; ++e) dot += qf[e] * kf[e];
@@ -532,6 +526,19 @@ __global__ void __launch_bounds__(SCORE_THREADS, 2)
           const float l = dot * inv_sqrt_d;
           if ((lane & 7) == 0) s_e[((lane >> 3) + 4 * j) * T + t] = l;
           hmax[j] = fmaxf(hmax[j], l);
+        }
+      }
+    };
+    // its head-mean V: into s_V and the running ΣV
+    auto values = [&](int t, const uint4 (&vp)[NV]) {
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        if (lane + 32 * j < pieces) {
+          float vf[8];
+          unpack8(vp[j], vf);
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] += vf[e] * inv_h;
         }
@@ -548,16 +555,37 @@ __global__ void __launch_bounds__(SCORE_THREADS, 2)
         dst[1] = make_float4(v[4], v[5], v[6], v[7]);
       }
     };
-    // two tokens a warp at a time (t and t + 8), both rows' loads in flight,
-    // where the registers hold them (NV <= 3: C <= 768)
-    constexpr int STEP = NV <= 3 ? 2 : 1;
-    for (int t = warp; t < cnt; t += STEP * SCORE_WARPS) {
-      const bool two = STEP == 2 && t + SCORE_WARPS < cnt;
-      uint4 kp[NV], vp[NV], kp2[NV], vp2[NV];
-      load(t, kp, vp);
-      if (two) load(t + SCORE_WARPS, kp2, vp2);
-      token(t, kp, vp);
-      if (two) token(t + SCORE_WARPS, kp2, vp2);
+    if constexpr (NV >= 5) {
+      // C = 1280: a token's v pieces are loaded once its logits are made, so
+      // its k and v (40 registers) are not held at once (0 spill bytes under
+      // the launch bounds' 128 registers)
+      for (int t = warp; t < cnt; t += SCORE_WARPS) {
+        uint4 kp[NV], vp[NV];
+        load(t, 1, kp);
+        keys(t, kp);
+        load(t, 2, vp);
+        values(t, vp);
+      }
+    } else {
+      // two tokens a warp at a time (t and t + 8), both rows' loads in
+      // flight, where the registers hold them (NV <= 3: C <= 768)
+      constexpr int STEP = NV <= 3 ? 2 : 1;
+      for (int t = warp; t < cnt; t += STEP * SCORE_WARPS) {
+        const bool two = STEP == 2 && t + SCORE_WARPS < cnt;
+        uint4 kp[NV], vp[NV], kp2[NV], vp2[NV];
+        load(t, 1, kp);
+        load(t, 2, vp);
+        if (two) {
+          load(t + SCORE_WARPS, 1, kp2);
+          load(t + SCORE_WARPS, 2, vp2);
+        }
+        keys(t, kp);
+        values(t, vp);
+        if (two) {
+          keys(t + SCORE_WARPS, kp2);
+          values(t + SCORE_WARPS, vp2);
+        }
+      }
     }
 #pragma unroll
     for (int j = 0; j < NV; ++j)
@@ -690,12 +718,13 @@ inline cudaError_t launch_score(const bf16* qkv, float* scores, int B, int N, in
   if (N < 2 || score_tokens(N) > SCORE_THREADS || H < 1) return cudaErrorInvalidValue;
   if (C == ATTN_D80 * H && H <= 16)  // head_dim 80: two lanes a head
     return launch_score_nv<ATTN_D80, 0>(qkv, scores, B, N, C, H, eps, st);
-  if (C % 64 || C > 1024 || C != ATTN_D * H) return cudaErrorInvalidValue;
+  if (C % 64 || C > 1280 || C != ATTN_D * H) return cudaErrorInvalidValue;
   switch ((C / 8 + 31) / 32) {
     case 1: return launch_score_nv<ATTN_D, 1>(qkv, scores, B, N, C, H, eps, st);
     case 2: return launch_score_nv<ATTN_D, 2>(qkv, scores, B, N, C, H, eps, st);
     case 3: return launch_score_nv<ATTN_D, 3>(qkv, scores, B, N, C, H, eps, st);
-    default: return launch_score_nv<ATTN_D, 4>(qkv, scores, B, N, C, H, eps, st);
+    case 4: return launch_score_nv<ATTN_D, 4>(qkv, scores, B, N, C, H, eps, st);
+    default: return launch_score_nv<ATTN_D, 5>(qkv, scores, B, N, C, H, eps, st);  // C = 1280
   }
 }
 

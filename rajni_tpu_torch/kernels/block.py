@@ -297,12 +297,12 @@ def _check_prev_scores(prev_scores, with_scores: bool, B: int, N: int):
 
 def _score_fits(N: int, C: int, H: int) -> bool:
     """Whether ``csrc/common.cuh:score_kernel`` takes these shapes: head_dim
-    64 with ``C % 64 == 0`` and ``C <= 1024``, or head_dim 80 with at most 16
-    heads (``C <= 1280``, two lanes a head), and ``2 <= N <= 1024`` (a
-    cluster of 2 blocks an image up to 512 tokens, else 4, a block's share
-    of the tokens at most its 256 threads; its shared memory, 99 KB at most,
-    always fits)."""
-    fits = (C % 64 == 0 and C <= 1024 and C == HEAD_DIM * H) or (C == 80 * H and H <= 16)
+    64 with ``C % 64 == 0`` and ``C <= 1280`` (up to 5 pieces of 16 bytes a
+    lane), or head_dim 80 with at most 16 heads (``C <= 1280``, two lanes a
+    head), and ``2 <= N <= 1024`` (a cluster of 2 blocks an image up to 512
+    tokens, else 4, a block's share of the tokens at most its 256 threads;
+    its shared memory, 99 KB at most, always fits)."""
+    fits = (C % 64 == 0 and C <= 1280 and C == HEAD_DIM * H) or (C == 80 * H and H <= 16)
     return fits and 2 <= N <= 1024
 
 

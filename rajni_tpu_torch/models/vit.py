@@ -391,8 +391,8 @@ def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = F
     activations, C a multiple of 128 (hidden a multiple of 128), and for the
     classic configurations. The bf16 kernels take C <= 1280, head_dim 64 up
     to ``SDPA_MAX_N`` tokens and head_dim 80 (ViT-H/14) up to
-    ``SDPA_MAX_N_D80`` (the score kernel takes head_dim 64 only up to C =
-    1024, which this gate does not check: ROADMAP C5); the int8 kernels
+    ``SDPA_MAX_N_D80`` (the score kernel takes both head_dims up to C =
+    1280); the int8 kernels
     head_dim 64 with C <= 1024 or head_dim 80 at C = 1280 (ViT-H/14,
     :func:`..kernels.block.int8_width_ok`).
     The training kernels (B16 on K2's launches, B17, B18) take every width the

@@ -13,7 +13,8 @@ Flax's ndarray ext (type 1) holds the msgpack triple ``(shape, dtype name,
 C-order bytes)``; numpy has no bfloat16, so a ``bfloat16`` array goes through
 an int16 view and is returned as a CPU torch tensor. Flax splits arrays over
 2**30 bytes into chunks, which no ViT up to ViT-H needs: such a file raises.
-Orbax checkpoint directories are not read.
+Orbax checkpoint directories are not read. :func:`load_checkpoint_auto` also
+takes a timm ``.pth`` (:mod:`.convert`).
 """
 
 from __future__ import annotations
@@ -255,3 +256,18 @@ def load_params(path: str, dtype: torch.dtype | None = None, device="cpu"):
     with open(path, "rb") as f:
         tree = _restore_blocks(_unpackb(f.read()))
     return params_from_numpy(tree, dtype=dtype, device=device)
+
+
+def load_checkpoint_auto(path: str, model: str, dtype: torch.dtype | None = None,
+                         device="cpu"):
+    """A checkpoint of either kind: a torch ``.pth``, ``.pt`` or ``.bin``
+    (a timm state_dict) is converted for ``model``
+    (:func:`.convert.convert_timm_state_dict`, the pos-embed resampled to
+    its grid), anything else is read as msgpack (:func:`load_params`)."""
+    if path.endswith((".pth", ".pt", ".bin")):
+        from ..models.vit import get_config
+        from .convert import convert_timm_state_dict, load_torch_checkpoint
+
+        tree = convert_timm_state_dict(load_torch_checkpoint(path), get_config(model))
+        return params_from_numpy(tree, dtype=dtype, device=device)
+    return load_params(path, dtype=dtype, device=device)

@@ -1,47 +1,71 @@
-"""Evaluation CLI (port of ``rajni_tpu/run.py``, single device, synthetic
-data)::
+"""Evaluation CLI (port of ``rajni_tpu/run.py``, single device)::
 
-    python -m rajni_tpu_torch.run --synthetic 3 --batch_size 64 \\
-        --schedule schedule.json [--compare_base] [--kernels cuda] [--device cuda] \\
-        [--quantize [--calibrate N [--save_scales f.json] | --load_scales f.json]] \\
-        [--checkpoint params.msgpack]
+    python -m rajni_tpu_torch.run --data_path /path/to/val \\
+        --schedule schedule.json [--checkpoint vit_b16.pth | params.msgpack] \\
+        [--preprocess host|device|device-full [--canvas 512]] [--num_workers 8] \\
+        [--compare_base] [--kernels cuda] [--device cuda] [--profile DIR] [--no-progress] \\
+        [--quantize [--calibrate N [--save_scales f.json] | --load_scales f.json]]
+    python -m rajni_tpu_torch.run --synthetic 3 --batch_size 64 --schedule schedule.json
 
-Parameters are random (drawn from ``--seed``) unless ``--checkpoint`` names a
-msgpack checkpoint of either package (:mod:`.params.io`): throughput is
-meaningful, accuracy on synthetic data is not. ``--quantize`` runs int8 weights (dynamic per-row
+``--data_path`` is an ImageNet-style folder (a subdirectory a class);
+``--synthetic N`` evaluates N batches of random images instead. Parameters
+are random (drawn from ``--seed``) unless ``--checkpoint`` names a msgpack
+checkpoint of either package or a timm ``.pth``/``.pt``/``.bin`` state_dict,
+converted on loading (:func:`.params.io.load_checkpoint_auto`).
+
+``--preprocess`` says where the eval transform runs (:mod:`.data.device`):
+``host`` ships normalized float32 (the reference protocol; the C++ library
+where it builds, else PIL), ``device`` ships the host's uint8 crop and
+normalizes on the device, ``device-full`` ships the decoded image on a uint8
+canvas and resizes, crops and normalizes on the device. The device stage
+runs inside the timed forward. The ``preprocess:`` line names the tier that
+ran (``host (native)``, ``host (PIL)``, ``device``, ``device-full``) and the
+``route:`` line whether the kernels run or the config or dtype was demoted
+to the plain path. ``--quantize`` runs int8 weights (dynamic per-row
 activation scales); ``--calibrate N`` calibrates static scales on the first
-N batches before quantizing, ``--load_scales`` reads scales that
-``--save_scales`` wrote. The ``route:`` line says whether the kernels run or
-the config or dtype was demoted to the plain path. The dataset path, parallelism,
-preprocessing modes, artifacts and profiling are not ported yet.
+N batches, through the same preprocessing stage, before quantizing;
+``--load_scales`` reads scales that ``--save_scales`` wrote. ``--profile
+DIR`` writes a ``torch.profiler`` Chrome trace of the RAJNI evaluation.
+Serving artifacts and the parallel flags are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 
 import torch
 
-from .data.pipeline import SyntheticLoader
-from .eval import evaluate_model
-from .models.vit import params_quantized, resolve_route, route_line
+from .data.pipeline import DataLoader, ImageFolder, SyntheticLoader
+from .eval import _to_device, evaluate_model
+from .models.vit import get_config, params_quantized, resolve_route, route_line
 from .models.wrapper import RAJNIViT
-from .params.io import load_params
+from .params.io import load_checkpoint_auto
 from .quant import ActScales, calibrate_act_scales, quantize_params
 from .utils.schedule import load_schedule, schedule_to_dict
 from .utils.timing import require_device
 
+TIERS = {"host": "float32", "device": "uint8", "device-full": "canvas"}
+
 
 def get_args(argv=None):
     p = argparse.ArgumentParser("RAJNI PyTorch/CUDA evaluation")
+    p.add_argument("--data_path", type=str, default=None,
+                   help="ImageNet-style dataset root (a subdirectory a class)")
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--num_workers", type=int, default=8,
+                   help="Decode threads of the image loader")
+    p.add_argument("--pin_mem", action="store_true", default=True,
+                   help="Accepted for the JAX CLI's flags: batches always reach the "
+                        "card from pinned host memory")
     p.add_argument("--model", type=str, default="vit_base_patch16_224")
     p.add_argument("--schedule", type=str, default=None,
                    help="Path to JSON pruning schedule")
-    p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--warmup", type=int, default=5)
     p.add_argument("--max_batches", type=int, default=None)
-    p.add_argument("--synthetic", type=int, required=True, metavar="N",
-                   help="Evaluate N synthetic batches")
+    p.add_argument("--synthetic", type=int, default=None, metavar="N",
+                   help="Evaluate N synthetic batches instead of --data_path")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--kernels", type=str, default="auto",
@@ -52,9 +76,22 @@ def get_args(argv=None):
                    choices=["cuda", "cpu"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="Params (msgpack of either package); random if absent")
+                   help="Params: msgpack of either package, or a timm .pth/.pt/.bin "
+                        "state_dict (converted on loading); random if absent")
     p.add_argument("--compare_base", action="store_true",
                    help="Also evaluate the unpruned model and print the speedup")
+    p.add_argument("--preprocess", type=str, default="host", choices=list(TIERS),
+                   help="Where the eval transform runs: 'host' (normalized float32 "
+                        "copies), 'device' (the host's uint8 crop, normalized on the "
+                        "device, bit for bit the host's), 'device-full' (decoded images on "
+                        "a uint8 canvas; resize, crop and normalize on the device)")
+    p.add_argument("--canvas", type=int, default=512,
+                   help="Side of the uint8 canvas of --preprocess device-full")
+    p.add_argument("--progress", action=argparse.BooleanOptionalAction, default=True,
+                   help="Show a progress bar (where tqdm is installed)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="Write a torch.profiler Chrome trace of the RAJNI evaluation "
+                        "into DIR")
     p.add_argument("--quantize", action="store_true",
                    help="Int8 qkv, proj, fc1, fc2 and head weights (dynamic "
                         "per-row activation scales)")
@@ -84,6 +121,61 @@ def _check_quant_args(args) -> None:
                              "(loading replaces calibration)")
 
 
+def make_preprocess_stage(preprocess: str, config, dtype=torch.bfloat16):
+    """The on-device stage of a ``--preprocess`` tier (None for ``host``):
+    the device batch of the loader's output mode → normalized ``dtype``
+    images, run inside the timed forward."""
+    if preprocess == "device":
+        from .data.device import normalize_images
+
+        return lambda images: normalize_images(images, dtype)
+    if preprocess == "device-full":
+        from .data.device import preprocess_on_device
+
+        def stage(images):
+            canvas, sizes = images
+            return preprocess_on_device(canvas, sizes, crop=config.img_size,
+                                        resize=int(config.img_size * 256 / 224), dtype=dtype)
+
+        return stage
+    return None
+
+
+def _with_stage(model, stage):
+    if stage is None:
+        return model
+    return lambda images: model(stage(images))
+
+
+def _data(args, config):
+    """The loader and the ``preprocess:`` line's tier."""
+    if args.synthetic is not None:
+        if args.preprocess != "host":
+            print("WARNING: --synthetic yields preprocessed float batches; "
+                  "forcing --preprocess host")
+            args.preprocess = "host"
+        loader = SyntheticLoader(num_batches=args.synthetic, batch_size=args.batch_size,
+                                 img_size=config.img_size, num_classes=config.num_classes,
+                                 seed=args.seed)
+        print(f"\nUsing {args.synthetic} synthetic batches of {args.batch_size} "
+              "(accuracy not meaningful)")
+        return loader, "none (synthetic batches)"
+    if args.data_path is None:
+        raise ValueError("provide --data_path or --synthetic N")
+    dataset = ImageFolder(args.data_path, img_size=config.img_size,
+                          output=TIERS[args.preprocess], canvas=args.canvas)
+    loader = DataLoader(dataset, batch_size=args.batch_size, num_workers=args.num_workers)
+    print(f"\nLoaded validation set: {len(dataset)} images, {len(dataset.classes)} classes")
+    tier = args.preprocess
+    if tier == "host":
+        tier = f"host ({dataset.host_tier()})"
+        from .data import native
+
+        if native.error():
+            print(f"NOTE: the C++ preprocessing did not build; PIL runs: {native.error()}")
+    return loader, tier
+
+
 def main(argv=None):
     args = get_args(argv)
     _check_quant_args(args)
@@ -94,20 +186,19 @@ def main(argv=None):
     if device.type == "cuda":
         print(f"Device: {torch.cuda.get_device_name(device)}")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    if args.schedule is None:
-        raise ValueError("You must provide --schedule for RAJNI evaluation")
+    config = get_config(args.model)
+    loader, tier = _data(args, config)
 
-    params = load_params(args.checkpoint) if args.checkpoint else None
-    base = RAJNIViT(args.model, None, params=params, dtype=dtype, kernels=args.kernels,
+    if args.checkpoint:
+        params = load_checkpoint_auto(args.checkpoint, args.model)
+        print(f"Loaded params from {args.checkpoint}")
+    else:
+        params = None
+        print("WARNING: no --checkpoint given; using randomly initialized "
+              "params (throughput valid, accuracy meaningless)")
+    base = RAJNIViT(config, None, params=params, dtype=dtype, kernels=args.kernels,
                     seed=args.seed, device=device)
-    config = base.config
-    loader = SyntheticLoader(
-        num_batches=args.synthetic, batch_size=args.batch_size,
-        img_size=config.img_size, num_classes=config.num_classes, seed=args.seed,
-    )
-    print(f"\nUsing {args.synthetic} synthetic batches of {args.batch_size} "
-          "(random params: accuracy not meaningful)")
-    schedule = load_schedule(args.schedule, config.depth)
+    stage = make_preprocess_stage(args.preprocess, config, dtype)
 
     raw_params, params = base.params, base.params
     calib = []
@@ -115,13 +206,17 @@ def main(argv=None):
         for i, (images, _) in enumerate(loader):
             if i >= args.calibrate:
                 break
-            calib.append(torch.from_numpy(images).to(device))
+            x = _to_device(images, device)
+            calib.append(x if stage is None else stage(x))
         print(f"Captured {len(calib)} calibration batches")
+        if not calib:
+            raise ValueError("--calibrate captured 0 batches (empty dataset/loader?)")
     if args.quantize:
         params = quantize_params(raw_params)
         print("Quantized qkv, proj, fc1, fc2 and head weights to int8")
     # the route of the params evaluated (int8 ones demote where the int8 kernels do not go)
     print(route_line(*resolve_route(args.kernels, config, dtype, device, params_quantized(params))))
+    print(f"preprocess: {tier}")
     loaded = None
     if args.load_scales:
         loaded = ActScales.load(args.load_scales)
@@ -142,19 +237,25 @@ def main(argv=None):
         return scales
 
     def run_eval(model):
-        return evaluate_model(model, loader, device=device,
-                              max_batches=args.max_batches, warmup=args.warmup)
+        return evaluate_model(_with_stage(model, stage), loader, device=device,
+                              max_batches=args.max_batches, warmup=args.warmup,
+                              progress=args.progress)
 
     result = {}
+    base_scales = scales_for(None) if args.compare_base else None
+    if args.schedule is None:
+        raise ValueError("You must provide --schedule for RAJNI evaluation")
+    schedule = load_schedule(args.schedule, config.depth)
+    act_scales = scales_for(schedule)
+    calib.clear()
     if args.compare_base:
         print("\nEvaluating BASE model")
         result["base"] = run_eval(RAJNIViT(config, None, params=params, dtype=dtype,
                                            kernels=args.kernels, device=device,
-                                           act_scales=scales_for(None)))
+                                           act_scales=base_scales))
         print(f"Base  - Accuracy: {result['base'][0]:.2f}%, "
               f"Throughput: {result['base'][1]:.1f} img/s")
 
-    act_scales = scales_for(schedule)
     if args.save_scales:
         act_scales.save(args.save_scales)
         print(f"Saved static int8 activation scales to {args.save_scales}")
@@ -165,7 +266,8 @@ def main(argv=None):
         print(f"  Layer {k}: {v}")
     print(f"Token counts per block: {model.get_last_stats()['token_counts']}")
     print("\nEvaluating RAJNI model")
-    result["rajni"] = run_eval(model)
+    with _profiled(args.profile, device):
+        result["rajni"] = run_eval(model)
     acc, tput = result["rajni"]
     print(f"RAJNI - Accuracy: {acc:.2f}%, Throughput: {tput:.1f} img/s")
     if args.compare_base:
@@ -173,6 +275,27 @@ def main(argv=None):
         drop = result["base"][0] - acc
         print(f"\nSpeedup: {speedup:.2f}x | Accuracy drop: {drop:.2f}%")
     return result
+
+
+@contextlib.contextmanager
+def _profiled(directory: str | None, device: torch.device):
+    """A ``torch.profiler`` trace of the block, written as
+    ``DIR/trace.json`` (Chrome's trace format), or nothing."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    print(f"Profiling to {directory}")
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Wrote the trace {path}")
 
 
 if __name__ == "__main__":
