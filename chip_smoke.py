@@ -159,7 +159,24 @@ run (non-zero exit) when it goes wrong:
    eval CLI's ``--checkpoint``, its patch embedding against ``F.conv2d``,
    and its logits through the kernels at 224 and (pos-embed resampled to
    577 tokens) at 384 against the plain route;
-7. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
+7. export, serve and attest (``rajni_tpu_torch.export``, ``.serving``,
+   ``.attest``): ViT-B/16 224 bf16 artifacts (buckets 8, 32, 256 with
+   ``REFERENCE_SCHEDULE`` and the identity schedule; dynamic; int8 with
+   calibrated static scales baked, buckets 8, 32, 64) loaded on the card,
+   each request's launches (K1 ×5, K2 ×7, K3 ×12 a bucket call; B14 ×5, B15
+   ×7) and its real rows bitwise the eager forward on the same padded batch,
+   against the images at their own batch (printed, gated at
+   ``LOGITS_REL_L2``), a cpu artifact refused; ``run.main(["--artifact",
+   ...])``; ``serving.make_server`` over the three-model registry with 64
+   concurrent clients (raw crops and JPEG bodies), each answer against the
+   eager forward of its image, coalesced batches, p50/p99, the endpoints and
+   the registry's peak memory; the committed reference fixture and a bf16
+   ViT-B self-fixture through the kernels at top-1 agreement 1.0, and the
+   attestation CLI's non-zero exit above it; the extended timm variants: a
+   DeiT-3-layout and an MAE-layout ``.pth`` through the eval CLI and K1-K3
+   against the plain route, and registers, the distillation token and
+   qk-norm on the torch route with their token counts;
+8. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
 It exits non-zero without printing a result when CUDA is unavailable or when
@@ -4851,6 +4868,457 @@ def data_phases(device, counters) -> None:
         timm_pth_phases(device, counters, images, Path(tmp))
 
 
+# ---------------------------------------------------------------------------
+# Export, serving and attestation (rajni_tpu_torch/export.py, serving.py,
+# attest.py, run.py --artifact), and the extended timm variants
+# ---------------------------------------------------------------------------
+
+# The bucket artifact of ViT-B/16 224 (REFERENCE_SCHEDULE) and its requests:
+# padded (3 → 8, 40 → 256), exact (8, 256) and chunked (300 = 256 + 44 → 256)
+SERVE_BUCKETS = [8, 32, 256]
+SERVE_REQUESTS = (3, 8, 40, 256, 300)
+# the int8 static artifact: B14/B15 through buckets 8, 32, 64 (calibrated on 64 images)
+INT8_BUCKETS = [8, 32, 64]
+INT8_REQUESTS = (20, 64)
+# the HTTP phase: 64 client threads at once over a three-model registry
+SERVE_CLIENTS, SERVE_DELAY_MS = 64, 20.0
+# the attestation CLI's --min_agreement above any agreement: it must exit non-zero
+UNREACHABLE_AGREEMENT = "1.01"
+
+
+def bucket_batches(x, buckets):
+    """The padded batches a bucket artifact runs for ``x``
+    (``export.load_exported``): chunks of the largest bucket, each padded
+    with zero images to the smallest sufficient bucket; ``(batch, rows)``."""
+    import torch
+
+    out = []
+    for i in range(0, x.shape[0], buckets[-1]):
+        chunk = x[i:i + buckets[-1]]
+        cap = next(c for c in buckets if chunk.shape[0] <= c)
+        pad = chunk.new_zeros((cap - chunk.shape[0],) + tuple(chunk.shape[1:]))
+        out.append((torch.cat([chunk, pad]), chunk.shape[0]))
+    return out
+
+
+def counted(counters, fn, *args):
+    """``fn(*args)`` with every launch count set to 0 first; ``(result,
+    {kernel: launches})`` read after a synchronize."""
+    import torch
+
+    for k in counters.values():
+        k.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in counters.items()}
+
+
+def export_phases(device, counters, tmp: Path) -> dict:
+    """``export.export_model``/``load_exported`` on the card. The bucket
+    artifact (ViT-B/16 224 bf16, ``REFERENCE_SCHEDULE``, buckets
+    ``SERVE_BUCKETS``, platform cuda): its route, its launches a bucket call
+    (K1 ×5, K2 ×7, K3 ×12), each request's logits bitwise the eager forward
+    (``RAJNIViT`` on the same params) on the same padded batches, and
+    against the same images at their own batch (bitwise or not, printed;
+    gated at ``LOGITS_REL_L2``). A dynamic artifact at 5 and 17 images,
+    bitwise the eager forward. The int8 static artifact (``quantize_params``
+    and ``calibrate_act_scales`` baked): B14 ×5, B15 ×7 a call, bitwise
+    ``RAJNIViT`` with the same scales on the same padded batch. A cpu
+    artifact refused on the card. Returns the artifacts and the params."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+    from rajni_tpu_torch.export import export_model, load_exported
+    from rajni_tpu_torch.quant import calibrate_act_scales, quantize_params
+
+    eager = RAJNIViT(PATH224, REFERENCE_SCHEDULE, kernels="cuda", seed=0, device=device)
+    params, cfg = eager.params, eager.config
+    gen = torch.Generator().manual_seed(21)
+    images = torch.randn(max(SERVE_REQUESTS), 224, 224, 3, generator=gen).to(device,
+                                                                              torch.bfloat16)
+    arts, loaded = {"params": params}, {}  # the files (returned), the loaded callables
+    for name, schedule, batch in (("pruned", REFERENCE_SCHEDULE, SERVE_BUCKETS),
+                                  ("stock", None, SERVE_BUCKETS),
+                                  ("dynamic", REFERENCE_SCHEDULE, "dynamic")):
+        arts[name] = tmp / f"{name}.rajni"
+        t0 = time.perf_counter()
+        export_model(str(arts[name]), params, cfg, schedule, batch, platform="cuda")
+        t1 = time.perf_counter()
+        serve = load_exported(str(arts[name]), device)
+        print(f"export {name} (batch {batch}): {arts[name].stat().st_size / 1e6:.1f} MB, written "
+              f"in {t1 - t0:.1f} s, loaded in {time.perf_counter() - t1:.1f} s; {serve.route}")
+        check(serve.route == "route: cuda", f"artifact {name}: {serve.route}")
+        loaded[name] = serve
+    serve = loaded["pruned"]
+    per_call = PATHS[PATH224]["launches"]["pruned"]
+    for n in SERVE_REQUESTS:
+        x = images[:n]
+        out, got = counted(counters, serve, x)
+        batches = bucket_batches(x, SERVE_BUCKETS)
+        want = {k: v * len(batches) for k, v in per_call.items()}
+        check(got == want, f"bucket artifact, {n} images: launches {got} != {want}")
+        check(tuple(out.shape) == (n, 1000) and bool(torch.isfinite(out).all()),
+              f"bucket artifact, {n} images: logits {tuple(out.shape)}")
+        ref = torch.cat([eager(b)[:rows] for b, rows in batches])
+        check(torch.equal(out, ref), f"bucket artifact, {n} images: the real rows differ from "
+                                     "the eager forward on the same padded batches")
+        own = eager(x)
+        rel = rel_l2(out, own)
+        print(f"bucket artifact, {n} images through buckets {[b.shape[0] for b, _ in batches]}: "
+              f"{len(batches)} call(s), each K1 ×5, K2 ×7, K3 ×12; real rows bitwise the eager "
+              f"forward on the padded batches; against the images at their own batch "
+              f"{'bitwise equal' if torch.equal(out, own) else f'rel L2 {rel:.3e}'}")
+        check(rel <= LOGITS_REL_L2, f"bucket artifact, {n} images vs own batch: rel L2 {rel}")
+    for n in (5, 17):
+        out, got = counted(counters, loaded["dynamic"], images[:n])
+        check(got == per_call, f"dynamic artifact, {n} images: launches {got}")
+        check(torch.equal(out, eager(images[:n])), f"dynamic artifact, {n} images: not bitwise "
+                                                   "the eager forward")
+    print("dynamic artifact at 5 and 17 images: bitwise the eager forward, K1 ×5, K2 ×7, K3 ×12")
+
+    q = quantize_params(params)
+    scales = calibrate_act_scales(params, images[:INT8_BUCKETS[-1]], cfg, REFERENCE_SCHEDULE)
+    arts["int8"] = tmp / "int8.rajni"
+    export_model(str(arts["int8"]), q, cfg, REFERENCE_SCHEDULE, INT8_BUCKETS, platform="cuda",
+                 act_scales=scales)
+    int8 = load_exported(str(arts["int8"]), device)
+    check(int8.route == "route: cuda", f"int8 static artifact: {int8.route}")
+    ref_model = RAJNIViT(PATH224, REFERENCE_SCHEDULE, params=q, kernels="cuda", device=device,
+                         act_scales=scales)
+    for n in INT8_REQUESTS:
+        out, got = counted(counters, int8, images[:n])
+        want = PATHS[P3C]["launches"]["pruned"]
+        check(got == want, f"int8 static artifact, {n} images: launches {got} != {want}")
+        ref = torch.cat([ref_model(b)[:rows] for b, rows in bucket_batches(images[:n],
+                                                                           INT8_BUCKETS)])
+        check(torch.equal(out, ref), f"int8 static artifact, {n} images: not bitwise RAJNIViT "
+                                     "with the same scales on the same batch")
+    print(f"int8 static artifact ({arts['int8'].stat().st_size / 1e6:.1f} MB, buckets "
+          f"{INT8_BUCKETS}) at {INT8_REQUESTS} images: B14 ×5, B15 ×7 a call, bitwise RAJNIViT "
+          f"with the same scales; {int8.route}")
+
+    tiny = RAJNIViT("vit_tiny_patch16_224", device=device)
+    cpu_art = tmp / "cpu.rajni"
+    export_model(str(cpu_art), tiny.params, tiny.config, batch=2, platform="cpu")
+    try:
+        load_exported(str(cpu_art), device)
+        refused = False
+    except ValueError as e:
+        refused = "platform 'cpu'" in str(e)
+        print(f"a cpu artifact on the card: refused ({e})")
+    check(refused, "a cpu artifact loaded on the card")
+    return arts
+
+
+def artifact_cli_phase(arts: dict) -> None:
+    """``run.main(["--artifact", ...])`` on the bucket artifact, two
+    synthetic batches of 64: ``route: cuda`` and ViT-B/16 224's token counts."""
+    import io
+
+    from rajni_tpu_torch import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run.main(["--artifact", str(arts["pruned"]), "--synthetic", "2", "--batch_size", "64",
+                  "--warmup", "1", "--no-progress"])
+    out = buf.getvalue()
+    # a route and token-count check: two batches time nothing worth keeping
+    lines = [l for l in out.splitlines() if l.startswith(("Artifact", "route:", "Token counts"))
+             and not l.startswith("Artifact model")]
+    print("eval CLI --artifact: " + " | ".join(lines))
+    check("route: cuda" in out.splitlines(), "eval CLI --artifact: not on the kernels")
+    check(f"Token counts per block: {VIT_B_COUNTS}" in out, "eval CLI --artifact: token counts")
+
+
+def serving_phases(device, arts: dict) -> None:
+    """``serving.make_server`` on 127.0.0.1, port 0, over a registry of three
+    engines from artifacts (stock, pruned bf16, int8 static), each warmed up
+    (timed). ``SERVE_CLIENTS`` client threads POST one request each at once,
+    to the three models in turn: raw uint8 crops, and JPEG bodies that the
+    server decodes with PIL. Each response is held bitwise to that image's
+    eager forward through the same engine's model, run on all of the
+    model's requests at once: its top classes are the eager row's (the
+    server's ``argsort`` on the same float32 row) and its top logits the
+    eager row's values there. Rows do not depend on the batch they share
+    (the export phase gates that bitwise), so a request answered with
+    another's row fails. ``/v1/stats``: coalesced batches
+    (mean batch > 1), p50 and p99. ``/healthz``, ``/v1/models``, a 404, a 400
+    on a wrong byte count. The peak allocated memory of the registry."""
+    import concurrent.futures
+    import gc
+    import http.client
+    import io
+    import threading
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from rajni_tpu_torch.data.device import normalize_images
+    from rajni_tpu_torch.data.pipeline import preprocess_u8
+    from rajni_tpu_torch.export import load_exported
+    from rajni_tpu_torch.serving import BatchingEngine, make_server
+
+    gc.collect()  # what the earlier phases left unreferenced is freed first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engines = {}
+    for name in ("stock", "pruned", "int8"):
+        serve = load_exported(str(arts[name]), device)
+        engines[name] = eng = BatchingEngine(serve, max_delay_ms=SERVE_DELAY_MS)
+        t0 = time.perf_counter()
+        eng.warmup()
+        print(f"serving {name}: {serve.route}, buckets {serve.buckets}, warmup "
+              f"{time.perf_counter() - t0:.3f} s (kernels built earlier in this run)")
+    names = list(engines)
+    requests = []
+    for i in range(SERVE_CLIENTS):
+        arr, _ = procedural_image(i)
+        if i % 2:
+            buf = io.BytesIO()
+            Image.fromarray(arr, "RGB").save(buf, format="JPEG", quality=90)
+            body, ctype = buf.getvalue(), "image/jpeg"
+            with Image.open(io.BytesIO(body)) as im:
+                crop = preprocess_u8(im.convert("RGB"), 224)
+        else:
+            crop = preprocess_u8(Image.fromarray(arr, "RGB"), 224)
+            body, ctype = crop.tobytes(), "application/octet-stream"
+        requests.append((names[i % len(names)], body, ctype, crop))
+
+    httpd = make_server(engines, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    start = threading.Barrier(SERVE_CLIENTS)
+
+    def call(method, path, body=None, ctype=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request(method, path, body=body,
+                         headers={"Content-Type": ctype} if ctype else {})
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    def client(req):
+        name, body, ctype, _ = req
+        start.wait(timeout=120)
+        return call("POST", f"/v1/models/{name}/classify", body, ctype)
+
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            answers = list(pool.map(client, requests))
+        wall = time.perf_counter() - t0
+        check(all(code == 200 for code, _ in answers),
+              f"serving: statuses {[code for code, _ in answers]}")
+        for name in names:
+            idx = [i for i, r in enumerate(requests) if r[0] == name]
+            crops = torch.from_numpy(np.stack([requests[i][3] for i in idx])).to(device)
+            model = engines[name]._serve.model
+            with torch.no_grad():
+                ref = model(normalize_images(crops, torch.bfloat16)).float().cpu().numpy()
+            for row, i in zip(ref, idx):
+                out = answers[i][1]
+                want = np.argsort(row)[::-1][:5]
+                check(out["top_classes"] == want.tolist(), f"serving {name} request {i}: top "
+                      f"classes {out['top_classes']} != eager {want.tolist()}")
+                check(out["top_logits"] == row[want].tolist(), f"serving {name} request {i}: "
+                      f"top logits {out['top_logits']} != eager {row[want].tolist()}")
+        status, stats = call("GET", "/v1/stats")
+        check(status == 200 and sorted(stats) == sorted(names), f"/v1/stats: {status} {stats}")
+        for name in names:
+            st = stats[name]
+            print(f"serving {name}: {st['requests']} requests in {st['batches']} batches, mean "
+                  f"batch {st['mean_batch']:.2f}, p50 {st['p50_ms']:.1f} ms, p99 "
+                  f"{st['p99_ms']:.1f} ms")
+        check(sum(stats[n]["requests"] for n in names) == SERVE_CLIENTS,
+              f"serving: {stats} does not count {SERVE_CLIENTS} requests")
+        check(max(stats[n]["mean_batch"] for n in names) > 1.0,
+              "serving: no batch coalesced more than one request")
+        print(f"serving: {SERVE_CLIENTS} concurrent requests (raw and JPEG) in {wall:.2f} s wall; "
+              f"top-5 classes and logits bitwise the eager forward's")
+        check(call("GET", "/healthz") == (200, {"ok": True}), "/healthz")
+        check(call("GET", "/v1/models") == (200, {"models": names}), "/v1/models")
+        check(call("GET", "/v1/models/nope/stats")[0] == 404, "an unknown model: not 404")
+        code, err = call("POST", "/v1/classify", b"abc", "application/octet-stream")
+        check(code == 400 and "150528 bytes" in err.get("error", ""), f"a 3-byte body: {code}")
+        print("serving: /healthz, /v1/models, 404 on an unknown model, 400 on a wrong byte count")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for eng in engines.values():
+            eng.stop()
+        server.join(timeout=60)
+    check(not server.is_alive(), "serving: the server thread did not stop")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serving: peak allocated memory {peak / 2**30:.3f} GiB ({(peak - before) / 2**30:.3f} "
+          f"GiB over the {before / 2**30:.3f} GiB allocated before the registry loaded), "
+          f"{torch.cuda.get_device_name(0)}")
+
+
+def attest_phases(device, arts: dict, tmp: Path) -> None:
+    """The committed reference fixture (vit_tiny, C = 192: the torch route)
+    replayed with its msgpack on the card (top-1 agreement 1.0); a bf16
+    self-fixture of ViT-B/16 224 captured and checked through the kernels
+    (agreement 1.0); the attestation CLI at an unreachable
+    ``--min_agreement`` exits non-zero."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+    from rajni_tpu_torch.attest import capture_self_fixture, check_fixture, load_fixture
+    from rajni_tpu_torch.models.vit import get_config, resolve_route, route_line
+    from rajni_tpu_torch.params.io import load_params
+
+    base = ROOT / "tests" / "fixtures" / "reference_vit_tiny_schedulejson"
+    fix = load_fixture(f"{base}.npz")
+    cfg = get_config(fix["model"])
+    impl, why = resolve_route("auto", cfg, torch.float32, device)
+    report = check_fixture(fix, load_params(f"{base}.msgpack"), impl="auto", device=device)
+    print(f"attest reference fixture ({fix['model']}, {report['n']} images, fp32, "
+          f"{route_line(impl, why)}; in bf16 "
+          f"{route_line(*resolve_route('auto', cfg, torch.bfloat16, device))}): top-1 agreement "
+          f"{report['top1_agreement']}, largest difference {report['max_abs_diff']:.3e}")
+    check(impl == "torch" and resolve_route("auto", cfg, torch.bfloat16, device) == (
+        "torch", "C=192 is not a multiple of 128"), f"attest: {route_line(impl, why)}")
+    check(report["top1_agreement"] == 1.0, f"attest reference fixture: {report}")
+
+    path = tmp / "self_vit_b.npz"
+    params = arts["params"]
+    capture_self_fixture(str(path), params, PATH224, REFERENCE_SCHEDULE, n=32, impl="cuda",
+                         device=device)
+    report = check_fixture(str(path), params, impl="cuda", device=device)
+    print(f"attest bf16 self-fixture of {PATH224} through the kernels (32 images): top-1 "
+          f"agreement {report['top1_agreement']}, largest difference {report['max_abs_diff']:.3e}")
+    check(report["top1_agreement"] == 1.0, f"attest self-fixture: {report}")
+
+    p = subprocess.run([sys.executable, "-m", "rajni_tpu_torch.attest", f"{base}.npz",
+                        "--checkpoint", f"{base}.msgpack", "--kernels", "auto",
+                        "--min_agreement", UNREACHABLE_AGREEMENT], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    print(f"attest CLI at --min_agreement {UNREACHABLE_AGREEMENT}: exit {p.returncode}; "
+          f"{p.stdout.strip().splitlines()[-1] if p.stdout.strip() else p.stderr[-300:]}")
+    check(p.returncode != 0 and '"top1_agreement": 1.0' in p.stdout,
+          f"attest CLI: exit {p.returncode}\n{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+
+
+def variant_state_dict(layout: str) -> dict:
+    """``timm_state_dict``'s ViT-B/16 224 in a variant's layout: DeiT-3's
+    (a 196-row patch-only pos-embed, LayerScale gammas) or MAE's (``fc_norm``
+    in place of ``norm``: the ``avg`` head)."""
+    import torch
+
+    sd = timm_state_dict(seed=3)
+    gen = torch.Generator().manual_seed(4)
+    if layout == "deit3":
+        sd["pos_embed"] = sd["pos_embed"][:, 1:].clone()
+        for i in range(12):
+            for n in ("ls1", "ls2"):
+                sd[f"blocks.{i}.{n}.gamma"] = 0.2 + 0.8 * torch.rand(C, generator=gen)
+    else:
+        sd["fc_norm.weight"], sd["fc_norm.bias"] = sd.pop("norm.weight"), sd.pop("norm.bias")
+    return sd
+
+
+def variant_phases(device, counters, tmp: Path) -> None:
+    """The extended timm variants on the card. A DeiT-3-layout and an
+    MAE-layout ViT-B/16 224 ``.pth`` (``variant_state_dict``): the eval CLI
+    on each (``--checkpoint``, adapted from the keys, ``route: cuda``), and
+    each through ``RAJNIViT(kernels="cuda")``: K1 ×5, K2 ×7, K3 ×12, logits
+    against the plain route at ``LOGITS_REL_L2``. Registers (``_reg4``),
+    the distillation token and qk-norm: ``route: torch (an extended timm
+    variant)``, no launch, finite logits, and the kept sets' sizes equal to
+    ``model_stats``' token counts."""
+    import dataclasses
+    import io
+
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT, run
+    from rajni_tpu_torch.models.vit import (
+        adapt_config_to_params,
+        get_config,
+        model_stats,
+        vit_forward,
+    )
+    from rajni_tpu_torch.params.io import load_checkpoint_auto
+
+    sched = tmp / "reference.json"
+    sched.write_text(json.dumps({str(k): v for k, v in REFERENCE_SCHEDULE.items()}))
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn(64, 224, 224, 3, generator=gen).to(device)
+    for layout in ("deit3", "mae"):
+        path = tmp / f"{layout}.pth"
+        torch.save({"model": variant_state_dict(layout)}, path)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run.main(["--checkpoint", str(path), "--synthetic", "1", "--batch_size", "64",
+                      "--schedule", str(sched), "--warmup", "1", "--no-progress"])
+        out = buf.getvalue()
+        print(f"eval CLI on the {layout} .pth: " + " | ".join(
+            l for l in out.splitlines() if l.startswith(("Adapted", "route:", "Token counts"))))
+        check("route: cuda" in out.splitlines() and "Adapted config" in out,
+              f"eval CLI {layout}: not adapted or not on the kernels")
+        check(f"Token counts per block: {VIT_B_COUNTS}" in out, f"eval CLI {layout}: token counts")
+        params = load_checkpoint_auto(str(path), PATH224, torch.bfloat16, device)
+        cfg = adapt_config_to_params(get_config(PATH224), params)
+        check(cfg.no_embed_class if layout == "deit3" else cfg.global_pool == "avg",
+              f"{layout}: adapted to {cfg}")
+        kernels = RAJNIViT(cfg, REFERENCE_SCHEDULE, params=params, kernels="cuda", device=device)
+        plain = RAJNIViT(cfg, REFERENCE_SCHEDULE, params=params, kernels="torch", device=device)
+        check(kernels.route == "route: cuda", f"{layout}: {kernels.route}")
+        out, got = counted(counters, kernels, x)
+        check(got == PATHS[PATH224]["launches"]["pruned"], f"{layout}: launches {got}")
+        rel = rel_l2(out, plain(x))
+        print(f"{layout} layout through RAJNIViT (batch 64): {kernels.route}, K1 ×5, K2 ×7, "
+              f"K3 ×12; logits rel L2 kernels vs plain route {rel:.3e}")
+        check(bool(torch.isfinite(out).all()) and rel <= LOGITS_REL_L2,
+              f"{layout}: logits rel L2 {rel} > {LOGITS_REL_L2}")
+
+    extended = {"_reg4": get_config("vit_base_patch16_reg4_224"),
+                "distilled": get_config("deit_base_distilled_patch16_224"),
+                "qk-norm": dataclasses.replace(get_config(PATH224), qk_norm=True)}
+    for name, cfg in extended.items():
+        model = RAJNIViT(cfg, REFERENCE_SCHEDULE, kernels="auto", device=device)
+        check(model.route == "route: torch (an extended timm variant)", f"{name}: {model.route}")
+        kept = {}
+        with torch.no_grad():
+            out, got = counted(counters, vit_forward, model.params, x[:8], cfg, model.schedule,
+                               "auto", None, lambda i, k: kept.__setitem__(i, k.shape[1]))
+        n, trace = cfg.num_tokens, []
+        for i in range(cfg.depth):
+            trace.append(n)
+            n = kept.get(i, n)
+        want = model_stats(cfg, REFERENCE_SCHEDULE)["token_counts"]
+        print(f"{name} ({cfg.num_prefix_tokens} prefix tokens): {model.route}, token counts "
+              f"{trace}, logits {tuple(out.shape)}")
+        check(not any(got.values()), f"{name}: kernel launches {got}")
+        check(trace == want, f"{name}: token counts {trace} != {want}")
+        check(tuple(out.shape) == (8, 1000) and bool(torch.isfinite(out).all()),
+              f"{name}: logits")
+
+
+def serving_slice_phases(device, counters) -> None:
+    """Export, ``--artifact``, serving, attestation and the extended
+    variants, in one temporary directory; each part's time printed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        arts = export_phases(device, counters, tmp)
+        parts = [("export", t0)]
+        for label, fn in (("--artifact", lambda: artifact_cli_phase(arts)),
+                          ("serving", lambda: serving_phases(device, arts)),
+                          ("attestation", lambda: attest_phases(device, arts, tmp)),
+                          ("extended variants", lambda: variant_phases(device, counters, tmp))):
+            parts.append((label, time.perf_counter()))
+            fn()
+        parts.append(("end", time.perf_counter()))
+        print("serving slice parts: " + ", ".join(
+            f"{a[0]} {b[1] - a[1]:.1f} s" for a, b in zip(parts, parts[1:])))
+
+
 def main() -> int:
     import torch
 
@@ -4953,6 +5421,8 @@ def main() -> int:
                ("eval CLI", eval_cli),
                ("the evaluation from images and a timm .pth",
                 lambda: data_phases(device, kernel_counters())),
+               ("export, serving, attestation, --artifact and the extended timm variants",
+                lambda: serving_slice_phases(device, kernel_counters())),
                ("training and eval CLIs", lambda: train_cli(device)),
                (f"{PATH_H} training through the training CLI", lambda: vit_h_train_cli(device))]
     for label, phase in phases:

@@ -9,6 +9,7 @@ from .eval import evaluate_model
 from .models.vit import (
     VARIANTS,
     ViTConfig,
+    adapt_config_to_params,
     get_config,
     init_params,
     model_stats,
@@ -37,6 +38,7 @@ __all__ = [
     "VARIANTS",
     "ViTConfig",
     "PruneSpec",
+    "adapt_config_to_params",
     "attention",
     "calibrate_act_scales",
     "compute_importance",

@@ -247,8 +247,9 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, 
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
+  // looked up once: a function-local static's initializer runs once even
+  // when threads meet here on their first launches (C++11)
+  static const Encode encode = []() -> Encode {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q;
 #if CUDART_VERSION >= 12050
@@ -257,10 +258,10 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, 
 #else
     cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
 #endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t esize = type == CU_TENSOR_MAP_DATA_TYPE_UINT8     ? 1
                            : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
                                                                      : 2;
@@ -281,6 +282,8 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int inner, 
 // current device's SM count into *sms, once per device: `done` is the
 // kernel's own function-local static, the SM count of each device it was
 // readied on (0 before). A launch after the first costs one cudaGetDevice.
+// Threads whose first launches meet may both ready the kernel (the same
+// attribute, the same count): `done` is read and written atomically.
 constexpr int KERNEL_CACHE_DEVICES = 16;
 template <typename Kernel>
 inline cudaError_t ready_kernel(Kernel kernel, int smem, int (&done)[KERNEL_CACHE_DEVICES],
@@ -289,13 +292,14 @@ inline cudaError_t ready_kernel(Kernel kernel, int smem, int (&done)[KERNEL_CACH
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const bool cached = dev < KERNEL_CACHE_DEVICES;
-  if (cached && done[dev] > 0) {
-    *sms = done[dev];
+  const int known = cached ? __atomic_load_n(&done[dev], __ATOMIC_ACQUIRE) : 0;
+  if (known > 0) {
+    *sms = known;
     return cudaSuccess;
   }
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && cached) done[dev] = *sms;
+  if (e == cudaSuccess && cached) __atomic_store_n(&done[dev], *sms, __ATOMIC_RELEASE);
   return e;
 }
 

@@ -584,7 +584,7 @@ using namespace rajni;
 // The body's launches since the library was loaded. Every caller's launch
 // comes through rajni_sdpa_body, so they are counted here, where they happen:
 // kernels/attention.py reads this as fused_sdpa's count (rajni_sdpa_launches).
-static long long body_launches = 0;
+static long long body_launches = 0;  // atomic: serving engines launch from threads
 
 // The body behind common.cuh:launch_sdpa (every caller's attention past
 // ATTN_MAX_N tokens): returns a cudaError_t. Head_dim 64, or 80 up to
@@ -614,11 +614,13 @@ extern "C" int rajni_sdpa_body(const void* qkv, const int* idx, void* out, float
   else
     e = out_fp32 ? sdpa_body<ATTN_D, float, false>(a, B, st)
                  : sdpa_body<ATTN_D, bf16, false>(a, B, st);
-  if (e == cudaSuccess) ++body_launches;
+  if (e == cudaSuccess) __atomic_fetch_add(&body_launches, 1, __ATOMIC_RELAXED);
   return (int)e;
 }
 
-extern "C" long long rajni_sdpa_launches() { return body_launches; }
+extern "C" long long rajni_sdpa_launches() {
+  return __atomic_load_n(&body_launches, __ATOMIC_RELAXED);
+}
 
 // B6 fused_sdpa (idx and amax null, out_fp32 and phased 0): the attention of
 // qkv [B, n_src, 3C] into out [B, n, C] (fp32 when out_fp32, else bf16) by

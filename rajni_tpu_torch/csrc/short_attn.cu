@@ -386,7 +386,7 @@ using namespace rajni;
 // The kernel's launches since the library was loaded, counted here, where
 // every caller's launch happens: kernels/attention.py reads this count
 // (rajni_short_attn_launches) as the short-row attention's.
-static long long short_launches = 0;
+static long long short_launches = 0;  // atomic: serving engines launch from threads
 
 // The body behind common.cuh:launch_short_attention (every caller's attention
 // at n <= ATTN_MAX_N): returns a cudaError_t. Head_dim 64 or 80, each with
@@ -413,11 +413,13 @@ extern "C" int rajni_short_attn_body(const void* qkv, const int* idx, void* out,
   else
     e = out_fp32 ? short_body<ATTN_D, float, false>(a, B, st)
                  : short_body<ATTN_D, bf16, false>(a, B, st);
-  if (e == cudaSuccess) ++short_launches;
+  if (e == cudaSuccess) __atomic_fetch_add(&short_launches, 1, __ATOMIC_RELAXED);
   return (int)e;
 }
 
-extern "C" long long rajni_short_attn_launches() { return short_launches; }
+extern "C" long long rajni_short_attn_launches() {
+  return __atomic_load_n(&short_launches, __ATOMIC_RELAXED);
+}
 
 // The kernel alone (kernels/attention.py:short_attention), for chip_smoke.py's
 // gates and the routing measurements: qkv [B, n_src, 3C] bf16, idx [B, n]

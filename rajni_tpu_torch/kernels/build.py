@@ -6,7 +6,10 @@ interface, ``librajni.so``, loaded with ``ctypes``. It goes to
 ``rajni_tpu_torch/_build/<digest>/``, where the digest covers every source
 and the compiler flags, so an edited source is rebuilt and an unchanged tree
 is reused. Nothing is built when a module is imported: the first launch, or
-:func:`build`, does it.
+:func:`build`, does it. One process-wide lock covers the build and the load:
+threads whose first launches meet (a serving registry runs one engine
+thread a model) build and load the library once. The launch counters are
+exact for one launching thread only.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -62,10 +66,21 @@ def library_path() -> Path:
     return build_dir() / LIBRARY
 
 
+# Held while the library is built or loaded: the objects and the temporary
+# library are named by pid, so two threads of one process building at once
+# would write the same files.
+_LOCK = threading.RLock()
+
+
 def build() -> dict[str, str]:
     """Build the library unless it exists; return each compiled source's
     ``ptxas -v`` report. Raises ``RuntimeError`` with nvcc's stderr when a
     compile or the link fails."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> dict[str, str]:
     lib = library_path()
     if lib.is_file():
         return {}
@@ -103,12 +118,15 @@ _LIB: ctypes.CDLL | None = None
 
 def _library() -> ctypes.CDLL:
     global _LIB
-    if _LIB is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        lib.rajni_error_string.argtypes = [ctypes.c_int]
-        lib.rajni_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is None:
+            build()
+            lib = ctypes.CDLL(str(library_path()))
+            lib.rajni_error_string.argtypes = [ctypes.c_int]
+            lib.rajni_error_string.restype = ctypes.c_char_p
+            _LIB = lib
     return _LIB
 
 

@@ -51,7 +51,6 @@ from ..utils.schedule import Schedule, normalize_schedule
 from .vit import (
     Params,
     ViTConfig,
-    _require_classic,
     classifier_head,
     embed_tokens,
     layer_norm,
@@ -248,6 +247,13 @@ class _PrunedBlock(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
+def _classic(config: ViTConfig) -> bool:
+    """One CLS prefix, no qk-norm, a CLS-inclusive pos-embed and the token
+    head: the configurations this training path runs."""
+    return (config.kernel_path_supported and not config.no_embed_class
+            and config.global_pool == "token" and not config.fc_norm_resolved)
+
+
 def vit_forward_train(
     params: Params,
     images: torch.Tensor,
@@ -271,7 +277,10 @@ def vit_forward_train(
     if drop_path > 0.0 or remat:
         raise NotImplementedError("drop_path and remat on the kernel training path are not "
                                   "ported yet (ROADMAP A3)")
-    _require_classic(config)
+    if not _classic(config):
+        raise NotImplementedError("training of the extended timm variants (registers, "
+                                  "distillation token, qk-norm, patch-only pos-embed, pooled "
+                                  "heads) is not ported yet (ROADMAP A4)")
     if resolve_route("cuda", config, params["cls_token"].dtype, images.device,
                      training=True)[0] == "torch":
         return vit_forward(params, images, config, schedule, "torch", _sel_tap=_sel_tap)

@@ -25,9 +25,15 @@ split kernels B9-B13), with calibrated static scales when
 ``act_scales`` is given, and an int8 head; ``impl="torch"`` dequantizes the
 weights, as JAX's ``"xla"`` route does.
 
-Only the classic configurations are ported (one CLS prefix token, no
-qk-norm, token-pooled head); the extended timm variants raise
-``NotImplementedError`` until a later slice ports them.
+The extended timm variants run as in JAX: register and distillation
+tokens (an always-kept prefix that is never ranked), a patch-only
+position embedding (``no_embed_class``), qk-norm (in the attention and in
+the scores' CLS row) and the pooled and distilled heads. The kernels take
+those with one prefix token and no qk-norm (DeiT-3, pooled heads), since
+the embedding and the head are outside them on every route
+(:attr:`ViTConfig.kernel_path_supported`, JAX's rule); registers, the
+distillation token and qk-norm run on ``"torch"``, as JAX demotes them to
+XLA.
 """
 
 from __future__ import annotations
@@ -100,7 +106,8 @@ class ViTConfig:
     qkv_bias: bool = True
     use_layer_scale: bool = False
     layer_scale_init: float = 1e-5
-    # extended timm variants (not ported yet; kept so configs compare)
+    # extended timm variants: registers, DeiT's distillation token, a
+    # patch-only pos-embed, qk-norm, pooled heads (JAX's fields and rules)
     reg_tokens: int = 0
     distilled: bool = False
     no_embed_class: bool = False
@@ -135,13 +142,12 @@ class ViTConfig:
         return self.use_fc_norm
 
     @property
-    def is_classic(self) -> bool:
-        """One CLS prefix, no qk-norm, token-pooled head: what this port runs."""
-        return (
-            self.num_prefix_tokens == 1 and not self.qk_norm
-            and not self.no_embed_class and self.global_pool == "token"
-            and not self.fc_norm_resolved
-        )
+    def kernel_path_supported(self) -> bool:
+        """Whether the block kernels implement this config: one prefix token
+        (CLS) and no qk-norm, JAX's rule. Pooled heads and a patch-only
+        pos-embed are fine: the embedding and the head run outside the
+        kernels on every route."""
+        return self.num_prefix_tokens == 1 and not self.qk_norm
 
     @property
     def head_dim(self) -> int:
@@ -230,12 +236,29 @@ def get_config(name: str) -> ViTConfig:
     )
 
 
-def _require_classic(config: ViTConfig) -> None:
-    if not config.is_classic:
-        raise NotImplementedError(
-            "extended timm variants (registers, distillation token, qk-norm, "
-            "pooled heads) are not ported yet"
-        )
+def adapt_config_to_params(config: ViTConfig, params: Params) -> ViTConfig:
+    """The extended-variant flags read from a parameter tree's leaves (port
+    of ``rajni_tpu/models/vit.py:adapt_config_to_params``): ``q_norm`` →
+    ``qk_norm``; ``fc_norm`` without ``norm`` → ``global_pool="avg"``,
+    ``use_fc_norm``; ``dist_token`` → ``distilled``; ``reg_token`` →
+    ``reg_tokens`` with a patch-only pos-embed; without registers, a
+    pos-embed of ``num_patches`` rows → ``no_embed_class``."""
+    kw: dict[str, Any] = {}
+    if params["blocks"] and "q_norm" in params["blocks"][0]["attn"]:
+        kw["qk_norm"] = True
+    if "fc_norm" in params and "norm" not in params:
+        kw["global_pool"] = "avg"
+        kw["use_fc_norm"] = True
+    if "dist_token" in params:
+        kw["distilled"] = True
+    if "reg_token" in params:
+        kw["reg_tokens"] = int(params["reg_token"].shape[1])
+        kw["no_embed_class"] = True
+    cfg = dataclasses.replace(config, **kw) if kw else config
+    rows = int(params["pos_embed"].shape[1])
+    if not cfg.reg_tokens and rows == cfg.num_patches != cfg.pos_embed_len:
+        cfg = dataclasses.replace(cfg, no_embed_class=True)
+    return cfg
 
 
 # --------------------------------------------------------------------------
@@ -249,8 +272,10 @@ def init_params(
 ) -> Params:
     """Random parameters (uniform ±1/sqrt(fan_in) linears, zero biases,
     N(0, 0.02) position embedding), drawn on the CPU from ``generator`` and
-    moved to ``device``. The numbers differ from the JAX package's."""
-    _require_classic(config)
+    moved to ``device``. The numbers differ from the JAX package's. The
+    extended variants carry JAX's leaves: ``fc_norm`` in place of ``norm``
+    for pooled heads, ``dist_token`` and ``head_dist``, ``reg_token``, and
+    each block's ``q_norm``/``k_norm`` (over the head dim)."""
     C, Hd, P = config.embed_dim, config.mlp_hidden, config.patch_size
 
     def dense(fan_in, fan_out):
@@ -258,8 +283,8 @@ def init_params(
         w = torch.rand(fan_out, fan_in, generator=generator) * (2 * bound) - bound
         return {"weight": w, "bias": torch.zeros(fan_out)}
 
-    def norm():
-        return {"scale": torch.ones(C), "bias": torch.zeros(C)}
+    def norm(n=C):
+        return {"scale": torch.ones(n), "bias": torch.zeros(n)}
 
     params: Params = {
         "patch_embed": dense(P * P * config.in_chans, C),
@@ -267,8 +292,13 @@ def init_params(
         "pos_embed": torch.randn(1, config.pos_embed_len, C, generator=generator) * 0.02,
         "blocks": [],
         "head": dense(C, config.num_classes),
-        "norm": norm(),
     }
+    params["fc_norm" if config.fc_norm_resolved else "norm"] = norm()
+    if config.distilled:
+        params["dist_token"] = torch.zeros(1, 1, C)
+        params["head_dist"] = dense(C, config.num_classes)
+    if config.reg_tokens:
+        params["reg_token"] = torch.zeros(1, config.reg_tokens, C)
     for _ in range(config.depth):
         block = {
             "norm1": norm(),
@@ -276,6 +306,9 @@ def init_params(
             "norm2": norm(),
             "mlp": {"fc1": dense(C, Hd), "fc2": dense(Hd, C)},
         }
+        if config.qk_norm:
+            block["attn"]["q_norm"] = norm(config.head_dim)
+            block["attn"]["k_norm"] = norm(config.head_dim)
         if config.use_layer_scale:
             block["ls1"] = torch.full((C,), config.layer_scale_init)
             block["ls2"] = torch.full((C,), config.layer_scale_init)
@@ -345,23 +378,36 @@ def _mlp_branch(x: torch.Tensor, block: Params, config: ViTConfig, impl: str,
 
 
 def stock_block(x: torch.Tensor, block: Params, config: ViTConfig) -> torch.Tensor:
-    """Standard pre-norm block on the ops path."""
+    """Standard pre-norm block on the ops path (qk-norm where the block
+    carries it)."""
     out = attention(
         layer_norm(x, block["norm1"], config.layer_norm_eps),
         block["attn"], config.num_heads, config.attn_scale,
+        norm_eps=config.layer_norm_eps,
     )
     x = x + _layer_scale(out, block, "ls1")
     return _mlp_branch(x, block, config, "torch")
 
 
 def embed_tokens(params: Params, images: torch.Tensor, config: ViTConfig) -> torch.Tensor:
-    """Patchify + CLS + position embedding → ``[B, N, C]``."""
+    """Patchify + prefix tokens (CLS, then the distillation token, then the
+    registers) + position embedding → ``[B, N, C]``. Under
+    ``no_embed_class`` the pos-embed covers the patches only and is added
+    before the prefix is concatenated (timm's rule)."""
     B = images.shape[0]
     dtype = params["cls_token"].dtype
     x = patch_embed(images.to(dtype), params["patch_embed"], config)
-    cls = params["cls_token"].expand(B, 1, config.embed_dim)
-    x = torch.cat([cls, x], dim=1)
-    return x + params["pos_embed"][:, : x.shape[1]]
+    if config.no_embed_class:
+        x = x + params["pos_embed"][:, : x.shape[1]]
+    prefix = [params["cls_token"].expand(B, 1, config.embed_dim)]
+    if config.distilled:
+        prefix.append(params["dist_token"].expand(B, 1, config.embed_dim))
+    if config.reg_tokens:
+        prefix.append(params["reg_token"].expand(B, config.reg_tokens, config.embed_dim))
+    x = torch.cat(prefix + [x], dim=1)
+    if not config.no_embed_class:
+        x = x + params["pos_embed"][:, : x.shape[1]]
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -376,7 +422,8 @@ def _dequantized(block: Params, dtype) -> Params:
         w = layer["weight"]
         return {**layer, "weight": dequantize_weight(w, dtype)} if is_quantized(w) else layer
 
-    return {**block, "attn": {k: lin(v) for k, v in block["attn"].items()},
+    return {**block, "attn": {k: lin(v) if k in ("qkv", "proj") else v
+                              for k, v in block["attn"].items()},
             "mlp": {k: lin(v) for k, v in block["mlp"].items()}}
 
 
@@ -404,7 +451,7 @@ def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = F
     """
     C, H = config.embed_dim, config.num_heads
     D = C / H
-    if not config.is_classic:
+    if not config.kernel_path_supported:
         return False, "an extended timm variant"
     if dtype != torch.bfloat16:
         return False, f"{str(dtype).removeprefix('torch.')} activations (the kernels take bfloat16)"
@@ -438,13 +485,19 @@ def resolve_route(impl: str, config: ViTConfig, dtype: torch.dtype, device,
     ``"torch"`` where :func:`cuda_kernels_take` fails for int8 params
     (``quantized``) or the training path (``training``), before any launch
     (the run stays on the same device, as JAX demotes to XLA,
-    ``vit.py:684-692``). ``reason`` says why a demoted route was taken (""
-    otherwise)."""
+    ``vit.py:684-692``). An extended variant the kernels do not implement
+    demotes on every device, as JAX's does on every backend (the plain
+    versions on the CPU implement the kernels' semantics, one prefix token
+    and no qk-norm). ``device`` may be the target platform's name
+    (``"cuda"``, ``"cpu"``): no card is needed to resolve a route.
+    ``reason`` says why a demoted route was taken ("" otherwise)."""
     if impl not in ("torch", "cuda", "auto"):
         raise ValueError(f"unknown impl {impl!r}; use 'torch', 'cuda' or 'auto'")
     on_card = torch.device(device).type == "cuda"
     if impl == "auto":
         impl = "cuda" if on_card else "torch"
+    if impl == "cuda" and not config.kernel_path_supported:
+        return "torch", "an extended timm variant"
     if impl == "cuda" and on_card:
         ok, why = cuda_kernels_take(config, dtype, quantized, training)
         if not ok:
@@ -526,12 +579,12 @@ def vit_forward(
     ``_sel_tap(block_idx, keep_idx)`` receives each pruned block's kept
     token indices (a capture hook for tests and debugging).
     """
-    _require_classic(config)
     schedule = normalize_schedule(schedule, config.depth)
     impl, _ = resolve_route(impl, config, params["cls_token"].dtype, images.device,
                             params_quantized(params))
     eps = config.layer_norm_eps
     C, H, scale = config.embed_dim, config.num_heads, config.attn_scale
+    n_prefix = config.num_prefix_tokens  # 1 on "cuda" (kernel_path_supported)
     x = embed_tokens(params, images, config)
 
     scores: torch.Tensor | None = None
@@ -545,8 +598,8 @@ def vit_forward(
         mlp_as = None if blk_as is None else blk_as[2:4]
         cuda = impl == "cuda"
         if spec is not None:
-            keep = keep_count(spec.keep_ratio, n, 1)
-            K = keep + 1
+            keep = keep_count(spec.keep_ratio, n, n_prefix)
+            K = keep + n_prefix
             with_scores = spec.update or scores is None
             if cuda and attn_q and mlp_q and _pruned_full_int8_plan(n, K, C, hidden, itemsize):
                 x, scores, keep_idx = fused_pruned_block_full_int8(
@@ -615,7 +668,7 @@ def _pruned_halves(x, block: Params, config: ViTConfig, impl: str, spec, keep: i
     else:
         out, keep_idx, scores = pruned_attention(
             layer_norm(x, block["norm1"], eps), block["attn"], H, scale, keep, spec.update,
-            scores,
+            scores, num_prefix=config.num_prefix_tokens, norm_eps=eps,
         )
         # residual-stream compaction BEFORE the residual add
         x = gather_tokens(x, keep_idx) + _layer_scale(out, block, "ls1")
@@ -645,25 +698,60 @@ def _hidden(block: Params) -> int:
 
 def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig,
                     act_scales: ActScales | None = None, impl: str = "torch") -> torch.Tensor:
-    """Final norm on the CLS row only, then the head (token pooling).
+    """Final norm, pooling and head (``rajni_tpu/models/vit.py:
+    classifier_head``; plain torch on every route, as JAX's is plain XLA).
 
-    An int8 head (``rajni_tpu/models/vit.py:1141-1177``) is plain torch, as
-    JAX's is plain XLA: the CLS row quantized per row (or, with
-    ``act_scales`` on ``impl="cuda"`` only, with the static head scale), an
-    exact int8 product (float64), dequantized as ``acc · a · w_scale +
-    bias``."""
-    cls_out = layer_norm(x[:, 0:1], params["norm"], config.layer_norm_eps)[:, 0]
-    head = params["head"]
+    * ``token`` (the classic head): ``norm`` on the CLS row, then its head.
+    * distilled (DeiT): ``norm`` on the CLS and distillation rows, the mean
+      of their two heads, ``(cls + dist) · 0.5`` in the logits' dtype.
+    * ``avg`` with ``fc_norm``: the mean of the kept patch tokens (prefix
+      excluded) in fp32, cast back, then ``fc_norm``; ``avg`` without it:
+      ``norm`` over the sequence, then the patch mean. The mean divides the
+      fp32 sum by the count as a tensor, as JAX divides (on CUDA ``tensor /
+      python_float`` is a reciprocal multiply).
+    """
+    eps = config.layer_norm_eps
+    n_prefix = config.num_prefix_tokens
+    if config.distilled:
+        y = layer_norm(x[:, 0:2], params["norm"], eps)
+        cls_logits = _head_matmul(y[:, 0], params["head"], act_scales, impl)
+        # the static head scale is the CLS feature's: the dist head stays dynamic
+        dist_logits = _head_matmul(y[:, 1], params["head_dist"], None, impl)
+        return ((cls_logits + dist_logits) * 0.5).to(cls_logits.dtype)
+    if config.fc_norm_resolved:
+        pooled = _patch_mean(x, n_prefix) if config.global_pool == "avg" else x[:, 0]
+        feat = layer_norm(pooled, params["fc_norm"], eps)
+    elif config.global_pool == "avg":
+        feat = _patch_mean(layer_norm(x, params["norm"], eps), n_prefix)
+    else:
+        feat = layer_norm(x[:, 0:1], params["norm"], eps)[:, 0]
+    return _head_matmul(feat, params["head"], act_scales, impl)
+
+
+def _patch_mean(x: torch.Tensor, n_prefix: int) -> torch.Tensor:
+    """The fp32 mean over the patch tokens ``x[:, n_prefix:]``, cast back
+    to ``x``'s dtype (JAX's ``jnp.mean(..., dtype=float32)``)."""
+    s = x[:, n_prefix:].float().sum(dim=1)
+    return (s / torch.full_like(s[:, :1], x.shape[1] - n_prefix)).to(x.dtype)
+
+
+def _head_matmul(feat: torch.Tensor, head: Params, act_scales: ActScales | None = None,
+                 impl: str = "torch") -> torch.Tensor:
+    """``[B, C]`` features through one head. An int8 head
+    (``rajni_tpu/models/vit.py:_head_matmul``) is the feature quantized per
+    row (or, with ``act_scales`` on ``impl="cuda"`` only, with the static
+    head scale), an exact int8 product (float64), dequantized as ``acc · a ·
+    w_scale + bias``."""
     if not is_quantized(head["weight"]):
-        return cls_out @ head["weight"].t() + head["bias"]
-    cls32 = cls_out.float()
+        return feat @ head["weight"].t() + head["bias"]
+    f32 = feat.float()
     if act_scales is not None and impl == "cuda":
         a = act_scales.head
-        y_q = quantize_static(cls32, 1.0 / a)
+        y_q = quantize_static(f32, 1.0 / a)
     else:
-        y_q, a = quantize_rows(cls32)
+        y_q, a = quantize_rows(f32)
     logits = _int8_mm(y_q, head["weight"]["int8"]) * a * head["weight"]["scale"]
-    return (logits + head["bias"].float()).to(cls_out.dtype)
+    return (logits + head["bias"].float()).to(feat.dtype)
 
 
 def model_stats(config: ViTConfig, schedule: Schedule | None = None) -> dict:

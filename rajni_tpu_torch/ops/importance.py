@@ -24,18 +24,22 @@ def compute_importance(
     qk_norm=None,
 ) -> torch.Tensor:
     """``qkv [B, N, 3C]`` (lanes in ``(qkv, head, dim)`` order, token 0 =
-    CLS) → scores ``[B, N]`` fp32."""
-    if qk_norm is not None:
-        raise NotImplementedError(
-            "qk-normed variants are not ported yet (extended timm variants)"
-        )
+    CLS) → scores ``[B, N]`` fp32. ``qk_norm`` is ``(attn params, eps)`` of
+    a qk-normed block: the CLS row then comes from the per-head normed q
+    and k, as in JAX (q in fp32, k normed in the activation dtype); the
+    value signal takes the raw v."""
     B, N = qkv.shape[:2]
     C = qkv.shape[-1] // 3
     D = C // num_heads
     with torch.no_grad():
         q5 = qkv.reshape(B, N, 3, num_heads, D)
         q_cls = q5[:, 0, 0].float()  # [B, H, D]
-        k = q5[:, :, 1].float()  # [B, N, H, D]
+        k = q5[:, :, 1]  # [B, N, H, D]
+        if qk_norm is not None:
+            from .attention import apply_qk_norm
+
+            q_cls, k = apply_qk_norm(q_cls, k, *qk_norm)
+        k = k.float()
         logits = torch.einsum("bhd,bnhd->bhn", q_cls, k)
         # a true division on CUDA too (a Python divisor is a reciprocal multiply)
         logits = logits / torch.full_like(logits[..., :1], math.sqrt(D))

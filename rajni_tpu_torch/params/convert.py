@@ -17,10 +17,10 @@ parameter tree (:func:`convert_timm_state_dict`), which
   * ``cls_token`` and ``pos_embed`` pass through; a pos-embed of another
     grid is resampled as timm does (:func:`resample_pos_embed`).
 
-The extended variants (qk-norm, registers, pooled heads, distillation)
-convert when the config declares them (:func:`adapt_config` reads the flags
-from the keys); the port's forward does not run them yet, and
-``params_from_numpy`` says so.
+The extended variants (qk-norm, registers, pooled heads, distillation, a
+patch-only pos-embed) convert when the config declares them
+(:func:`adapt_config` reads the flags from the keys), and the port's forward
+runs them.
 """
 
 from __future__ import annotations
@@ -316,7 +316,8 @@ def main(argv=None) -> None:
     p.add_argument("--model", default="vit_base_patch16_224")
     args = p.parse_args(argv)
 
-    tree = convert_timm_state_dict(load_torch_checkpoint(args.input), get_config(args.model))
+    sd = load_torch_checkpoint(args.input)
+    tree = convert_timm_state_dict(sd, adapt_config(get_config(args.model), sd))
     save_params(args.output, params_from_numpy(tree))
     n = sum(a.size for a in _leaves(tree))
     print(f"converted {args.model}: {n / 1e6:.1f}M params -> {args.output}")

@@ -26,6 +26,12 @@ import torch
 from ..models.vit import Params, tree_to
 
 
+# the optional top-level and attention leaves (the extended timm variants)
+_NORMS = ("norm", "fc_norm")
+_TOKENS = ("dist_token", "reg_token")
+_QK_NORMS = ("q_norm", "k_norm")
+
+
 def _tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().clone()
@@ -53,24 +59,33 @@ def _norm(d: dict) -> dict:
 
 
 def params_from_numpy(tree: dict, dtype=None, device="cpu") -> Params:
-    """numpy ``rajni_tpu`` tree → the port's parameter dictionary."""
-    for key in ("reg_token", "dist_token", "fc_norm"):
-        if key in tree:
-            raise NotImplementedError(f"extended variant parameter {key!r} is not ported yet")
+    """numpy ``rajni_tpu`` tree → the port's parameter dictionary. The
+    extended variants' leaves come along: ``fc_norm`` (in place of
+    ``norm``), ``dist_token``, ``head_dist``, ``reg_token`` and each block's
+    ``q_norm``/``k_norm``."""
     out: Params = {
         "patch_embed": _dense(tree["patch_embed"]),
         "cls_token": _tensor(tree["cls_token"]),
         "pos_embed": _tensor(tree["pos_embed"]),
-        "norm": _norm(tree["norm"]),
         "head": _dense(tree["head"]),
         "blocks": [],
     }
+    for key in _NORMS:
+        if key in tree:
+            out[key] = _norm(tree[key])
+    for key in _TOKENS:
+        if key in tree:
+            out[key] = _tensor(tree[key])
+    if "head_dist" in tree:
+        out["head_dist"] = _dense(tree["head_dist"])
     for blk in tree["blocks"]:
-        if "q_norm" in blk["attn"]:
-            raise NotImplementedError("qk-norm blocks are not ported yet")
+        attn = {"qkv": _dense(blk["attn"]["qkv"]), "proj": _dense(blk["attn"]["proj"])}
+        for key in _QK_NORMS:
+            if key in blk["attn"]:
+                attn[key] = _norm(blk["attn"][key])
         b = {
             "norm1": _norm(blk["norm1"]),
-            "attn": {"qkv": _dense(blk["attn"]["qkv"]), "proj": _dense(blk["attn"]["proj"])},
+            "attn": attn,
             "norm2": _norm(blk["norm2"]),
             "mlp": {"fc1": _dense(blk["mlp"]["fc1"]), "fc2": _dense(blk["mlp"]["fc2"])},
         }
@@ -113,14 +128,25 @@ def params_to_numpy(params: Params) -> dict:
         "patch_embed": _to_dense(params["patch_embed"]),
         "cls_token": _leaf(params["cls_token"]),
         "pos_embed": _leaf(params["pos_embed"]),
-        "norm": _to_norm(params["norm"]),
         "head": _to_dense(params["head"]),
         "blocks": [],
     }
+    for key in _NORMS:
+        if key in params:
+            out[key] = _to_norm(params[key])
+    for key in _TOKENS:
+        if key in params:
+            out[key] = _leaf(params[key])
+    if "head_dist" in params:
+        out["head_dist"] = _to_dense(params["head_dist"])
     for blk in params["blocks"]:
+        attn = {k: _to_dense(blk["attn"][k]) for k in ("qkv", "proj")}
+        for key in _QK_NORMS:
+            if key in blk["attn"]:
+                attn[key] = _to_norm(blk["attn"][key])
         b = {
             "norm1": _to_norm(blk["norm1"]),
-            "attn": {k: _to_dense(blk["attn"][k]) for k in ("qkv", "proj")},
+            "attn": attn,
             "norm2": _to_norm(blk["norm2"]),
             "mlp": {k: _to_dense(blk["mlp"][k]) for k in ("fc1", "fc2")},
         }

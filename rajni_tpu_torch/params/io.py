@@ -261,13 +261,17 @@ def load_params(path: str, dtype: torch.dtype | None = None, device="cpu"):
 def load_checkpoint_auto(path: str, model: str, dtype: torch.dtype | None = None,
                          device="cpu"):
     """A checkpoint of either kind: a torch ``.pth``, ``.pt`` or ``.bin``
-    (a timm state_dict) is converted for ``model``
-    (:func:`.convert.convert_timm_state_dict`, the pos-embed resampled to
-    its grid), anything else is read as msgpack (:func:`load_params`)."""
+    (a timm state_dict) is converted for ``model`` with the extended-variant
+    flags its keys carry (:func:`.convert.adapt_config`, then
+    :func:`.convert.convert_timm_state_dict`, the pos-embed resampled to its
+    grid), anything else is read as msgpack (:func:`load_params`). The
+    caller reads the variant back from the tree
+    (:func:`..models.vit.adapt_config_to_params`)."""
     if path.endswith((".pth", ".pt", ".bin")):
         from ..models.vit import get_config
-        from .convert import convert_timm_state_dict, load_torch_checkpoint
+        from .convert import adapt_config, convert_timm_state_dict, load_torch_checkpoint
 
-        tree = convert_timm_state_dict(load_torch_checkpoint(path), get_config(model))
+        sd = load_torch_checkpoint(path)
+        tree = convert_timm_state_dict(sd, adapt_config(get_config(model), sd))
         return params_from_numpy(tree, dtype=dtype, device=device)
     return load_params(path, dtype=dtype, device=device)

@@ -84,6 +84,8 @@ def quantize_params(params: Params, attn: bool = True, head: bool = True) -> Par
     out["blocks"] = blocks
     if head:
         out["head"] = q(params["head"])
+        if "head_dist" in params:  # DeiT's distillation head, as the CLS head
+            out["head_dist"] = q(params["head_dist"])
     return out
 
 
@@ -104,14 +106,23 @@ class ActScales:
     def block(self, i: int) -> tuple[float, float, float, float]:
         return self.blocks[i]
 
+    def to_dict(self) -> dict:
+        """The JSON object of the file format."""
+        return {"blocks": [list(row) for row in self.blocks], "head": self.head}
+
     def save(self, path: str) -> None:
         with open(path, "w") as f:
-            json.dump({"blocks": [list(row) for row in self.blocks], "head": self.head}, f)
+            json.dump(self.to_dict(), f)
 
     @classmethod
     def load(cls, path: str) -> "ActScales":
         with open(path) as f:
-            d = json.load(f)
+            return cls.from_dict(json.load(f), path)
+
+    @classmethod
+    def from_dict(cls, d: dict, path: str = "scales") -> "ActScales":
+        """Scales from the format's JSON object, checked (``path`` names
+        its source in the errors)."""
         blocks = tuple(tuple(float(v) for v in row) for row in d["blocks"])
         head = float(d["head"])
         for i, row in enumerate(blocks):
@@ -133,7 +144,7 @@ def _calibration_forward(params: Params, images: torch.Tensor, config, schedule)
     Mirrors ``vit_forward(impl="torch")``; the logits let tests pin it to
     that forward."""
     # models.vit imports this module, so it is imported here
-    from .models.vit import _layer_scale, embed_tokens, layer_norm
+    from .models.vit import _layer_scale, _patch_mean, embed_tokens, layer_norm
 
     schedule = normalize_schedule(schedule, config.depth)
     eps = config.layer_norm_eps
@@ -169,9 +180,15 @@ def _calibration_forward(params: Params, images: torch.Tensor, config, schedule)
         x = x + _layer_scale(_linear(h, block["mlp"]["fc2"]), block, "ls2")
         block_amax.append((a_qkv, a_proj, a_fc1, a_fc2))
 
-    cls_out = layer_norm(x[:, 0:1], params["norm"], eps)[:, 0]
-    head_amax = amax(cls_out)
-    logits = _linear(cls_out, params["head"])
+    if config.fc_norm_resolved:  # the pooled heads, as classifier_head
+        pooled = _patch_mean(x, 1) if config.global_pool == "avg" else x[:, 0]
+        feat = layer_norm(pooled, params["fc_norm"], eps)
+    elif config.global_pool == "avg":
+        feat = _patch_mean(layer_norm(x, params["norm"], eps), 1)
+    else:
+        feat = layer_norm(x[:, 0:1], params["norm"], eps)[:, 0]
+    head_amax = amax(feat)
+    logits = _linear(feat, params["head"])
     return block_amax, head_amax, logits
 
 
@@ -186,9 +203,10 @@ def calibrate_act_scales(params: Params, batches, config, schedule=None,
     """
     if is_quantized(params["blocks"][0]["mlp"]["fc1"]["weight"]):
         raise ValueError("calibrate on unquantized params (before quantize_params)")
-    if not config.is_classic:
-        raise ValueError("static activation scales feed the whole-block int8 kernels, "
-                         "which run the classic configurations only")
+    if not config.kernel_path_supported:
+        raise ValueError("static activation scales feed the int8 kernels, which this config "
+                         "(registers, distillation token or qk-norm) runs without: use "
+                         "dynamic int8 (quantize_params without calibration)")
     if isinstance(batches, torch.Tensor):
         batches = [batches]
     block_amax = head_amax = None

@@ -26,7 +26,9 @@ activation scales); ``--calibrate N`` calibrates static scales on the first
 N batches, through the same preprocessing stage, before quantizing;
 ``--load_scales`` reads scales that ``--save_scales`` wrote. ``--profile
 DIR`` writes a ``torch.profiler`` Chrome trace of the RAJNI evaluation.
-Serving artifacts and the parallel flags are not ported yet.
+``--artifact FILE`` evaluates an artifact of :mod:`.export` (its weights,
+schedule, route and dtype baked in) with the same accounting. The parallel
+flags are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +41,14 @@ import torch
 
 from .data.pipeline import DataLoader, ImageFolder, SyntheticLoader
 from .eval import _to_device, evaluate_model
-from .models.vit import get_config, params_quantized, resolve_route, route_line
+from .models.vit import (
+    adapt_config_to_params,
+    get_config,
+    model_stats,
+    params_quantized,
+    resolve_route,
+    route_line,
+)
 from .models.wrapper import RAJNIViT
 from .params.io import load_checkpoint_auto
 from .quant import ActScales, calibrate_act_scales, quantize_params
@@ -75,6 +84,12 @@ def get_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--artifact", type=str, default=None, metavar="FILE",
+                   help="Evaluate an exported serving artifact (rajni_tpu_torch.export) "
+                        "with the same accounting; its weights, schedule, kernels and "
+                        "dtype are baked in, so --checkpoint/--schedule/--quantize/"
+                        "--kernels are rejected; fixed artifacts set the batch and pad "
+                        "the ragged last one")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="Params: msgpack of either package, or a timm .pth/.pt/.bin "
                         "state_dict (converted on loading); random if absent")
@@ -176,6 +191,55 @@ def _data(args, config):
     return loader, tier
 
 
+def _eval_artifact(args, device):
+    """Evaluate an exported artifact (``rajni_tpu/run.py:_eval_artifact``):
+    the program a server loads gets the live model's accounting. A fixed
+    artifact drives the loader at its batch and pads the ragged last batch
+    with zero images (logits sliced back); bucket and dynamic artifacts take
+    ``--batch_size``."""
+    from .export import load_exported
+
+    rejected = {
+        "--checkpoint": args.checkpoint,
+        "--schedule": args.schedule,
+        "--quantize": args.quantize,
+        "--calibrate": args.calibrate,
+        "--load_scales": args.load_scales,
+        "--save_scales": args.save_scales,
+        "--compare_base": args.compare_base,
+        "--kernels": args.kernels != "auto",
+    }
+    bad = [k for k, v in rejected.items() if v]
+    if bad:
+        raise ValueError(f"--artifact evaluates a baked program; {', '.join(bad)} cannot "
+                         "apply — set them at export time (rajni_tpu_torch.export)")
+    if args.preprocess != "host":
+        raise ValueError("--artifact expects normalized float inputs (the exported "
+                         "program starts at the model); use --preprocess host")
+    serve = load_exported(args.artifact, device)
+    config = serve.config
+    img_size, in_dtype = config.img_size, serve.input_spec.dtype
+    fixed = not serve.dynamic_batch and not serve.buckets
+    batch = int(serve.input_spec.shape[0]) if fixed else args.batch_size
+    kind = "fixed" if fixed else f"buckets {serve.buckets}" if serve.buckets else "dynamic"
+    print(f"\nArtifact {args.artifact}: {img_size}px, batch {kind}, "
+          f"{str(in_dtype).removeprefix('torch.')}")
+    print(serve.route)
+    if fixed and batch != args.batch_size:
+        print(f"NOTE: loader batch follows the artifact ({batch}), not --batch_size "
+              f"({args.batch_size})")
+    args.batch_size = batch
+    loader, tier = _data(args, config)
+    print(f"preprocess: {tier}")
+    print(f"Token counts per block: {model_stats(config, serve.schedule)['token_counts']}")
+
+    with _profiled(args.profile, device):
+        acc, throughput = evaluate_model(serve.any_batch, loader, device=device, max_batches=args.max_batches,
+                                         warmup=args.warmup, progress=args.progress)
+    print(f"\nArtifact model: top-1 {acc:.3f}% | {throughput:.1f} img/s")
+    return acc, throughput
+
+
 def main(argv=None):
     args = get_args(argv)
     _check_quant_args(args)
@@ -185,6 +249,8 @@ def main(argv=None):
     device = require_device(args.device)
     if device.type == "cuda":
         print(f"Device: {torch.cuda.get_device_name(device)}")
+    if args.artifact:
+        return _eval_artifact(args, device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     config = get_config(args.model)
     loader, tier = _data(args, config)
@@ -192,6 +258,14 @@ def main(argv=None):
     if args.checkpoint:
         params = load_checkpoint_auto(args.checkpoint, args.model)
         print(f"Loaded params from {args.checkpoint}")
+        # extended-variant checkpoints carry their semantics in the tree, not the name
+        adapted = adapt_config_to_params(config, params)
+        if adapted != config:
+            config = adapted
+            print("Adapted config to checkpoint variant: "
+                  f"qk_norm={config.qk_norm} global_pool={config.global_pool} "
+                  f"reg_tokens={config.reg_tokens} distilled={config.distilled} "
+                  f"no_embed_class={config.no_embed_class}")
     else:
         params = None
         print("WARNING: no --checkpoint given; using randomly initialized "

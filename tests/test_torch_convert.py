@@ -7,8 +7,9 @@ state_dict goes through both converters: the numpy trees are equal bit for
 bit, plain and with LayerScale, from the state_dict and from ``.pth`` files
 in timm's wrappings (``{"model": ...}``, ``{"state_dict": ...}``, a
 ``module.`` prefix). The pos-embed resample (197 → 577 tokens) and the
-variant flags are JAX's exactly; the extended variants convert and then stop
-at ``params_from_numpy`` (their forward is not ported). The converted
+variant flags are JAX's exactly; the extended variants convert, and
+``params_from_numpy`` carries their leaves, from which
+``adapt_config_to_params`` reads the same flags. The converted
 forward in fp32 matches JAX's forward on JAX's converted params and the
 oracle's logits at rtol 1e-4 / atol 1e-5 (tests/test_torch_forward.py's
 tolerance), and the convert CLI's msgpack loads in both packages.
@@ -143,8 +144,9 @@ def test_adapt_config_and_variants_as_jax(variant):
         return
     with pytest.raises(ValueError, match="adapt_config|qk_norm|fc_norm|reg|distil"):
         tconvert.convert_timm_state_dict(sd, _tcfg(CFG))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        params_from_numpy(tree)
+    # the variant's leaves come through, and name the same flags again
+    params = params_from_numpy(tree)
+    assert tvit.adapt_config_to_params(_tcfg(CFG), params) == got
 
 
 @pytest.mark.parametrize("layer_scale", [False, True], ids=["plain", "layer_scale"])

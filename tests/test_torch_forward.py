@@ -97,8 +97,9 @@ def test_config_grammar_and_stats_match_jax():
     assert tflops.flops_per_image(cfg, counts) == jflops.flops_per_image(jcfg, counts)
     with pytest.raises(ValueError):
         tvit.get_config("resnet50")
-    with pytest.raises(NotImplementedError):
-        tvit.init_params(torch.Generator(), tvit.get_config("vit_base_patch14_reg4_dinov2"))
+    # the extended variants initialize with JAX's leaves (tests/test_torch_variants.py)
+    reg = tvit.init_params(torch.Generator(), tvit.get_config("vit_small_patch14_reg4_dinov2"))
+    assert reg["reg_token"].shape == (1, 4, 384) and reg["pos_embed"].shape == (1, 37 * 37, 384)
 
 
 def test_mfu_uses_the_h100_peak():
