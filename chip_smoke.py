@@ -176,7 +176,27 @@ run (non-zero exit) when it goes wrong:
    DeiT-3-layout and an MAE-layout ``.pth`` through the eval CLI and K1-K3
    against the plain route, and registers, the distillation token and
    qk-norm on the torch route with their token counts;
-8. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
+8. the fine-tuning recipe on the training kernels (T6's config at batch 128
+   unless said): drop-path 0.1 with the masks of (seed 0, step 0) through
+   B16, B4 + selection + B5, B17 and B18, its first step against the plain
+   versions with the same masks and kept sets, its launches, and the planted
+   fault (the backward without the blend's ``(1 − m)`` identity term)
+   rejected; remat on the same masks, its loss and gradients bitwise the
+   step without it, the forward kernels' launches doubled; T6's step time
+   plain, with drop-path, with remat and with both; T14's step time and peak
+   allocated memory with and without remat; ``deit3_base_patch16_224`` (its
+   patch-only pos-embed) and a ViT-B with the pooled ``fc_norm`` head, one
+   step each on the kernels against the plain versions; registers, the
+   distillation token and qk-norm, one step each on the demoted route, its
+   ``route:`` line saying why, no training kernel launched; the train CLI on
+   80 procedural JPEGs with every recipe flag (augmentation, RandAugment,
+   RandomErasing, mixup and CutMix, drop-path, layer decay, EMA, remat, a
+   random ViT-B teacher, evaluation, ``--shuffle``) for six steps, and the
+   same run preempted after its step-3 state save and resumed, bitwise the
+   straight run, one step's launches (the student's doubled forward kernels
+   and the teacher's K2/K3); the augmentation on the card against the CPU
+   from the same draws, stage by stage within one uint8 level;
+9. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
 It exits non-zero without printing a result when CUDA is unavailable or when
@@ -3758,10 +3778,11 @@ def train_block_ops(device):
     keep = 186
     g = {"stock": torch.randn(B_TRAIN, 197, C, generator=gen).to(device, torch.bfloat16),
          "pruned": torch.randn(B_TRAIN, keep + 1, C, generator=gen).to(device, torch.bfloat16)}
-    ops = {"stock": (lambda: tp._StockBlock.apply((HEADS, scale, 1e-6, paths), x, *leaves),
+    ops = {"stock": (lambda: tp._StockBlock.apply((HEADS, scale, 1e-6, paths), x, None, None,
+                                                  *leaves),
                      ("train_attn_block", "train_ln_mlp", "train_sdpa_bwd")),
            "pruned": (lambda: tp._PrunedBlock.apply((HEADS, scale, 1e-6, keep, True, paths), x,
-                                                    None, *leaves)[0],
+                                                    None, None, None, *leaves)[0],
                       ("fused_ln_qkv", "fused_gather_sdpa_proj_residual", "train_ln_mlp",
                        "train_sdpa_bwd"))}
     plain = plain_train_kernels()
@@ -3798,17 +3819,25 @@ def train_block_ops(device):
         t.requires_grad_(False)
 
 
-def first_step(device, path=TRAIN) -> dict:
+def first_step(device, path=TRAIN, tag=None, config=None, drop_path=0.0, seed=0,
+               printed=True, rejected=None, counters=None) -> dict:
     """A training path's first step (``TRAIN_PATHS[path]``: T6, ViT-B/16 224
     at batch 128 through ``REFERENCE_SCHEDULE``; T14, ViT-H/14 at batch 64
-    through VIT_H_PROBE), bf16 params: loss and gradients through the kernels
-    against (1) the same path with the kernels' plain versions on the card,
-    (2) the torch-autograd route (``vit_forward(..., "torch")``, its own
-    rounding points), and (3) at T6, the plain route with each planted fault
-    of ``TRAIN_FAULTS``, which is printed only: over twelve bf16 blocks the
-    sound reading is as large as a fault's (:func:`train_block_ops` holds
-    them). (1)-(3) take the kernel route's kept sets; each reports how its own
-    selection departs from them. Returns the readings; prints them."""
+    through VIT_H_PROBE; ``config`` in place of the path's model, ``tag``
+    naming it), bf16 params (seed ``seed``, the images and labels seed + 1),
+    with ``drop_path`` the masks of ``(seed, step 0)``: loss and gradients
+    through the kernels against (1) the same path with the kernels' plain
+    versions on the card, (2) the torch-autograd route (``vit_forward(...,
+    "torch")``, its own rounding points and its own formulation of the
+    drop-path scaling, on the same masks), (3) with ``printed`` at T6, the
+    plain route with each planted fault of ``TRAIN_FAULTS``, printed only:
+    over twelve bf16 blocks the sound reading is as large as a fault's
+    (:func:`train_block_ops` holds them), and (4) the plain route with each
+    fault of ``rejected`` (name: the ``train_path`` names it swaps), whose
+    readings :func:`checked_first_step` holds. (1)-(4) take the kernel
+    route's kept sets; each reports how its own selection departs from them.
+    With ``counters``, the kernel route's launches (every count set to 0
+    first). Returns the readings; prints them."""
     import torch
 
     from rajni_tpu_torch import train as tt
@@ -3817,11 +3846,15 @@ def first_step(device, path=TRAIN) -> dict:
     from rajni_tpu_torch.ops import attention as oa
 
     spec = TRAIN_PATHS[path]
-    config, schedule, batch = path_config(spec["model"]), train_schedule(path), spec["batch"]
-    gen = torch.Generator().manual_seed(1)
+    tag = tag or path
+    config = config or path_config(spec["model"])
+    schedule, batch = train_schedule(path), spec["batch"]
+    gen = torch.Generator().manual_seed(seed + 1)
     images = torch.randn(batch, config.img_size, config.img_size, 3, generator=gen).to(device)
     labels = torch.randint(0, config.num_classes, (batch,), generator=gen).to(device)
-    params = tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
+    params = tvit.init_params(torch.Generator().manual_seed(seed), config, torch.bfloat16, device)
+    masks = (tt.step_drop_path_masks(seed, 0, drop_path, config.depth, batch, torch.bfloat16,
+                                     device) if drop_path else None)
     leaves = tt.param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -3834,39 +3867,52 @@ def first_step(device, path=TRAIN) -> dict:
             return loss.item(), torch.autograd.grad(loss, leaves)
 
     def train_forward():
-        return tp.vit_forward_train(params, images, config, schedule,
+        return tp.vit_forward_train(params, images, config, schedule, dp_masks=masks,
                                     _sel_tap=lambda i, k: blocks.setdefault(i))
 
+    for k in (counters or {}).values():
+        k.launches = 0
     loss_k, grads_k = run(train_forward, sel.record())
+    readings = {"calls": len(sel.kept)}
+    if counters:
+        torch.cuda.synchronize()
+        readings["launches"] = {n: k.launches for n, k in counters.items()}
+        print(f"{tag}: launches per train step "
+              f"{({n: v for n, v in readings['launches'].items() if v})}")
 
-    def versus(tag, forward, subs, report):
+    def versus(what, forward, subs, report):
         loss, grads = run(forward, subs)
         rels = [rel_l2(a, b) for a, b in zip(grads_k, grads)]
         worst = max(range(len(rels)), key=rels.__getitem__)
-        print(f"{path}: first step, kernels against {tag}: loss {loss_k:.6f} vs {loss:.6f}; "
+        print(f"{tag}: first step, kernels against {what}: loss {loss_k:.6f} vs {loss:.6f}; "
               f"gradient rel L2 median {statistics.median(rels):.3e}, worst {rels[worst]:.3e} "
               f"(leaf {worst} of {len(rels)})")
-        print(f"{path}: {tag}, {GAP_HEAD}, by block: {gap_line(report, list(blocks))}")
+        print(f"{tag}: {what}, {GAP_HEAD}, by block: {gap_line(report, list(blocks))}")
         return {"loss": abs(loss - loss_k), "worst": rels[worst], "sel": report}
 
     def torch_forward():
         sound = oa.select_tokens
         oa.select_tokens = sel.forced(torch_report)
         try:
-            return tvit.vit_forward(params, images, config, schedule, "torch")
+            return tvit.vit_forward(params, images, config, schedule, "torch", dp_masks=masks)
         finally:
             oa.select_tokens = sound
 
-    readings = {"calls": len(sel.kept)}
     report: dict = {}
     readings["plain"] = versus("their plain versions", train_forward,
                                {**plain_train_kernels(), **sel.forced_dense(report)}, report)
     torch_report: dict = {}
     readings["torch"] = versus("the torch-autograd route", torch_forward, {}, torch_report)
-    for fault, subs in (TRAIN_FAULTS.items() if spec["faults"] else ()):
+    for fault, subs in (TRAIN_FAULTS.items() if spec["faults"] and printed else ()):
         report = {}
         versus(f"the plain versions with '{fault}' (printed only)", train_forward,
                {**plain_train_kernels(), **subs(), **sel.forced_dense(report)}, report)
+    readings["rejected"] = {}
+    for fault, subs in (rejected or {}).items():
+        report = {}
+        readings["rejected"][fault] = versus(
+            f"the plain versions with '{fault}'", train_forward,
+            {**plain_train_kernels(), **subs, **sel.forced_dense(report)}, report)
     for p in leaves:
         p.requires_grad_(False)
     return readings
@@ -3903,30 +3949,41 @@ def selection_calls(counter: dict):
         yield
 
 
-def checked_first_step(device, path) -> None:
-    """:func:`first_step` of ``path``, held to its gates: each selection
-    either route would make otherwise within its score discrepancy, the
-    selections' score discrepancy, the share of images the torch route would
-    select otherwise, and the loss and worst gradient against the plain
-    versions and the torch-autograd route."""
+def checked_first_step(device, path, expected=None, loss_gates=None, **kw) -> None:
+    """:func:`first_step` of ``path`` (``kw`` passed on), held to its gates:
+    each selection either route would make otherwise within its score
+    discrepancy, the selections' score discrepancy, the share of images the
+    torch route would select otherwise, the loss (``loss_gates``, against
+    the plain versions and the torch route, in place of the path's limits)
+    and worst gradient against the plain versions and the torch-autograd
+    route, the kernel route's launches (``expected``, with
+    ``kw["counters"]``), and each planted fault of ``kw["rejected"]`` past
+    the plain versions' loss or gradient gate."""
     spec = TRAIN_PATHS[path]
-    r = first_step(device, path)
-    for tag in ("plain", "torch"):
-        check_gaps(f"{path} first step, {tag}", r[tag]["sel"], r["calls"])
+    tag = kw.get("tag") or path
+    plain_loss, torch_loss = loss_gates or (spec["plain_loss"], TRAIN_LOSS_ATOL)
+    r = first_step(device, path, **kw)
+    if expected is not None:
+        check(r["launches"] == expected, f"{tag} launches {r['launches']} != {expected}")
+    for what in ("plain", "torch"):
+        check_gaps(f"{tag} first step, {what}", r[what]["sel"], r["calls"])
     for i, g in r["plain"]["sel"].items():
         check(g["delta_rel"] <= spec["score_rel"],
-              f"{path} selection {i}: scores vs their plain versions' {g['delta_rel']} > "
+              f"{tag} selection {i}: scores vs their plain versions' {g['delta_rel']} > "
               f"{spec['score_rel']}")
     worst_sel = max(g["images"] for g in r["torch"]["sel"].values()) / spec["batch"]
     check(worst_sel <= TRAIN_SEL_DIFF,
-          f"{path}: {worst_sel:.3f} of the images select otherwise than the torch route (> "
+          f"{tag}: {worst_sel:.3f} of the images select otherwise than the torch route (> "
           f"{TRAIN_SEL_DIFF})")
-    for tag, (loss_atol, grad_gate) in (("plain", (spec["plain_loss"], TRAIN_PLAIN_GRAD_REL_L2)),
-                                        ("torch", (TRAIN_LOSS_ATOL, TRAIN_GRAD_REL_L2))):
-        check(r[tag]["loss"] <= loss_atol, f"{path} first-step loss vs {tag}: "
-              f"{r[tag]['loss']} > {loss_atol}")
-        check(r[tag]["worst"] <= grad_gate, f"{path} gradient rel L2 vs {tag}: "
-              f"{r[tag]['worst']} > {grad_gate}")
+    for what, (loss_atol, grad_gate) in (("plain", (plain_loss, TRAIN_PLAIN_GRAD_REL_L2)),
+                                         ("torch", (torch_loss, TRAIN_GRAD_REL_L2))):
+        check(r[what]["loss"] <= loss_atol, f"{tag} first-step loss vs {what}: "
+              f"{r[what]['loss']} > {loss_atol}")
+        check(r[what]["worst"] <= grad_gate, f"{tag} gradient rel L2 vs {what}: "
+              f"{r[what]['worst']} > {grad_gate}")
+    for fault, f in r["rejected"].items():
+        check(f["loss"] > plain_loss or f["worst"] > TRAIN_PLAIN_GRAD_REL_L2,
+              f"{tag}: the gates missed the planted fault '{fault}'")
 
 
 def step_launches(device, results, counters, path, fresh_params, images, labels) -> dict:
@@ -5229,7 +5286,8 @@ def variant_phases(device, counters, tmp: Path) -> None:
     each through ``RAJNIViT(kernels="cuda")``: K1 ×5, K2 ×7, K3 ×12, logits
     against the plain route at ``LOGITS_REL_L2``. Registers (``_reg4``),
     the distillation token and qk-norm: ``route: torch (an extended timm
-    variant)``, no launch, finite logits, and the kept sets' sizes equal to
+    variant: ...)`` with what it carries, no launch, finite logits, and the
+    kept sets' sizes equal to
     ``model_stats``' token counts."""
     import dataclasses
     import io
@@ -5282,7 +5340,9 @@ def variant_phases(device, counters, tmp: Path) -> None:
                 "qk-norm": dataclasses.replace(get_config(PATH224), qk_norm=True)}
     for name, cfg in extended.items():
         model = RAJNIViT(cfg, REFERENCE_SCHEDULE, kernels="auto", device=device)
-        check(model.route == "route: torch (an extended timm variant)", f"{name}: {model.route}")
+        check(model.route.startswith("route: torch (an extended timm variant: ")
+              and model.route.endswith("; the kernels take one prefix token and no qk-norm)"),
+              f"{name}: {model.route}")
         kept = {}
         with torch.no_grad():
             out, got = counted(counters, vit_forward, model.params, x[:8], cfg, model.schedule,
@@ -5317,6 +5377,451 @@ def serving_slice_phases(device, counters) -> None:
         parts.append(("end", time.perf_counter()))
         print("serving slice parts: " + ", ".join(
             f"{a[0]} {b[1] - a[1]:.1f} s" for a, b in zip(parts, parts[1:])))
+
+
+# ---------------------------------------------------------------------------
+# Training, second slice: drop-path, remat, the variants, the recipe CLI and
+# augmentation on the card
+# ---------------------------------------------------------------------------
+
+DROP_PATH = 0.1  # the DeiT recipe's rate, T6's masks from (seed 0, step 0)
+# the forward kernels of a train step; under remat the backward re-runs them
+TRAIN_FORWARD = ("train_attn_block", "fused_ln_qkv", "fused_gather_sdpa_proj_residual",
+                 "train_ln_mlp", "short_attention")
+REMAT_LAUNCHES = {n: v * (2 if n in TRAIN_FORWARD else 1)
+                  for n, v in TRAIN_LAUNCHES["pruned"].items()}
+# the train CLI's recipe step: the student's remat step on T6's schedule and
+# the teacher's unpruned ViT-B/16 224 inference forward (K2 and K3, the
+# short-row kernel in K2's attention)
+RECIPE_LAUNCHES = {n: v + PATHS[PATH224]["launches"]["identity"][n]
+                   for n, v in REMAT_LAUNCHES.items()}
+# The first-step checks of drop-path at T6, DeiT-3 and the pooled head:
+# checked_first_step's gates, with the first-step loss against the plain
+# versions and against the torch-autograd route held per config to 2.5x the
+# largest of four sound readings (params seeded 0-3,
+# scripts/train_first_step_readings.py, an H100 SXM): drop-path 6.09e-4 and
+# 9.32e-4, DeiT-3 4.8e-7 and 4.8e-7 (one float32 step of the loss: its layer
+# scales keep the branches small), the pooled head 3.17e-4 and 3.56e-4. The
+# loss is a mean over 128 images of a cross entropy of bf16 logits; T6's
+# own sound readings at seeds 1-2 reach 1.19e-3 and 1.51e-3, past its gates
+# (which hold seed 0, as these hold seed 0). The gradient, selection and
+# score gates are T6's.
+RECIPE_LOSS_GATES = {"drop-path": (1.5e-3, 2.3e-3), "deit3": (1.2e-6, 1.2e-6),
+                     "pooled": (7.9e-4, 8.9e-4)}
+RECIPE_IMAGES, RECIPE_BATCH, RECIPE_STEPS = 80, 32, 6  # two batches a pass: resuming at
+# step 3 restarts the second pass's permutation and skips one batch of it
+# augmentation on the card against its own run on the CPU, from the same
+# draws: the products' summation orders differ, which may move a value across
+# a rounding edge between the two resample passes by one uint8 level
+AUG_MAX_LEVELS = 1.0
+# the whole pipeline: a crop value one level apart may cross a RandAugment
+# threshold (solarize, posterize) or move an equalize histogram, so a few
+# values may lie further apart; the share of values apart stays small
+AUG_PIPELINE_SHARE = 1e-4
+
+
+def t6_inputs(device, config=None):
+    """T6's fresh bf16 params (seed 0; ``config`` in place of ViT-B/16
+    224's), images and labels (seed 1)."""
+    import torch
+
+    from rajni_tpu_torch.models import vit as tvit
+
+    config = config or tvit.get_config(PATH224)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(B_TRAIN, config.img_size, config.img_size, 3, generator=gen).to(device)
+    labels = torch.randint(0, config.num_classes, (B_TRAIN,), generator=gen).to(device)
+    params = tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
+    return config, params, images, labels
+
+
+def step_grads(params, forward, labels, subs=None) -> tuple:
+    """``(loss, gradients)`` of one cross-entropy step of ``forward`` with
+    ``train_path`` names swapped for ``subs``."""
+    import torch
+
+    from rajni_tpu_torch import train as tt
+
+    leaves = tt.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with train_path_swapped(subs or {}):
+        loss = tt.cross_entropy(forward(), labels)
+        grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.item(), grads
+
+
+def drop_path_remat_phases(device, device_name, smi, counters):
+    """(1) T6 with drop-path 0.1 through the kernels: the first step held by
+    :func:`checked_first_step` to the plain versions and the torch-autograd
+    route with the same masks and kept sets, its launches, and the planted
+    fault (the backward without the blend's ``(1 − m)`` identity term)
+    rejected. (2) Remat at T6: the same step with ``remat=True`` (the same
+    masks), its loss bitwise, its gradients bitwise or within T6's gate
+    (each leaf that differs named), the forward kernels' launches doubled;
+    and at T14 the step time and peak memory with and without remat."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+    from rajni_tpu_torch import train as tt
+    from rajni_tpu_torch.models import train_path as tp
+    from rajni_tpu_torch.models import vit as tvit
+
+    checked_first_step(
+        device, TRAIN, TRAIN_LAUNCHES["pruned"], RECIPE_LOSS_GATES["drop-path"],
+        tag=f"{TRAIN} drop-path {DROP_PATH}", drop_path=DROP_PATH, printed=False,
+        counters=counters, rejected={"the backward without the (1 - m) identity term":
+                                     {"_dp_rest": lambda m, g: torch.zeros_like(g)}})
+
+    config, params, images, labels = t6_inputs(device)
+    masks = tt.step_drop_path_masks(0, 0, DROP_PATH, config.depth, B_TRAIN, torch.bfloat16,
+                                    device)
+    dropped = [int((m == 0).sum()) for blk in masks if blk for m in blk]
+    print(f"{TRAIN} drop-path {DROP_PATH}: samples dropped per branch, blocks 1-11: {dropped}")
+
+    def forward(remat=False):
+        return lambda: tp.vit_forward_train(params, images, config, REFERENCE_SCHEDULE,
+                                            remat=remat, dp_masks=masks)
+
+    loss_k, grads_k = step_grads(params, forward(), labels)
+    for k in counters.values():
+        k.launches = 0
+    loss_r, grads_r = step_grads(params, forward(remat=True), labels)
+    torch.cuda.synchronize()
+    got = {n: k.launches for n, k in counters.items()}
+    print(f"{TRAIN} remat: launches per train step {({n: v for n, v in got.items() if v})}")
+    check(got == REMAT_LAUNCHES, f"{TRAIN} remat: launches {got} != {REMAT_LAUNCHES}")
+    same = [torch.equal(a, b) for a, b in zip(grads_k, grads_r)]
+    rels = [rel_l2(a, b) for a, b in zip(grads_k, grads_r)]
+    print(f"{TRAIN} remat against no remat (same masks): loss {loss_r!r} vs {loss_k!r}; "
+          f"{sum(same)} of {len(same)} gradients bitwise equal, worst rel L2 {max(rels):.3e}"
+          + ("" if all(same) else f"; leaves that differ: "
+             f"{[i for i, s in enumerate(same) if not s]}"))
+    check(loss_r == loss_k, f"{TRAIN} remat: loss {loss_r} != {loss_k}")
+    check(all(same) or max(rels) <= TRAIN_PLAIN_GRAD_REL_L2,
+          f"{TRAIN} remat: gradients differ by {max(rels)} > {TRAIN_PLAIN_GRAD_REL_L2}")
+    del grads_k, grads_r
+    for label, kw in (("plain step", {}), (f"drop-path {DROP_PATH}", {"drop_path": DROP_PATH}),
+                      ("remat", {"remat": True}),
+                      (f"drop-path {DROP_PATH} and remat", {"drop_path": DROP_PATH,
+                                                           "remat": True})):
+        tx = tt.build_optimizer(1e-4, 100, 0.05)
+        state = tt.create_train_state(params, tx)
+        step = tt.make_train_step(config, REFERENCE_SCHEDULE, tx, impl="cuda", **kw)
+        ms = cuda_ms(lambda: step(state, images, labels), iters=5, warmup=1)
+        print(f"{TRAIN} {label}: step {ms:.2f} ms ({B_TRAIN / ms * 1e3:.1f} img/s) | "
+              f"{device_name} | {smi}")
+        del state, step, tx
+    del params
+
+    # T14: step time and peak memory, with and without remat
+    config = tvit.get_config(PATH_H)
+    gen = torch.Generator().manual_seed(1)
+    images = torch.randn(B_TRAIN_H, config.img_size, config.img_size, 3, generator=gen).to(device)
+    labels = torch.randint(0, config.num_classes, (B_TRAIN_H,), generator=gen).to(device)
+    base = tvit.init_params(torch.Generator().manual_seed(0), config, torch.bfloat16, device)
+    readings = {}
+    for remat in (False, True):
+        tx = tt.build_optimizer(1e-4, 100, 0.05)
+        state = tt.create_train_state(base, tx)
+        step = tt.make_train_step(config, VIT_H_SCHEDULE, tx, impl="cuda", remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+        step(state, images, labels)  # warmup, and the peak
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, images, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        readings[remat] = (ms, peak, peak - before)
+        print(f"{TRAIN_H} {'remat' if remat else 'no remat'}: step {ms:.1f} ms "
+              f"({B_TRAIN_H / ms * 1e3:.1f} img/s), peak allocated {peak / 2**30:.3f} GiB "
+              f"({(peak - before) / 2**30:.3f} GiB over the state before the step) | "
+              f"{device_name} | {smi}")
+        del state, step, tx
+        torch.cuda.empty_cache()
+    check(readings[True][1] < readings[False][1],
+          f"{TRAIN_H}: remat did not lower the peak ({readings})")
+
+
+def train_variant_phases(device, counters):
+    """(3) DeiT-3 (``deit3_base_patch16_224`` with its patch-only pos-embed)
+    and a ViT-B with the pooled ``fc_norm`` head: the first step of each on
+    the kernels (``route: cuda``, T6's launches) held by
+    :func:`checked_first_step`; registers, a distillation token and qk-norm:
+    one step each on the demoted route, whose route line (the train CLI's)
+    says why, with no kernel launched by the student; the distilled student
+    distils from a ViT-B teacher on its own route, the kernels (K2, K3 and
+    the short-row kernel of an unpruned ViT-B/16 224 forward)."""
+    import dataclasses
+
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+    from rajni_tpu_torch import train as tt
+    from rajni_tpu_torch.models import vit as tvit
+
+    base = tvit.get_config(PATH224)
+    on_kernels = {"deit3_base_patch16_224": ("deit3", dataclasses.replace(
+                      tvit.get_config("deit3_base_patch16_224"), no_embed_class=True)),
+                  "ViT-B/16 avg-pool fc_norm": ("pooled", dataclasses.replace(
+                      base, global_pool="avg", use_fc_norm=True))}
+    for name, (gates, cfg) in on_kernels.items():
+        route = tvit.route_line(*tvit.resolve_route("cuda", cfg, torch.bfloat16, device,
+                                                    training=True))
+        print(f"train {name}: {route}")
+        check(route == "route: cuda", f"train {name}: {route}")
+        checked_first_step(device, TRAIN, TRAIN_LAUNCHES["pruned"], RECIPE_LOSS_GATES[gates],
+                           tag=f"train {name}", config=cfg, printed=False, counters=counters)
+    demoted = {"vit_base_patch16_reg4_224": tvit.get_config("vit_base_patch16_reg4_224"),
+               "deit_base_distilled_patch16_224":
+                   tvit.get_config("deit_base_distilled_patch16_224"),
+               "ViT-B/16 qk-norm": dataclasses.replace(base, qk_norm=True)}
+    teacher_impl, why = tvit.resolve_route("cuda", base, torch.bfloat16, device)
+    check(teacher_impl == "cuda", f"the ViT-B teacher's route: {teacher_impl} ({why})")
+    teacher = tvit.init_params(torch.Generator().manual_seed(7), base, torch.bfloat16, device)
+    none = {n: 0 for n in counters}
+    for name, cfg in demoted.items():
+        route = tvit.route_line(*tvit.resolve_route("cuda", cfg, torch.bfloat16, device,
+                                                    training=True))
+        cfg, params, images, labels = t6_inputs(device, cfg)
+        tx = tt.build_optimizer(1e-4, 10, 0.05)
+        state = tt.create_train_state(params, tx)
+        distil = ({"distill": ("hard", 0.5, 1.0, base), "teacher_params": teacher,
+                   "teacher_impl": teacher_impl} if cfg.distilled else {})
+        step = tt.make_train_step(cfg, REFERENCE_SCHEDULE, tx, impl="cuda", drop_path=DROP_PATH,
+                                  **distil)
+        (loss,), got = counted(counters, lambda: [float(step(state, images, labels)["loss"])])
+        expected = PATHS[PATH224]["launches"]["identity"] if distil else none
+        print(f"train {name}: {route}; one step (drop-path {DROP_PATH}"
+              f"{', distilled from a ViT-B teacher' if distil else ''}) loss {loss:.4f}; "
+              f"launches {({n: v for n, v in got.items() if v})}")
+        check(route.startswith("route: torch (an extended timm variant: "),
+              f"train {name}: {route}")
+        check(math.isfinite(loss) and got == expected,
+              f"train {name}: loss {loss}, launches {got} != {expected}")
+        del state, step, params
+
+
+class Preempted(RuntimeError):
+    pass
+
+
+def recipe_cli_phase(device, device_name, smi, counters):
+    """(4) The train CLI on procedural JPEGs with the whole recipe (ViT-B/16
+    224, bf16, ``--kernels cuda``, augmentation, RandAugment, RandomErasing,
+    mixup and CutMix, drop-path, layer decay, EMA, remat, a saved random
+    ViT-B teacher, in-training eval, ``--shuffle``): six steps straight, then
+    the same run preempted after its step-3 state save and resumed from it;
+    the resumed run's losses and final params bitwise the straight run's (or
+    within T6's gate, named). One step's launches: the student's remat step
+    and the teacher's unpruned forward; img/s of the steps."""
+    import contextlib as cl
+    import io
+
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+    from rajni_tpu_torch import train as tt
+    from rajni_tpu_torch.models import vit as tvit
+    from rajni_tpu_torch.params.io import save_params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "images"
+        for i in range(RECIPE_IMAGES):
+            (root / f"class_{i % IMAGE_CLASSES:02d}").mkdir(parents=True, exist_ok=True)
+        from PIL import Image
+
+        for i in range(RECIPE_IMAGES):
+            arr, label = procedural_image(i)
+            Image.fromarray(arr, "RGB").save(root / f"class_{label:02d}" / f"img_{i:04d}.jpg",
+                                             quality=90)
+        teacher = tmp / "teacher.msgpack"
+        save_params(str(teacher), tvit.init_params(torch.Generator().manual_seed(7),
+                                                   tvit.get_config(PATH224), torch.bfloat16))
+        sched = tmp / "schedule.json"
+        sched.write_text(json.dumps({str(k): v for k, v in REFERENCE_SCHEDULE.items()}))
+
+        def argv(out, state, steps=RECIPE_STEPS):
+            return ["--data_path", str(root), "--model", PATH224, "--schedule", str(sched),
+                    "--steps", str(steps), "--batch_size", str(RECIPE_BATCH), "--dtype",
+                    "bfloat16", "--kernels", "cuda", "--augment", "--rand_augment",
+                    "rand-m9-mstd0.5-inc1", "--reprob", "0.25", "--mixup", "0.8", "--cutmix",
+                    "1.0", "--drop_path", str(DROP_PATH), "--layer_decay", "0.75", "--ema",
+                    "0.9999", "--remat", "--distill_teacher", str(teacher), "--distill_model",
+                    PATH224, "--eval_data", str(root), "--eval_every", "3", "--eval_batches",
+                    "1", "--shuffle", "--save_state_every", "3", "--state_path", str(state),
+                    "--log_every", "1", "--output", str(out)]
+
+        def run(args, preempt_at=None):
+            """``main(args)``: its per-step losses, step times, one step's
+            launches, its stdout and state."""
+            rec = {"loss": [], "ms": [], "launches": None}
+            make, save = tt.make_train_step, tt.save_train_state
+
+            def make_spy(*a, **kw):
+                step = make(*a, **kw)
+
+                def spied(state, im, lb):
+                    count = state.step == 1  # the second step: its launches
+                    if count:
+                        for k in counters.values():
+                            k.launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = step(state, im, lb)
+                    torch.cuda.synchronize()
+                    rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                    if count:
+                        rec["launches"] = {n: k.launches for n, k in counters.items()}
+                    rec["loss"].append(m["loss"].item())
+                    return m
+
+                return spied
+
+            def save_spy(path, state, backend="msgpack"):
+                save(path, state, backend)
+                if state.step == preempt_at:
+                    raise Preempted(f"preempted after the state save at step {state.step}")
+
+            tt.make_train_step, tt.save_train_state = make_spy, save_spy
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with cl.redirect_stdout(out):
+                    rec["state"] = tt.main(args)
+            except Preempted:
+                rec["state"] = None
+            finally:
+                tt.make_train_step, tt.save_train_state = make, save
+            rec["s"] = time.perf_counter() - t0
+            rec["stdout"] = out.getvalue()
+            return rec
+
+        straight = run(argv(tmp / "a.msgpack", tmp / "a.state"))
+        first = run(argv(tmp / "b.msgpack", tmp / "b.state"), preempt_at=3)
+        resumed = run(argv(tmp / "b.msgpack", tmp / "b.state") + ["--resume",
+                                                                  str(tmp / "b.state")])
+        lines = [l for l in straight["stdout"].splitlines()
+                 if l.startswith(("route:", "teacher route:", "training on", "distilling",
+                                  "step"))]
+        print("train CLI recipe, straight: " + " | ".join(lines))
+        print("train CLI recipe, resumed: " + " | ".join(
+            l for l in resumed["stdout"].splitlines() if l.startswith(("resum", "step"))))
+        check("route: cuda" in straight["stdout"].splitlines(), "recipe CLI: not on the kernels")
+        check("teacher route: cuda" in straight["stdout"].splitlines(),
+              "recipe CLI: the teacher is not on the kernels")
+        check("val_top1 (ema)" in straight["stdout"], "recipe CLI: no EMA eval line")
+        check("resume: fast-forwarding the data stream" in resumed["stdout"],
+              "recipe CLI: the resumed run did not fast-forward its data stream")
+        got = straight["launches"]
+        print(f"train CLI recipe: launches of one step (student with remat, teacher): "
+              f"{({n: v for n, v in got.items() if v})}")
+        check(got == RECIPE_LAUNCHES, f"recipe CLI: launches {got} != {RECIPE_LAUNCHES}")
+        losses = first["loss"] + resumed["loss"]
+        print(f"train CLI recipe: losses straight {straight['loss']}; preempted + resumed "
+              f"{losses}")
+        check(len(losses) == RECIPE_STEPS and all(math.isfinite(l) for l in losses),
+              f"recipe CLI: losses {losses}")
+        a, b = straight["state"], resumed["state"]
+        pa, pb = tt.param_leaves(a.params), tt.param_leaves(b.params)
+        same = [torch.equal(x, y) for x, y in zip(pa, pb)]
+        ema_same = all(torch.equal(x, y) for x, y in zip(a.opt_state.ema, b.opt_state.ema))
+        worst = max(rel_l2(x, y) for x, y in zip(pa, pb))
+        print(f"train CLI recipe: resumed against straight: losses "
+              f"{'bitwise equal' if losses == straight['loss'] else 'differ'}; "
+              f"{sum(same)} of {len(same)} params bitwise equal (worst rel L2 {worst:.3e}); "
+              f"EMA {'bitwise equal' if ema_same else 'differs'}")
+        check(losses == straight["loss"] or max(abs(x - y) for x, y in
+                                                zip(losses, straight["loss"]))
+              <= TRAIN_PLAIN_LOSS_ATOL, f"recipe CLI: resumed losses {losses}")
+        check(all(same) or worst <= TRAIN_PLAIN_GRAD_REL_L2,
+              f"recipe CLI: resumed params differ by {worst}")
+        ms = straight["ms"][1:]
+        print(f"train CLI recipe: the train step (mixing, teacher, student with remat, "
+              f"optimizer) {statistics.median(ms):.1f} ms median over steps 2-{RECIPE_STEPS} at "
+              f"batch {RECIPE_BATCH}, {RECIPE_BATCH / statistics.median(ms) * 1e3:.1f} img/s; "
+              f"the whole run (decode, augmentation, saves, evals) "
+              f"{RECIPE_BATCH * RECIPE_STEPS / straight['s']:.1f} img/s over {straight['s']:.1f} s"
+              f" | {device_name} | {smi}")
+
+
+def augment_card_phase(device, device_name):
+    """(5) Augmentation on the card against the CPU, from the same draws
+    (boxes, flips, RandAugment ops and levels, erasing boxes and fill),
+    stage by stage on the same inputs: the uint8 crop within one level,
+    RandAugment of the CPU's crop within one level, the normalized and erased
+    images of its output within one level's normalized step. The whole
+    pipeline, where a one-level crop difference may cross a RandAugment
+    threshold: ``augment_apply`` and the train CLI's ``augment_on_device``
+    (its erasing noise drawn on the card, handed to the CPU's run) with at
+    most AUG_PIPELINE_SHARE of their values apart. The share of values apart
+    printed for each; the card's time for the batch."""
+    import numpy as np
+    import torch
+
+    from rajni_tpu_torch.data import augment as aug
+    from rajni_tpu_torch.data import randaug as ra_mod
+    from rajni_tpu_torch.data.pipeline import IMAGENET_STD, decode_to_canvas
+    from rajni_tpu_torch.utils.rng import device_generator, host_rng
+    from PIL import Image
+
+    pairs = [decode_to_canvas(Image.fromarray(procedural_image(i)[0]), CANVAS)
+             for i in range(RECIPE_BATCH)]
+    canvas = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    sizes = torch.from_numpy(np.stack([p[1] for p in pairs]))
+    c_dev, s_dev = canvas.to(device), sizes.to(device)
+    ra_spec, erase = "rand-m9-mstd0.5-inc1", (0.25, "pixel", 1)
+    draws = aug.draw_augment(host_rng(0, aug._AUGMENT_TAG, 1), RECIPE_BATCH,
+                             rand_augment=ra_spec, erase=erase,
+                             noise_generator=torch.Generator().manual_seed(0))
+    # augment_on_device's own draws: the same host stream, the noise on the card
+    card_draws = aug.draw_augment(host_rng(0, aug._AUGMENT_TAG, 1), RECIPE_BATCH,
+                                  rand_augment=ra_spec, erase=erase,
+                                  noise_generator=device_generator(0, aug._AUGMENT_TAG, 1,
+                                                                   device=device))
+    ra, inc = draws["rand_augment"]
+    level = (1.0 / 255.0) / float(IMAGENET_STD.min())
+    crop_cpu = aug.crop_and_flip(canvas, sizes, draws)
+    ra_cpu = ra_mod.rand_augment_apply(crop_cpu, ra, inc)
+    # (CPU, card, largest difference allowed or None, share apart allowed or None)
+    stages = {"uint8 crop": (crop_cpu, aug.crop_and_flip(c_dev, s_dev, draws), 1.0, None),
+              "RandAugment of the same crop": (
+                  ra_cpu, ra_mod.rand_augment_apply(crop_cpu.to(device), ra, inc), 1.0, None),
+              "normalized and erased, of the same RandAugment output": (
+                  aug.normalize_and_erase(ra_cpu, draws, torch.float32),
+                  aug.normalize_and_erase(ra_cpu.to(device), draws, torch.float32), level,
+                  None),
+              "the whole pipeline, normalized (augment_apply)": (
+                  aug.augment_apply(canvas, sizes, draws, 224, torch.float32),
+                  aug.augment_apply(c_dev, s_dev, draws, 224, torch.float32), None,
+                  AUG_PIPELINE_SHARE),
+              "augment_on_device, bf16": (
+                  aug.augment_apply(canvas, sizes, card_draws, 224, torch.bfloat16),
+                  aug.augment_on_device(c_dev, s_dev, 0, 1, rand_augment=ra_spec, erase=erase),
+                  None, AUG_PIPELINE_SHARE)}
+    ms = cuda_ms(lambda: aug.augment_on_device(c_dev, s_dev, 0, 1, rand_augment=ra_spec,
+                                               erase=erase), iters=5, warmup=1)
+    ops = np.bincount(ra["op"][ra["gate"]], minlength=15).tolist()
+    print(f"augmentation, card against CPU ({RECIPE_BATCH} images, canvas {CANVAS}, 224 crops; "
+          f"RandAugment ops drawn {ops}, {int(draws['erase']['gate'].sum())} erased; one "
+          f"normalized level {level:.3e}); augment_on_device {ms:.3f} ms for the batch | "
+          f"{device_name}")
+    for name, (cpu, card, unit, share) in stages.items():
+        d = (card.cpu().float() - cpu.float()).abs()
+        apart = (d > 1e-6).float().mean().item()
+        print(f"  {name}: largest difference {d.max().item():.3e}, share apart {apart:.2e}")
+        if unit is not None:
+            check(d.max().item() <= AUG_MAX_LEVELS * unit + 1e-5,
+                  f"augmentation, {name}: {d.max().item()} apart")
+        if share is not None:
+            check(apart <= share, f"augmentation, {name}: {apart} of the values apart > {share}")
 
 
 def main() -> int:
@@ -5424,7 +5929,15 @@ def main() -> int:
                ("export, serving, attestation, --artifact and the extended timm variants",
                 lambda: serving_slice_phases(device, kernel_counters())),
                ("training and eval CLIs", lambda: train_cli(device)),
-               (f"{PATH_H} training through the training CLI", lambda: vit_h_train_cli(device))]
+               (f"{PATH_H} training through the training CLI", lambda: vit_h_train_cli(device)),
+               ("drop-path and remat on the training kernels (T6, T14)",
+                lambda: drop_path_remat_phases(device, device_name, smi, kernel_counters())),
+               ("the extended timm variants in training",
+                lambda: train_variant_phases(device, kernel_counters())),
+               ("the train CLI's recipe on an image folder, preempted and resumed",
+                lambda: recipe_cli_phase(device, device_name, smi, kernel_counters())),
+               ("augmentation on the card against the CPU",
+                lambda: augment_card_phase(device, device_name))]
     for label, phase in phases:
         t0 = time.perf_counter()
         phase()

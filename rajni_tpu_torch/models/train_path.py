@@ -36,7 +36,19 @@ is one B18 takes (at most ``sdpa_max_n`` of the head_dim: 848 tokens at 64,
 and B5 at their bf16 widths, B16 at K2's, B17 at C <= 1280, and B18's
 head_dim-80 form, which keeps JAX's per-head numerics (the scale on the fp32
 logits) where the forward kernels take ``_mha``'s phased form, as JAX's
-training path does. Drop-path and remat are not ported yet (ROADMAP A3).
+training path does.
+
+Drop-path (JAX ``train_path.py:295-465``): the per-block masks are drawn
+outside the ops and blended around the mask-free kernels as ``x + m·(y −
+x)``; the backward gives the branch ``m·g`` and the identity path the rest,
+``(1 − m)·g`` (scattered back to the kept tokens in a pruned block, whose
+blend is against the gathered residual). Remat wraps each block op in a
+non-reentrant ``torch.utils.checkpoint`` with the masks as inputs: the
+recompute re-runs the kernels and draws nothing. DeiT-3's patch-only
+pos-embed and the pooled heads train on the kernels (the embedding and the
+head are outside them); registers, the distillation token and qk-norm run
+the differentiable plain forward, as JAX's ``train_kernels_supported``
+sends them to XLA.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from .vit import (
     classifier_head,
     embed_tokens,
     layer_norm,
+    remat_call,
     resolve_route,
     vit_forward,
 )
@@ -181,37 +194,64 @@ def _block_grads(block: Params, paths, attn_pieces, mlp_pieces) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _dp_rest(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The identity path's share of a drop-path blend's cotangent: ``x + m·(y
+    − x)`` passes ``(1 − m)·g`` to ``x`` besides the branch's ``m·g``."""
+    return (1.0 - m) * g
+
+
+def _mask_grads(ctx, first: int, masks) -> list:
+    """Zero cotangents for the drop-path masks (inputs ``first``, ``first +
+    1``), ``None`` where a mask is absent or takes no gradient."""
+    return [torch.zeros_like(m) if m is not None and ctx.needs_input_grad[first + i] else None
+            for i, m in enumerate(masks)]
+
+
 class _StockBlock(torch.autograd.Function):
-    """A stock block: B16 then B17 forward, residual-fed backward."""
+    """A stock block: B16 then B17 forward, residual-fed backward, with the
+    drop-path masks ``m1``, ``m2`` (``[B, 1, 1]`` or ``None``) blended around
+    the kernels."""
 
     @staticmethod
-    def forward(ctx, static, x, *leaves):
+    def forward(ctx, static, x, m1, m2, *leaves):
         num_heads, scale, eps, paths = static
         block = _unflatten(leaves, paths)
         x1, qkv = train_attn_block(x, block["norm1"], block["attn"], block.get("ls1"), num_heads,
                                    scale, eps)
+        if m1 is not None:
+            x1 = x + m1 * (x1 - x)
         y, h = train_ln_mlp(x1, block["norm2"], block["mlp"], block.get("ls2"), eps)
+        if m2 is not None:
+            y = x1 + m2 * (y - x1)
         ctx.static = static
-        ctx.save_for_backward(x, qkv, x1, h, *leaves)
+        ctx.save_for_backward(x, qkv, x1, h, m1, m2, *leaves)
         return y
 
     @staticmethod
     def backward(ctx, g_y):
         num_heads, scale, eps, paths = ctx.static
-        x, qkv, x1, h, *leaves = ctx.saved_tensors
+        x, qkv, x1, h, m1, m2, *leaves = ctx.saved_tensors
         block = _unflatten(leaves, paths)
-        d_x1, mlp_pieces = _mlp_bwd(block, x1, h, g_y.contiguous(), eps)
-        d_x, attn_pieces = _attn_bwd(block, x, qkv, None, d_x1, num_heads, scale, eps)
-        return (None, d_x, *_block_grads(block, paths, attn_pieces, mlp_pieces))
+        g_y = g_y.contiguous()
+        d_x1, mlp_pieces = _mlp_bwd(block, x1, h, g_y if m2 is None else m2 * g_y, eps)
+        if m2 is not None:
+            d_x1 = d_x1 + _dp_rest(m2, g_y)
+        d_x, attn_pieces = _attn_bwd(block, x, qkv, None, d_x1 if m1 is None else m1 * d_x1,
+                                     num_heads, scale, eps)
+        if m1 is not None:
+            d_x = d_x + _dp_rest(m1, d_x1)
+        return (None, d_x, *_mask_grads(ctx, 2, (m1, m2)),
+                *_block_grads(block, paths, attn_pieces, mlp_pieces))
 
 
 class _PrunedBlock(torch.autograd.Function):
     """A pruned block: B4, selection, B5, B17 forward, residual-fed
     backward. Returns ``(y, next_scores, keep_idx)``; the scores and indices
-    carry no gradient."""
+    carry no gradient. The attention branch's drop-path blend is against the
+    residual gathered to the kept tokens."""
 
     @staticmethod
-    def forward(ctx, static, x, scores, *leaves):
+    def forward(ctx, static, x, scores, m1, m2, *leaves):
         num_heads, scale, eps, keep, with_scores, paths = static
         block = _unflatten(leaves, paths)
         qkv, new_scores = fused_ln_qkv(x, block["norm1"], block["attn"]["qkv"], num_heads, eps,
@@ -220,26 +260,38 @@ class _PrunedBlock(torch.autograd.Function):
         keep_idx, _ = select_tokens_dense(scores_used, keep, torch.bool)
         x1 = fused_gather_sdpa_proj_residual(qkv, keep_idx, x, block["attn"]["proj"],
                                              block.get("ls1"), num_heads, scale)
+        if m1 is not None:
+            x_g = gather_tokens(x, keep_idx)
+            x1 = x_g + m1 * (x1 - x_g)
         next_scores = torch.take_along_dim(scores_used, keep_idx, dim=1)
         y, h = train_ln_mlp(x1, block["norm2"], block["mlp"], block.get("ls2"), eps)
+        if m2 is not None:
+            y = x1 + m2 * (y - x1)
         ctx.static = static
         ctx.scores_like = None if scores is None else (scores.shape, scores.dtype)
         ctx.mark_non_differentiable(next_scores, keep_idx)
-        ctx.save_for_backward(x, qkv, keep_idx, x1, h, *leaves)
+        ctx.save_for_backward(x, qkv, keep_idx, x1, h, m1, m2, *leaves)
         return y, next_scores, keep_idx
 
     @staticmethod
     def backward(ctx, g_y, _g_scores, _g_idx):
         num_heads, scale, eps, _, _, paths = ctx.static
-        x, qkv, keep_idx, x1, h, *leaves = ctx.saved_tensors
+        x, qkv, keep_idx, x1, h, m1, m2, *leaves = ctx.saved_tensors
         block = _unflatten(leaves, paths)
-        d_x1, mlp_pieces = _mlp_bwd(block, x1, h, g_y.contiguous(), eps)
-        d_x, attn_pieces = _attn_bwd(block, x, qkv, keep_idx, d_x1, num_heads, scale, eps)
+        g_y = g_y.contiguous()
+        d_x1, mlp_pieces = _mlp_bwd(block, x1, h, g_y if m2 is None else m2 * g_y, eps)
+        if m2 is not None:
+            d_x1 = d_x1 + _dp_rest(m2, g_y)
+        d_x, attn_pieces = _attn_bwd(block, x, qkv, keep_idx,
+                                     d_x1 if m1 is None else m1 * d_x1, num_heads, scale, eps)
+        if m1 is not None:  # the gathered residual's identity path, scattered back
+            d_x = d_x + _scatter(_dp_rest(m1, d_x1), keep_idx, x.shape[1])
         d_scores = None
         if ctx.scores_like is not None:  # scores carry no gradient (reference no_grad)
             shape, dtype = ctx.scores_like
             d_scores = torch.zeros(shape, dtype=dtype, device=x.device)
-        return (None, d_x, d_scores, *_block_grads(block, paths, attn_pieces, mlp_pieces))
+        return (None, d_x, d_scores, *_mask_grads(ctx, 3, (m1, m2)),
+                *_block_grads(block, paths, attn_pieces, mlp_pieces))
 
 
 # ---------------------------------------------------------------------------
@@ -247,43 +299,41 @@ class _PrunedBlock(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _classic(config: ViTConfig) -> bool:
-    """One CLS prefix, no qk-norm, a CLS-inclusive pos-embed and the token
-    head: the configurations this training path runs."""
-    return (config.kernel_path_supported and not config.no_embed_class
-            and config.global_pool == "token" and not config.fc_norm_resolved)
-
-
 def vit_forward_train(
     params: Params,
     images: torch.Tensor,
     config: ViTConfig,
     schedule: Schedule | None = None,
-    drop_path: float = 0.0,
     remat: bool = False,
     _sel_tap=None,
-) -> torch.Tensor:
-    """Training forward on the kernels: ``[B, H, W, 3] -> logits``,
-    differentiable through the block ops above (a drop-in for
-    ``vit_forward(..., "torch")`` under autograd, the same selections and
-    compaction, tolerance-level numerics).
+    *,
+    dp_masks: list | None = None,
+    return_dist: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Training forward on the kernels: ``[B, H, W, 3] -> logits`` (or
+    ``(cls_logits, dist_logits)`` under ``return_dist``), differentiable
+    through the block ops above (a drop-in for ``vit_forward(..., "torch")``
+    under autograd, the same selections and compaction, tolerance-level
+    numerics).
 
     Every block takes its kernel op (the kernels take every token count the
-    config allows; JAX's "both fit VMEM" rule is a TPU fact). On the card,
-    a (config, dtype) that the kernels do not take runs the plain forward
-    (:func:`.vit.resolve_route`). ``_sel_tap(block_idx, keep_idx)`` receives
-    each pruned block's kept indices.
+    config allows; JAX's "both fit VMEM" rule is a TPU fact). A (config,
+    dtype) that the kernels do not take runs the plain forward
+    (:func:`.vit.resolve_route`: on the card, and for the extended variants
+    on every device), with the same drop-path masks and remat.
+    ``dp_masks`` gives each block's drop-path masks ``(m_attn, m_mlp)`` or
+    ``None`` (JAX's key schedule, one stream a block, is the caller's:
+    :func:`..train.step_drop_path_masks`).
+    ``remat`` runs each block op under :func:`.vit.remat_call`: the backward
+    re-runs the op's forward, the kernels, from its inputs, masks included.
+    ``_sel_tap(block_idx, keep_idx)`` receives each pruned block's kept
+    indices.
     """
-    if drop_path > 0.0 or remat:
-        raise NotImplementedError("drop_path and remat on the kernel training path are not "
-                                  "ported yet (ROADMAP A3)")
-    if not _classic(config):
-        raise NotImplementedError("training of the extended timm variants (registers, "
-                                  "distillation token, qk-norm, patch-only pos-embed, pooled "
-                                  "heads) is not ported yet (ROADMAP A4)")
-    if resolve_route("cuda", config, params["cls_token"].dtype, images.device,
-                     training=True)[0] == "torch":
-        return vit_forward(params, images, config, schedule, "torch", _sel_tap=_sel_tap)
+    dtype = params["cls_token"].dtype
+    dps = dp_masks if dp_masks is not None else [None] * config.depth
+    if resolve_route("cuda", config, dtype, images.device, training=True)[0] == "torch":
+        return vit_forward(params, images, config, schedule, "torch", _sel_tap=_sel_tap,
+                           remat=remat, dp_masks=dp_masks, return_dist=return_dist)
     schedule = normalize_schedule(schedule, config.depth)
     H, scale, eps = config.num_heads, config.attn_scale, config.layer_norm_eps
     x = embed_tokens(params, images, config)
@@ -291,14 +341,18 @@ def vit_forward_train(
     for blk_i, (spec, block) in enumerate(zip(schedule, params["blocks"])):
         paths = _paths(block)
         leaves = _flatten(block, paths)
+        m1, m2 = dps[blk_i] if dps[blk_i] is not None else (None, None)
         if spec is not None:
             keep = keep_count(spec.keep_ratio, x.shape[1], 1)
             with_scores = spec.update or scores is None
             static = (H, scale, eps, keep, with_scores, paths)
-            x, scores, keep_idx = _PrunedBlock.apply(static, x, scores, *leaves)
+            args = (static, x, scores, m1, m2, *leaves)
+            x, scores, keep_idx = (remat_call(_PrunedBlock.apply, *args) if remat
+                                   else _PrunedBlock.apply(*args))
             if _sel_tap is not None:
                 _sel_tap(blk_i, keep_idx)
             continue
         scores = None  # a stock block resets the threaded scores
-        x = _StockBlock.apply((H, scale, eps, paths), x, *leaves)
-    return classifier_head(x, params, config)
+        args = ((H, scale, eps, paths), x, m1, m2, *leaves)
+        x = remat_call(_StockBlock.apply, *args) if remat else _StockBlock.apply(*args)
+    return classifier_head(x, params, config, return_dist=return_dist)

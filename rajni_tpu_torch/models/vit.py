@@ -45,6 +45,7 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..kernels.block import (
     ATTN_MAX_N,
@@ -363,30 +364,78 @@ def _layer_scale(out: torch.Tensor, block: Params, name: str) -> torch.Tensor:
     return out * block[name] if name in block else out
 
 
+def drop_path_rates(rate: float, depth: int) -> tuple[float, ...]:
+    """timm's stochastic-depth schedule, ``linspace(0, rate, depth)``: the
+    first block is never dropped, the last at the full rate; a depth-1 model
+    is never dropped (``rajni_tpu/models/vit.py:drop_path_rates``)."""
+    if depth == 1:
+        return (0.0,)
+    return tuple(rate * i / (depth - 1) for i in range(depth))
+
+
+def drop_path_mask(generator: torch.Generator, rate: float, batch: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """timm ``DropPath``'s scaled per-sample mask ``[B, 1, 1]``: Bernoulli
+    with probability ``1 - rate``, survivors ``1 / (1 - rate)`` in ``dtype``
+    (JAX's ``_dp_mask``, ``rajni_tpu/models/train_path.py:295``), drawn
+    from ``generator`` on its device."""
+    keep = 1.0 - rate
+    u = torch.rand(batch, 1, 1, generator=generator, device=generator.device)
+    return (u < keep).to(dtype) / keep
+
+
+def drop_path_masks(rate: float, depth: int, batch: int, dtype: torch.dtype,
+                    generator_of: Callable[[int], torch.Generator]) -> list:
+    """Per block, ``(m_attn, m_mlp)`` drawn from ``generator_of(block)``, or
+    ``None`` where the block's rate is 0."""
+    masks = []
+    for blk_i, r in enumerate(drop_path_rates(rate, depth)):
+        if r > 0.0:
+            gen = generator_of(blk_i)
+            masks.append((drop_path_mask(gen, r, batch, dtype),
+                          drop_path_mask(gen, r, batch, dtype)))
+        else:
+            masks.append(None)
+    return masks
+
+
+def remat_call(fn, *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``: the
+    backward recomputes it from ``args``. No RNG state is stashed: nothing
+    inside draws (the drop-path masks are inputs)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def _mlp_branch(x: torch.Tensor, block: Params, config: ViTConfig, impl: str,
-                act_scales: tuple[float, float] | None = None):
+                act_scales: tuple[float, float] | None = None,
+                dp: torch.Tensor | None = None):
     """``x + ls2 * mlp(norm2(x))``; under ``impl="cuda"`` K3, or B9 with int8
-    fc1/fc2 (``act_scales``: the static ``(a_fc1, a_fc2)``)."""
+    fc1/fc2 (``act_scales``: the static ``(a_fc1, a_fc2)``). ``dp``, a
+    drop-path mask, scales the branch (the ops path only)."""
     eps = config.layer_norm_eps
     if impl == "cuda" and is_quantized(block["mlp"]["fc1"]["weight"]):
         return fused_ln_mlp_residual_int8(x, block["norm2"], block["mlp"], block.get("ls2"), eps,
                                           act_scales=act_scales)
     if impl == "cuda":
         return fused_ln_mlp_residual(x, block["norm2"], block["mlp"], block.get("ls2"), eps)
-    out = mlp(layer_norm(x, block["norm2"], eps), block["mlp"])
-    return x + _layer_scale(out, block, "ls2")
+    out = _layer_scale(mlp(layer_norm(x, block["norm2"], eps), block["mlp"]), block, "ls2")
+    return x + (out if dp is None else out * dp)
 
 
-def stock_block(x: torch.Tensor, block: Params, config: ViTConfig) -> torch.Tensor:
+def stock_block(x: torch.Tensor, block: Params, config: ViTConfig,
+                dp: tuple | None = None) -> torch.Tensor:
     """Standard pre-norm block on the ops path (qk-norm where the block
-    carries it)."""
+    carries it). ``dp``, the block's ``(m_attn, m_mlp)`` drop-path masks,
+    scales each branch per sample (JAX's ``_stochastic_depth``)."""
     out = attention(
         layer_norm(x, block["norm1"], config.layer_norm_eps),
         block["attn"], config.num_heads, config.attn_scale,
         norm_eps=config.layer_norm_eps,
     )
-    x = x + _layer_scale(out, block, "ls1")
-    return _mlp_branch(x, block, config, "torch")
+    out = _layer_scale(out, block, "ls1")
+    x = x + (out if dp is None else out * dp[0])
+    return _mlp_branch(x, block, config, "torch", dp=None if dp is None else dp[1])
 
 
 def embed_tokens(params: Params, images: torch.Tensor, config: ViTConfig) -> torch.Tensor:
@@ -427,6 +476,22 @@ def _dequantized(block: Params, dtype) -> Params:
             "mlp": {k: lin(v) for k, v in block["mlp"].items()}}
 
 
+def variant_reason(config: ViTConfig) -> str:
+    """Why the kernels do not take an extended variant (``""`` for one they
+    take): what it carries beyond one prefix token and no qk-norm."""
+    parts = []
+    if config.reg_tokens:
+        parts.append(f"{config.reg_tokens} register tokens")
+    if config.distilled:
+        parts.append("a distillation token")
+    if config.qk_norm:
+        parts.append("qk-norm")
+    if not parts:
+        return ""
+    return (f"an extended timm variant: {' and '.join(parts)}; the kernels take one prefix "
+            "token and no qk-norm")
+
+
 def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = False,
                       training: bool = False) -> tuple[bool, str]:
     """Whether the CUDA kernels take this (config, activation dtype), for
@@ -452,7 +517,7 @@ def cuda_kernels_take(config: ViTConfig, dtype: torch.dtype, quantized: bool = F
     C, H = config.embed_dim, config.num_heads
     D = C / H
     if not config.kernel_path_supported:
-        return False, "an extended timm variant"
+        return False, variant_reason(config)
     if dtype != torch.bfloat16:
         return False, f"{str(dtype).removeprefix('torch.')} activations (the kernels take bfloat16)"
     if C % 128:
@@ -488,8 +553,9 @@ def resolve_route(impl: str, config: ViTConfig, dtype: torch.dtype, device,
     ``vit.py:684-692``). An extended variant the kernels do not implement
     demotes on every device, as JAX's does on every backend (the plain
     versions on the CPU implement the kernels' semantics, one prefix token
-    and no qk-norm). ``device`` may be the target platform's name
-    (``"cuda"``, ``"cpu"``): no card is needed to resolve a route.
+    and no qk-norm; :func:`variant_reason`). ``device`` may be the target
+    platform's name (``"cuda"``, ``"cpu"``): no card is needed to resolve a
+    route.
     ``reason`` says why a demoted route was taken ("" otherwise)."""
     if impl not in ("torch", "cuda", "auto"):
         raise ValueError(f"unknown impl {impl!r}; use 'torch', 'cuda' or 'auto'")
@@ -497,7 +563,7 @@ def resolve_route(impl: str, config: ViTConfig, dtype: torch.dtype, device,
     if impl == "auto":
         impl = "cuda" if on_card else "torch"
     if impl == "cuda" and not config.kernel_path_supported:
-        return "torch", "an extended timm variant"
+        return "torch", variant_reason(config)
     if impl == "cuda" and on_card:
         ok, why = cuda_kernels_take(config, dtype, quantized, training)
         if not ok:
@@ -519,8 +585,15 @@ def vit_forward(
     impl: str = "torch",
     act_scales: ActScales | None = None,
     _sel_tap: Callable[[int, torch.Tensor], None] | None = None,
-) -> torch.Tensor:
-    """Pruned ViT forward: ``[B, H, W, 3] -> [B, num_classes]`` logits.
+    *,
+    remat: bool = False,
+    drop_path: float = 0.0,
+    dp_masks: list | None = None,
+    return_dist: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Pruned ViT forward: ``[B, H, W, 3] -> [B, num_classes]`` logits (a
+    ``(cls_logits, dist_logits)`` pair under ``return_dist``,
+    :func:`classifier_head`).
 
     Not under ``torch.no_grad()``: on ``impl="torch"`` with params that
     require grad it is the differentiable reference of the training path
@@ -578,10 +651,28 @@ def vit_forward(
 
     ``_sel_tap(block_idx, keep_idx)`` receives each pruned block's kept
     token indices (a capture hook for tests and debugging).
+
+    Training on the ops path (JAX's ``vit.py:693-720``): drop-path scales
+    each residual branch per sample by the block's mask from ``dp_masks``
+    (per block ``(m_attn, m_mlp)``, each ``[B, 1, 1]``, or ``None``;
+    :func:`drop_path_masks` draws them at timm's linspace rates).
+    ``impl="cuda"`` refuses ``dp_masks`` or a ``drop_path`` rate, as JAX's
+    kernel route does (drop-path trains through
+    :func:`.train_path.vit_forward_train`); on the ops path a ``drop_path``
+    rate needs its ``dp_masks``. ``remat`` wraps each block in a
+    non-reentrant ``torch.utils.checkpoint`` on the ops path, dropped when
+    ``_sel_tap`` is attached (the tap would see the recompute too).
     """
     schedule = normalize_schedule(schedule, config.depth)
     impl, _ = resolve_route(impl, config, params["cls_token"].dtype, images.device,
                             params_quantized(params))
+    if (drop_path > 0.0 or dp_masks is not None) and impl != "torch":
+        raise ValueError("drop_path runs on the ops path only: the inference kernels take no "
+                         "masks (train through models.train_path.vit_forward_train)")
+    if drop_path > 0.0 and dp_masks is None:
+        raise ValueError("drop_path > 0 needs its dp_masks (drop_path_masks draws them)")
+    dps = dp_masks if dp_masks is not None else [None] * config.depth
+    remat = remat and impl == "torch" and _sel_tap is None
     eps = config.layer_norm_eps
     C, H, scale = config.embed_dim, config.num_heads, config.attn_scale
     n_prefix = config.num_prefix_tokens  # 1 on "cuda" (kernel_path_supported)
@@ -608,9 +699,14 @@ def vit_forward(
                   and hopper_block_shape_ok(n, C, H, hidden, pruned=True)):
                 x, scores, keep_idx = fused_pruned_block_full(
                     x, block, scores, H, keep, scale, eps, with_scores)
+            elif remat:
+                x, scores, keep_idx = remat_call(
+                    lambda x, scores, block=block, spec=spec, keep=keep, ws=with_scores,
+                    dp=dps[blk_i]: _pruned_halves(x, block, config, impl, spec, keep, scores, ws,
+                                                  None, dp), x, scores)
             else:
                 x, scores, keep_idx = _pruned_halves(
-                    x, block, config, impl, spec, keep, scores, with_scores, blk_as)
+                    x, block, config, impl, spec, keep, scores, with_scores, blk_as, dps[blk_i])
             if _sel_tap is not None:
                 _sel_tap(blk_i, keep_idx)
             continue
@@ -628,16 +724,19 @@ def vit_forward(
                 x = fused_attn_block(x, block["norm1"], block["attn"], block.get("ls1"), H,
                                      scale, eps)
             x = _mlp_branch(x, block, config, impl, mlp_as)
+        elif remat:
+            x = remat_call(lambda x, block=block, dp=dps[blk_i]: stock_block(x, block, config, dp),
+                            x)
         else:
-            x = stock_block(x, block, config)
-    return classifier_head(x, params, config, act_scales, impl)
+            x = stock_block(x, block, config, dps[blk_i])
+    return classifier_head(x, params, config, act_scales, impl, return_dist)
 
 
 def _pruned_halves(x, block: Params, config: ViTConfig, impl: str, spec, keep: int,
-                   scores, with_scores: bool, blk_as):
+                   scores, with_scores: bool, blk_as, dp=None):
     """A pruned block as its attention half, then its MLP half (the routes
     of :func:`vit_forward` without a whole-block kernel). Returns ``(x,
-    next_scores, keep_idx)``."""
+    next_scores, keep_idx)``. ``dp``: the ops path's drop-path masks."""
     eps, H, scale = config.layer_norm_eps, config.num_heads, config.attn_scale
     C, n, K, itemsize = config.embed_dim, x.shape[1], keep + 1, x.element_size()
     attn_as, mlp_as = (None, None) if blk_as is None else (blk_as[:2], blk_as[2:4])
@@ -671,7 +770,8 @@ def _pruned_halves(x, block: Params, config: ViTConfig, impl: str, spec, keep: i
             scores, num_prefix=config.num_prefix_tokens, norm_eps=eps,
         )
         # residual-stream compaction BEFORE the residual add
-        x = gather_tokens(x, keep_idx) + _layer_scale(out, block, "ls1")
+        out = _layer_scale(out, block, "ls1")
+        x = gather_tokens(x, keep_idx) + (out if dp is None else out * dp[0])
         qkv = None
     if qkv is not None:  # the two-kernel route: B4 or B12, selection, tail
         if with_scores:
@@ -688,7 +788,8 @@ def _pruned_halves(x, block: Params, config: ViTConfig, impl: str, spec, keep: i
                 proj = {**proj, "weight": dequantize_weight(proj["weight"], x.dtype)}
             x = fused_gather_sdpa_proj_residual(qkv, keep_idx, x, proj, block.get("ls1"), H,
                                                 scale)
-    return _mlp_branch(x, block, config, impl, mlp_as), scores, keep_idx
+    return _mlp_branch(x, block, config, impl, mlp_as, None if dp is None else dp[1]), scores, \
+        keep_idx
 
 
 def _hidden(block: Params) -> int:
@@ -697,7 +798,8 @@ def _hidden(block: Params) -> int:
 
 
 def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig,
-                    act_scales: ActScales | None = None, impl: str = "torch") -> torch.Tensor:
+                    act_scales: ActScales | None = None, impl: str = "torch",
+                    return_dist: bool = False):
     """Final norm, pooling and head (``rajni_tpu/models/vit.py:
     classifier_head``; plain torch on every route, as JAX's is plain XLA).
 
@@ -709,6 +811,10 @@ def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig,
       ``norm`` over the sequence, then the patch mean. The mean divides the
       fp32 sum by the count as a tensor, as JAX divides (on CUDA ``tensor /
       python_float`` is a reciprocal multiply).
+
+    ``return_dist`` returns ``(cls_logits, dist_logits)`` for the
+    distillation loss: a distilled config's two heads apart, else the single
+    head's logits twice (JAX's "usual distillation" fallback).
     """
     eps = config.layer_norm_eps
     n_prefix = config.num_prefix_tokens
@@ -717,6 +823,8 @@ def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig,
         cls_logits = _head_matmul(y[:, 0], params["head"], act_scales, impl)
         # the static head scale is the CLS feature's: the dist head stays dynamic
         dist_logits = _head_matmul(y[:, 1], params["head_dist"], None, impl)
+        if return_dist:
+            return cls_logits, dist_logits
         return ((cls_logits + dist_logits) * 0.5).to(cls_logits.dtype)
     if config.fc_norm_resolved:
         pooled = _patch_mean(x, n_prefix) if config.global_pool == "avg" else x[:, 0]
@@ -725,7 +833,8 @@ def classifier_head(x: torch.Tensor, params: Params, config: ViTConfig,
         feat = _patch_mean(layer_norm(x, params["norm"], eps), n_prefix)
     else:
         feat = layer_norm(x[:, 0:1], params["norm"], eps)[:, 0]
-    return _head_matmul(feat, params["head"], act_scales, impl)
+    logits = _head_matmul(feat, params["head"], act_scales, impl)
+    return (logits, logits) if return_dist else logits
 
 
 def _patch_mean(x: torch.Tensor, n_prefix: int) -> torch.Tensor:

@@ -20,6 +20,7 @@ takes a timm ``.pth`` (:mod:`.convert`).
 from __future__ import annotations
 
 import io
+import os
 import struct
 from typing import Any
 
@@ -256,6 +257,24 @@ def load_params(path: str, dtype: torch.dtype | None = None, device="cpu"):
     with open(path, "rb") as f:
         tree = _restore_blocks(_unpackb(f.read()))
     return params_from_numpy(tree, dtype=dtype, device=device)
+
+
+def save_tree(path: str, tree) -> None:
+    """Write a tree of dicts, lists, numbers and tensors (the train state,
+    ``..train.save_train_state``) in this msgpack codec, atomically:
+    ``path + ".tmp"``, then ``os.replace``, so a crash mid-write never
+    corrupts the previous file."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(_packb(tree))
+    os.replace(tmp, path)
+
+
+def load_tree(path: str):
+    """Read what :func:`save_tree` wrote: arrays as numpy, bfloat16 arrays
+    as CPU torch tensors."""
+    with open(path, "rb") as f:
+        return _unpackb(f.read())
 
 
 def load_checkpoint_auto(path: str, model: str, dtype: torch.dtype | None = None,

@@ -34,8 +34,6 @@ flags are not ported yet.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import os
 
 import torch
 
@@ -53,7 +51,7 @@ from .models.wrapper import RAJNIViT
 from .params.io import load_checkpoint_auto
 from .quant import ActScales, calibrate_act_scales, quantize_params
 from .utils.schedule import load_schedule, schedule_to_dict
-from .utils.timing import require_device
+from .utils.timing import profiled, require_device
 
 TIERS = {"host": "float32", "device": "uint8", "device-full": "canvas"}
 
@@ -233,7 +231,7 @@ def _eval_artifact(args, device):
     print(f"preprocess: {tier}")
     print(f"Token counts per block: {model_stats(config, serve.schedule)['token_counts']}")
 
-    with _profiled(args.profile, device):
+    with profiled(args.profile, device):
         acc, throughput = evaluate_model(serve.any_batch, loader, device=device, max_batches=args.max_batches,
                                          warmup=args.warmup, progress=args.progress)
     print(f"\nArtifact model: top-1 {acc:.3f}% | {throughput:.1f} img/s")
@@ -340,7 +338,7 @@ def main(argv=None):
         print(f"  Layer {k}: {v}")
     print(f"Token counts per block: {model.get_last_stats()['token_counts']}")
     print("\nEvaluating RAJNI model")
-    with _profiled(args.profile, device):
+    with profiled(args.profile, device):
         result["rajni"] = run_eval(model)
     acc, tput = result["rajni"]
     print(f"RAJNI - Accuracy: {acc:.2f}%, Throughput: {tput:.1f} img/s")
@@ -349,27 +347,6 @@ def main(argv=None):
         drop = result["base"][0] - acc
         print(f"\nSpeedup: {speedup:.2f}x | Accuracy drop: {drop:.2f}%")
     return result
-
-
-@contextlib.contextmanager
-def _profiled(directory: str | None, device: torch.device):
-    """A ``torch.profiler`` trace of the block, written as
-    ``DIR/trace.json`` (Chrome's trace format), or nothing."""
-    if directory is None:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(directory, exist_ok=True)
-    print(f"Profiling to {directory}")
-    with profile(activities=activities) as prof:
-        yield
-    path = os.path.join(directory, "trace.json")
-    prof.export_chrome_trace(path)
-    print(f"Wrote the trace {path}")
 
 
 if __name__ == "__main__":

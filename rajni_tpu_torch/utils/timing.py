@@ -6,6 +6,8 @@ CUDA launches return before the card finishes, so a timed region ends in
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
@@ -48,3 +50,24 @@ def measure_throughput(fn, *args, batch: int, device: torch.device,
         fence(device)
         best = max(best, iters * batch / max(time.perf_counter() - t0, 1e-9))
     return best
+
+
+@contextlib.contextmanager
+def profiled(directory: str | None, device: torch.device):
+    """A ``torch.profiler`` trace of the ``with`` block, written as
+    ``DIR/trace.json`` (Chrome's trace format), or nothing."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    print(f"Profiling to {directory}")
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"Wrote the trace {path}")

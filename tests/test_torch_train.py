@@ -251,7 +251,8 @@ def test_scores_get_a_zero_gradient(model):
     leaves = [t.requires_grad_(True) for t in ttp._flatten(block, paths)]
     x = torch.randn(2, 12, 128, generator=torch.Generator().manual_seed(0), requires_grad=True)
     scores = torch.rand(2, 12, generator=torch.Generator().manual_seed(1), requires_grad=True)
-    y, ns, idx = ttp._PrunedBlock.apply((2, 0.125, 1e-6, 7, False, paths), x, scores, *leaves)
+    y, ns, idx = ttp._PrunedBlock.apply((2, 0.125, 1e-6, 7, False, paths), x, scores, None, None,
+                                        *leaves)
     assert not ns.requires_grad and not idx.requires_grad
     g = torch.autograd.grad(y.square().sum(), scores)[0]
     assert torch.equal(g, torch.zeros_like(scores))

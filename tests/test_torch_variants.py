@@ -206,7 +206,9 @@ def test_variant_routes(variant):
     assert cfg.kernel_path_supported == jcfg.kernel_path_supported
     on_kernels = variant in KERNEL_VARIANTS
     assert cfg.kernel_path_supported == on_kernels
-    want = ("cuda", "") if on_kernels else ("torch", "an extended timm variant")
+    why = "" if on_kernels else tvit.variant_reason(cfg)
+    assert on_kernels or why.startswith("an extended timm variant: ")
+    want = ("cuda", "") if on_kernels else ("torch", why)
     assert tvit.resolve_route("cuda", cfg, torch.bfloat16, "cuda") == want
     assert tvit.resolve_route("auto", cfg, torch.bfloat16, "cuda") == want
     assert tvit.cuda_kernels_take(cfg, torch.bfloat16) == (on_kernels, want[1])
@@ -217,7 +219,7 @@ def test_variant_routes(variant):
     # int8 weights: ViT-B's widths take the int8 kernels where the variant does
     assert tvit.resolve_route("cuda", cfg, torch.bfloat16, "cuda", quantized=True) == want
     line = tvit.route_line(*want)
-    assert line == ("route: cuda" if on_kernels else "route: torch (an extended timm variant)")
+    assert line == ("route: cuda" if on_kernels else f"route: torch ({why})")
 
 
 def test_qk_norm_block_refuses_cuda_impl(rng):
