@@ -196,7 +196,23 @@ run (non-zero exit) when it goes wrong:
    straight run, one step's launches (the student's doubled forward kernels
    and the teacher's K2/K3); the augmentation on the card against the CPU
    from the same draws, stage by stage within one uint8 level;
-9. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
+9. the parallel paths (``rajni_tpu_torch/parallel``): the shard forms at
+   ViT-B/16's tensor-parallel widths (2 ranks: 6 heads of 64, C_l = 384,
+   hidden 1536; B = 128, 197 -> 187), B4, B6, B5, K3 in bf16 and B12, B13,
+   B9 and the int8 GEMM's fp32 ``I8_PARTIAL`` in int8 (dynamic and static),
+   each against its plain version, the two shards' partial sums completed
+   against the full-width plain version, and the planted fault (shards that
+   add the residual and the bias, which the all-reduce would double)
+   rejected; then two ranks sharing cuda:0 over gloo (the library built
+   here, loaded by them) run DP 2, TP 2 (bf16, int8 dynamic and static) and
+   GPipe 2 at batch 256: each rank's launches (TP: B4 or B12 ×12, B6 ×7, B5
+   or B13 ×5, K3 or B9 ×12, no K1/K2), the logits and kept sets against the
+   single-device forward, img/s (two ranks sharing one card: not a scaling
+   number); and the eval CLI with ``--tensor_parallel 2`` (``route: cuda
+   (gloo, 2 ranks: cuda:0, cuda:0)``), ``--tensor_parallel 4`` (``--kernels
+   cuda`` refused, ``auto`` demoted with its reason) and ``--distributed`` in
+   two processes (the same global accuracy);
+10. print one JSON line of per-kernel results, then the ``{"ok": true, ...}``
    line last.
 
 It exits non-zero without printing a result when CUDA is unavailable or when
@@ -732,6 +748,9 @@ KERNELS = {
     # no TPU kernel of its own: the selection JAX runs outside Pallas on the
     # two-kernel route (rajni_tpu/models/vit.py:867-928)
     "select_kept": ("csrc/select.cu", "rajni_tpu/ops/pruning.py:86"),
+    # no TPU kernel of its own: the TP stock blocks' row-parallel int8 proj,
+    # which JAX runs in XLA (rajni_tpu/parallel/mesh.py:553-565)
+    "gemm_s8": ("csrc/gemm.cu", "rajni_tpu/parallel/mesh.py:553"),
 }
 
 
@@ -5824,6 +5843,407 @@ def augment_card_phase(device, device_name):
             check(apart <= share, f"augmentation, {name}: {apart} of the values apart > {share}")
 
 
+# ---------------------------------------------------------------------------
+# The parallel paths: DP, Megatron TP and GPipe over torch.distributed, two
+# ranks sharing the one card (gloo: NCCL refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+
+TP = 2  # model ranks: a ViT-B/16 shard is 6 heads of 64, C_l = 384, hidden 1536
+C_TP, HEADS_TP, HIDDEN_TP = C // TP, HEADS // TP, HIDDEN // TP
+B_TP = 128  # the shard kernels' batch (B5's gather path held at B=128, as above)
+TP_N, TP_K = 197, 187  # ViT-B/16 224's first pruned block, 197 -> 187
+TP_PATH = f"TP {TP} {PATH224}"
+TP_INT8 = {False: f"TP {TP} {PATH224} int8", True: f"TP {TP} {PATH224} int8 static"}
+DP_PATH, PP_PATH = f"DP 2 {PATH224}", f"PP 2 {PATH224}"
+# Each rank's launches in one TP forward of REFERENCE_SCHEDULE (blocks 3-7
+# pruned): LN+QKV on the shard in every block, B6 in the 7 stock blocks, the
+# selection and B5 (B13) in the 5 pruned ones, the MLP everywhere; no K1/K2
+# (and no B10/B11/B14/B15); int8 adds the stock blocks' row-parallel proj on
+# the int8 GEMM.
+TP_LAUNCHES = {
+    "bf16": dict(fused_ln_qkv=12, fused_sdpa=7, fused_gather_sdpa_proj_residual=5,
+                 fused_ln_mlp_residual=12, select_kept=5, short_attention=5),
+    "int8": dict(fused_ln_qkv_int8=12, fused_sdpa=7, fused_gather_sdpa_proj_residual_int8=5,
+                 fused_ln_mlp_residual_int8=12, select_kept=5, short_attention=5, gemm_s8=7),
+}
+# A TP forward against the single-device one on the card (both bf16): the
+# row-parallel sums are all-reduced in fp32 where the single-device proj and
+# fc2 accumulate in one GEMM, and bf16 re-rounds the stream; the int8 forward
+# quantizes the row-parallel sites per shard (JAX's grouped scales, a finer
+# grid), so against single-device int8 it is held as the kernels' plain
+# versions are (INT8_LOGITS_REL_L2). Kept sets: the share of images whose set
+# differs from the single-device forward's at the first pruned block (its
+# input through three stock blocks, rounded otherwise), bounded as the
+# training routes' are (TRAIN_SEL_DIFF); the later blocks compound the
+# differences and are reported. On an H100 SXM the first block read 0.086
+# (bf16) and 0.230 (int8 dynamic, whose per-shard scales change the blocks
+# before it); the later ones up to 0.38 and 0.84.
+TP_LOGITS_REL_L2 = LOGITS_REL_L2
+PAR_ITERS = 2  # after the forward whose launches are read (TP: ~2.5 s a forward)
+# Two shards' partial sums completed (x + Σ parts + ls·b) against the
+# full-width plain version: each shard's partial is stored in bf16, as JAX's
+# kernels store it, so the completed branch carries one more bf16 rounding a
+# shard than the full width's single one: on the CPU the plain versions read
+# 3.0e-3 (attention, bf16 and static int8) and 2.7e-3 (MLP); limit 2.5x.
+# Dynamic int8 quantizes per shard (a finer grid) and is reported only. The
+# planted fault (shards that add the residual and the bias) read 0.53-0.83.
+TP_COMPLETE_REL_L2 = 7.5e-3
+
+
+def parallel_counters() -> dict:
+    """kernel_counters() and the int8 GEMM's (the TP stock blocks' proj)."""
+    from rajni_tpu_torch.kernels import gemm as kg
+
+    return {**kernel_counters(), "gemm_s8": kg.S8_KERNEL}
+
+
+def parallel_rank(batch: int) -> dict:
+    """Every parallel case on this rank (spawned, two ranks on cuda:0): DP 2,
+    TP 2 bf16, TP 2 int8 dynamic and static, GPipe 2; for each the launches
+    of one forward, the logits against the single-device forward on the same
+    card, the kept sets (TP) and img/s."""
+    import torch
+
+    from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT
+    from rajni_tpu_torch.models.vit import vit_forward
+    from rajni_tpu_torch.parallel import mesh as pm
+    from rajni_tpu_torch.parallel import pipeline as pp
+    from rajni_tpu_torch.quant import attach_act_scales, calibrate_act_scales, quantize_params
+    from rajni_tpu_torch.utils.schedule import normalize_schedule
+    from rajni_tpu_torch.utils.timing import measure_throughput
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    raw = RAJNIViT(PATH224, None, kernels="cuda", seed=0, device=device)
+    config = raw.config
+    sched = normalize_schedule(REFERENCE_SCHEDULE, config.depth)
+    gen = torch.Generator().manual_seed(30)
+    images = torch.randn(batch, 224, 224, 3, generator=gen).to(device)
+    qparams = quantize_params(raw.params)
+    static = calibrate_act_scales(raw.params, images, config, REFERENCE_SCHEDULE)
+    counters = parallel_counters()
+    out = {}
+    for case in ("dp", "tp", "tp_int8", "tp_int8_static", "pipeline"):
+        params = qparams if case.startswith("tp_int8") else raw.params
+        scales = static if case == "tp_int8_static" else None
+        taps: dict = {}
+        tap = taps.setdefault
+        if case == "pipeline":
+            mesh = pp.make_pipe_mesh(pipe=2, device=device)
+            fwd = pp.pipeline_forward(params, config, sched, mesh, microbatch=4)
+        else:
+            mesh = pm.make_mesh(model=1 if case == "dp" else 2, device=device)
+            fwd = pm.sharded_forward(params, config, sched, mesh, "cuda", act_scales=scales,
+                                     _sel_tap=lambda i, idx: tap(i, idx.cpu()))
+        for k in counters.values():
+            k.launches = 0
+        logits = fwd(images)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in counters.items() if k.launches}
+        ref_taps: dict = {}
+        with torch.no_grad():
+            ref = vit_forward(attach_act_scales(params, scales) if case.startswith("tp_int8")
+                              else params, images, config, sched,
+                              "torch" if case == "pipeline" else "cuda", scales,
+                              lambda i, idx: ref_taps.setdefault(i, idx.cpu()))
+        rows = slice(None)
+        if case == "dp":  # this rank's rows of the single-device forward's kept sets
+            b = batch // mesh.size("data")
+            rows = slice(mesh.coord("data") * b, (mesh.coord("data") + 1) * b)
+        differ = {i: float((taps[i] != ref_taps[i][rows]).any(dim=1).float().mean())
+                  for i in sorted(taps) if i in ref_taps}
+        ips = measure_throughput(fwd, images, batch=batch, device=device, iters=PAR_ITERS,
+                                 warmup=0, repeats=1)
+        out[case] = dict(launches=launches, rel=rel_l2(logits, ref), shape=tuple(logits.shape),
+                         finite=bool(torch.isfinite(logits).all()), differ=differ, ips=ips,
+                         logits=logits[:4].float().cpu(), route=fwd.route if hasattr(fwd, "route")
+                         else ("torch", ""))
+    return out
+
+
+def _shard_mesh(rank: int, device):
+    """Rank ``rank``'s view of a TP-2 model line (no process group: only
+    shard_params reads it)."""
+    from rajni_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh({"data": 1, "model": TP}, {"data": 0, "model": rank},
+                {"data": [0], "model": list(range(TP))}, {}, device)
+
+
+def shard_kernel_phases(device, peaks, int8_peak, results):
+    """The shard forms at ViT-B/16's TP-2 shapes (B = 128, 197 -> 187, C_l =
+    384, 6 heads, hidden 1536): B4, B6, B5 and K3 in bf16, B12, B13, B9 and
+    the int8 GEMM's I8_PARTIAL, dynamic and static, each rank's shard against
+    its plain version; the two shards' partial sums completed as the
+    all-reduce completes them (x + Σ parts + ls·b) against the full-width
+    plain version; and the planted fault, shards that add the residual and
+    the bias themselves (doubled by the all-reduce), rejected."""
+    import torch
+
+    from rajni_tpu_torch.kernels import attention as ka
+    from rajni_tpu_torch.kernels import block as kb
+    from rajni_tpu_torch.kernels import gemm as kg
+    from rajni_tpu_torch.kernels import mlp as km
+    from rajni_tpu_torch.kernels.math import quantize_rows
+    from rajni_tpu_torch.parallel import mesh as pm
+
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(20)
+    blk = make_block(gen, device)
+    blk["ls1"] = (0.5 + 0.1 * torch.randn(C, generator=gen)).to(bf).to(device)
+    blk["ls2"] = (0.5 + 0.1 * torch.randn(C, generator=gen)).to(bf).to(device)
+    x = (X_STD * torch.randn(B_TP, TP_N, C, generator=gen)).to(bf).to(device)
+    idx = kept_indices(gen, B_TP, TP_N, TP_K, device)
+    scale, eps = (C // HEADS) ** -0.5, 1e-6
+    zeros_x = torch.zeros_like(x)
+    x_g = torch.take_along_dim(x, idx.long()[..., None], dim=1)
+    shape = f"B={B_TP} N={TP_N}->{TP_K} C_l={C_TP} heads {HEADS_TP} hidden {HIDDEN_TP}"
+
+    def timed(name, path, kernel, plain, got, want, flops, nbytes, ref=None, int8_ops=0.0,
+              gate=BF16_GATE, library=None):
+        err, rel = compare(f"{name} shard ({path})", got, want,
+                           torch.zeros_like(want) if ref is None else ref, gate)
+        bnd = bound(flops, nbytes, peaks, int8_ops, int8_peak)
+        record(results, name, path, shape, cuda_ms(kernel), cuda_ms(plain), bnd, err, rel,
+               library=library)
+
+    def completed(parts, bias, ls, base):
+        """x + Σ parts + ls · bias in fp32, as the TP forward completes a block."""
+        return (base.float() + sum(p.float() for p in parts) + (bias * ls).float()).to(bf)
+
+    for int8, statics in ((False, (None,)), (True, (False, True))):
+        qblk = quantized_block(blk) if int8 else blk
+        act = block_act_scales(blk, x, HEADS)
+        for static in statics:
+            path = TP_INT8[static] if int8 else TP_PATH
+            aq = act if static else None
+            parts, faults, mparts, mfaults = [], [], [], []
+            for r in range(TP):
+                sh = pm.shard_params({"blocks": [qblk]}, _shard_mesh(r, device))["blocks"][0]
+                qkv_p = pm.local_qkv(sh["attn"]["qkv"])
+                wproj = sh["attn"]["proj"]["weight"]
+                zero_b = torch.zeros_like(blk["attn"]["proj"]["bias"])
+                mlp0 = {"fc1": sh["mlp"]["fc1"], "fc2": {"weight": sh["mlp"]["fc2"]["weight"],
+                                                        "bias": torch.zeros_like(zero_b)}}
+                mlp_bad = {"fc1": sh["mlp"]["fc1"], "fc2": sh["mlp"]["fc2"]}
+                first = r == 0
+                if not int8:
+                    f4 = lambda: kb.fused_ln_qkv(x, blk["norm1"], qkv_p, HEADS_TP, eps, False)[0]
+                    p4 = lambda: kb.ln_qkv_plain(x, blk["norm1"], qkv_p, HEADS_TP, eps, False)[0]
+                    qkv = f4()
+                    if first:
+                        timed("fused_ln_qkv", path, f4, p4, qkv, p4(),
+                              2 * B_TP * TP_N * C * 3 * C_TP,
+                              2 * (B_TP * TP_N * (C + 3 * C_TP) + 3 * C_TP * C))
+                        f6 = lambda: ka.fused_sdpa(qkv, HEADS_TP, scale)
+                        p6 = lambda: ka.fused_sdpa_plain(qkv, HEADS_TP, scale)
+                        timed("fused_sdpa", path, f6, p6, f6(), p6(),
+                              4 * B_TP * HEADS_TP * TP_N * TP_N * 64,
+                              attention_bytes(B_TP, TP_N, C_TP, 2, False),
+                              library=library_sdpa_ms(qkv, None, HEADS_TP))
+                    proj = {"weight": wproj, "bias": zero_b}
+                    f5 = lambda: kb.fused_gather_sdpa_proj_residual(qkv, idx, zeros_x, proj,
+                                                                    blk["ls1"], HEADS_TP, scale)
+                    p5 = lambda: kb.gather_sdpa_proj_residual_plain(qkv, idx, zeros_x, proj,
+                                                                    blk["ls1"], HEADS_TP, scale)
+                    bad5 = kb.gather_sdpa_proj_residual_plain(
+                        qkv, idx, x, {"weight": wproj, "bias": blk["attn"]["proj"]["bias"]},
+                        blk["ls1"], HEADS_TP, scale)
+                    fk3 = lambda: km.fused_ln_mlp_residual(x, blk["norm2"], mlp0, blk["ls2"], eps,
+                                                           add_residual=False)
+                    pk3 = lambda: km.ln_mlp_residual_plain(x, blk["norm2"], mlp0, blk["ls2"], eps,
+                                                           add_residual=False)
+                    badk3 = km.ln_mlp_residual_plain(x, blk["norm2"], mlp_bad, blk["ls2"], eps)
+                    names = ("fused_gather_sdpa_proj_residual", "fused_ln_mlp_residual")
+                    gate = BF16_GATE
+                else:
+                    a2 = None if aq is None else aq[:2]
+                    f12 = lambda: kb.fused_ln_qkv_int8(x, blk["norm1"], qkv_p, HEADS_TP, eps,
+                                                       False, a2)[0]
+                    p12 = lambda: kb.ln_qkv_int8_plain(x, blk["norm1"], qkv_p, HEADS_TP, eps,
+                                                       False, a2)[0]
+                    qkv = f12()
+                    if first:
+                        timed("fused_ln_qkv_int8", path, f12, p12, qkv, p12(), 0.0,
+                              B_TP * TP_N * (2 * C + 2 * 3 * C_TP) + 3 * C_TP * C,
+                              int8_ops=2 * B_TP * TP_N * C * 3 * C_TP, gate=SPLIT_INT8_GATE)
+                        attn = ka.fused_sdpa(qkv, HEADS_TP, scale).float().reshape(-1, C_TP)
+                        q8, a8 = quantize_rows(attn)
+                        zb = torch.zeros(C, dtype=torch.float32, device=device)
+                        ws = wproj["scale"].float()
+                        fg = lambda: kg.gemm_s8(q8, wproj["int8"], ws, zb, kg.I8_PARTIAL, a=a8)
+                        pg = lambda: kg.gemm_s8_plain(q8, wproj["int8"], ws, zb, kg.I8_PARTIAL,
+                                                      a=a8)
+                        got, want = fg(), pg()
+                        gerr = (got - want).abs().max().item()
+                        print(f"gemm_s8 I8_PARTIAL shard ({path}): max_abs_err {gerr:.3e} "
+                              "(bitwise)")
+                        check(gerr == 0.0, f"gemm_s8 I8_PARTIAL differs from its plain version")
+                        M = B_TP * TP_N
+                        record(results, "gemm_s8", path, f"M={M} K={C_TP} N={C} fp32 out",
+                               cuda_ms(fg), cuda_ms(pg),
+                               bound(0.0, M * (C_TP + 4 + 4 * C) + C * C_TP, peaks,
+                                     2 * M * C_TP * C, int8_peak), gerr, 0.0)
+                    proj = {"weight": wproj, "bias": zero_b}
+                    ap = None if aq is None else aq[1]
+                    f5 = lambda: kb.fused_gather_sdpa_proj_residual_int8(
+                        qkv, idx, zeros_x, proj, blk["ls1"], HEADS_TP, scale, ap)
+                    p5 = lambda: kb.gather_sdpa_proj_residual_int8_plain(
+                        qkv, idx, zeros_x, proj, blk["ls1"], HEADS_TP, scale, ap)
+                    bad5 = kb.gather_sdpa_proj_residual_int8_plain(
+                        qkv, idx, x, {"weight": wproj, "bias": blk["attn"]["proj"]["bias"]},
+                        blk["ls1"], HEADS_TP, scale, ap)
+                    a34 = None if aq is None else aq[2:]
+                    fk3 = lambda: km.fused_ln_mlp_residual_int8(x, blk["norm2"], mlp0, blk["ls2"],
+                                                                eps, False, a34)
+                    pk3 = lambda: km.ln_mlp_residual_int8_plain(x, blk["norm2"], mlp0, blk["ls2"],
+                                                                eps, False, a34)
+                    badk3 = km.ln_mlp_residual_int8_plain(x, blk["norm2"], mlp_bad, blk["ls2"],
+                                                          eps, True, a34)
+                    names = ("fused_gather_sdpa_proj_residual_int8", "fused_ln_mlp_residual_int8")
+                    gate = SPLIT_INT8_GATE
+                part, mpart = f5(), fk3()
+                if first:
+                    b5_ops = (4 * B_TP * HEADS_TP * TP_K * TP_K * 64, 2 * B_TP * TP_K * C_TP * C)
+                    wbytes = 1 if int8 else 2
+                    timed(names[0], path, f5, p5, part, p5(), b5_ops[0] + (0 if int8 else b5_ops[1]),
+                          B_TP * TP_K * (2 * 3 * C_TP + 4 + 2 * C + 2 * C) + wbytes * C * C_TP,
+                          int8_ops=b5_ops[1] if int8 else 0.0, gate=gate)
+                    k3_ops = 4 * B_TP * TP_N * C * HIDDEN_TP
+                    timed(names[1], path, fk3, pk3, mpart, pk3(), 0.0 if int8 else k3_ops,
+                          B_TP * TP_N * 2 * C * 2 + wbytes * 2 * C * HIDDEN_TP,
+                          int8_ops=k3_ops if int8 else 0.0, gate=gate)
+                parts.append(part)
+                faults.append(bad5)
+                mparts.append(mpart)
+                mfaults.append(badk3)
+            b1, b2 = blk["attn"]["proj"]["bias"], blk["mlp"]["fc2"]["bias"]
+            full5 = completed(parts, b1, blk["ls1"], x_g)
+            full3 = completed(mparts, b2, blk["ls2"], x)
+            bad_full5 = completed(faults, b1, blk["ls1"], x_g)
+            bad_full3 = completed(mfaults, b2, blk["ls2"], x)
+            if int8:
+                qkv_full = kb.ln_qkv_int8_plain(x, blk["norm1"], qblk["attn"]["qkv"], HEADS, eps,
+                                                False,
+                                                None if aq is None else aq[:2])[0]
+                want5 = kb.gather_sdpa_proj_residual_int8_plain(
+                    qkv_full, idx, x, qblk["attn"]["proj"], blk["ls1"], HEADS, scale,
+                    None if aq is None else aq[1])
+                want3 = km.ln_mlp_residual_int8_plain(x, blk["norm2"], qblk["mlp"], blk["ls2"],
+                                                      eps, True, None if aq is None else aq[2:])
+            else:
+                qkv_full = kb.ln_qkv_plain(x, blk["norm1"], blk["attn"]["qkv"], HEADS, eps,
+                                           False)[0]
+                want5 = kb.gather_sdpa_proj_residual_plain(qkv_full, idx, x, blk["attn"]["proj"],
+                                                           blk["ls1"], HEADS, scale)
+                want3 = km.ln_mlp_residual_plain(x, blk["norm2"], blk["mlp"], blk["ls2"], eps)
+            for tag, got, want, bad, base in (("attention", full5, want5, bad_full5, x_g),
+                                              ("MLP", full3, want3, bad_full3, x)):
+                rel = branch_rel(got, want, base)
+                fault = branch_rel(got, bad, base)
+                print(f"{path} {tag}: two shards completed vs the full-width plain version, "
+                      f"branch rel L2 {rel:.3e}; planted fault 'shards add the residual and "
+                      f"bias': {fault:.3e}")
+                # dynamic int8 quantizes the row-parallel sites per shard (a finer grid
+                # than the full width's), so it is reported against the full width only
+                if not (int8 and not static):
+                    check(rel <= TP_COMPLETE_REL_L2,
+                          f"{path} {tag}: completed shards rel {rel} > {TP_COMPLETE_REL_L2}")
+                check(fault > 10 * TP_COMPLETE_REL_L2,
+                      f"{path} {tag}: the planted fault was not rejected")
+
+
+def parallel_phases(device, device_name, smi, results):
+    """The parallel cases on two ranks sharing cuda:0 (one spawn; the
+    library built by this process is loaded by the ranks): launches, logits
+    and kept sets against the single-device forward, img/s."""
+    from rajni_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(parallel_rank, 2, (B,), device_type="cuda")
+    print(f"two ranks on cuda:0: {time.perf_counter() - t0:.1f} s")
+    paths = {"dp": DP_PATH, "tp": TP_PATH, "tp_int8": TP_INT8[False],
+             "tp_int8_static": TP_INT8[True], "pipeline": PP_PATH}
+    for case, path in paths.items():
+        r0, r1 = ranks[0][case], ranks[1][case]
+        print(f"{path}: route {r0['route']}, launches per rank {r0['launches']}; logits rel L2 "
+              f"vs the single-device forward on the card {r0['rel']:.3e}; kept sets differing "
+              f"(share of images, by block) {r0['differ']}; {r0['ips']:.1f} img/s ({smi}; two "
+              "ranks sharing one card, not a scaling number)")
+        check(r0["finite"] and r0["shape"] == (B, 1000), f"{path}: logits {r0['shape']}")
+        check(r0["launches"] == r1["launches"], f"{path}: the ranks launched otherwise")
+        check(bool((r0["logits"] == r1["logits"]).all()), f"{path}: the ranks' logits differ")
+        first = r0["differ"].get(min(r0["differ"], default=0), 0.0)
+        check(first <= TRAIN_SEL_DIFF, f"{path}: kept sets differ on {r0['differ']}")
+        if case.startswith("tp"):
+            want = TP_LAUNCHES["int8" if "int8" in case else "bf16"]
+            check(r0["launches"] == want, f"{path}: launches {r0['launches']} != {want}")
+            check(r0["route"] == ("cuda", ""), f"{path}: route {r0['route']}")
+            gate = TP_LOGITS_REL_L2 if case == "tp" else INT8_LOGITS_REL_L2
+            for n, v in r0["launches"].items():
+                if (n, path) in results:
+                    results[(n, path)]["launches"] = v
+        else:
+            gate = LOGITS_REL_L2
+            if case == "pipeline":
+                check(not any(n != "select_kept" for n in r0["launches"]),
+                      f"{path}: the pipeline launched {r0['launches']}")
+        check(r0["rel"] <= gate, f"{path}: logits rel L2 {r0['rel']} > {gate}")
+    for key, r in results.items():
+        if key[1] in paths.values():
+            check("launches" in r and r["launches"] > 0, f"{key}: not launched on its path")
+
+
+def parallel_cli_phases():
+    """The eval CLI's parallel flags on the card, its five processes at once
+    (their img/s are not read): ``--tensor_parallel 2`` (``route: cuda``,
+    gloo, two ranks on cuda:0), ``--distributed`` in two processes (the same
+    global accuracy on each), ``--tensor_parallel 4`` (C/tp = 192):
+    ``--kernels cuda`` refused, ``auto`` demoted with its reason."""
+    from rajni_tpu_torch import REFERENCE_SCHEDULE
+    from rajni_tpu_torch.parallel.launch import free_port
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sched = Path(tmp) / "reference.json"
+        sched.write_text(json.dumps({str(k): v for k, v in REFERENCE_SCHEDULE.items()}))
+        base = [sys.executable, "-m", "rajni_tpu_torch.run", "--model", PATH224, "--schedule",
+                str(sched), "--no-progress", "--warmup", "1"]
+        port = free_port()
+        runs = {"tp2": ["--synthetic", "1", "--batch_size", str(B), "--tensor_parallel", "2"],
+                "tp4 cuda": ["--synthetic", "1", "--batch_size", "16", "--tensor_parallel", "4",
+                             "--kernels", "cuda"],
+                "tp4": ["--synthetic", "1", "--batch_size", "16", "--tensor_parallel", "4"]}
+        runs.update({f"distributed {i}": ["--distributed", "--coordinator", f"localhost:{port}",
+                                          "--num_processes", "2", "--process_id", str(i),
+                                          "--synthetic", "2", "--batch_size", "64"]
+                     for i in range(2)})
+        procs = {k: subprocess.Popen(base + v, cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True) for k, v in runs.items()}
+        outs = {}
+        for k, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            outs[k] = (proc.returncode, out.splitlines(), err)
+            lines = [l for l in outs[k][1] if l.startswith(("route:", "RAJNI -"))]
+            print(f"eval CLI {' '.join(runs[k])}: exit {proc.returncode} | " + " | ".join(lines))
+            if k != "tp4 cuda":
+                check(proc.returncode == 0,
+                      f"eval CLI {runs[k]} exited {proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+        on_card = "route: cuda (gloo, 2 ranks: cuda:0, cuda:0)"
+        check(on_card in outs["tp2"][1], "--tensor_parallel 2: not on the kernels over gloo")
+        rc, _, err = outs["tp4 cuda"]
+        check(rc != 0 and "C/tp = 768/4 = 192" in err,
+              "--tensor_parallel 4 --kernels cuda was not refused")
+        check(any(l.startswith("route: torch (tensor_parallel=4: C/tp = 768/4 = 192")
+                  for l in outs["tp4"][1]), "--tensor_parallel 4: no demotion reason")
+        accs = []
+        for i in range(2):
+            lines = outs[f"distributed {i}"][1]
+            check(on_card in lines, f"--distributed {i}: not on the kernels over gloo")
+            accs.append([l for l in lines if l.startswith("RAJNI -")][0]
+                        .split("Accuracy: ")[1].split("%")[0])
+        check(accs[0] == accs[1], f"--distributed: the processes' accuracies {accs} differ")
+
+
 def main() -> int:
     import torch
 
@@ -5937,7 +6357,12 @@ def main() -> int:
                ("the train CLI's recipe on an image folder, preempted and resumed",
                 lambda: recipe_cli_phase(device, device_name, smi, kernel_counters())),
                ("augmentation on the card against the CPU",
-                lambda: augment_card_phase(device, device_name))]
+                lambda: augment_card_phase(device, device_name)),
+               ("the shard forms of B4, B5, B6, K3, B9, B12, B13 at ViT-B's TP-2 widths",
+                lambda: shard_kernel_phases(device, peaks, int8_peak, results)),
+               ("DP, TP (bf16, int8 dynamic and static) and GPipe on two ranks sharing cuda:0",
+                lambda: parallel_phases(device, device_name, smi, results)),
+               ("the eval CLI's parallel flags", parallel_cli_phases)]
     for label, phase in phases:
         t0 = time.perf_counter()
         phase()

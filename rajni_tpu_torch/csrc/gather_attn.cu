@@ -18,6 +18,12 @@
 // * proj on the wgmma/TMA GEMM of gemm_sm90.cuh with the
 //   +bias→·ls→+x(fp32)→round epilogue, reading the pre-norm x rows through
 //   the same indices (res_idx, by cp.async, as K1 does).
+// Tensor-parallel shard form (rajni_tpu/parallel/mesh.py:tp_pallas_forward):
+// the attention width Ca (this shard's H heads, qkv [B, N, 3·Ca]) is apart
+// from the residual width C, and proj is the row-parallel product [B·K, Ca]
+// · wproj[C, Ca]ᵀ. The caller passes a zero residual and a zero bias, as the
+// TPU kernel's caller does, and gets this shard's partial sum; Ca == C is the
+// full-width kernel.
 #include "gemm_sm90.cuh"
 
 using namespace rajni;
@@ -25,12 +31,12 @@ using namespace rajni;
 extern "C" int rajni_gather_sdpa_proj_residual(const void* qkv, const void* idx, const void* x,
                                                const void* wproj, const void* bproj,
                                                const void* ls, void* attn_scratch, void* out,
-                                               int B, int N, int K, int C, int H, float scale,
-                                               void* stream) {
+                                               int B, int N, int K, int C, int Ca, int H,
+                                               float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch_attention_any(static_cast<const bf16*>(qkv),
                                        static_cast<const int*>(idx),
-                                       static_cast<bf16*>(attn_scratch), nullptr, B, N, K, C, H,
+                                       static_cast<bf16*>(attn_scratch), nullptr, B, N, K, Ca, H,
                                        scale, st);
   if (e != cudaSuccess) return fail(e, 1);
 
@@ -38,6 +44,6 @@ extern "C" int rajni_gather_sdpa_proj_residual(const void* qkv, const void* idx,
                   static_cast<const bf16*>(x), static_cast<const int*>(idx), K, N};
   e = launch_gemm_sm90<EPI_RESIDUAL>(static_cast<const bf16*>(attn_scratch),
                                      static_cast<const bf16*>(wproj), static_cast<bf16*>(out),
-                                     B * K, C, C, ep, st);
+                                     B * K, C, Ca, ep, st);
   return e == cudaSuccess ? 0 : fail(e, 2);
 }

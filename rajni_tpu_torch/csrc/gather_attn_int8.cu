@@ -20,6 +20,12 @@
 // quantizes that output as it loads it, with the residual read through the
 // same indices (int8_block.cuh:int8_attn_tail): two launches static, three
 // dynamic. two_launch: the old tail (attention, row quantizer, int8 proj).
+// Tensor-parallel shard form (rajni_tpu/parallel/mesh.py:tp_pallas_forward):
+// qkv [B, N, 3·Ca] holds this shard's H heads and proj [C, Ca] its rows of
+// the row-parallel product; each attention row is quantized over its Ca
+// columns (int8_block.cuh:int8_attn_tail), and the caller passes a zero
+// residual and a zero bias to get the shard's partial sum. Ca == C is the
+// full-width kernel.
 #include "int8_block.cuh"
 
 using namespace rajni;
@@ -27,7 +33,7 @@ using namespace rajni;
 extern "C" int rajni_gather_sdpa_proj_residual_int8(
     const void* qkv, const void* idx, const void* x, const void* wproj, const void* sproj,
     const void* bproj, const void* ls1, int static_act, int two_launch, void* attn, void* amax,
-    void* q8, void* qs, void* out, int B, int N, int K, int C, int H, float scale,
+    void* q8, void* qs, void* out, int B, int N, int K, int C, int Ca, int H, float scale,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Int8Block p{};
@@ -46,6 +52,7 @@ extern "C" int rajni_gather_sdpa_proj_residual_int8(
   p.B = B;
   p.N = N;
   p.C = C;
+  p.Ca = Ca;
   p.H = H;
   p.scale = scale;
   if (tail_amax(p) != nullptr) {  // no LN1 here to zero it

@@ -10,7 +10,8 @@
 //     residual of K1 and B5), EPI_GELU_SAVE (aux [M, N]: the rounded h).
 //   * rajni_gemm_s8, int8 (B9-B15): epi one of I8_BIAS (bf16 out), I8_GELU
 //     (fp32 out), I8_RESIDUAL (bf16 out; grouped over group_k < K with the
-//     row scales a [M, K / group_k]; res_idx as above).
+//     row scales a [M, K / group_k]; res_idx as above), I8_PARTIAL (I8_BIAS
+//     with fp32 out: the tensor-parallel stock blocks' row-parallel proj).
 //   * rajni_gelu_quant_s8: fc1 with its GELU quantized per row and hc group
 //     into hq [M, N] int8 and (dynamic) hs [M, N / hc], by the route that
 //     B9, B14 and B15 run (int8.cuh:launch_gelu_quant) or, with two_launch,
@@ -67,6 +68,7 @@ extern "C" int rajni_gemm_s8(const void* a, const void* w, void* out, int M, int
     case I8_BIAS: e = launch_gemm_s8<I8_BIAS>(A, W, out, M, N, K, ep, st); break;
     case I8_GELU: e = launch_gemm_s8<I8_GELU>(A, W, out, M, N, K, ep, st); break;
     case I8_RESIDUAL: e = launch_gemm_s8<I8_RESIDUAL>(A, W, out, M, N, K, ep, st); break;
+    case I8_PARTIAL: e = launch_gemm_s8<I8_PARTIAL>(A, W, out, M, N, K, ep, st); break;
     default: break;
   }
   return e == cudaSuccess ? 0 : fail(e, 1);

@@ -262,6 +262,9 @@ inline cudaError_t launch_quant_rows(const T* y, const float* sinv, int8_t* q, f
 //   groups of h; such launches take BN = 128, 64 int32 and 64 fp32
 //   registers a thread), then v · w_scale + bias, and
 //     I8_BIAS      stores bf16 (qkv);
+//     I8_PARTIAL   I8_BIAS stored fp32 (a tensor-parallel shard's row-parallel
+//                  proj, whose fp32 partial sums are all-reduced:
+//                  rajni_tpu/parallel/mesh.py:553-565);
 //     I8_RESIDUAL  · ls (when given), + the residual row (gathered through
 //                  res_idx when given), stores bf16 (proj, fc2);
 //     I8_GELU      gelu_fast(v) stored fp32 (fc1 to fp32 h; then
@@ -291,7 +294,9 @@ inline cudaError_t launch_quant_rows(const T* y, const float* sinv, int8_t* q, f
 //   cudaErrorInvalidValue: there is no second GEMM to fall back to.
 // ---------------------------------------------------------------------------
 
-enum I8Epilogue { I8_BIAS = 0, I8_GELU = 1, I8_RESIDUAL = 2, I8_GELU_Q = 3, I8_GELU_MAX = 4 };
+enum I8Epilogue {
+  I8_BIAS = 0, I8_GELU = 1, I8_RESIDUAL = 2, I8_GELU_Q = 3, I8_GELU_MAX = 4, I8_PARTIAL = 5
+};
 
 struct I8EpilogueArgs {
   const float* a;        // row scales [M, K / group_k], or null (static)
@@ -314,8 +319,9 @@ struct S8Epi {
   using In = int8_t;
   using ARaw = ARaw_;
   using Acc = int;
-  using Out = std::conditional_t<EPI == I8_GELU || EPI == I8_GELU_MAX, float,
-                                 std::conditional_t<EPI == I8_GELU_Q, int8_t, bf16>>;
+  using Out =
+      std::conditional_t<EPI == I8_GELU || EPI == I8_GELU_MAX || EPI == I8_PARTIAL, float,
+                         std::conditional_t<EPI == I8_GELU_Q, int8_t, bf16>>;
   using Args = I8EpilogueArgs;
   static constexpr int BN = BN_;
   static constexpr bool RESIDUAL = EPI == I8_RESIDUAL, GROUPED = GROUPED_,

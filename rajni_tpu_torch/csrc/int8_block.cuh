@@ -71,7 +71,13 @@ struct Int8Block {
   // floats, which step 9 overwrites later)
   float* amax;
   int two_launch;  // the attention tail's two-launch route (int8_attn_tail)
+  // the attention width: a tensor-parallel shard's H heads (qkv [B·N, 3·Ca],
+  // proj [C, Ca]), 0 for the full width C (B12's and B13's shard forms)
+  int Ca;
 };
+
+// The attention width of p (its qkv is [B·N, 3·attn_width(p)]).
+inline int attn_width(const Int8Block& p) { return p.Ca ? p.Ca : p.C; }
 
 // The absmax that the attention tail's dynamic route takes (int8_attn_tail),
 // or null.
@@ -86,6 +92,7 @@ template <bool BAND = false>
 inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
   const int rows = p.B * p.N;
   if constexpr (BAND) {
+    if (p.Ca && p.Ca != p.C) return fail(cudaErrorInvalidValue, 1);  // full width only
     BandArgs a{};
     a.a = p.x;
     a.ln_s = p.ln1s;
@@ -106,7 +113,7 @@ inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
   cudaError_t e = launch_ln_quant(p.x, p.ln1s, p.ln1b, p.q8, p.qs, rows, p.C, p.eps,
                                   p.static_act, st, tail_amax(p));
   if (e != cudaSuccess) return fail(e, 1);
-  e = launch_gemm_s8<I8_BIAS>(p.q8, p.wqkv, p.qkv, rows, 3 * p.C, p.C,
+  e = launch_gemm_s8<I8_BIAS>(p.q8, p.wqkv, p.qkv, rows, 3 * attn_width(p), p.C,
                               I8EpilogueArgs{dyn, p.sqkv, p.bqkv, nullptr, nullptr, nullptr, 1, 1,
                                              p.C},
                               st);
@@ -155,19 +162,24 @@ inline int int8_block_head(const Int8Block& p, cudaStream_t st) {
 // 3.719, so C = 1280 takes gemm_s8q.
 constexpr int TAIL_BAND_MAX_C = 1024;
 
+//   A tensor-parallel shard (B13's shard form, p.Ca < p.C) attends over its
+// Ca columns and quantizes each row of its attention output over those
+// columns alone: the row absmax the attention takes spans this shard's heads
+// only, which is JAX's grouped scale (rajni_tpu/parallel/mesh.py:428-435),
+// and proj contracts over Ca into the C residual columns.
 template <typename AttnT>
 inline int int8_attn_tail(const Int8Block& p, const int* sel, int n, AttnT* attn, bf16* out,
                           cudaStream_t st) {
-  const int rows_n = p.B * n;
+  const int rows_n = p.B * n, Ca = attn_width(p);
   const I8EpilogueArgs proj{p.static_act ? nullptr : p.qs, p.sproj, p.bproj, p.ls1, p.x, sel, n,
-                            p.N, p.C};
+                            p.N, Ca};
   float* amax = tail_amax(p);
   if (!p.static_act && !p.two_launch && amax == nullptr) return fail(cudaErrorInvalidValue, 5);
   cudaError_t e =
-      launch_attention_any(p.qkv, sel, attn, amax, p.B, p.N, n, p.C, p.H, p.scale, st);
+      launch_attention_any(p.qkv, sel, attn, amax, p.B, p.N, n, Ca, p.H, p.scale, st);
   if (e != cudaSuccess) return fail(e, 5);
   if constexpr (std::is_same_v<AttnT, bf16>) {
-    if (!p.two_launch && p.C <= TAIL_BAND_MAX_C) {
+    if (!p.two_launch && p.C <= TAIL_BAND_MAX_C && Ca == p.C) {
       BandArgs a{};
       a.a = attn;
       a.amax_in = amax;
@@ -189,13 +201,13 @@ inline int int8_attn_tail(const Int8Block& p, const int* sel, int n, AttnT* attn
   if (!p.two_launch) {
     I8EpilogueArgs ep = proj;
     ep.amax_in = amax;
-    e = launch_gemm_s8q(static_cast<const AttnT*>(attn), p.wproj, out, rows_n, p.C, p.C, ep, st);
+    e = launch_gemm_s8q(static_cast<const AttnT*>(attn), p.wproj, out, rows_n, p.C, Ca, ep, st);
     return e == cudaSuccess ? 0 : fail(e, 7);
   }
-  e = launch_quant_rows(attn, (const float*)nullptr, p.q8, p.qs, rows_n, p.C, p.C, p.static_act,
+  e = launch_quant_rows(attn, (const float*)nullptr, p.q8, p.qs, rows_n, Ca, Ca, p.static_act,
                         st);
   if (e != cudaSuccess) return fail(e, 6);
-  e = launch_gemm_s8<I8_RESIDUAL>(p.q8, p.wproj, out, rows_n, p.C, p.C, proj, st);
+  e = launch_gemm_s8<I8_RESIDUAL>(p.q8, p.wproj, out, rows_n, p.C, Ca, proj, st);
   return e == cudaSuccess ? 0 : fail(e, 7);
 }
 

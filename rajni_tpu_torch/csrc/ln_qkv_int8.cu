@@ -20,6 +20,11 @@
 // LN1 → int8 made once a 128-row band in shared memory), the same bits; it
 // read slower at every path shape on the H100, so no path takes it, and it
 // stays as the bitwise-checked alternative.
+// Tensor-parallel shard form (rajni_tpu/parallel/mesh.py:tp_pallas_forward):
+// a head-aligned [3·Ca, C] weight (this shard's heads of q, k and v) gives qkv
+// [B, N, 3·Ca] from the full LN1 rows, whose int8 row scales are the
+// single-device ones (the column-parallel site quantizes the replicated
+// rows); it takes no scores (they need every head) and not the band.
 #include "int8_block.cuh"
 
 using namespace rajni;
@@ -28,7 +33,7 @@ extern "C" int rajni_ln_qkv_int8(const void* x, const void* ln1s, const void* ln
                                  const void* wqkv, const void* sqkv, const void* bqkv,
                                  int with_scores, int static_act, int band, void* q8,
                                  void* qs, void* qkv_out, void* scores_out, int B, int N, int C,
-                                 int H, float eps, void* stream) {
+                                 int Ca, int H, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Int8Block p{};
   p.x = static_cast<const bf16*>(x);
@@ -44,7 +49,9 @@ extern "C" int rajni_ln_qkv_int8(const void* x, const void* ln1s, const void* ln
   p.B = B;
   p.N = N;
   p.C = C;
+  p.Ca = Ca;
   p.eps = eps;
+  if (Ca != C && (with_scores || band)) return fail(cudaErrorInvalidValue, 1);
   const int rc = band ? int8_block_head<true>(p, st) : int8_block_head(p, st);
   if (rc != 0) return rc;
   cudaError_t e;

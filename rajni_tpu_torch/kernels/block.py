@@ -79,6 +79,14 @@ which ``RAJNIViT`` runs, dynamic scales too): the int8 attention wrappers
 only where none are (a direct call on params without them); the plain
 versions fold on each call. :func:`select_kept` is the
 two-kernel route's selection (``csrc/select.cu`` on the card).
+
+B4, B5, B12 and B13 take a tensor-parallel head shard on the card as their
+TPU kernels do (``rajni_tpu/parallel/mesh.py:tp_pallas_forward``): B4 and
+B12 a head-aligned ``[3C_l, C]`` qkv weight without scores, B5 and B13 qkv
+``[B, N, 3C_l]`` with ``C_l / head_dim`` heads and a row-parallel proj
+weight ``[C, C_l]``, the attention over ``C_l`` columns and the proj
+contracting over them into the ``C`` residual columns; given a zero residual
+and bias, they return the shard's partial sum (:mod:`..parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -115,16 +123,16 @@ LN_QKV_KERNEL = CudaKernel(
 )
 GATHER_KERNEL = CudaKernel(
     "rajni_gather_sdpa_proj_residual",
-    [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
 )
 ATTN_INT8_KERNEL = CudaKernel(
     "rajni_attn_block_int8", [P] * 10 + [I, I] + [P] * 6 + [I] * 4 + [F, F, P],
 )
 LN_QKV_INT8_KERNEL = CudaKernel(
-    "rajni_ln_qkv_int8", [P] * 6 + [I, I, I] + [P] * 4 + [I] * 4 + [F, P],
+    "rajni_ln_qkv_int8", [P] * 6 + [I, I, I] + [P] * 4 + [I] * 5 + [F, P],
 )
 GATHER_INT8_KERNEL = CudaKernel(
-    "rajni_gather_sdpa_proj_residual_int8", [P] * 7 + [I, I] + [P] * 5 + [I] * 5 + [F, P],
+    "rajni_gather_sdpa_proj_residual_int8", [P] * 7 + [I, I] + [P] * 5 + [I] * 6 + [F, P],
 )
 PRUNED_INT8_KERNEL = CudaKernel(
     "rajni_pruned_attn_block_int8", [P] * 11 + [I, I, I, I] + [P] * 9 + [I] * 5 + [F, F, P],
@@ -475,8 +483,10 @@ def fused_gather_sdpa_proj_residual(
       qkv: ``[B, N, 3C]`` full-sequence packed QKV (from :func:`fused_ln_qkv`);
         a tensor-parallel shard passes ``[B, N, 3C_local]`` with its local
         ``num_heads`` and a ``proj`` weight ``[C, C_local]``, and gets this
-        shard's partial proj sum plus the gathered residual (the CUDA route
-        takes the full width only and raises ``ValueError`` on a shard).
+        shard's partial proj sum plus the gathered residual, on the card too
+        (``csrc/gather_attn.cu``'s attention width ``C_local``): the caller
+        passes a zero residual and a zero bias to get the partial alone
+        (:func:`..parallel.mesh.tp_forward`).
       keep_idx: ``[B, K]`` kept token indices, ascending after CLS
         (:func:`..ops.pruning.select_tokens_dense`). The TPU kernel takes the
         one-hot ``sel [B, K, N]`` built from the same selection; ``sel`` has
@@ -492,12 +502,8 @@ def fused_gather_sdpa_proj_residual(
     K = keep_idx.shape[1]
     w, b = proj_params["weight"], proj_params["bias"]
     check_cuda(torch.bfloat16, qkv=qkv, x=x, wproj=w, bproj=b, ls=ls)
-    if qkv.shape != (B, N, 3 * C) or w.shape != (C, C):
-        raise ValueError(
-            "fused_gather_sdpa_proj_residual on the card takes the full width "
-            f"only: qkv {tuple(qkv.shape)}, proj {tuple(w.shape)}, x {tuple(x.shape)}"
-        )
-    _check_attn_shapes("fused_gather_sdpa_proj_residual", K, C, num_heads, SDPA_MAX_N, "bf16")
+    Ca = _shard_width("fused_gather_sdpa_proj_residual", qkv, w, B, N, C, num_heads)
+    _check_attn_shapes("fused_gather_sdpa_proj_residual", K, Ca, num_heads, SDPA_MAX_N, "bf16")
     if keep_idx.shape != (B, K) or K > N:
         raise ValueError(f"keep_idx must be [{B}, K <= {N}], got {tuple(keep_idx.shape)}")
     idx = keep_idx.to(torch.int32).contiguous()
@@ -506,9 +512,24 @@ def fused_gather_sdpa_proj_residual(
     out = torch.empty(B, K, C, dtype=x.dtype, device=x.device)
     GATHER_KERNEL(
         ptr(qkv), ptr(idx), ptr(x), ptr(w), ptr(b), ptr(ls), ptr(attn), ptr(out),
-        B, N, K, C, num_heads, float(scale), stream(),
+        B, N, K, C, Ca, num_heads, float(scale), stream(),
     )
     return out
+
+
+def _shard_width(name: str, qkv: torch.Tensor, wproj: torch.Tensor, B: int, N: int, C: int,
+                 num_heads: int) -> int:
+    """The attention width ``C_l`` of a pruned tail's call: ``qkv [B, N,
+    3C_l]`` and a proj weight ``[C, C_l]`` with ``C_l = C`` (the full width)
+    or a tensor-parallel shard's whole heads (``C_l`` a multiple of 128 dividing
+    C, ``num_heads`` its heads); raises otherwise."""
+    Ca = qkv.shape[-1] // 3
+    if (qkv.dim() != 3 or tuple(qkv.shape) != (B, N, 3 * Ca) or tuple(wproj.shape) != (C, Ca)
+            or C % Ca or Ca % num_heads):
+        raise ValueError(
+            f"{name}: qkv must be [{B}, {N}, 3·C_l] and proj [{C}, C_l] with C_l dividing {C}; "
+            f"got qkv {tuple(qkv.shape)}, proj {tuple(wproj.shape)}, heads {num_heads}")
+    return Ca
 
 
 # ---------------------------------------------------------------------------
@@ -716,9 +737,13 @@ def fused_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float = 1e-
     [B, N, 3C], scores [B, N] fp32)``, ``scores`` zeros when
     ``with_scores=False``. ``act_scales = (a_qkv, a_proj)``: static scales,
     V leaving pre-scaled by ``1/a_proj`` for
-    :func:`fused_gather_sdpa_proj_residual_int8`. The CUDA route takes the
-    full width only; ``band`` runs LN1 and the qkv product as one launch of
-    the row-band GEMM (module docstring: the same bits, no path takes it)."""
+    :func:`fused_gather_sdpa_proj_residual_int8`. A tensor-parallel shard
+    passes a head-aligned ``[3C_l, C]`` int8 record with its local
+    ``num_heads`` and ``with_scores=False`` (scoring needs every head; True
+    raises), as :func:`fused_ln_qkv` does, and gets ``[B, N, 3C_l]``.
+    ``band`` runs LN1 and the qkv product as one launch of the row-band GEMM
+    (module docstring: the same bits, no path takes it), at the full width
+    only."""
     if x.device.type == "cpu":
         return ln_qkv_int8_plain(x, ln_params, qkv_params, num_heads, eps, with_scores,
                                  act_scales)
@@ -737,25 +762,31 @@ def launch_ln_qkv_int8(x, ln_params, qkv_params, num_heads: int, eps: float, wit
     wq = qkv_params["weight"]["int8"]
     ops = attn_operands(ln_params, {"qkv": qkv_params}, act_scales)
     _check_int8(x, None, ops, wqkv=wq)
-    D = C // num_heads if C % num_heads == 0 else 0
-    if C % 128 or not int8_width_ok(C, D) or wq.shape != (3 * C, C) or N < 2:
+    Ca = wq.shape[0] // 3
+    # a tensor-parallel shard: whole heads of head_dim D, D as the full width's
+    D = Ca // num_heads if Ca % num_heads == 0 else 0
+    if (C % 128 or Ca % 128 or C % Ca or not int8_width_ok(C, D) or wq.shape != (3 * Ca, C)
+            or N < 2):
         raise ValueError("fused_ln_qkv_int8 on the card needs C % 128 == 0, "
-                         f"{ATTN_WIDTHS['int8'][1]}, the full [3C, C] weight and N >= 2; got "
+                         f"{ATTN_WIDTHS['int8'][1]}, a [3C, C] weight or a head-aligned "
+                         "[3C_l, C] shard (C_l % 128 == 0 dividing C) and N >= 2; got "
                          f"C={C}, heads={num_heads}, wqkv {tuple(wq.shape)}, N={N}")
-    if band and C > C_MAX:
-        raise ValueError(f"fused_ln_qkv_int8: the band head takes C <= {C_MAX}, got C={C}")
+    _check_ln_qkv(x, {"weight": wq}, with_scores)
+    if band and (C > C_MAX or Ca != C):
+        raise ValueError(f"fused_ln_qkv_int8: the band head takes the full width, C <= {C_MAX}; "
+                         f"got C={C}, wqkv {tuple(wq.shape)}")
     if with_scores and not _score_fits(N, C, num_heads):
         raise ValueError(f"fused_ln_qkv_int8 cannot score N={N}, C={C}, heads={num_heads}")
     dev = x.device
     # the LN rows' int8 copy: the route off the band only
     q8 = torch.empty(0 if band else B * N * C, dtype=torch.int8, device=dev)
     qs = torch.empty(B * N, dtype=torch.float32, device=dev)
-    qkv = torch.empty(B, N, 3 * C, dtype=x.dtype, device=dev)
+    qkv = torch.empty(B, N, 3 * Ca, dtype=x.dtype, device=dev)
     scores = torch.empty(B, N, dtype=torch.float32, device=dev)
     LN_QKV_INT8_KERNEL(
         ptr(x), ptr(ops["ln1s"]), ptr(ops["ln1b"]), ptr(wq), ptr(ops["sqkv"]), ptr(ops["bqkv"]),
         int(with_scores), int(act_scales is not None), int(band), ptr(q8), ptr(qs), ptr(qkv),
-        ptr(scores), B, N, C, num_heads, float(eps), stream(),
+        ptr(scores), B, N, C, Ca, num_heads, float(eps), stream(),
     )
     return qkv, scores, qs, q8
 
@@ -767,7 +798,11 @@ def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_
     ``keep_idx [B, K]`` as in :func:`fused_gather_sdpa_proj_residual`.
     ``act_scale``: the static ``a_proj`` (the qkv from
     :func:`fused_ln_qkv_int8` with the same scales); ``two_launch`` the old
-    attention tail on the card (module docstring)."""
+    attention tail on the card (module docstring). A tensor-parallel shard
+    passes ``qkv [B, N, 3C_l]`` and a proj record ``[C, C_l]``, as to
+    :func:`fused_gather_sdpa_proj_residual`; each attention row is then
+    quantized over its ``C_l`` columns (JAX's grouped scale,
+    ``rajni_tpu/parallel/mesh.py:428-435``)."""
     if x.device.type == "cpu":
         return gather_sdpa_proj_residual_int8_plain(qkv, keep_idx, x, proj_params, ls,
                                                     num_heads, scale, act_scale)
@@ -777,26 +812,25 @@ def fused_gather_sdpa_proj_residual_int8(qkv, keep_idx, x, proj_params, ls, num_
     ops = proj_operands(proj_params, act_scale)
     _check_int8(x, ls, ops, wproj=wq)
     check_cuda(torch.bfloat16, qkv=qkv)
-    if qkv.shape != (B, N, 3 * C) or wq.shape != (C, C):
-        raise ValueError(
-            "fused_gather_sdpa_proj_residual_int8 on the card takes the full width only: "
-            f"qkv {tuple(qkv.shape)}, proj {tuple(wq.shape)}, x {tuple(x.shape)}"
-        )
-    _check_attn_shapes("fused_gather_sdpa_proj_residual_int8", K, C, num_heads, SDPA_MAX_N,
-                       "int8")
+    Ca = _shard_width("fused_gather_sdpa_proj_residual_int8", qkv, wq, B, N, C, num_heads)
+    if Ca % 128:
+        raise ValueError(f"fused_gather_sdpa_proj_residual_int8 needs C_l % 128 == 0, got {Ca}")
+    # the int8 widths by the full C and the shard's head_dim
+    _check_attn_shapes("fused_gather_sdpa_proj_residual_int8", K, C, C // (Ca // num_heads),
+                       SDPA_MAX_N, "int8")
     if keep_idx.shape != (B, K) or K > N:
         raise ValueError(f"keep_idx must be [{B}, K <= {N}], got {tuple(keep_idx.shape)}")
     idx = keep_idx.to(torch.int32).contiguous()
     check_cuda(torch.int32, keep_idx=idx)
     dev, static = x.device, act_scale is not None
-    attn, amax = int8_tail_scratch(B, B * K, K, C, torch.float32, dev, static)
-    q8 = torch.empty(B * K * C, dtype=torch.int8, device=dev)  # the two-launch route's
+    attn, amax = int8_tail_scratch(B, B * K, K, Ca, torch.float32, dev, static)
+    q8 = torch.empty(B * K * Ca, dtype=torch.int8, device=dev)  # the two-launch route's
     qs = torch.empty(B * K, dtype=torch.float32, device=dev)
     out = torch.empty(B, K, C, dtype=x.dtype, device=dev)
     GATHER_INT8_KERNEL(
         ptr(qkv), ptr(idx), ptr(x), ptr(wq), ptr(ops["sproj"]), ptr(ops["bproj"]), ptr(ls),
         int(static), int(two_launch), ptr(attn), ptr(amax), ptr(q8), ptr(qs), ptr(out), B, N, K,
-        C, num_heads, float(scale), stream(),
+        C, Ca, num_heads, float(scale), stream(),
     )
     return out
 

@@ -8,13 +8,17 @@ and the compiler flags, so an edited source is rebuilt and an unchanged tree
 is reused. Nothing is built when a module is imported: the first launch, or
 :func:`build`, does it. One process-wide lock covers the build and the load:
 threads whose first launches meet (a serving registry runs one engine
-thread a model) build and load the library once. The launch counters are
-exact for one launching thread only.
+thread a model) build and load the library once. Across processes (the ranks
+of a parallel run meeting a fresh tree) an ``fcntl`` lock on a file in the
+build directory holds the build: the first process compiles, the others wait
+and load its library. The launch counters are exact for one launching thread
+only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -84,8 +88,16 @@ def _build() -> dict[str, str]:
     lib = library_path()
     if lib.is_file():
         return {}
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if lib.is_file():  # another process built it while this one waited
+            return {}
+        return _compile(lib)
+
+
+def _compile(lib: Path) -> dict[str, str]:
     out_dir = lib.parent
-    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
     procs = {}
     for s in SOURCES:

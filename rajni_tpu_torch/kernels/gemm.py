@@ -7,9 +7,11 @@ TMA and wgmma) behind entry points of its own: bf16, the products of K1
 its GELU quantized in the epilogue (:func:`gelu_quant`), and the int8 tails'
 proj with its A operand quantized as it is loaded (:func:`gemm_s8q`).
 
-No path calls them: the entry points launch the same kernel from their own
-sources. These wrappers exist so that the GEMM can be held to its plain
-versions and timed beside the library's GEMM at each product's shapes. On a
+The entry points launch the same kernel from their own sources, so these
+wrappers exist to hold the GEMM to its plain versions and time it beside the
+library's GEMM at each product's shapes; one path calls :func:`gemm_s8`
+itself, the tensor-parallel stock blocks' int8 proj
+(:func:`..parallel.mesh.tp_forward`, ``I8_PARTIAL``). On a
 CUDA tensor each launches ``csrc/gemm.cu``; on a CPU tensor it runs its
 plain version.
 
@@ -33,10 +35,12 @@ product exact in int32 (the plain version takes it in float64, exact while
 fp32, each operation rounded once in this order: ``· a[row]`` (dynamic; a
 grouped product, ``group_k < K``, flushes each group's sum ``· a[row,
 group]`` and adds the groups), ``· w_scale``, ``+ bias``, then
-``I8_BIAS`` stores bf16, ``I8_GELU`` ``gelu_fast`` in fp32 (the kernel's GELU
+``I8_BIAS`` stores bf16, ``I8_PARTIAL`` stores fp32 (a row-parallel shard's
+partial sum, all-reduced after), ``I8_GELU`` ``gelu_fast`` in fp32 (the kernel's GELU
 differs from :func:`..math.gelu_fast` in its last bits: ex2 and a
 reciprocal), ``I8_RESIDUAL`` ``· ls`` and ``res +``, bf16 (``res_idx`` as
-above). So ``I8_BIAS`` and ``I8_RESIDUAL`` are the plain version's bits.
+above). So ``I8_BIAS``, ``I8_PARTIAL`` and ``I8_RESIDUAL`` are the plain
+version's bits.
 :func:`gelu_quant` quantizes ``I8_GELU``'s output per row and hc-wide column
 group as the int8 kernels' h is: ``quantize_rows`` of each group (dynamic,
 ``(hq, hs)``) or ``quantize_static(h · sinv)`` (static, ``(hq, None)``). On
@@ -74,8 +78,8 @@ EPILOGUES = (EPI_BIAS, EPI_GELU, EPI_RESIDUAL, EPI_GELU_SAVE)
 BLOCK_K = 64  # csrc/gemm_sm90.cuh: a stage is 128 bytes of k, 64 bf16
 S8_BLOCK_K = 128  # ... and 128 int8
 # csrc/int8.cuh: I8Epilogue
-I8_BIAS, I8_GELU, I8_RESIDUAL = 0, 1, 2
-S8_EPILOGUES = (I8_BIAS, I8_GELU, I8_RESIDUAL)
+I8_BIAS, I8_GELU, I8_RESIDUAL, I8_PARTIAL = 0, 1, 2, 5
+S8_EPILOGUES = (I8_BIAS, I8_GELU, I8_RESIDUAL, I8_PARTIAL)
 
 KERNEL = CudaKernel("rajni_gemm_sm90", [P, P, P, I, I, I, I, P, P, P, P, I, I, P, P])
 S8_KERNEL = CudaKernel("rajni_gemm_s8", [P, P, P, I, I, I, I] + [P] * 6 + [I, I, I, P])
@@ -202,7 +206,7 @@ def gemm_s8_plain(q: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias:
     ``w_scale`` and ``bias [N]`` fp32, ``ls [N]`` and ``res`` bf16; the
     module docstring's operations in the kernel's order. Returns
     ``out_dtype`` (``I8_BIAS``, ``I8_RESIDUAL``: the kernel stores bf16) or
-    fp32 (``I8_GELU``)."""
+    fp32 (``I8_GELU``, ``I8_PARTIAL``)."""
     K = q.shape[-1]
     gk = group_k or K
     acc = None
@@ -214,6 +218,8 @@ def gemm_s8_plain(q: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias:
     out = acc * w_scale + bias
     if epilogue == I8_GELU:
         return gelu_fast(out)
+    if epilogue == I8_PARTIAL:
+        return out
     if epilogue == I8_RESIDUAL:
         if ls is not None:
             out = out * ls.float()
@@ -297,7 +303,7 @@ def gemm_s8(q: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch
     K, N = q.shape[-1], w.shape[0]
     M = q.numel() // K
     out = torch.empty(*q.shape[:-1], N, device=q.device,
-                      dtype=torch.float32 if epilogue == I8_GELU else torch.bfloat16)
+                      dtype=torch.float32 if epilogue in (I8_GELU, I8_PARTIAL) else torch.bfloat16)
     S8_KERNEL(ptr(q), ptr(w), ptr(out), M, N, K, epilogue, ptr(a), ptr(w_scale), ptr(bias),
               ptr(ls), ptr(res), ptr(res_idx), rows_out, rows_in, gk, stream())
     return out

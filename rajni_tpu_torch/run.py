@@ -27,13 +27,28 @@ N batches, through the same preprocessing stage, before quantizing;
 ``--load_scales`` reads scales that ``--save_scales`` wrote. ``--profile
 DIR`` writes a ``torch.profiler`` Chrome trace of the RAJNI evaluation.
 ``--artifact FILE`` evaluates an artifact of :mod:`.export` (its weights,
-schedule, route and dtype baked in) with the same accounting. The parallel
-flags are not ported yet.
+schedule, route and dtype baked in) with the same accounting.
+
+The parallel flags (:mod:`.parallel`): ``--data_parallel [N]`` (N data ranks;
+bare, one a card), ``--tensor_parallel N`` (Megatron TP over N ``model``
+ranks, on the kernels' shard forms), ``--pipeline_parallel N`` (GPipe over N
+``pipe`` ranks, ``--microbatch M`` microbatches, the plain ops) run the
+``data × pipe × model`` ranks themselves (``torch.multiprocessing``, spawn)
+unless started by ``torchrun`` (``WORLD_SIZE`` set); the data ranks default
+to the cards left by ``pipe × model`` (at least one). Rank ``r`` takes
+``cuda:(LOCAL_RANK % device_count)``; ranks that share a card use gloo, else
+NCCL, and the ``route:`` line names the backend and each rank's device. Every
+rank holds the global batch and runs its rows; rank 0 prints.
+``--distributed`` (with ``--coordinator HOST:PORT --num_processes N
+--process_id I``, or under ``torchrun``) is process-sharded data parallelism:
+each process loads its shard of the data and every process prints the global
+accuracy (:func:`.parallel.multihost.evaluate_model_multihost`).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -117,6 +132,30 @@ def get_args(argv=None):
     p.add_argument("--load_scales", default=None, metavar="FILE",
                    help="With --quantize: static scales written by "
                         "--save_scales, instead of calibrating")
+    p.add_argument("--data_parallel", type=int, nargs="?", const=0, default=None, metavar="N",
+                   help="Data parallelism over N ranks (bare: one a card, one on the CPU); "
+                        "each rank runs its rows of every batch")
+    p.add_argument("--tensor_parallel", type=int, default=1, metavar="N",
+                   help="Megatron tensor parallelism: heads and hidden sharded over N "
+                        "`model` ranks (rajni_tpu_torch.parallel.mesh; the kernels' "
+                        "shard forms on the card, --quantize included)")
+    p.add_argument("--pipeline_parallel", type=int, default=1, metavar="N",
+                   help="GPipe pipeline parallelism: the blocks staged over N `pipe` ranks; "
+                        "composes with --tensor_parallel into a (data, pipe, model) mesh "
+                        "(rajni_tpu_torch.parallel.pipeline: the plain ops, bf16/f32 params)")
+    p.add_argument("--microbatch", type=int, default=None, metavar="M",
+                   help="With --pipeline_parallel: GPipe microbatches (default 2*pipe); "
+                        "utilization is M/(M+pipe-1)")
+    p.add_argument("--distributed", action="store_true",
+                   help="Process-sharded data parallelism: join the process group, shard "
+                        "the dataset per process, evaluate over every rank "
+                        "(rajni_tpu_torch.parallel.multihost); start one process a rank")
+    p.add_argument("--coordinator", type=str, default=None, metavar="HOST:PORT",
+                   help="With --distributed: rank 0's address (torchrun sets it instead)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="With --coordinator: the number of processes")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="With --coordinator: this process's rank")
     return p.parse_args(argv)
 
 
@@ -132,6 +171,58 @@ def _check_quant_args(args) -> None:
         if args.calibrate:
             raise ValueError("--load_scales and --calibrate are mutually exclusive "
                              "(loading replaces calibration)")
+
+
+def _check_parallel_args(args) -> None:
+    """The JAX CLI's refusals and notes for the parallel flags
+    (``rajni_tpu/run.py:374-410``)."""
+    if args.tensor_parallel < 1 or args.pipeline_parallel < 1:
+        raise ValueError("--tensor_parallel and --pipeline_parallel take N >= 1")
+    if (args.tensor_parallel > 1 or args.pipeline_parallel > 1) and args.distributed:
+        raise ValueError("--tensor_parallel/--pipeline_parallel run the ranks of one machine; "
+                         "--distributed shards data over processes — TP/PP across "
+                         "--distributed processes is not supported")
+    if args.pipeline_parallel > 1:
+        if args.quantize:
+            raise ValueError("--pipeline_parallel supports plain bf16/f32 params; int8 is not "
+                             "wired — PP exists for models whose bf16 weights exceed a card, "
+                             "use --quantize to *avoid* PP instead")
+        if args.preprocess == "device-full":
+            raise ValueError("--preprocess device-full (canvas tuples) is not wired through "
+                             "--pipeline_parallel; use host or device")
+        if args.kernels == "cuda":
+            print("NOTE: --pipeline_parallel stage programs run the plain ops by design; "
+                  "ignoring --kernels cuda")
+    elif args.microbatch:
+        print("NOTE: --microbatch has no effect without --pipeline_parallel")
+    if args.distributed and args.quantize and args.calibrate:
+        raise ValueError("--calibrate with --distributed is unsupported: per-process "
+                         "calibration batches would bake different static scales into each "
+                         "rank. Calibrate in one process with --save_scales and pass "
+                         "--load_scales")
+    if args.artifact and (args.data_parallel is not None or args.tensor_parallel > 1
+                          or args.pipeline_parallel > 1 or args.distributed):
+        raise ValueError("--artifact evaluates a baked program; the parallelism flags cannot "
+                         "apply")
+
+
+def _ranks(args) -> int | None:
+    """The ``data × pipe × model`` ranks the CLI runs itself, or None
+    (one process, or ``--distributed``)."""
+    if args.distributed or (args.data_parallel is None and args.tensor_parallel == 1
+                            and args.pipeline_parallel == 1):
+        return None
+    inner = args.tensor_parallel * args.pipeline_parallel
+    data = args.data_parallel
+    if not data:
+        cards = torch.cuda.device_count() if args.device == "cuda" else 1
+        data = max(1, cards // inner)
+    return data * inner
+
+
+def _rank_main(argv):
+    """One spawned rank of the CLI."""
+    return _main(get_args(argv))
 
 
 def make_preprocess_stage(preprocess: str, config, dtype=torch.bfloat16):
@@ -189,6 +280,40 @@ def _data(args, config):
     return loader, tier
 
 
+def _shard_data(args, config, loader):
+    """``--distributed``: this process's loader and the steps every
+    process runs (``rajni_tpu/run.py:471-509``): synthetic batches of the
+    local batch drawn from a seed of its own, or its interleaved shard of
+    the image folder, ``steps_for`` the whole dataset."""
+    import torch.distributed as dist
+
+    from .parallel.multihost import local_batch_size, shard_samples, steps_for
+
+    pid, nproc = dist.get_rank(), dist.get_world_size()
+    local_b = local_batch_size(args.batch_size)
+    if args.synthetic is not None:
+        return SyntheticLoader(num_batches=args.synthetic, batch_size=local_b,
+                               img_size=config.img_size, num_classes=config.num_classes,
+                               seed=args.seed + 100003 * pid), args.synthetic
+    dataset = loader.dataset
+    steps = steps_for(len(dataset), args.batch_size, nproc)
+    dataset.samples = shard_samples(dataset.samples)
+    print(f"Process {pid}: local shard {len(dataset)} images, {steps} global steps")
+    return DataLoader(dataset, batch_size=local_b, num_workers=args.num_workers), steps
+
+
+def _mesh(args, device):
+    """The rank grid of the flags: ``(data, pipe, model)`` with
+    ``--pipeline_parallel``, else ``(data, model)``."""
+    from .parallel.mesh import make_mesh
+    from .parallel.pipeline import make_pipe_mesh
+
+    if args.pipeline_parallel > 1:
+        return make_pipe_mesh(pipe=args.pipeline_parallel, model=args.tensor_parallel,
+                              device=device)
+    return make_mesh(model=args.tensor_parallel, device=device)
+
+
 def _eval_artifact(args, device):
     """Evaluate an exported artifact (``rajni_tpu/run.py:_eval_artifact``):
     the program a server loads gets the live model's accounting. A fixed
@@ -239,19 +364,74 @@ def _eval_artifact(args, device):
 
 
 def main(argv=None):
+    """The CLI; with the parallel flags it spawns its ranks (unless
+    started under ``torchrun``) and returns rank 0's result."""
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_args(argv)
     _check_quant_args(args)
+    _check_parallel_args(args)
+    world = _ranks(args)
+    if args.tensor_parallel > 1 and args.pipeline_parallel == 1 and not args.artifact:
+        # the shard widths' rule before any rank starts: --kernels cuda raises here
+        from .parallel.mesh import resolve_tp_route
+
+        resolve_tp_route(args.kernels, get_config(args.model),
+                         torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+                         args.device, args.tensor_parallel, args.quantize)
+    if world is not None and "WORLD_SIZE" not in os.environ:
+        from .parallel.launch import spawn
+
+        require_device(args.device)
+        threads = max(1, torch.get_num_threads() // world) if args.device == "cpu" else None
+        return spawn(_rank_main, world, (argv,), device_type=args.device, threads=threads,
+                     quiet=True)[0]
+    return _main(args)
+
+
+def _parallel_setup(args, world):
+    """Join the process group where the flags ask for ranks: ``(device,
+    world)`` of this rank, world None for one process."""
+    from .parallel import multihost
+    from .parallel.launch import rank_device
+
+    if args.distributed:
+        require_device(args.device)
+        multihost.initialize(args.coordinator, args.num_processes, args.process_id,
+                             args.device)
+    elif world is not None:
+        multihost.initialize(device_type=args.device)
+    else:
+        return require_device(args.device), None
+    import torch.distributed as dist
+
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if args.distributed:
+        print(f"Distributed: process {dist.get_rank()} of {dist.get_world_size()}, "
+              f"device {device}")
+    return device, dist.get_world_size()
+
+
+def _main(args):
+    world = _ranks(args)
     print("\nArgs:")
     for k, v in vars(args).items():
         print(f"  {k}: {v}")
-    device = require_device(args.device)
+    device, world = _parallel_setup(args, world)
     if device.type == "cuda":
         print(f"Device: {torch.cuda.get_device_name(device)}")
     if args.artifact:
         return _eval_artifact(args, device)
+    mesh = None
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     config = get_config(args.model)
     loader, tier = _data(args, config)
+    dist_batches = None
+    if args.distributed and world > 1:
+        loader, dist_batches = _shard_data(args, config, loader)
 
     if args.checkpoint:
         params = load_checkpoint_auto(args.checkpoint, args.model)
@@ -287,7 +467,20 @@ def main(argv=None):
         params = quantize_params(raw_params)
         print("Quantized qkv, proj, fc1, fc2 and head weights to int8")
     # the route of the params evaluated (int8 ones demote where the int8 kernels do not go)
-    print(route_line(*resolve_route(args.kernels, config, dtype, device, params_quantized(params))))
+    quantized = params_quantized(params)
+    if world is None:
+        print(route_line(*resolve_route(args.kernels, config, dtype, device, quantized)))
+    else:
+        from .parallel.launch import placement
+        from .parallel.mesh import resolve_tp_route
+
+        if args.pipeline_parallel > 1:
+            impl, why = "torch", "the pipeline's stage programs run the plain ops"
+        else:
+            impl, why = resolve_tp_route(args.kernels, config, dtype, device,
+                                         args.tensor_parallel, quantized)
+        print(route_line(impl, "; ".join(w for w in (why, placement(args.device, world)) if w)))
+        mesh = _mesh(args, device)
     print(f"preprocess: {tier}")
     loaded = None
     if args.load_scales:
@@ -308,10 +501,33 @@ def main(argv=None):
         print(f"Calibrated static int8 activation scales ({'pruned' if sched else 'base'} forward)")
         return scales
 
-    def run_eval(model):
-        return evaluate_model(_with_stage(model, stage), loader, device=device,
+    def forward(sched, scales):
+        """The evaluated callable: the single-device model, or this rank's
+        share of the parallel forward (global logits on every rank)."""
+        if world is None:
+            return _with_stage(RAJNIViT(config, sched, params=params, dtype=dtype,
+                                        kernels=args.kernels, device=device, act_scales=scales),
+                               stage)
+        if args.pipeline_parallel > 1:
+            from .parallel.pipeline import pipeline_forward
+
+            return pipeline_forward(params, config, sched, mesh, args.microbatch, "torch", stage)
+        from .parallel.mesh import sharded_forward
+
+        return sharded_forward(params, config, sched, mesh, args.kernels, stage, scales)
+
+    def run_eval(sched, scales):
+        if args.distributed:
+            from .parallel.multihost import evaluate_model_multihost
+
+            return evaluate_model_multihost(
+                params, config, sched, loader, mesh=mesh, impl=args.kernels,
+                max_batches=args.max_batches, warmup=args.warmup, act_scales=scales,
+                stage=stage, num_batches=dist_batches, assume_replicated=True,
+                local_batch=args.batch_size // world)
+        return evaluate_model(forward(sched, scales), loader, device=device,
                               max_batches=args.max_batches, warmup=args.warmup,
-                              progress=args.progress)
+                              progress=args.progress and world is None)
 
     result = {}
     base_scales = scales_for(None) if args.compare_base else None
@@ -322,24 +538,20 @@ def main(argv=None):
     calib.clear()
     if args.compare_base:
         print("\nEvaluating BASE model")
-        result["base"] = run_eval(RAJNIViT(config, None, params=params, dtype=dtype,
-                                           kernels=args.kernels, device=device,
-                                           act_scales=base_scales))
+        result["base"] = run_eval(None, base_scales)
         print(f"Base  - Accuracy: {result['base'][0]:.2f}%, "
               f"Throughput: {result['base'][1]:.1f} img/s")
 
     if args.save_scales:
         act_scales.save(args.save_scales)
         print(f"Saved static int8 activation scales to {args.save_scales}")
-    model = RAJNIViT(config, schedule, params=params, dtype=dtype,
-                     kernels=args.kernels, device=device, act_scales=act_scales)
     print("\nLoaded RAJNI schedule:")
     for k, v in schedule_to_dict(schedule).items():
         print(f"  Layer {k}: {v}")
-    print(f"Token counts per block: {model.get_last_stats()['token_counts']}")
+    print(f"Token counts per block: {model_stats(config, schedule)['token_counts']}")
     print("\nEvaluating RAJNI model")
     with profiled(args.profile, device):
-        result["rajni"] = run_eval(model)
+        result["rajni"] = run_eval(schedule, act_scales)
     acc, tput = result["rajni"]
     print(f"RAJNI - Accuracy: {acc:.2f}%, Throughput: {tput:.1f} img/s")
     if args.compare_base:

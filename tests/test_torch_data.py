@@ -19,11 +19,20 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from rajni_tpu.data import pipeline as jpipe
 from rajni_tpu_torch.data import native as tnative
 from rajni_tpu_torch.data import pipeline as tpipe
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = Path(__file__).resolve().parent.parent
 # tests/test_native.py's tolerance: ±1.5/255 before the normalize

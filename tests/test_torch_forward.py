@@ -30,6 +30,14 @@ from rajni_tpu_torch import REFERENCE_SCHEDULE, RAJNIViT, params_from_numpy
 from rajni_tpu_torch.models import vit as tvit
 from rajni_tpu_torch.utils import flops as tflops
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parent.parent
 ACT = dict(rtol=1e-4, atol=1e-5)
 # tests/test_kernels.py:56's config and :60's schedule (block 2 reuses the

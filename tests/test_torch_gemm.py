@@ -32,6 +32,14 @@ from rajni_tpu_torch.kernels import train as ttrain
 from rajni_tpu_torch.kernels.math import gelu_fast
 from rajni_tpu_torch.ops import pruning as tprune
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 B, N, C, H, HIDDEN = 2, 13, 128, 2, 512
 SCALE = (C // H) ** -0.5
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -33,6 +33,14 @@ from rajni_tpu_torch.kernels.math import quantize_rows, quantize_static
 from rajni_tpu_torch.ops.pruning import select_tokens_dense
 from tests.test_torch_wholeblock import _block, _int8_close
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 B, N, C, H, HIDDEN, KEEP = 2, 13, 128, 2, 512, 8
 SCALE = (C // H) ** -0.5
 STATIC = (4 / 127, 2 / 127, 4 / 127, 3 / 127)  # (a_qkv, a_proj, a_fc1, a_fc2)

@@ -36,6 +36,14 @@ from rajni_tpu_torch.kernels import mlp as tmlp
 from rajni_tpu_torch.models import vit as tvit
 from rajni_tpu_torch.quant import quantize_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ACT = dict(rtol=1e-4, atol=1e-5)
 CFG = dict(img_size=56, patch_size=14, embed_dim=160, depth=4, num_heads=2, num_classes=10)
 SCHED = {1: {"keep_ratio": 0.7}, 2: {"keep_ratio": 0.7}}

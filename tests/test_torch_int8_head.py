@@ -38,6 +38,14 @@ from rajni_tpu_torch.ops.pruning import select_tokens_dense as tselect
 from tests.test_torch_wholeblock import (INT8_FLIP, _block, _int8_close, _jquantize,
                                          _np_params)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SCALES = (3 / 127, 2 / 127)  # (a_qkv, a_proj)
 OTHER = (5 / 127, 7 / 127)
 

@@ -37,6 +37,14 @@ from rajni_tpu_torch.models import vit as tvit
 from rajni_tpu_torch.ops.pruning import select_tokens_dense as tselect
 from tests.test_torch_wholeblock import ACT, _block, _int8_close, _jquantize, _np_params, _spy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 C, HIDDEN, B, N, H, KEEP = 64, 256, 2, 29, 1, 19
 SCALE = 64 ** -0.5
 STATIC = (4 / 127, 2 / 127, 4 / 127, 3 / 127)  # (a_qkv, a_proj, a_fc1, a_fc2)

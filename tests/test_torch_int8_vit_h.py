@@ -44,6 +44,14 @@ from rajni_tpu_torch.models import vit as tvit
 from tests.test_torch_int8_split import _route_split
 from tests.test_torch_wholeblock import ACT, _block, _int8_close, _jquantize, _np_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 CFG = dict(img_size=56, patch_size=14, embed_dim=160, depth=4, num_heads=2, num_classes=10)
 SCHED = {1: {"keep_ratio": 0.7}, 2: {"keep_ratio": 0.7}}
 SCALE = 80 ** -0.5

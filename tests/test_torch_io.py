@@ -28,6 +28,14 @@ from rajni_tpu_torch.models import vit as tvit
 from rajni_tpu_torch.params import io as tio
 from rajni_tpu_torch.params.from_jax import params_to_numpy
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "reference_vit_tiny_schedulejson"
 CFG = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=10,
            use_layer_scale=True)

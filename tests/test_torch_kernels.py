@@ -24,6 +24,14 @@ from rajni_tpu_torch.kernels import block as tblock
 from rajni_tpu_torch.kernels import math as tmath
 from rajni_tpu_torch.kernels import mlp as tmlp
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ACT = dict(rtol=1e-4, atol=1e-5)
 B, N, C, H, HIDDEN = 2, 29, 48, 4, 192
 SCALE = (C // H) ** -0.5

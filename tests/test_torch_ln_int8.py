@@ -36,6 +36,14 @@ from rajni_tpu_torch.kernels import wholeblock as twb
 from rajni_tpu_torch.kernels.mlp import _layer_norm_f32, _layer_norm_int8
 from tests.test_torch_wholeblock import INT8_FLIP, _block
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SCORE_RTOL = 1e-2  # chip_smoke.py: rescored next_scores, each relative
 
 

@@ -31,6 +31,14 @@ from rajni_tpu_torch.models import vit as tvit
 from rajni_tpu_torch.ops import attention as tattn
 from rajni_tpu_torch.ops import pruning as tprune
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ACT = dict(rtol=1e-4, atol=1e-5)
 
 

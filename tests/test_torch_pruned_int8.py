@@ -38,6 +38,14 @@ from rajni_tpu_torch.params.from_jax import _dense, _norm
 from tests.test_torch_int8_split import _bf16
 from tests.test_torch_wholeblock import ACT, _int8_close, _jquantize, _np_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 C, B, N, H, KEEP = 128, 2, 29, 2, 19
 SCALE = 64 ** -0.5
 STATIC = (4 / 127, 2 / 127)  # (a_qkv, a_proj)

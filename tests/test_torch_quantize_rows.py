@@ -24,6 +24,14 @@ import jax.numpy as jnp
 from rajni_tpu.kernels import math as jmath
 from rajni_tpu_torch.kernels import math as tmath
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROWS, WIDTH = 512, 3072
 
 

@@ -37,6 +37,14 @@ from rajni_tpu.kernels import block as jblock
 from rajni_tpu_torch import quant as tquant
 from rajni_tpu_torch.kernels import attention as ka
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 C, HEADS, B = 128, 2, 2
 SCALE = (C // HEADS) ** -0.5
 

@@ -36,6 +36,14 @@ from rajni_tpu_torch.kernels import train as tk
 from rajni_tpu_torch.models import train_path as ttp
 from rajni_tpu_torch.models import vit as tvit
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ACT = dict(rtol=1e-4, atol=1e-5)
 CFG = dict(img_size=64, patch_size=16, embed_dim=128, depth=6, num_heads=2, num_classes=10,
            use_layer_scale=True)

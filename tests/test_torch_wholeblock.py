@@ -46,6 +46,14 @@ from rajni_tpu_torch.kernels import wholeblock as twb
 from rajni_tpu_torch.models import vit as tvit
 from rajni_tpu_torch.utils.schedule import REFERENCE_SCHEDULE
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parent.parent
 ACT = dict(rtol=1e-4, atol=1e-5)
 INT8_FLIP = 5e-2
